@@ -1,0 +1,133 @@
+"""Model construction and action decoding for the PyTorch port.
+
+Counterpart of bifold_tpu/models/__init__.py:67-124 for the two SigLIP
+families: :func:`build_model` takes the same config node (keys are
+constructor fields, unknown keys are an error) and builds the module on a
+device with a seeded init; :func:`decode_action` turns the heatmap dict into
+pixel arrays with mask snapping and bimanual gating.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from bifold_tpu_torch.models.bifold_models import SigLip, SiglipSequential
+from bifold_tpu_torch.models.layers import LayerNorm
+from bifold_tpu_torch.models.lora import LoRALinear
+from bifold_tpu_torch.ops.heatmap import decode_heatmap, gate_bimanual
+
+__all__ = ["build_model", "init_weights", "decode_action", "resolve_device",
+           "MODELS"]
+
+MODELS = {"siglip": SigLip, "siglip_sequential": SiglipSequential}
+
+_FIELDS = {"image_size", "is_bimanual", "patch_size", "automodel_name", "dim",
+           "lora", "r", "lora_alpha", "depth", "heads", "mlp_ratio",
+           "threshold", "constrain_pick_mask", "legacy_query_mask"}
+# config keys of the JAX model that serving reads at one value only: the
+# value the port runs at (dropout is off in eval; remat is training-only)
+_FIXED = {"emb_dropout": None, "lora_dropout": None, "dropout": None,
+          "remat": None, "moe_top_k": None, "moe_capacity_factor": None,
+          "moe_aux_weight": None, "target_modules": ("q_proj", "v_proj"),
+          "text_encoder": None, "pick_place_model": "pick_place_convdecoder",
+          "fusion_model": "concat_transformer", "moe_experts": 0,
+          "requires_graph": False}
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, raising when the card is asked for and
+    none is present (entry points never carry on silently on the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but torch.cuda is not "
+                           "available; pass device='cpu' explicitly")
+    return device
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init with the JAX package's distributions: lecun-normal
+    (truncated) dense and conv kernels, zero biases, N(0, 0.02) embedding
+    tables, unit LayerNorm, peft's LoRA init (A uniform +-1/sqrt(fan_in),
+    B zero) and N(0, 1) learned tokens / context positions."""
+    adapters = set()
+    for mod in model.modules():
+        if isinstance(mod, LoRALinear):
+            for lin in mod.lora_A.values():
+                bound = 1.0 / math.sqrt(lin.in_features)
+                lin.weight.uniform_(-bound, bound, generator=generator)
+            for lin in mod.lora_B.values():
+                lin.weight.zero_()
+            adapters.update(map(id, (*mod.lora_A.values(), *mod.lora_B.values())))
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv2d)) and id(mod) not in adapters:
+            fan_in = mod.weight[0].numel()
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(mod, LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+    for name in ("image_token", "text_token", "context_pos_embedding"):
+        p = getattr(model, name, None)
+        if p is not None:
+            p.normal_(0.0, 1.0, generator=generator)
+
+
+def build_model(cfg: dict, *, dtype=torch.float32, device="cuda",
+                seed: int = 0) -> nn.Module:
+    """Model from its config node (``name`` + constructor fields), built on
+    ``device`` with a seeded init, in eval mode. Config values the port does
+    not implement (MoE, graph conditioning, other heads or fusions) raise."""
+    cfg = {k: (tuple(v) if isinstance(v, list) else v) for k, v in dict(cfg).items()}
+    name = cfg.pop("name")
+    if name not in MODELS:
+        raise KeyError(f"model {name!r} is not ported (have {sorted(MODELS)})")
+    fields = _FIELDS | ({"context_length"} if name == "siglip_sequential" else set())
+    unknown = set(cfg) - fields - set(_FIXED)
+    if unknown:
+        raise TypeError(f"{name} got unknown config keys: {sorted(unknown)}")
+    for key, want in _FIXED.items():
+        if want is not None and key in cfg and cfg[key] != want:
+            raise NotImplementedError(f"{key}={cfg[key]!r} is not ported "
+                                      f"(the port runs {want!r})")
+    device = resolve_device(device)
+    with torch.device(device):
+        model = MODELS[name](**{k: v for k, v in cfg.items() if k in fields},
+                             dtype=dtype)
+    init_weights(model, torch.Generator(device=device).manual_seed(seed))
+    return model.eval()
+
+
+def decode_action(output: dict, sample: dict, *, is_bimanual: bool,
+                  constrain_pick_mask: bool = True, threshold: float = 0.5):
+    """Heatmap dict -> dict of float32 (B, 2) ``[x, y]`` pixel tensors:
+    pick snapped to the cloth mask (when present and enabled), place
+    unconstrained, bimanual confidence gating (at least one arm acts)."""
+    mask = sample.get("mask") if constrain_pick_mask else None
+    use_mask = mask is not None
+    if use_mask:
+        mask = mask.reshape(mask.shape[0], mask.shape[-2], mask.shape[-1])
+
+    def pick(hm):
+        return decode_heatmap(hm, mask, use_mask=use_mask)
+
+    if is_bimanual:
+        lp, lc = pick(output["left_pick_heatmap"])
+        rp, rc = pick(output["right_pick_heatmap"])
+        lpl, _ = decode_heatmap(output["left_place_heatmap"])
+        rpl, _ = decode_heatmap(output["right_place_heatmap"])
+        lp, rp, lpl, rpl = gate_bimanual(lp, rp, lpl, rpl, lc, rc, threshold)
+        return {"left_pick": lp, "right_pick": rp, "left_place": lpl,
+                "right_place": rpl, "left_confidence": lc,
+                "right_confidence": rc}
+    p, conf = pick(output["pick_heatmap"])
+    place, _ = decode_heatmap(output["place_heatmap"])
+    return {"pick": p.float(), "place": place.float(), "confidence": conf}

@@ -1,0 +1,7 @@
+"""Backbone towers of the PyTorch port."""
+
+from bifold_tpu_torch.models.backbones.siglip_backbone import (  # noqa: F401
+    SIGLIP_BASE_CONFIGS,
+    SiglipBackbone,
+    SiglipConfig,
+)

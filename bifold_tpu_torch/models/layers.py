@@ -1,0 +1,235 @@
+"""Shared building blocks: LayerNorm, GELUs, attention, MLP, transformer.
+
+Counterparts of bifold_tpu/models/layers.py:53-101, 132-211, 214-305 and
+372-439/511+. Parameters are float32 (or pre-cast by the serving path);
+every layer computes in its ``dtype`` by casting weights at use, as flax
+does, with LayerNorm statistics and GELUs in float32.
+
+Module names follow the reference torch checkpoints so that a converted
+state dict loads with ``strict=True``:
+
+- towers use the HF SigLIP encoder-layer names (``layer_norm1``,
+  ``self_attn.{q,k,v,out}_proj``, ``layer_norm2``, ``mlp.fc1/fc2``), with
+  peft's ``base_layer`` / ``lora_A.<adapter>`` / ``lora_B.<adapter>`` on the
+  LoRA targets;
+- the fusion stack uses the reference transformer's names: each layer is
+  ``[PreNorm(Attention), PreNorm(FeedForward)]`` (``0.norm``,
+  ``0.fn.to_qkv``, ``0.fn.to_out.0``, ``1.norm``, ``1.fn.net.0``,
+  ``1.fn.net.3``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from bifold_tpu_torch.models.lora import LORA_TARGETS, LoRALinear
+from bifold_tpu_torch.ops.attention import dot_product_attention
+
+__all__ = ["LayerNorm", "gelu_tanh", "gelu_exact", "GELU", "linear",
+           "MultiHeadAttention", "FeedForward", "TransformerBlock",
+           "FusionBlock", "Transformer"]
+
+
+def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """``layer(x)`` computed in ``dtype`` (flax ``nn.Dense(dtype=...)``)."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with the fast variance E[x^2] - E[x]^2 (clamped at 0),
+    statistics in float32, output cast to ``dtype``. Written out rather than
+    ``F.layer_norm`` so the reduction matches the JAX package's."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
+        self.dtype = dtype
+
+    def forward(self, x):
+        xf = x.to(self.dtype).float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight.float() + self.bias.float()).to(self.dtype)
+
+
+_SQRT_2_OVER_PI = 0.7978845608028654
+_TANH_C = 0.044715
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """gelu(approximate='tanh') computed in float32, cast back."""
+    xf = x.float()
+    t = torch.tanh(_SQRT_2_OVER_PI * (xf + _TANH_C * xf ** 3))
+    return (0.5 * xf * (1.0 + t)).to(x.dtype)
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) gelu computed in float32, cast back."""
+    xf = x.float()
+    return (xf * (0.5 * (1.0 + torch.erf(xf / math.sqrt(2.0))))).to(x.dtype)
+
+
+class GELU(nn.Module):
+    """Module form of :func:`gelu_exact` (the fusion MLP's activation)."""
+
+    def forward(self, x):
+        return gelu_exact(x)
+
+
+class MultiHeadAttention(nn.Module):
+    """QKV attention. ``fused_qkv``: the fusion stack's bias-free ``to_qkv``
+    and ``to_out.0`` (reference transformer.py naming); otherwise the towers'
+    biased ``q_proj/k_proj/v_proj/out_proj`` (HF naming), with LoRA on q and
+    v when ``lora_rank`` > 0."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int | None = None,
+                 fused_qkv: bool = False, lora_rank: int = 0,
+                 lora_alpha: float = 1.0, dtype=torch.float32):
+        super().__init__()
+        self.heads = heads
+        self.dim_head = dim_head or dim // heads
+        self.fused_qkv = fused_qkv
+        self.dtype = dtype
+        inner = self.dim_head * heads
+        if fused_qkv:
+            self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
+            self.to_out = nn.Sequential(nn.Linear(inner, dim))
+            return
+        for name in ("q_proj", "k_proj", "v_proj"):
+            if lora_rank > 0 and name in LORA_TARGETS:
+                proj = LoRALinear(dim, inner, rank=lora_rank, alpha=lora_alpha,
+                                  dtype=dtype)
+            else:
+                proj = nn.Linear(dim, inner)
+            setattr(self, name, proj)
+        self.out_proj = nn.Linear(inner, dim)
+
+    def _proj(self, name, x):
+        layer = getattr(self, name)
+        if isinstance(layer, LoRALinear):
+            return layer(x)
+        return linear(x, layer, self.dtype)
+
+    def forward(self, x, key_mask=None, *, legacy_query_mask=None):
+        b, n, _ = x.shape
+        if self.fused_qkv:
+            q, k, v = linear(x, self.to_qkv, self.dtype).chunk(3, dim=-1)
+        else:
+            q, k, v = (self._proj(p, x) for p in ("q_proj", "k_proj", "v_proj"))
+        shape = (b, n, self.heads, self.dim_head)
+        out = dot_product_attention(q.reshape(shape), k.reshape(shape),
+                                    v.reshape(shape), key_mask,
+                                    legacy_query_mask=legacy_query_mask)
+        out = out.reshape(b, n, self.heads * self.dim_head)
+        proj = self.to_out[0] if self.fused_qkv else self.out_proj
+        return linear(out, proj, self.dtype)
+
+
+class FeedForward(nn.Module):
+    """The towers' MLP: Linear -> gelu-tanh -> Linear, HF names ``fc1`` /
+    ``fc2``."""
+
+    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, dim)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return linear(gelu_tanh(linear(x, self.fc1, self.dtype)), self.fc2,
+                      self.dtype)
+
+
+class TransformerBlock(nn.Module):
+    """Pre-norm residual block with HF SigLIP encoder-layer names:
+    x + attn(ln1(x)); x + mlp(ln2(x))."""
+
+    def __init__(self, dim, heads, mlp_dim, dim_head=None, lora_rank=0,
+                 lora_alpha=1.0, ln_eps=1e-6, dtype=torch.float32):
+        super().__init__()
+        self.layer_norm1 = LayerNorm(dim, ln_eps, dtype)
+        self.self_attn = MultiHeadAttention(
+            dim, heads, dim_head, fused_qkv=False, lora_rank=lora_rank,
+            lora_alpha=lora_alpha, dtype=dtype)
+        self.layer_norm2 = LayerNorm(dim, ln_eps, dtype)
+        self.mlp = FeedForward(dim, mlp_dim, dtype)
+
+    def forward(self, x, key_mask=None, *, legacy_query_mask=None):
+        x = x + self.self_attn(self.layer_norm1(x), key_mask,
+                               legacy_query_mask=legacy_query_mask)
+        return x + self.mlp(self.layer_norm2(x))
+
+
+class _PreNorm(nn.Module):
+    def __init__(self, dim, fn, eps, dtype):
+        super().__init__()
+        self.norm = LayerNorm(dim, eps, dtype)
+        self.fn = fn
+
+
+class _SequentialFeedForward(nn.Module):
+    """The reference fusion MLP: ``net`` = Linear, GELU, Dropout, Linear
+    (parameters at net.0 and net.3), evaluated in ``dtype``."""
+
+    def __init__(self, dim, hidden_dim, dtype):
+        super().__init__()
+        self.net = nn.Sequential(nn.Linear(dim, hidden_dim), GELU(),
+                                 nn.Dropout(0.0), nn.Linear(hidden_dim, dim))
+        self.dtype = dtype
+
+    def forward(self, x):
+        net = self.net
+        return linear(net[1](linear(x, net[0], self.dtype)), net[3], self.dtype)
+
+
+class FusionBlock(nn.ModuleList):
+    """The same pre-norm block with the reference fusion transformer's names
+    (``[PreNorm(Attention), PreNorm(FeedForward)]``), exact GELU."""
+
+    def __init__(self, dim, heads, mlp_dim, dim_head=None, ln_eps=1e-5,
+                 dtype=torch.float32):
+        super().__init__([
+            _PreNorm(dim, MultiHeadAttention(dim, heads, dim_head,
+                                             fused_qkv=True, dtype=dtype),
+                     ln_eps, dtype),
+            _PreNorm(dim, _SequentialFeedForward(dim, mlp_dim, dtype),
+                     ln_eps, dtype),
+        ])
+
+    def forward(self, x, key_mask=None, *, legacy_query_mask=None):
+        attn, ff = self[0], self[1]
+        x = x + attn.fn(attn.norm(x), key_mask,
+                        legacy_query_mask=legacy_query_mask)
+        return x + ff.fn(ff.norm(x))
+
+
+class Transformer(nn.Module):
+    """Stack of ``depth`` pre-norm blocks under ``layers``: HF-named
+    :class:`TransformerBlock` (gelu-tanh) for the towers, :class:`FusionBlock`
+    (exact gelu) for the fusion stack (``fused_qkv``)."""
+
+    def __init__(self, dim, depth, heads, mlp_dim, dim_head=None,
+                 fused_qkv=True, lora_rank=0, lora_alpha=1.0, ln_eps=1e-6,
+                 dtype=torch.float32):
+        super().__init__()
+        if fused_qkv:
+            blocks = [FusionBlock(dim, heads, mlp_dim, dim_head, ln_eps, dtype)
+                      for _ in range(depth)]
+        else:
+            blocks = [TransformerBlock(dim, heads, mlp_dim, dim_head,
+                                       lora_rank, lora_alpha, ln_eps, dtype)
+                      for _ in range(depth)]
+        self.layers = nn.ModuleList(blocks)
+
+    def forward(self, x, key_mask=None, *, legacy_query_mask=None):
+        for block in self.layers:
+            x = block(x, key_mask, legacy_query_mask=legacy_query_mask)
+        return x

@@ -1,0 +1,39 @@
+"""LoRA adapter with peft's parameter names.
+
+Counterpart of bifold_tpu/models/lora.py:32-50: out = base(x) +
+((x A) B) * alpha / r. Names match peft's ``LoraLayer`` so a reference state
+dict loads as it is: ``base_layer``, ``lora_A.<adapter>``,
+``lora_B.<adapter>`` (the reference's adapter is "siglip_adapter").
+Deterministic only: serving runs without LoRA dropout.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+__all__ = ["LoRALinear", "ADAPTER", "LORA_TARGETS"]
+
+ADAPTER = "siglip_adapter"
+LORA_TARGETS = ("q_proj", "v_proj")  # the reference's target_modules
+
+
+class LoRALinear(nn.Module):
+    def __init__(self, in_features: int, out_features: int, rank: int,
+                 alpha: float = 1.0, dtype=torch.float32):
+        super().__init__()
+        self.base_layer = nn.Linear(in_features, out_features)
+        self.lora_A = nn.ModuleDict({ADAPTER: nn.Linear(in_features, rank, bias=False)})
+        self.lora_B = nn.ModuleDict({ADAPTER: nn.Linear(rank, out_features, bias=False)})
+        self.scaling = alpha / rank
+        self.dtype = dtype
+
+    def forward(self, x):
+        dt = self.dtype
+        x = x.to(dt)
+        base = F.linear(x, self.base_layer.weight.to(dt),
+                        self.base_layer.bias.to(dt))
+        a = self.lora_A[ADAPTER].weight.to(dt)
+        b = self.lora_B[ADAPTER].weight.to(dt)
+        return base + F.linear(F.linear(x, a), b) * self.scaling

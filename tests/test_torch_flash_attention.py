@@ -1,0 +1,127 @@
+"""The port's flash attention (plain version + wrapper dispatch) against the
+JAX package's Pallas kernel (interpret mode) and its XLA path.
+
+Inputs come from a numpy seed and go through both packages. Tolerances:
+1e-4 on rows with at least one unmasked key (both sides accumulate in f32,
+in different orders), 2e-3 on all-masked rows (their uniform average over
+~300 keys sums 300 values of |v| ~ 3 before dividing).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bifold_tpu.ops.attention import dot_product_attention as jax_attention
+from bifold_tpu.ops.flash_attention import flash_attention as jax_flash
+from bifold_tpu_torch.ops import flash_attention as fa
+from bifold_tpu_torch.ops.attention import dot_product_attention
+
+NORMAL_TOL = 1e-4
+DEGENERATE_TOL = 2e-3
+
+
+def _inputs(seed, b=2, n=300, h=2, d=48):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(b, n, h, d)).astype(np.float32) for _ in range(3))
+    mask = (rng.random((b, n)) > 0.3).astype(np.int32)
+    mask[1, :] = 0                     # batch row 1: every key masked
+    return q, k, v, mask
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _check(out, ref, mask):
+    out, ref = np.asarray(out), np.asarray(ref)
+    degenerate = mask.sum(axis=1) == 0
+    np.testing.assert_allclose(out[~degenerate], ref[~degenerate], atol=NORMAL_TOL)
+    np.testing.assert_allclose(out[degenerate], ref[degenerate], atol=DEGENERATE_TOL)
+
+
+@pytest.mark.parametrize("d", [48, 64])
+@pytest.mark.parametrize("masked", [False, True])
+def test_plain_matches_pallas_interpret(d, masked):
+    """n=300 is ragged over the Pallas kernel's 256-row q block."""
+    q, k, v, mask = _inputs(d, d=d)
+    jmask = jnp.asarray(mask) if masked else None
+    ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jmask,
+                    interpret=True)
+    out = fa.flash_attention_plain(_t(q), _t(k), _t(v),
+                                   _t(mask) if masked else None)
+    _check(out.numpy(), ref, mask if masked else np.ones_like(mask))
+
+
+@pytest.mark.parametrize("d", [48, 64])
+def test_plain_matches_xla_path(d):
+    q, k, v, mask = _inputs(10 + d, d=d)
+    ref = jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        jnp.asarray(mask), backend="xla")
+    out = fa.flash_attention_plain(_t(q), _t(k), _t(v), _t(mask))
+    _check(out.numpy(), ref, mask)
+
+
+def test_all_masked_rows_average_v():
+    q, k, v, mask = _inputs(3)
+    out = fa.flash_attention_plain(_t(q), _t(k), _t(v), _t(mask)).numpy()
+    np.testing.assert_allclose(out[1], np.broadcast_to(v[1].mean(axis=0), out[1].shape),
+                               atol=DEGENERATE_TOL)
+
+
+def test_cpu_dispatch_matches_jax():
+    """On the CPU, "auto" takes the math path (as JAX off the TPU does),
+    "flash" the kernel's plain version; neither launches the kernel."""
+    q, k, v, mask = _inputs(4, n=260, d=64)
+    launches = sum(fa.LAUNCHES.values())
+    ref = np.asarray(jax_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), jnp.asarray(mask)))
+    tq, tk, tv, tm = _t(q), _t(k), _t(v), _t(mask)
+    auto = dot_product_attention(tq, tk, tv, tm).numpy()
+    flash = dot_product_attention(tq, tk, tv, tm, backend="flash").numpy()
+    _check(auto, ref, mask)
+    _check(flash, ref, mask)
+    assert sum(fa.LAUNCHES.values()) == launches
+
+
+def test_math_path_masks_match_jax():
+    """Legacy query mask, causal and return_weights stay on the math path
+    and agree with the JAX XLA backend."""
+    q, k, v, mask = _inputs(5, n=24, d=16)
+    mask[1, :5] = 1
+    tq, tk, tv, tm = _t(q), _t(k), _t(v), _t(mask)
+    jq, jk, jv, jm = (jnp.asarray(x) for x in (q, k, v, mask))
+    for kw in ({"legacy_query_mask": True}, {"causal": True}):
+        jkw = {"legacy_query_mask": jm} if "legacy_query_mask" in kw else kw
+        tkw = {"legacy_query_mask": tm} if "legacy_query_mask" in kw else kw
+        ref = jax_attention(jq, jk, jv, **jkw)
+        out = dot_product_attention(tq, tk, tv, **tkw)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=NORMAL_TOL)
+    out, probs = dot_product_attention(tq, tk, tv, tm, return_weights=True)
+    ref, jprobs = jax_attention(jq, jk, jv, jm, return_weights=True)
+    np.testing.assert_allclose(probs.numpy(), np.asarray(jprobs), atol=1e-5)
+    with pytest.raises(NotImplementedError):
+        dot_product_attention(tq, tk, tv, causal=True, backend="flash")
+
+
+def test_env_backend_override(monkeypatch):
+    q, k, v, mask = _inputs(6, n=32, d=16)
+    tq, tk, tv, tm = _t(q), _t(k), _t(v), _t(mask)
+    monkeypatch.setenv("BIFOLD_ATTN_BACKEND", "flash")
+    flash = dot_product_attention(tq, tk, tv, tm).numpy()
+    np.testing.assert_allclose(
+        flash, fa.flash_attention_plain(tq, tk, tv, tm).numpy(), atol=0)
+    # unsupported calls keep the math path under the override
+    causal = dot_product_attention(tq, tk, tv, causal=True)
+    monkeypatch.setenv("BIFOLD_ATTN_BACKEND", "math")
+    np.testing.assert_allclose(
+        causal.numpy(), dot_product_attention(tq, tk, tv, causal=True).numpy())
+
+
+def test_wrapper_refuses_other_devices():
+    """Off the CPU the wrapper launches the kernel or raises; it never
+    carries on with the plain version."""
+    q = torch.empty((1, 300, 2, 48), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.flash_attention(q, q, q)
+

@@ -1,0 +1,49 @@
+"""Import hygiene of the PyTorch port: no module of ``bifold_tpu_torch`` and
+not ``chip_smoke.py`` may import JAX, flax or the JAX package."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "bifold_tpu")
+
+_CHILD = f"""
+import importlib, pkgutil, sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None          # any import of these now raises
+import bifold_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(bifold_tpu_torch.__path__,
+                                               "bifold_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 15   # every module was imported
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0]
+
+
+def test_port_sources_name_no_jax_import():
+    files = [ROOT / "chip_smoke.py", *sorted((ROOT / "bifold_tpu_torch").rglob("*.py"))]
+    assert files[0].exists()
+    for path in files:
+        bad = set(_imported_roots(path)) & set(BLOCKED)
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
