@@ -1,13 +1,20 @@
-// Inference-only flash attention forward for Hopper (sm_90a), plain C ABI.
+// Flash attention forward for Hopper (sm_90a), plain C ABI: two instances.
 //
-// Replaces the Pallas TPU kernel `_fwd_kernel_infer` with its loop
-// `_online_softmax_loop` (bifold_tpu/ops/flash_attention.py:187-256): the
-// lse-free online-softmax forward that serving runs in every SigLIP vision
-// layer (4 frames x 12 heads, n 576, d 64, no mask) and every fusion layer
-// (16 heads, n 2373, d 48, key mask over the context frames).
+// - `bifold_flash_fwd_infer` replaces the Pallas TPU kernel
+//   `_fwd_kernel_infer` with its loop `_online_softmax_loop`
+//   (bifold_tpu/ops/flash_attention.py:187-256): the lse-free forward that
+//   serving runs in every SigLIP vision layer (4 frames x 12 heads, n 576,
+//   d 64, no mask) and every fusion layer (16 heads, n 2373, d 48, key mask
+//   over the context frames).
+// - `bifold_flash_fwd_lse` replaces `_fwd_kernel` (:241-247): the same
+//   forward that also writes the f32 row logsumexp lse = m + log(max(l,
+//   1e-30)), (B, H, Nq) contiguous, which the backward (flash_bwd.cu)
+//   recomputes the probabilities from. Training runs it at the same shapes
+//   with B=2 (fusion) and B*(T+1)=8 frames (vision). An all-masked row has
+//   m = -1e5 and l = nk, so its lse is -1e5 + log(nk).
 //
-// Semantics, held against `flash_attention_plain` in
-// bifold_tpu_torch/ops/flash_attention.py:
+// Semantics, held against `flash_attention_plain` /
+// `flash_attention_fwd_plain` in bifold_tpu_torch/ops/flash_attention.py:
 //   - q, k, v in the JAX layout (B, N, H, D), read through their strides
 //     (the fused to_qkv split arrives as strided views, never copied);
 //   - q is scaled in f32; scores, the running max m, the normalizer l and
@@ -18,15 +25,17 @@
 //     probability mass;
 //   - the output is written in the input type, (B, Nq, H, D) contiguous.
 //
-// What bounds it on this card: at the fusion shape one call is ~17 GFLOP on
-// ~15 MB, far above the H100's ~295 FLOP/byte ridge, so the bound is the
-// tensor-core rate. This first version does NOT reach it: it runs on the
-// FP32 CUDA cores (FMA), one query row per thread. What the design does
-// about the bytes: K/V tiles are staged once per block in shared memory and
-// read back as broadcast float4 loads by every row of the block, so global
-// traffic per block is one pass over K/V and no score tile ever leaves
-// registers. Moving both products onto wgmma with TMA-fed K/V tiles is the
-// follow-up that attacks the operation bound.
+// What bounds it on this card: at the fusion shape one call is ~17 GFLOP
+// per batch row on ~15 MB, far above the H100's ~295 FLOP/byte ridge, so
+// the bound is the tensor-core rate (the lse store adds 4 bytes a row). This
+// first version does NOT reach it: it runs on the FP32 CUDA cores (FMA), one
+// query row per thread. What the design does about the bytes: K/V tiles are
+// staged once per block in shared memory and read back as broadcast float4
+// loads by every row of the block, so global traffic per block is one pass
+// over K/V and no score tile ever leaves registers; m and l already live in
+// registers, so the lse costs one f32 store per row. Moving both products
+// onto wgmma with TMA-fed K/V tiles is the follow-up that attacks the
+// operation bound.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -58,10 +67,11 @@ template <> __device__ __forceinline__ __nv_bfloat16 store_cast<__nv_bfloat16>(
   return __float2bfloat16_rn(x);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kBlockQ) flash_fwd_infer_kernel(
+template <typename T, int D, bool kWithLse>
+__global__ void __launch_bounds__(kBlockQ) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ mask, T* __restrict__ o, int nq, int nk, int h,
+    const int* __restrict__ mask, T* __restrict__ o, float* __restrict__ lse,
+    int nq, int nk, int h,
     int64_t q_sb, int64_t q_sn, int64_t q_sh, int64_t k_sb, int64_t k_sn,
     int64_t k_sh, int64_t v_sb, int64_t v_sn, int64_t v_sh, float scale) {
   static_assert(D % 4 == 0, "head dim must be a multiple of 4");
@@ -161,20 +171,44 @@ __global__ void __launch_bounds__(kBlockQ) flash_fwd_infer_kernel(
     T* op = o + (((int64_t)b * nq + row) * h + head) * D;
 #pragma unroll
     for (int d = 0; d < D; ++d) op[d] = store_cast<T>(acc[d] / l_safe);
+    if (kWithLse) lse[(int64_t)bh * nq + row] = m + logf(l_safe);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kWithLse>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* mask, void* o, int b, int nq, int nk, int h,
-                   const int64_t* strides, float scale, cudaStream_t stream) {
+                   const int* mask, void* o, float* lse, int b, int nq,
+                   int nk, int h, const int64_t* strides, float scale,
+                   cudaStream_t stream) {
   const dim3 grid((nq + kBlockQ - 1) / kBlockQ, b * h);
-  flash_fwd_infer_kernel<T, D><<<grid, kBlockQ, 0, stream>>>(
+  flash_fwd_kernel<T, D, kWithLse><<<grid, kBlockQ, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(o), nq, nk, h,
+      static_cast<const T*>(v), mask, static_cast<T*>(o), lse, nq, nk, h,
       strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
       strides[6], strides[7], strides[8], scale);
   return cudaGetLastError();
+}
+
+template <bool kWithLse>
+int dispatch(const void* q, const void* k, const void* v, const int* mask,
+             void* o, float* lse, int b, int nq, int nk, int h, int d,
+             const int64_t* strides, float scale, int dtype, void* stream) {
+  if (b <= 0 || nq <= 0 || nk <= 0 || h <= 0 || b * h > 65535)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && d == 48)
+    return launch<__nv_bfloat16, 48, kWithLse>(q, k, v, mask, o, lse, b, nq,
+                                               nk, h, strides, scale, s);
+  if (dtype == 1 && d == 64)
+    return launch<__nv_bfloat16, 64, kWithLse>(q, k, v, mask, o, lse, b, nq,
+                                               nk, h, strides, scale, s);
+  if (dtype == 0 && d == 48)
+    return launch<float, 48, kWithLse>(q, k, v, mask, o, lse, b, nq, nk, h,
+                                       strides, scale, s);
+  if (dtype == 0 && d == 64)
+    return launch<float, 64, kWithLse>(q, k, v, mask, o, lse, b, nq, nk, h,
+                                       strides, scale, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -188,22 +222,18 @@ int bifold_flash_fwd_infer(const void* q, const void* k, const void* v,
                            const int* mask, void* o, int b, int nq, int nk,
                            int h, int d, const int64_t* strides, float scale,
                            int dtype, void* stream) {
-  if (b <= 0 || nq <= 0 || nk <= 0 || h <= 0 || b * h > 65535)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && d == 48)
-    return launch<__nv_bfloat16, 48>(q, k, v, mask, o, b, nq, nk, h, strides,
-                                     scale, s);
-  if (dtype == 1 && d == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, mask, o, b, nq, nk, h, strides,
-                                     scale, s);
-  if (dtype == 0 && d == 48)
-    return launch<float, 48>(q, k, v, mask, o, b, nq, nk, h, strides, scale,
-                             s);
-  if (dtype == 0 && d == 64)
-    return launch<float, 64>(q, k, v, mask, o, b, nq, nk, h, strides, scale,
-                             s);
-  return cudaErrorInvalidValue;
+  return dispatch<false>(q, k, v, mask, o, nullptr, b, nq, nk, h, d, strides,
+                         scale, dtype, stream);
+}
+
+// As bifold_flash_fwd_infer, and writes lse: float32 (B, H, Nq) contiguous.
+int bifold_flash_fwd_lse(const void* q, const void* k, const void* v,
+                         const int* mask, void* o, float* lse, int b, int nq,
+                         int nk, int h, int d, const int64_t* strides,
+                         float scale, int dtype, void* stream) {
+  if (lse == nullptr) return cudaErrorInvalidValue;
+  return dispatch<true>(q, k, v, mask, o, lse, b, nq, nk, h, d, strides,
+                        scale, dtype, stream);
 }
 
 const char* bifold_cuda_error_string(int err) {

@@ -1,13 +1,21 @@
-"""Test-partition preprocessing: raw records -> model-ready samples, on device.
+"""Preprocessing: raw records -> model-ready samples, on device.
 
-Counterpart of bifold_tpu/data/processor.py:62-230 and :233-360 for the
-partition serving and evaluation use (no augmentation, no gaussmap
-targets). The host builds a fixed-schema raw record (:meth:`Processor.make_raw`:
-uint8 rgb, float depth and mask, tokenized instruction, context frames padded
-to ``max_context_length``); :func:`_core` then runs the image transforms as
-tensor operations on the device the inputs live on: gray-77 composite with
-uint8 truncation, PIL-exact bicubic resize as two matrix products, SigLIP or
-CLIP normalize, masked depth, rounded mask, context padding and mask.
+Counterpart of bifold_tpu/data/processor.py:62-230 and :233-387. The host
+builds a fixed-schema raw record (:meth:`Processor.make_raw`: uint8 rgb,
+float depth and mask, tokenized instruction, context frames padded to
+``max_context_length``, labels padded to 8 points); :func:`_core` then runs
+the image transforms as tensor operations on the device the inputs live on:
+gray-77 composite with uint8 truncation, PIL-exact bicubic resize as two
+matrix products, SigLIP or CLIP normalize, masked depth, rounded mask,
+context padding and mask, label scaling.
+
+The ``"train"`` partition adds, as the JAX package does: depth shift and
+noise (off in the shipped config), joint spatial augmentation of ``rgb``,
+``depth``, ``raw_rgb``, ``rgb_context`` and ``depth_context`` (and ``mask``
+with ``augment_mask``) with the label pixels, and ``<label>_heatmap``
+Gaussian targets. Its random draws come from a ``torch.Generator`` per
+device seeded by ``seed`` (:meth:`Processor.draw`); :func:`_core` takes them
+as an argument, so a caller can hand in any draws.
 """
 
 from __future__ import annotations
@@ -21,6 +29,8 @@ import torch
 from bifold_tpu_torch.data.tokenizers import build_tokenizer
 from bifold_tpu_torch.ops import depth as depth_ops
 from bifold_tpu_torch.ops import image as image_ops
+from bifold_tpu_torch.ops.augment import spatial_augment
+from bifold_tpu_torch.ops.gaussmap import batched_gaussmap
 
 __all__ = ["Processor", "MAX_LABEL_POINTS"]
 
@@ -42,10 +52,23 @@ class _CoreSpec:
     """Static configuration of one :func:`_core` call."""
 
     image_size: int
+    sigma: float
+    strategy: str
     mask_depth: bool
+    standardize_depth: bool
+    random_depth_shift: bool
+    add_depth_noise: bool
+    min_shift: float
+    max_shift: float
+    spatial_augment: bool
+    max_trials: int
+    rotate_range: tuple
+    translate_range: tuple
     image_mean: tuple
     image_std: tuple
     siglip_norm: bool
+    augment_mask: bool
+    train: bool
     label_keys: tuple
     has_rgb: bool
     has_depth: bool
@@ -69,31 +92,48 @@ def _process_rgb(spec: _CoreSpec, rgb_u8, mask):
     return image_ops.normalize(resized, mean, std)
 
 
-def _process_depth(spec: _CoreSpec, depth, mask):
-    """(B, H, W) depth (+mask) -> (B, 1, S, S): mask-multiply, resize."""
+def _process_depth(spec: _CoreSpec, depth, mask, shift=None, noise=None):
+    """(B, H, W) depth (+mask) -> (B, 1, S, S) f32 in the reference's order:
+    [shift] [noise] -> mask-multiply -> resize -> [standardize]. ``shift``
+    (B, 1, 1) and ``noise`` (3, B, H, W) standard normals (y, x, disparity)
+    are the train partition's draws."""
     depth = depth.float()
+    if shift is not None:
+        depth = depth_ops.depth_shift(depth, shift)
+    if noise is not None:
+        depth = depth_ops.depth_noise(depth, noise[0], noise[1], noise[2])
     if spec.mask_depth and mask is not None:
         depth = depth_ops.mask_depth(depth, mask)
-    return _resize(depth, spec.image_size)[:, None]
+    out = _resize(depth, spec.image_size)[:, None]
+    if spec.standardize_depth:
+        out = depth_ops.truncated_standardization(out)
+    return out
 
 
 def _core(spec: _CoreSpec, rgb, depth, mask, ctx_rgb, ctx_depth, ctx_mask,
-          ctx_count, labels) -> Dict[str, Any]:
-    """The test-partition pipeline on device tensors at the input
-    resolution; ``labels`` maps label name -> (B, 8, 2) pixels (-1 padded)."""
+          ctx_count, labels, draws: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """The pipeline on device tensors at the input resolution; ``labels``
+    maps label name -> (B, 8, 2) pixels (-1 padded). ``draws``: the train
+    partition's random numbers (:meth:`Processor.draw`), keys
+    ``depth_shift`` / ``ctx_depth_shift`` (B or B*T, 1, 1),
+    ``depth_noise`` / ``ctx_depth_noise`` (3, B or B*T, H, W) and
+    ``angles``, ``dxs``, ``dys`` (B, max_trials); each is used only when
+    ``spec`` turns its transform on."""
     s = spec.image_size
+    draws = draws or {}
     out: Dict[str, Any] = {}
     first = next(x for x in (rgb, depth, mask) if x is not None)
     batch, in_size = first.shape[0], first.shape[1]
 
     if depth is not None:
-        out["depth"] = _process_depth(spec, depth, mask)
+        out["depth"] = _process_depth(spec, depth, mask, draws.get("depth_shift"),
+                                      draws.get("depth_noise"))
     if mask is not None:
         out["mask"] = depth_ops.round_mask(_resize(mask.float(), s))[:, None]
     if rgb is not None:
         out["rgb"] = _process_rgb(spec, rgb, mask)
-        raw = _resize(rgb.permute(0, 3, 1, 2).float(), s)
-        out["raw_rgb"] = raw.round().clamp(0, 255).permute(0, 2, 3, 1).to(torch.uint8)
+        # resized-only copy, kept float until after augmentation
+        out["raw_rgb"] = _resize(rgb.permute(0, 3, 1, 2).float(), s)
 
     if spec.n_context:
         t = spec.n_context
@@ -102,7 +142,8 @@ def _core(spec: _CoreSpec, rgb, depth, mask, ctx_rgb, ctx_depth, ctx_mask,
         flat_mask = (ctx_mask.reshape(batch * t, *ctx_mask.shape[2:])
                      if ctx_mask is not None else None)
         cd = _process_depth(spec, ctx_depth.reshape(batch * t, *ctx_depth.shape[2:]),
-                            flat_mask).reshape(batch, t, 1, s, s)
+                            flat_mask, draws.get("ctx_depth_shift"),
+                            draws.get("ctx_depth_noise")).reshape(batch, t, 1, s, s)
         sel = in_frame[:, :, None, None, None]
         # padding frames are all-ones tensors
         out["depth_context"] = torch.where(sel, cd, torch.ones_like(cd))
@@ -112,39 +153,82 @@ def _core(spec: _CoreSpec, rgb, depth, mask, ctx_rgb, ctx_depth, ctx_mask,
             out["rgb_context"] = torch.where(sel, cr, torch.ones_like(cr))
 
     scale = in_size / s   # labels: input -> model resolution
+    scaled = {}
     for k in spec.label_keys:
         lab = labels[k].float()
         valid = lab.amin(dim=-1) >= 0
-        out[k] = torch.where(valid[..., None], lab / scale, lab)
+        scaled[k] = torch.where(valid[..., None], lab / scale, lab)
+
+    if spec.train and spec.spatial_augment and spec.label_keys:
+        allpix = torch.cat([scaled[k] for k in spec.label_keys], dim=1)
+        warp = [k for k in ("rgb", "depth", "raw_rgb", "rgb_context",
+                            "depth_context") if k in out]
+        if spec.augment_mask and "mask" in out:
+            warp.append("mask")
+        images, allpix, _ = spatial_augment(
+            {k: out[k] for k in warp}, allpix, allpix.amin(dim=-1) >= 0,
+            draws["angles"], draws["dxs"], draws["dys"], image_size=s)
+        out.update(images)
+        for i, k in enumerate(spec.label_keys):
+            scaled[k] = allpix[:, i * MAX_LABEL_POINTS: (i + 1) * MAX_LABEL_POINTS]
+
+    for k in spec.label_keys:
+        out[k] = scaled[k]
+        if spec.train:
+            out[f"{k}_heatmap"] = batched_gaussmap(
+                scaled[k], scaled[k].amin(dim=-1) >= 0, size=s,
+                sigma=spec.sigma, strategy=spec.strategy)
+    if "raw_rgb" in out:
+        out["raw_rgb"] = (out["raw_rgb"].round().clamp(0, 255)
+                          .permute(0, 2, 3, 1).to(torch.uint8))
     return out
 
 
 class Processor:
-    """Test-partition preprocessing. ``cfg`` is the ``processor`` config
-    node; ``autoprocessor_name`` selects SigLIP normalization and the SigLIP
-    tokenizer (``spm_asset``: a ``spiece.model`` path or bytes)."""
+    """Train- and test-partition preprocessing. ``cfg`` is the ``processor``
+    config node; ``autoprocessor_name`` selects SigLIP normalization and the
+    SigLIP tokenizer (``spm_asset``: a ``spiece.model`` path or bytes);
+    ``seed`` seeds the train partition's draws."""
 
     def __init__(self, cfg, partition: str = "test",
                  max_context_length: Optional[int] = None,
-                 autoprocessor_name: Optional[str] = None, spm_asset=None):
-        if partition != "test":
-            raise NotImplementedError("only the test partition is ported")
+                 autoprocessor_name: Optional[str] = None, spm_asset=None,
+                 seed: int = 0):
+        if partition not in ("train", "test"):
+            raise NotImplementedError(f"partition {partition!r} is not ported")
         cfg = dict(cfg)
-        if cfg.get("requires_graph") or cfg.get("standardize_depth"):
-            raise NotImplementedError(
-                "graph features and depth standardization are not ported")
+        if cfg.get("requires_graph"):
+            raise NotImplementedError("graph features are not ported")
         self.cfg = cfg
+        self.partition = partition
         self.image_size = int(cfg["model_image_size"])
         self.max_context_length = max_context_length or 0
         self.process_context = max_context_length is not None
         self.autoprocessor_name = autoprocessor_name
         self.tokenize = build_tokenizer(autoprocessor_name, spm_asset=spm_asset)
+        self.seed = seed
+        self._generators: Dict[torch.device, torch.Generator] = {}
+        sa = dict(cfg.get("spatial_augmentations", {}))
+        da = dict(cfg.get("depth_augmentations", {}))
         self._spec_base = dict(
             image_size=self.image_size,
+            sigma=float(cfg.get("sigma", 5.0)),
+            strategy=str(cfg.get("strategy", "gmm")),
             mask_depth=bool(cfg.get("mask_depth", True)),
+            standardize_depth=bool(cfg.get("standardize_depth", False)),
+            random_depth_shift=bool(da.get("random_depth_shift", False)),
+            add_depth_noise=bool(da.get("add_depth_noise", False)),
+            min_shift=float(da.get("min_shift", -0.2)),
+            max_shift=float(da.get("max_shift", 0.2)),
+            spatial_augment=bool(cfg.get("spatial_augment", True)),
+            max_trials=int(sa.get("max_augmentation_trials", 5)),
+            rotate_range=tuple(sa.get("rotate_augmentation", (-5.0, 6.0))),
+            translate_range=tuple(sa.get("translate_augmentation", (-5.0, 6.0))),
             image_mean=tuple(cfg.get("image_mean", image_ops.CLIP_MEAN)),
             image_std=tuple(cfg.get("image_std", image_ops.CLIP_STD)),
             siglip_norm=autoprocessor_name is not None,
+            augment_mask=bool(cfg.get("augment_mask", False)),
+            train=partition == "train",
         )
 
     def make_raw(self, rgb=None, depth=None, mask=None, instruction=None,
@@ -196,3 +280,60 @@ class Processor:
             context_rgb="ctx_rgb" in batch,
             **self._spec_base,
         )
+
+    def _generator(self, device: torch.device) -> torch.Generator:
+        device = torch.device(device)
+        if device not in self._generators:
+            self._generators[device] = torch.Generator(device).manual_seed(self.seed)
+        return self._generators[device]
+
+    def draw(self, spec: _CoreSpec, batch: int, in_shape, device) -> Dict[str, Any]:
+        """The train partition's random numbers for one batch of ``batch``
+        samples at input resolution ``in_shape`` (H, W), from this
+        processor's generator on ``device``: uniform depth shifts, standard
+        normals for depth noise, and ``max_trials`` uniform (angle, dx, dy)
+        augmentation trials per sample."""
+        if not spec.train:
+            return {}
+        gen = self._generator(device)
+        t = spec.n_context
+
+        def uniform(shape, lo, hi):
+            u = torch.rand(shape, generator=gen, device=device)
+            return u * (hi - lo) + lo
+
+        draws: Dict[str, Any] = {}
+        for prefix, n in (("", batch), ("ctx_", batch * t)):
+            if n == 0 or (prefix and not t):
+                continue
+            if spec.random_depth_shift:
+                draws[prefix + "depth_shift"] = uniform((n, 1, 1), spec.min_shift,
+                                                        spec.max_shift)
+            if spec.add_depth_noise:
+                draws[prefix + "depth_noise"] = torch.randn(
+                    (3, n, *in_shape), generator=gen, device=device)
+        if spec.spatial_augment and spec.label_keys:
+            shape = (batch, spec.max_trials)
+            draws["angles"] = uniform(shape, *spec.rotate_range)
+            draws["dxs"] = uniform(shape, *spec.translate_range)
+            draws["dys"] = uniform(shape, *spec.translate_range)
+        return draws
+
+    def process_batch(self, batch: Dict[str, Any], device,
+                      draws: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """A collated raw batch (numpy, leading dim B, as :meth:`make_raw`
+        records stack) -> the sample dict on ``device``. The train partition
+        draws its random numbers here unless ``draws`` are given."""
+        device = torch.device(device)
+        spec = self._spec(batch)
+        x = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+             for k, v in batch.items() if isinstance(v, np.ndarray)}
+        first = next(x[k] for k in ("rgb", "depth", "mask") if k in x)
+        if draws is None:
+            draws = self.draw(spec, first.shape[0], tuple(first.shape[1:3]), device)
+        out = _core(spec, x.get("rgb"), x.get("depth"), x.get("mask"),
+                    x.get("ctx_rgb"), x.get("ctx_depth"), x.get("ctx_mask"),
+                    x.get("ctx_count"), {k: x[k] for k in spec.label_keys}, draws)
+        if "instruction" in x:
+            out["instruction"] = x["instruction"]
+        return out

@@ -1,15 +1,18 @@
-"""Model construction and action decoding for the PyTorch port.
+"""Model construction, trainability and action decoding for the PyTorch port.
 
-Counterpart of bifold_tpu/models/__init__.py:67-124 for the two SigLIP
-families: :func:`build_model` takes the same config node (keys are
+Counterpart of bifold_tpu/models/__init__.py:67-124 and :153-203 for the two
+SigLIP families: :func:`build_model` takes the same config node (keys are
 constructor fields, unknown keys are an error) and builds the module on a
-device with a seeded init; :func:`decode_action` turns the heatmap dict into
-pixel arrays with mask snapping and bimanual gating.
+device with a seeded init; :func:`trainable_mask` freezes the backbone towers
+but their LoRA adapters (via ``requires_grad``); :func:`precast_frozen` casts
+big frozen weights to the compute dtype once; :func:`decode_action` turns the
+heatmap dict into pixel arrays with mask snapping and bimanual gating.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Dict, List
 
 import torch
 from torch import nn
@@ -20,17 +23,17 @@ from bifold_tpu_torch.models.lora import LoRALinear
 from bifold_tpu_torch.ops.heatmap import decode_heatmap, gate_bimanual
 
 __all__ = ["build_model", "init_weights", "decode_action", "resolve_device",
-           "MODELS"]
+           "trainable_mask", "precast_frozen", "MODELS"]
 
 MODELS = {"siglip": SigLip, "siglip_sequential": SiglipSequential}
 
 _FIELDS = {"image_size", "is_bimanual", "patch_size", "automodel_name", "dim",
            "lora", "r", "lora_alpha", "depth", "heads", "mlp_ratio",
-           "threshold", "constrain_pick_mask", "legacy_query_mask"}
-# config keys of the JAX model that serving reads at one value only: the
-# value the port runs at (dropout is off in eval; remat is training-only)
-_FIXED = {"emb_dropout": None, "lora_dropout": None, "dropout": None,
-          "remat": None, "moe_top_k": None, "moe_capacity_factor": None,
+           "threshold", "constrain_pick_mask", "legacy_query_mask",
+           "lora_dropout", "dropout", "emb_dropout"}
+# config keys of the JAX model the port runs at one value only (None: any
+# value is accepted and has no effect here, e.g. remat)
+_FIXED = {"remat": None, "moe_top_k": None, "moe_capacity_factor": None,
           "moe_aux_weight": None, "target_modules": ("q_proj", "v_proj"),
           "text_encoder": None, "pick_place_model": "pick_place_convdecoder",
           "fusion_model": "concat_transformer", "moe_experts": 0,
@@ -79,6 +82,45 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         p = getattr(model, name, None)
         if p is not None:
             p.normal_(0.0, 1.0, generator=generator)
+
+
+_FROZEN_SUBTREES = ("siglip_model", "clip_encoder", "text_encoder")
+_ALWAYS_TRAINABLE = ("lora_A", "lora_B")
+
+
+def trainable_mask(model: nn.Module, *, lora: bool = True) -> Dict[str, bool]:
+    """Set ``requires_grad`` as the reference trains: parameters under a
+    backbone tower (``siglip_model``) are frozen, except the LoRA adapters'
+    ``lora_A`` / ``lora_B`` when ``lora``; everything else trains. Returns
+    ``{parameter name: trainable}``."""
+    mask = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        frozen = any(k in _FROZEN_SUBTREES for k in parts)
+        adapter = any(k in _ALWAYS_TRAINABLE for k in parts)
+        mask[name] = (lora and adapter) or not frozen
+        p.requires_grad_(mask[name])
+    return mask
+
+
+@torch.no_grad()
+def precast_frozen(model: nn.Module, compute_dtype, *,
+                   min_size: int = 2 ** 16) -> List[str]:
+    """Cast, in place, every frozen (``requires_grad=False``) float32
+    parameter with at least ``min_size`` elements to ``compute_dtype``, once:
+    the layers cast weights to the compute dtype at use, so this is
+    value-identical and saves the per-step casts. Trainable parameters keep
+    their float32 masters, small ones (LayerNorm, biases) stay float32. A
+    no-op for a float32 (or None) compute dtype. Returns the names cast."""
+    if compute_dtype is None or compute_dtype == torch.float32:
+        return []
+    cast = []
+    for name, p in model.named_parameters():
+        if (not p.requires_grad and p.dtype == torch.float32
+                and p.numel() >= min_size):
+            p.data = p.data.to(compute_dtype)
+            cast.append(name)
+    return cast
 
 
 def build_model(cfg: dict, *, dtype=torch.float32, device="cuda",

@@ -48,11 +48,11 @@ SIGLIP_BASE_CONFIGS = {
 }
 
 
-def _encoder(cfg: SiglipConfig, lora_rank, lora_alpha, dtype):
+def _encoder(cfg: SiglipConfig, lora_rank, lora_alpha, lora_dropout, dtype):
     return Transformer(cfg.hidden_size, cfg.layers, cfg.heads, cfg.mlp_dim,
                        dim_head=cfg.hidden_size // cfg.heads, fused_qkv=False,
-                       lora_rank=lora_rank, lora_alpha=lora_alpha, ln_eps=1e-6,
-                       dtype=dtype)
+                       lora_rank=lora_rank, lora_alpha=lora_alpha,
+                       lora_dropout=lora_dropout, ln_eps=1e-6, dtype=dtype)
 
 
 class _VisionEmbeddings(nn.Module):
@@ -65,10 +65,10 @@ class _VisionEmbeddings(nn.Module):
 
 class SiglipVisionTower(nn.Module):
     def __init__(self, cfg: SiglipConfig, lora_rank=0, lora_alpha=1.0,
-                 dtype=torch.float32):
+                 lora_dropout=0.0, dtype=torch.float32):
         super().__init__()
         self.embeddings = _VisionEmbeddings(cfg)
-        self.encoder = _encoder(cfg, lora_rank, lora_alpha, dtype)
+        self.encoder = _encoder(cfg, lora_rank, lora_alpha, lora_dropout, dtype)
         self.post_layernorm = LayerNorm(cfg.hidden_size, 1e-6, dtype)
         self.dtype = dtype
 
@@ -92,10 +92,10 @@ class _TextEmbeddings(nn.Module):
 
 class SiglipTextTower(nn.Module):
     def __init__(self, cfg: SiglipConfig, lora_rank=0, lora_alpha=1.0,
-                 dtype=torch.float32):
+                 lora_dropout=0.0, dtype=torch.float32):
         super().__init__()
         self.embeddings = _TextEmbeddings(cfg)
-        self.encoder = _encoder(cfg, lora_rank, lora_alpha, dtype)
+        self.encoder = _encoder(cfg, lora_rank, lora_alpha, lora_dropout, dtype)
         self.final_layer_norm = LayerNorm(cfg.hidden_size, 1e-6, dtype)
         self.dtype = dtype
 
@@ -112,10 +112,10 @@ class SiglipBackbone(nn.Module):
     """Both towers, under ``model`` when LoRA wraps them (peft naming)."""
 
     def __init__(self, cfg: SiglipConfig, lora_rank=0, lora_alpha=1.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, lora_dropout=0.0):
         super().__init__()
-        vision = SiglipVisionTower(cfg, lora_rank, lora_alpha, dtype)
-        text = SiglipTextTower(cfg, lora_rank, lora_alpha, dtype)
+        vision = SiglipVisionTower(cfg, lora_rank, lora_alpha, lora_dropout, dtype)
+        text = SiglipTextTower(cfg, lora_rank, lora_alpha, lora_dropout, dtype)
         holder = self
         if lora_rank > 0:
             self.model = nn.Module()

@@ -3,7 +3,9 @@
 Counterparts of bifold_tpu/models/bifold_models.py:49-205. Each consumes the
 processor's sample dict and returns the heatmap dict
 (``{left_,right_,}pick/place_{logits,heatmap}``). Towers and fusion run in
-``dtype``; heads in float32.
+``dtype``; heads in float32. ``lora_dropout`` (tower adapters) and
+``dropout`` (fusion stack) act in ``train()`` mode only; ``emb_dropout`` is
+accepted and unused, as in the JAX model.
 """
 
 from __future__ import annotations
@@ -30,7 +32,9 @@ class SigLip(nn.Module):
                  lora_alpha: float = 32.0, depth: int = 8, heads: int = 16,
                  mlp_ratio: int = 4, threshold: float = 0.5,
                  constrain_pick_mask: bool = True,
-                 legacy_query_mask: bool = False, dtype=torch.float32):
+                 legacy_query_mask: bool = False, lora_dropout: float = 0.01,
+                 dropout: float = 0.0, emb_dropout: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
         self.image_size = image_size
         self.is_bimanual = is_bimanual
@@ -44,12 +48,13 @@ class SigLip(nn.Module):
                            hidden_size=dim, layers=base.layers, heads=base.heads,
                            mlp_dim=base.mlp_dim, vocab_size=base.vocab_size,
                            max_text_len=base.max_text_len)
-        self.siglip_model = SiglipBackbone(cfg, r if lora else 0, lora_alpha, dtype)
+        self.siglip_model = SiglipBackbone(cfg, r if lora else 0, lora_alpha,
+                                           dtype, lora_dropout=lora_dropout)
         self.image_token = nn.Parameter(torch.zeros(1, 1, dim))
         self.text_token = nn.Parameter(torch.zeros(1, 1, dim))
         self.pick_place = PickPlaceConvDecoder(
             dim, is_bimanual, self.num_patches, heads, depth, mlp_ratio,
-            legacy_query_mask, dtype)
+            legacy_query_mask, dropout, dtype)
 
     def _with_token(self, feats, token):
         b = feats.shape[0]

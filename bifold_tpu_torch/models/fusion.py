@@ -4,7 +4,8 @@ Counterpart of bifold_tpu/models/fusion.py:28-91: learned token-type
 embeddings per modality, one pre-norm stack over the concatenated
 [text | (context) | image] sequence with the attention masks applied as a
 key mask (``legacy_query_mask`` for the reference's query-axis quirk), and
-the last modality's token slice out. LayerNorm eps is torch's 1e-5.
+the last modality's token slice out. LayerNorm eps is torch's 1e-5;
+``dropout`` is the stack's attention and FFN dropout (train mode only).
 """
 
 from __future__ import annotations
@@ -20,12 +21,12 @@ __all__ = ["ConcatTransformer"]
 class ConcatTransformer(nn.Module):
     def __init__(self, dim: int, heads: int, depth: int, mlp_ratio: int = 4,
                  num_modalities: int = 2, legacy_query_mask: bool = False,
-                 dtype=torch.float32):
+                 dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
         self.token_type_embeddings = nn.Embedding(num_modalities, dim)
         self.transformer_encoder = Transformer(
             dim, depth, heads, dim * mlp_ratio, dim_head=dim // heads,
-            fused_qkv=True, ln_eps=1e-5, dtype=dtype)
+            fused_qkv=True, dropout=dropout, ln_eps=1e-5, dtype=dtype)
         self.legacy_query_mask = legacy_query_mask
         self.dtype = dtype
 

@@ -1,9 +1,14 @@
 """Shared building blocks: LayerNorm, GELUs, attention, MLP, transformer.
 
 Counterparts of bifold_tpu/models/layers.py:53-101, 132-211, 214-305 and
-372-439/511+. Parameters are float32 (or pre-cast by the serving path);
-every layer computes in its ``dtype`` by casting weights at use, as flax
-does, with LayerNorm statistics and GELUs in float32.
+372-439/511+. Parameters are float32 (or pre-cast: frozen ones by
+``precast_frozen``, all big ones by the serving path); every layer computes
+in its ``dtype`` by casting weights at use, as flax does, with LayerNorm
+statistics and GELUs in float32. Dropout sits where the JAX package puts it
+(:class:`~bifold_tpu_torch.models.dropout.Dropout`, train mode only): the
+LoRA input (``lora_dropout``), the attention output before and after its
+projection and the FFN after the activation and after the second linear
+(``dropout``, the fusion stack's).
 
 Module names follow the reference torch checkpoints so that a converted
 state dict loads with ``strict=True``:
@@ -26,6 +31,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from bifold_tpu_torch.models.dropout import Dropout
 from bifold_tpu_torch.models.lora import LORA_TARGETS, LoRALinear
 from bifold_tpu_torch.ops.attention import dot_product_attention
 
@@ -88,16 +94,19 @@ class MultiHeadAttention(nn.Module):
     """QKV attention. ``fused_qkv``: the fusion stack's bias-free ``to_qkv``
     and ``to_out.0`` (reference transformer.py naming); otherwise the towers'
     biased ``q_proj/k_proj/v_proj/out_proj`` (HF naming), with LoRA on q and
-    v when ``lora_rank`` > 0."""
+    v when ``lora_rank`` > 0. ``dropout`` applies to the attention output
+    before and after the output projection."""
 
     def __init__(self, dim: int, heads: int, dim_head: int | None = None,
                  fused_qkv: bool = False, lora_rank: int = 0,
-                 lora_alpha: float = 1.0, dtype=torch.float32):
+                 lora_alpha: float = 1.0, lora_dropout: float = 0.0,
+                 dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
         self.heads = heads
         self.dim_head = dim_head or dim // heads
         self.fused_qkv = fused_qkv
         self.dtype = dtype
+        self.dropout = Dropout(dropout)
         inner = self.dim_head * heads
         if fused_qkv:
             self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
@@ -106,7 +115,7 @@ class MultiHeadAttention(nn.Module):
         for name in ("q_proj", "k_proj", "v_proj"):
             if lora_rank > 0 and name in LORA_TARGETS:
                 proj = LoRALinear(dim, inner, rank=lora_rank, alpha=lora_alpha,
-                                  dtype=dtype)
+                                  dropout=lora_dropout, dtype=dtype)
             else:
                 proj = nn.Linear(dim, inner)
             setattr(self, name, proj)
@@ -128,9 +137,9 @@ class MultiHeadAttention(nn.Module):
         out = dot_product_attention(q.reshape(shape), k.reshape(shape),
                                     v.reshape(shape), key_mask,
                                     legacy_query_mask=legacy_query_mask)
-        out = out.reshape(b, n, self.heads * self.dim_head)
+        out = self.dropout(out.reshape(b, n, self.heads * self.dim_head))
         proj = self.to_out[0] if self.fused_qkv else self.out_proj
-        return linear(out, proj, self.dtype)
+        return self.dropout(linear(out, proj, self.dtype))
 
 
 class FeedForward(nn.Module):
@@ -153,12 +162,13 @@ class TransformerBlock(nn.Module):
     x + attn(ln1(x)); x + mlp(ln2(x))."""
 
     def __init__(self, dim, heads, mlp_dim, dim_head=None, lora_rank=0,
-                 lora_alpha=1.0, ln_eps=1e-6, dtype=torch.float32):
+                 lora_alpha=1.0, lora_dropout=0.0, ln_eps=1e-6,
+                 dtype=torch.float32):
         super().__init__()
         self.layer_norm1 = LayerNorm(dim, ln_eps, dtype)
         self.self_attn = MultiHeadAttention(
             dim, heads, dim_head, fused_qkv=False, lora_rank=lora_rank,
-            lora_alpha=lora_alpha, dtype=dtype)
+            lora_alpha=lora_alpha, lora_dropout=lora_dropout, dtype=dtype)
         self.layer_norm2 = LayerNorm(dim, ln_eps, dtype)
         self.mlp = FeedForward(dim, mlp_dim, dtype)
 
@@ -176,18 +186,20 @@ class _PreNorm(nn.Module):
 
 
 class _SequentialFeedForward(nn.Module):
-    """The reference fusion MLP: ``net`` = Linear, GELU, Dropout, Linear
-    (parameters at net.0 and net.3), evaluated in ``dtype``."""
+    """The reference fusion MLP: ``net`` = Linear, GELU, Dropout, Linear,
+    Dropout (parameters at net.0 and net.3), evaluated in ``dtype``."""
 
-    def __init__(self, dim, hidden_dim, dtype):
+    def __init__(self, dim, hidden_dim, dropout, dtype):
         super().__init__()
         self.net = nn.Sequential(nn.Linear(dim, hidden_dim), GELU(),
-                                 nn.Dropout(0.0), nn.Linear(hidden_dim, dim))
+                                 Dropout(dropout), nn.Linear(hidden_dim, dim),
+                                 Dropout(dropout))
         self.dtype = dtype
 
     def forward(self, x):
         net = self.net
-        return linear(net[1](linear(x, net[0], self.dtype)), net[3], self.dtype)
+        h = net[2](net[1](linear(x, net[0], self.dtype)))
+        return net[4](linear(h, net[3], self.dtype))
 
 
 class FusionBlock(nn.ModuleList):
@@ -195,12 +207,13 @@ class FusionBlock(nn.ModuleList):
     (``[PreNorm(Attention), PreNorm(FeedForward)]``), exact GELU."""
 
     def __init__(self, dim, heads, mlp_dim, dim_head=None, ln_eps=1e-5,
-                 dtype=torch.float32):
+                 dropout=0.0, dtype=torch.float32):
         super().__init__([
             _PreNorm(dim, MultiHeadAttention(dim, heads, dim_head,
-                                             fused_qkv=True, dtype=dtype),
+                                             fused_qkv=True, dropout=dropout,
+                                             dtype=dtype),
                      ln_eps, dtype),
-            _PreNorm(dim, _SequentialFeedForward(dim, mlp_dim, dtype),
+            _PreNorm(dim, _SequentialFeedForward(dim, mlp_dim, dropout, dtype),
                      ln_eps, dtype),
         ])
 
@@ -214,18 +227,21 @@ class FusionBlock(nn.ModuleList):
 class Transformer(nn.Module):
     """Stack of ``depth`` pre-norm blocks under ``layers``: HF-named
     :class:`TransformerBlock` (gelu-tanh) for the towers, :class:`FusionBlock`
-    (exact gelu) for the fusion stack (``fused_qkv``)."""
+    (exact gelu) for the fusion stack (``fused_qkv``, with ``dropout``);
+    the towers take ``lora_dropout`` on their adapters."""
 
     def __init__(self, dim, depth, heads, mlp_dim, dim_head=None,
-                 fused_qkv=True, lora_rank=0, lora_alpha=1.0, ln_eps=1e-6,
-                 dtype=torch.float32):
+                 fused_qkv=True, lora_rank=0, lora_alpha=1.0, lora_dropout=0.0,
+                 dropout=0.0, ln_eps=1e-6, dtype=torch.float32):
         super().__init__()
         if fused_qkv:
-            blocks = [FusionBlock(dim, heads, mlp_dim, dim_head, ln_eps, dtype)
+            blocks = [FusionBlock(dim, heads, mlp_dim, dim_head, ln_eps,
+                                  dropout, dtype)
                       for _ in range(depth)]
         else:
             blocks = [TransformerBlock(dim, heads, mlp_dim, dim_head,
-                                       lora_rank, lora_alpha, ln_eps, dtype)
+                                       lora_rank, lora_alpha, lora_dropout,
+                                       ln_eps, dtype)
                       for _ in range(depth)]
         self.layers = nn.ModuleList(blocks)
 

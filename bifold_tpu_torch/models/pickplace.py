@@ -25,11 +25,12 @@ def head_names(is_bimanual: bool):
 class PickPlaceConvDecoder(nn.Module):
     def __init__(self, dim: int, is_bimanual: bool, num_patches: int,
                  heads: int, depth: int, mlp_ratio: int = 4,
-                 legacy_query_mask: bool = False, dtype=torch.float32):
+                 legacy_query_mask: bool = False, dropout: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
         self.fusion = ConcatTransformer(dim, heads, depth, mlp_ratio,
                                         legacy_query_mask=legacy_query_mask,
-                                        dtype=dtype)
+                                        dropout=dropout, dtype=dtype)
         self.names = head_names(is_bimanual)
         for n in self.names:
             setattr(self, f"{n}_decoder", ConvDecoder(dim, 1, torch.float32))

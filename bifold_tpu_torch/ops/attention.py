@@ -11,8 +11,13 @@ Backends:
 
 - ``"math"`` (the JAX package's ``"xla"``, accepted as an alias): einsum
   scores in the input dtype, f32 softmax cast back, einsum with v;
-- ``"flash"``: :func:`bifold_tpu_torch.ops.flash_attention.flash_attention`
-  (the CUDA kernel on the card, its plain version on the CPU);
+- ``"flash"``: the flash kernels of :mod:`bifold_tpu_torch.ops.flash_attention`
+  (CUDA on the card, their plain versions on the CPU). A call that autograd
+  will differentiate (grad enabled, q, k or v requiring grad) goes through
+  :func:`flash_attention_train` (forward with lse, fused backward); any
+  other call through the lse-free inference kernel, as JAX's
+  ``_flash_with_vjp`` runs its primal on ``_fwd_infer_cp`` and its VJP
+  forward on ``_fwd_cp``;
 - ``"auto"``: the kernel for a CUDA tensor when the call is non-causal,
   asks for no weights, has no legacy query mask, equal q/k lengths,
   N >= 256, a head dim and dtype the kernel was built for; the math path
@@ -29,7 +34,11 @@ import os
 
 import torch
 
-from bifold_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS, flash_attention
+from bifold_tpu_torch.ops.flash_attention import (
+    KERNEL_HEAD_DIMS,
+    flash_attention,
+    flash_attention_train,
+)
 
 __all__ = ["dot_product_attention"]
 
@@ -80,7 +89,10 @@ def dot_product_attention(q, k, v, key_mask=None, *, legacy_query_mask=None,
 
     if use_flash:
         mask = None if key_mask is None else key_mask.to(torch.int32).contiguous()
-        out = flash_attention(q, k, v, mask, scale=scale)
+        grad = torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad)
+        out = (flash_attention_train if grad else flash_attention)(
+            q, k, v, mask, scale=scale)
         return (out, None) if return_weights else out
 
     out, probs = _math_attention(q, k, v, key_mask, legacy_query_mask, scale,

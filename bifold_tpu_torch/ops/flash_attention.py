@@ -1,20 +1,29 @@
-"""Flash attention forward (inference): hand-written CUDA kernel + plain twin.
+"""Flash attention: hand-written CUDA kernels, their plain twins, autograd.
 
-Counterpart of the lse-free forward in bifold_tpu/ops/flash_attention.py
-(``_online_softmax_loop`` + ``_fwd_kernel_infer``, :187-256, reached from
-``_flash_with_vjp``'s primal at :722-744). Layout is the JAX one,
-(B, N, H, D) in and out.
+Counterpart of bifold_tpu/ops/flash_attention.py. Layout is the JAX one,
+(B, N, H, D) in and out; lse and delta are float32 (B, H, Nq).
 
-- :func:`flash_attention` is the wrapper. A tensor on the CPU takes the plain
-  version; a CUDA tensor launches ``csrc/flash_fwd.cu`` or raises — there is
-  no fallback. Each launch adds one to :data:`LAUNCHES` under its head dim.
-- :func:`flash_attention_plain` is the same math in eager torch (f32 scores
-  and softmax, -1e5 replacement fill, output in the input dtype). The CPU
-  tests hold it against the JAX kernel; ``chip_smoke.py`` holds the CUDA
-  kernel against it on the card.
+- :func:`flash_attention` — forward only, no lse (``_fwd_kernel_infer``,
+  :250): ``csrc/flash_fwd.cu`` ``bifold_flash_fwd_infer``. Serving and
+  every call that needs no gradient take it.
+- :func:`flash_attention_fwd` — forward plus the f32 row logsumexp
+  (``_fwd_kernel``, :241): ``csrc/flash_fwd.cu`` ``bifold_flash_fwd_lse``.
+- :func:`flash_attention_bwd` — the fused backward -> dq, dk, dv
+  (``_dqkv_kernel``, :360): ``csrc/flash_bwd.cu``. delta = rowsum(dO * O)
+  is a torch op in f32, as JAX computes it outside its kernel (:499-502).
+- :func:`flash_attention_train` — the ``torch.autograd.Function`` over the
+  last two (``_flash_with_vjp``'s forward/backward rules, :722-744).
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` into ``_build/`` at first
-use (a plain C ABI loaded through ``ctypes``), never at import.
+Each wrapper takes its plain version (``*_plain``, the same math in eager
+torch) for a tensor on the CPU; a CUDA tensor launches the kernel or raises
+— there is no fallback. Each launch adds one to :data:`LAUNCHES` under
+``"<kernel>_d<head dim>"``: ``fwd_infer``, ``fwd_lse`` and ``bwd`` (one
+backward call enqueues its dk/dv and dq kernels together). The CPU tests
+hold the plain versions against the JAX kernels; ``chip_smoke.py`` holds the
+CUDA kernels against the plain versions on the card.
+
+The kernels are compiled with ``nvcc`` for ``sm_90a`` into ``_build/`` at
+first use (plain C ABIs loaded through ``ctypes``), never at import.
 """
 
 from __future__ import annotations
@@ -30,36 +39,95 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["flash_attention", "flash_attention_plain", "build", "LAUNCHES",
-           "KERNEL_HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
+           "flash_attention_fwd_plain", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_train", "build",
+           "SOURCES", "LAUNCHES", "KERNEL_HEAD_DIMS"]
 
 _NEG = -100000.0  # the XLA backend's fill value
 KERNEL_HEAD_DIMS = (48, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of the CUDA kernel, keyed by head dim (one template instance each)
+# launches of the CUDA kernels, keyed "<kernel>_d<head dim>"
 LAUNCHES: collections.Counter = collections.Counter()
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flash_fwd.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = {"flash_fwd": _CSRC / "flash_fwd.cu", "flash_bwd": _CSRC / "flash_bwd.cu"}
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-_lib = None
+_libs: dict = {}
 _lib_lock = threading.Lock()
 
 
-def flash_attention_plain(q, k, v, key_mask=None, *, scale=None):
-    """The kernel's function in eager torch: scores in f32 from the f32-scaled
-    q, masked scores replaced by -1e5, f32 softmax over the true keys,
-    output cast to the input dtype. An all-masked row averages v."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def _scores(q, k, key_mask, scale):
+    """f32 scores (b, h, q, k) from the f32-scaled q, masked ones replaced."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
     if key_mask is not None:
         s = s.masked_fill(key_mask[:, None, None, :] == 0, _NEG)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1)                                      # (b, h, q)
+    return s
+
+
+def flash_attention_fwd_plain(q, k, v, key_mask=None, *, scale=None):
+    """The forward kernels' function in eager torch: scores in f32 from the
+    f32-scaled q, masked scores replaced by -1e5, f32 softmax over the true
+    keys, output cast to the input dtype; plus lse = m + log(max(l, 1e-30))
+    in f32, (B, H, Nq). An all-masked row averages v, and its lse is
+    -1e5 + log(nk)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = _scores(q, k, key_mask, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1).clamp_min(1e-30)                     # (b, h, q)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
-    out = out / l.clamp_min(1e-30).permute(0, 2, 1)[..., None]
-    return out.to(q.dtype)
+    out = out / l.permute(0, 2, 1)[..., None]
+    return out.to(q.dtype), m[..., 0] + torch.log(l)
+
+
+def flash_attention_plain(q, k, v, key_mask=None, *, scale=None):
+    """:func:`flash_attention_fwd_plain` without the lse (the inference
+    kernel's function)."""
+    return flash_attention_fwd_plain(q, k, v, key_mask, scale=scale)[0]
+
+
+def _delta(out, do):
+    """rowsum(dO * O) in f32, (B, H, Nq) contiguous."""
+    return (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(q, k, v, key_mask, out, lse, do, *, scale=None):
+    """The backward kernels' function in eager torch, written out as they
+    compute it (not through autograd): s = (q.k) * scale in f32 with masked
+    scores replaced by -1e5, p = exp(s - lse), dp = dO.v,
+    ds = p * (dp - delta) * scale set to 0 on masked keys; dq = ds.k,
+    dk = ds^T.q, dv = p^T.dO, all in f32, cast to q's, k's and v's dtype.
+    On a row whose keys are all masked dq and dk are exactly 0 and dv gets
+    the row's uniform 1/nk mass."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    dead = None if key_mask is None else (key_mask == 0)[:, None, None, :]
+    if dead is not None:
+        s = s.masked_fill(dead, _NEG)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - _delta(out, do)[..., None]) * scale
+    if dead is not None:
+        ds = ds.masked_fill(dead, 0.0)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Build and bind
+# ---------------------------------------------------------------------------
 
 
 def _nvcc() -> str:
@@ -70,45 +138,60 @@ def _nvcc() -> str:
     if found is None:
         raise RuntimeError(
             "nvcc not found (CUDA_HOME, /usr/local/cuda, PATH): the flash "
-            "kernel is built from bifold_tpu_torch/csrc/flash_fwd.cu at first use")
+            "kernels are built from bifold_tpu_torch/csrc/*.cu at first use")
     return found
 
 
-def build() -> Path:
-    """Compile ``csrc/flash_fwd.cu`` for sm_90a into ``_build/`` (skipped
-    when a library built from the same source bytes is there) and return its
+def build(name: str = "flash_fwd") -> Path:
+    """Compile ``SOURCES[name]`` for sm_90a into ``_build/`` (skipped when a
+    library built from the same source bytes is there) and return its
     path."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:12]
-    out = _BUILD_DIR / f"libflash_fwd-{tag}.so"
+    source = SOURCES[name]
+    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+    out = _BUILD_DIR / f"lib{name}-{tag}.so"
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-           str(_SOURCE)]
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc {source.name} failed ({proc.returncode}):\n"
+                           f"{proc.stderr}")
     tmp.replace(out)
     return out
 
 
-def _library():
-    global _lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_TAIL = [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, _I, _P]
+_SIGNATURES = {  # pointers, then b, nq, nk, h, d, strides, scale, dtype, stream
+    "flash_fwd": {"bifold_flash_fwd_infer": [_P] * 5 + [_I] * 5 + _TAIL,
+                  "bifold_flash_fwd_lse": [_P] * 6 + [_I] * 5 + _TAIL},
+    "flash_bwd": {"bifold_flash_bwd": [_P] * 10 + [_I] * 5 + _TAIL},
+}
+
+
+def _library(name: str):
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.bifold_flash_fwd_infer
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                           + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
-                              ctypes.c_int, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build(name)))
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             lib.bifold_cuda_error_string.argtypes = [ctypes.c_int]
             lib.bifold_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+            _libs[name] = lib
+        return _libs[name]
+
+
+def _launch(name, fn_name, *args):
+    lib = _library(name)
+    err = getattr(lib, fn_name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: "
+                           + lib.bifold_cuda_error_string(err).decode())
 
 
 def _check_cuda_inputs(q, k, v, key_mask):
@@ -142,33 +225,135 @@ def _check_cuda_inputs(q, k, v, key_mask):
                          "the kernel's grid (0 < B*H <= 65535, N > 0)")
 
 
+def _on_card(fn_name, q):
+    """True for a CPU tensor's plain path; raises for any device but CUDA."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn_name}: no kernel for device {q.device}")
+    return True
+
+
+def _strides(q, k, v):
+    return (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
+                                *v.stride()[:3])
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
 def flash_attention(q, k, v, key_mask=None, *, scale=None):
-    """Attention over (B, N, H, D) -> (B, N, H, D), forward only.
+    """Attention over (B, N, H, D) -> (B, N, H, D), forward only, no lse.
 
     On the CPU this is :func:`flash_attention_plain`. On the card it launches
-    the CUDA kernel (head dim 48 or 64, float32 or bfloat16, head dim
+    the inference kernel (head dim 48 or 64, float32 or bfloat16, head dim
     contiguous, ``key_mask`` a contiguous int32 (B, nk) tensor or None) on the
-    current stream, and raises on anything else."""
+    current stream, and raises on anything else. Its output carries no
+    gradient: differentiable calls go through :func:`flash_attention_train`."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if not _on_card("flash_attention", q):
         return flash_attention_plain(q, k, v, key_mask, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return _forward_on_card(q, k, v, key_mask, scale, with_lse=False)[0]
+
+
+def flash_attention_fwd(q, k, v, key_mask=None, *, scale=None):
+    """(out, lse): the forward of :func:`flash_attention` plus the f32 row
+    logsumexp, (B, H, Nq). Same inputs and rules as
+    :func:`flash_attention`; on the card, the lse kernel."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not _on_card("flash_attention_fwd", q):
+        return flash_attention_fwd_plain(q, k, v, key_mask, scale=scale)
+    return _forward_on_card(q, k, v, key_mask, scale, with_lse=True)
+
+
+def _forward_on_card(q, k, v, key_mask, scale, *, with_lse):
+    """Launch the inference (``with_lse`` False; lse None) or the lse
+    instance of ``csrc/flash_fwd.cu`` -> (out, lse)."""
     _check_cuda_inputs(q, k, v, key_mask)
     b, nq, h, d = q.shape
     out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
-                                   *v.stride()[:3])
-    lib = _library()
+    lse = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+            out.data_ptr()] + ([lse.data_ptr()] if with_lse else [])
+    kernel = "fwd_lse" if with_lse else "fwd_infer"
     with torch.cuda.device(q.device):
-        err = lib.bifold_flash_fwd_infer(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if key_mask is None else key_mask.data_ptr(),
-            out.data_ptr(), b, nq, k.shape[1], h, d, strides, float(scale),
-            _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("flash_attention kernel launch failed: "
-                           + lib.bifold_cuda_error_string(err).decode())
-    LAUNCHES[d] += 1
-    return out
+        _launch("flash_fwd", f"bifold_flash_{kernel}", *ptrs, b, nq,
+                k.shape[1], h, d, _strides(q, k, v), float(scale),
+                _DTYPE_CODES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+    LAUNCHES[f"{kernel}_d{d}"] += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, key_mask, out, lse, do, *, scale=None):
+    """(dq, dk, dv) of attention from the forward's ``out`` and ``lse`` and
+    the output cotangent ``do``, in q's, k's and v's dtype and layout. On the
+    CPU this is :func:`flash_attention_bwd_plain`; on the card it computes
+    delta = rowsum(dO * O) in f32 and launches the backward kernels (``out``
+    as :func:`flash_attention_fwd` returns it, ``do`` made contiguous)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not _on_card("flash_attention_bwd", q):
+        return flash_attention_bwd_plain(q, k, v, key_mask, out, lse, do,
+                                         scale=scale)
+    _check_cuda_inputs(q, k, v, key_mask)
+    b, nq, h, d = q.shape
+    do = do.contiguous()
+    for name, t in (("out", out), ("do", do)):
+        if (tuple(t.shape) != (b, nq, h, d) or t.dtype != q.dtype
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"flash_attention_bwd: {name} must be a "
+                             f"contiguous {q.dtype} (B, Nq, H, D) tensor")
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, nq)
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError("flash_attention_bwd: lse must be a contiguous "
+                         "float32 (B, H, Nq) tensor")
+    delta = _delta(out, do)
+    dq = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        _launch("flash_bwd", "bifold_flash_bwd", q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), _ptr(key_mask), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, nq, k.shape[1], h, d, _strides(q, k, v), float(scale),
+                _DTYPE_CODES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+    LAUNCHES[f"bwd_d{d}"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward with lse saves
+    (q, k, v, mask, out, lse), the backward runs the fused backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, scale):
+        out, lse = flash_attention_fwd(q, k, v, key_mask, scale=scale)
+        ctx.save_for_backward(q, k, v, key_mask, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, key_mask, out, lse, do,
+                                         scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_train(q, k, v, key_mask=None, *, scale=None):
+    """:func:`flash_attention` with gradients for q, k and v (see
+    :class:`FlashAttention`)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return FlashAttention.apply(q, k, v, key_mask, float(scale))

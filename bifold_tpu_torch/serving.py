@@ -17,6 +17,7 @@ depth as float32 or, with ``depth_wire_dtype="float16"``, float16.
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -56,10 +57,13 @@ def _wire(name: str, arr: np.ndarray, depth_f16: bool) -> np.ndarray:
 
 
 class ServingModel:
-    """Serve ``model`` (its weights replaced by ``state_dict`` when given)
-    on ``device``. Big float32 weights (>= 2**16 elements) are cast to the
-    model's compute dtype once, as the JAX server does; small ones (biases,
-    LayerNorm) stay float32."""
+    """Serve a copy of ``model`` (its weights replaced by ``state_dict`` when
+    given) on ``device``, in eval mode. Big float32 weights (>= 2**16
+    elements) are cast to the model's compute dtype once, as the JAX server
+    does; small ones (biases, LayerNorm) stay float32. The copy leaves the
+    caller's module as it was (a model can be served mid-training without
+    rounding its float32 trainable masters), as the JAX server works on a
+    new params tree."""
 
     def __init__(self, model, state_dict, processor: Processor, *,
                  threshold: Optional[float] = None,
@@ -67,7 +71,7 @@ class ServingModel:
         if depth_wire_dtype not in ("float32", "float16"):
             raise ValueError(f"depth_wire_dtype {depth_wire_dtype!r}")
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self.model = copy.deepcopy(model).to(self.device).eval()
         if state_dict is not None:
             self.model.load_state_dict(
                 {k: torch.from_numpy(np.array(v)) if isinstance(v, np.ndarray) else v

@@ -1,30 +1,52 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: python3 chip_smoke.py (one card).
 
-Drives the port's served path on the card and prints, one JSON object per
-line:
+Drives the port's served path and its train step on the card and prints,
+one JSON object per line:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build time
    (every ``bifold_tpu_torch/csrc`` source built by ``nvcc`` for sm_90a,
    all builds started together);
 2. each CUDA kernel against its plain PyTorch version on the card, at the
-   main path's shapes and on all-masked rows with a ragged n, in bf16 and in
-   f32 (TF32 off), with the tolerance it is held to;
-3. flagship serving: SiglipSequential at full width (384 px, 12-layer
-   SigLIP-base towers, LoRA r8, depth-8 fusion with 16 heads, bf16,
-   bimanual, 3 context frames) with seeded random weights, serving 5
-   ``predict`` requests at 720 px and one ``predict_batch`` of 8; launch
-   counts per request, finite outputs of the right shape, the same forward
-   through ``backend="math"``, and predict p50 latency;
-4. the ``kernels`` line, then the card line, then the result line
-   ``{"ok": true, "device": {...}}``.
+   main paths' shapes and on all-masked rows with a ragged n, in bf16 and in
+   f32 (TF32 off), with the tolerance it is held to: the inference forward,
+   the forward with lse (out and lse) and the backward (dq, dk, dv; dq and
+   dk exactly 0 on all-masked rows); then gradients through
+   ``dot_product_attention`` (the autograd Function over the kernels) against
+   autograd through the plain forward;
+3. kernel timings (CUDA events): each kernel, its plain version and
+   ``scaled_dot_product_attention`` as a yardstick (every SDPA backend that
+   runs the inputs, pinned and timed; a row takes the fastest and names it;
+   the backward's library time is forward+backward minus forward), with the
+   bound max(FLOP / bf16 peak, bytes / HBM rate);
+4. flagship training: SiglipSequential at full width and depth (384 px,
+   12-layer SigLIP-base towers, LoRA r8, depth-8 fusion with 16 heads, bf16,
+   bimanual, 3 context frames), batch 2, raw frames through the train
+   Processor (spatial augmentation on), bce_gaussmap, Adam 1e-4, clip 1.0:
+   3 warm-up and 10 timed steps with per-step losses, p50, samples/s, peak
+   memory and a profiler breakdown; gates on finite losses, frozen weights
+   bitwise unchanged, trainable weights updated, exactly 8 + 12
+   forward-with-lse and 8 + 12 backward launches and no inference launch
+   per step; then the trained model serves one request through the
+   inference kernel only;
+5. one f32 train step (SGD) through the kernels and through the math path
+   from the same weights, batch and draws: loss and trainable-gradient norm
+   agree;
+6. flagship serving: 5 ``predict`` requests at 720 px and
+   one ``predict_batch`` of 8; launch counts per request, finite outputs of
+   the right shape, the same forward through ``backend="math"``, predict p50
+   latency and where its time goes;
+7. the ``kernels`` line (six kernel instances), then the card line, then the
+   result line ``{"ok": true, "device": {...}}``.
 
+Each path's launch counts are reset just before it and read just after.
 Any failed phase raises, so the exit code is non-zero and no result line is
 printed; so does a machine without a CUDA card. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -71,6 +93,28 @@ def card_peaks(name: str):
     return _PEAKS["H100"]
 
 
+@contextlib.contextmanager
+def smi_samples(samples: list):
+    """Append (SM clock MHz, power draw W) to ``samples``, read by
+    ``nvidia-smi`` every 100 ms while the block runs; the sampler is stopped
+    on the way out. Unreadable lines are skipped."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                             "--format=csv,noheader,nounits", "-lms", "100"],
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        yield samples
+    finally:
+        proc.terminate()
+        text, _ = proc.communicate(timeout=30)
+    for line in text.splitlines():
+        fields = line.split(",")
+        if len(fields) == 2:
+            try:
+                samples.append((float(fields[0]), float(fields[1])))
+            except ValueError:       # "[N/A]", or a line cut by the terminate
+                continue
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -103,6 +147,16 @@ def fusion_mask(b, n, masked_frames):
     return mask
 
 
+def case_mask(gen, b, n, masking):
+    """None, the fusion mask with ``masking`` context frames masked, or
+    ("rows") a random key mask whose batch row 1 is all masked."""
+    if masking == "rows":
+        mask = (torch.rand(b, n, device="cuda", generator=gen) > 0.3).int()
+        mask[1] = 0
+        return mask
+    return None if masking is None else fusion_mask(b, n, masking)
+
+
 def within(out, ref, dtype):
     """bf16: two ulps of the plain value (both sides compute in f32 from the
     same bf16 inputs and round once); f32: 1e-4 absolute."""
@@ -116,10 +170,10 @@ def within(out, ref, dtype):
 
 
 def check_kernels(fa):
-    """Phase 2: the flash kernel against its plain version. Returns the
-    largest bf16 error per head dim."""
+    """Phase 2: the inference kernel against its plain version. Returns the
+    largest bf16 error per kernel name."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = {48: 0.0, 64: 0.0}
+    worst = {"flash_fwd_infer_d48": 0.0, "flash_fwd_infer_d64": 0.0}
     cases = [("fusion, 1 context frame masked", 1, 2373, 16, 48, True, 1),
              ("fusion, 2 context frames masked", 1, 2373, 16, 48, True, 2),
              ("vision", 4, 576, 12, 64, False, None),
@@ -128,13 +182,7 @@ def check_kernels(fa):
     for dtype in (torch.bfloat16, torch.float32):
         for label, b, n, h, d, fused, masking in cases:
             q, k, v = attention_inputs(gen, b, n, h, d, dtype, fused)
-            if masking == "rows":
-                mask = (torch.rand(b, n, device="cuda", generator=gen) > 0.3).int()
-                mask[1] = 0
-            elif masking is not None:
-                mask = fusion_mask(b, n, masking)
-            else:
-                mask = None
+            mask = case_mask(gen, b, n, masking)
             out = fa.flash_attention(q, k, v, mask)
             torch.cuda.synchronize()
             err, tol, ok = within(out, fa.flash_attention_plain(q, k, v, mask), dtype)
@@ -144,15 +192,118 @@ def check_kernels(fa):
             if not ok:
                 raise AssertionError(f"flash kernel disagrees with plain: {label}")
             if dtype == torch.bfloat16:
-                worst[d] = max(worst[d], err)
+                worst[f"flash_fwd_infer_d{d}"] = max(worst[f"flash_fwd_infer_d{d}"], err)
     return worst
 
 
+TRAIN_SHAPES = {48: (2, 2373, 16, True), 64: (8, 576, 12, False)}
+
+
+def train_cases():
+    """(label, b, n, h, d, fused, masking) of the training kernels' checks:
+    the train step's shapes, and the ragged n=300 case with all-masked rows
+    at both head dims."""
+    b48, n48, h48, _ = TRAIN_SHAPES[48]
+    b64, n64, h64, _ = TRAIN_SHAPES[64]
+    return [("fusion, 1 context frame masked", b48, n48, h48, 48, True, 1),
+            ("vision", b64, n64, h64, 64, False, None),
+            ("ragged n=300, all-masked rows", 2, 300, 3, 48, False, "rows"),
+            ("ragged n=300, all-masked rows", 2, 300, 3, 64, False, "rows")]
+
+
+def within_lse(out, ref):
+    """lse is f32 whatever the inputs: 1e-4 of max(1, |plain|) (an all-masked
+    row's lse is -1e5 + log(nk), where one f32 ulp is 0.0078)."""
+    err = (out - ref).abs()
+    return float(err.max()), "1e-4 * max(1, |plain|)", bool(
+        (err <= F32_TOL * ref.abs().clamp_min(1)).all())
+
+
+def check_train_kernels(fa):
+    """The forward-with-lse and backward kernels against their plain
+    versions, in bf16 and in f32; dq and dk exactly 0 on all-masked rows.
+    Returns the largest bf16 error per kernel name."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, b, n, h, d, fused, masking in train_cases():
+            q, k, v = attention_inputs(gen, b, n, h, d, dtype, fused)
+            mask = case_mask(gen, b, n, masking)
+            do = torch.randn(b, n, h, d, device="cuda", generator=gen).to(dtype)
+            out, lse = fa.flash_attention_fwd(q, k, v, mask)
+            grads = fa.flash_attention_bwd(q, k, v, mask, out, lse, do)
+            torch.cuda.synchronize()
+            p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, mask)
+            # the backward's reference takes the kernel's own out and lse,
+            # so the check isolates the backward kernel
+            p_grads = fa.flash_attention_bwd_plain(q, k, v, mask, out, lse, do)
+            results = [("flash_fwd_lse", "out", *within(out, p_out, dtype)),
+                       ("flash_fwd_lse", "lse", *within_lse(lse, p_lse))]
+            results += [("flash_bwd", g, *within(x, ref, dtype)) for g, x, ref
+                         in zip(("dq", "dk", "dv"), grads, p_grads)]
+            zero_rows = {}
+            if masking == "rows":
+                zero_rows = {g: float(x[1].float().abs().max())
+                             for g, x in zip(("dq", "dk"), grads[:2])}
+            for kernel, what, err, tol, ok in results:
+                emit({"phase": "kernel_vs_plain", "kernel": f"{kernel}_d{d}",
+                      "output": what, "case": label, "shape": [b, n, h, d],
+                      "dtype": str(dtype), "max_abs_err": err, "tol": tol,
+                      "ok": ok})
+                if not ok:
+                    raise AssertionError(f"{kernel}_d{d} {what} disagrees with "
+                                         f"plain: {label}, {dtype}")
+                if dtype == torch.bfloat16:
+                    name = f"{kernel}_d{d}"
+                    worst[name] = max(worst.get(name, 0.0), err)
+            if zero_rows:
+                emit({"phase": "all_masked_rows", "kernel": f"flash_bwd_d{d}",
+                      "dtype": str(dtype), "max_abs": zero_rows})
+                if any(zero_rows.values()):
+                    raise AssertionError(f"flash_bwd_d{d}: dq/dk not exactly 0 "
+                                         "on all-masked rows")
+    return worst
+
+
+def check_function_grads(fa):
+    """Gradients through dot_product_attention on the card (the autograd
+    Function over the two kernels) equal autograd through
+    flash_attention_plain, in f32: 1e-4 at the fusion shape; on the ragged
+    case with all-masked rows, dv within 2e-3 (the saved lse of such a row,
+    -1e5 + log(nk), is one f32 ulp = 0.0078 coarse, which moves its
+    recomputed 1/nk mass by up to 0.4%; autograd needs no lse)."""
+    from bifold_tpu_torch.ops.attention import dot_product_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = []
+    for label, b, n, h, d, fused, masking in train_cases()[::2]:
+        leaves = [x.detach().requires_grad_() for x in
+                  attention_inputs(gen, b, n, h, d, torch.float32, False)]
+        mask = case_mask(gen, b, n, masking)
+        do = torch.randn(b, n, h, d, device="cuda", generator=gen)
+        before = dict(fa.LAUNCHES)
+        got = torch.autograd.grad(dot_product_attention(*leaves, mask), leaves, do)
+        launched = {key: fa.LAUNCHES[key] - before.get(key, 0)
+                    for key in (f"fwd_lse_d{d}", f"bwd_d{d}", f"fwd_infer_d{d}")}
+        ref = torch.autograd.grad(fa.flash_attention_plain(*leaves, mask), leaves, do)
+        errs = {g: float((x - r).abs().max()) for g, x, r in zip("qkv", got, ref)}
+        tol = {"q": F32_TOL, "k": F32_TOL,
+               "v": 2e-3 if masking == "rows" else F32_TOL}
+        emit({"phase": "function_grads_vs_autograd_plain", "case": label,
+              "shape": [b, n, h, d], "max_abs_err": errs, "tol": tol,
+              "launches": launched})
+        if any(errs[g] > tol[g] for g in tol) or launched != {
+                f"fwd_lse_d{d}": 1, f"bwd_d{d}": 1, f"fwd_infer_d{d}": 0}:
+            raise AssertionError(f"gradients through the kernels: {label}")
+        out.append(errs)
+    return out
+
+
 def time_kernels(fa, peaks):
-    """The kernel, its plain version and SDPA at the main path's shapes in
-    bf16 (fusion: all 3 context frames present; vision: 4 frames)."""
+    """The kernel, its plain version and SDPA (its fastest backend) at the
+    main path's shapes in bf16 (fusion: all 3 context frames present; vision:
+    4 frames)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    flops_peak, bytes_peak = peaks
     rows = {}
     for d, (b, n, h, fused) in {48: (1, 2373, 16, True),
                                 64: (4, 576, 12, False)}.items():
@@ -160,19 +311,333 @@ def time_kernels(fa, peaks):
         mask = fusion_mask(b, n, 0) if fused else None
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa_mask = None if mask is None else (mask != 0)[:, None, None, :]
+        library = sdpa_times(qt, kt, vt, sdpa_mask)
+        backend = min(library, key=lambda name: library[name][0])
         valid = n if mask is None else int(mask.sum()) // b
-        flops = 4.0 * b * h * n * valid * d
-        nbytes = 4.0 * b * n * h * d * 2 + (0 if mask is None else 4 * b * n)
-        bound_flops, bound_bytes = flops / flops_peak * 1e3, nbytes / bytes_peak * 1e3
-        rows[d] = {
+        fwd_bound = bound(4.0 * b * h * n * valid * d,
+                          4.0 * b * n * h * d * 2 + (0 if mask is None else 4 * b * n),
+                          peaks)
+        rows[f"flash_fwd_infer_d{d}"] = {
             "ms": time_ms(lambda: fa.flash_attention(q, k, v, mask)),
             "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, mask)),
-            "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=sdpa_mask)),
-            "bound_ms": max(bound_flops, bound_bytes),
-            "bound_by": "operations" if bound_flops >= bound_bytes else "bytes",
+            "library_ms": library[backend][0], "library_backend": backend,
+            "library_by_backend": library,
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
             "shape": [b, n, h, d]}
     return rows
+
+
+def bound(flops, nbytes, peaks):
+    """max(operations / dense bf16 peak, bytes / memory rate), in ms."""
+    ops_ms, bytes_ms = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+SDPA_BACKENDS = ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                 "MATH")
+
+
+def sdpa_times(qt, kt, vt, sdpa_mask, dot=None):
+    """The library yardstick: for each SDPA backend that runs these inputs
+    (pinned with ``sdpa_kernel``, so each time names what it timed), ms of
+    the forward and, given the output cotangent ``dot``, of forward +
+    backward: {backend: [forward ms, forward+backward ms or None]}."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def forward():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=sdpa_mask)
+
+    def both():
+        return torch.autograd.grad(forward(), (qt, kt, vt), dot)
+
+    times = {}
+    for name in SDPA_BACKENDS:
+        with sdpa_kernel(getattr(SDPBackend, name)):
+            try:                         # a backend refuses what it lacks
+                forward() if dot is None else both()
+            except RuntimeError:
+                continue
+            times[name] = [time_ms(forward), None if dot is None else time_ms(both)]
+    if not times:
+        raise AssertionError("no SDPA backend runs these inputs")
+    return times
+
+
+def time_train_kernels(fa, peaks):
+    """The forward-with-lse and backward kernels, their plain versions and
+    SDPA (forward with grad, and forward + backward: the backward's library
+    time is the difference; each row takes the backend fastest at its part),
+    bf16, at the train step's shapes (fusion B=2 with all 3 context frames
+    present; vision 8 frames)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = {}
+    for d, (b, n, h, fused) in TRAIN_SHAPES.items():
+        q, k, v = attention_inputs(gen, b, n, h, d, torch.bfloat16, fused)
+        mask = fusion_mask(b, n, 0) if fused else None
+        do = torch.randn(b, n, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+        out, lse = fa.flash_attention_fwd(q, k, v, mask)
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+        sdpa_mask = None if mask is None else (mask != 0)[:, None, None, :]
+        library = sdpa_times(qt, kt, vt, sdpa_mask, do.transpose(1, 2))
+        lib_fwd = min(library, key=lambda name: library[name][0])
+        lib_bwd = min(library, key=lambda name: library[name][1] - library[name][0])
+        kept = n if mask is None else int(mask.sum()) // b
+        act = b * n * h * d * 2                   # one bf16 (B, N, H, D) tensor
+        mask_bytes = 0 if mask is None else 4 * b * n
+        lse_bytes = 4 * b * h * n
+        fwd_bound = bound(4.0 * b * h * n * kept * d,
+                          4 * act + mask_bytes + lse_bytes, peaks)
+        bwd_bound = bound(10.0 * b * h * n * kept * d,
+                          8 * act + mask_bytes + lse_bytes, peaks)
+        rows[f"flash_fwd_lse_d{d}"] = {
+            "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, mask)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, mask)),
+            "library_ms": library[lib_fwd][0], "library_backend": lib_fwd,
+            "library_by_backend": library,
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+            "shape": [b, n, h, d]}
+        rows[f"flash_bwd_d{d}"] = {
+            "ms": time_ms(lambda: fa.flash_attention_bwd(q, k, v, mask, out, lse, do)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, mask, out, lse, do)),
+            "library_ms": library[lib_bwd][1] - library[lib_bwd][0],
+            "library_backend": lib_bwd,
+            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+            "shape": [b, n, h, d]}
+    return rows
+
+
+TRAIN_PROCESSOR = {**PROCESSOR, "image_mean": [0.48145466, 0.4578275, 0.40821073],
+                   "image_std": [0.26862954, 0.26130258, 0.27577711],
+                   "spatial_augmentations": {"max_augmentation_trials": 5,
+                                             "rotate_augmentation": [-5, 6],
+                                             "translate_augmentation": [-5, 6]},
+                   "depth_augmentations": {"add_depth_noise": False,
+                                           "random_depth_shift": False,
+                                           "min_shift": -0.2, "max_shift": 0.2}}
+LOSS = {"name": "bce_gaussmap", "is_bimanual": True, "mask_pick_heatmap": False}
+ADAM = {"name": "adam", "lr": 1e-4, "betas": [0.9, 0.999], "eps": 1e-8,
+        "weight_decay": 0}
+TRAIN_BATCH = 2
+LABELS = ("left_pick", "left_place", "right_pick", "right_place")
+PER_STEP = {"fwd_lse_d48": 8, "fwd_lse_d64": 12, "bwd_d48": 8, "bwd_d64": 12}
+
+
+def raw_train_batch(proc, seed, batch=TRAIN_BATCH):
+    """A collated raw batch as bench.py builds it: uint8 frames at 384 px,
+    3 context frames, one label point per arm and action, tokenized
+    instructions."""
+    rng = np.random.default_rng(seed)
+    s, t = FLAGSHIP["image_size"], FLAGSHIP["context_length"]
+    raw = {"rgb": rng.integers(0, 255, (batch, s, s, 3), dtype=np.uint8),
+           "depth": rng.random((batch, s, s), dtype=np.float32),
+           "mask": (rng.random((batch, s, s)) > 0.5).astype(np.float32),
+           "ctx_rgb": rng.integers(0, 255, (batch, t, s, s, 3), dtype=np.uint8),
+           "ctx_depth": rng.random((batch, t, s, s), dtype=np.float32),
+           "ctx_mask": np.ones((batch, t, s, s), np.float32),
+           "ctx_count": np.full((batch,), t, np.int32),
+           "label_keys": LABELS,
+           "instruction": np.stack([proc.tokenize(INSTRUCTIONS[i % len(INSTRUCTIONS)])
+                                    for i in range(batch)])}
+    for key in LABELS:
+        lab = -np.ones((batch, 8, 2), np.float32)
+        lab[:, 0] = rng.uniform(50, 300, (batch, 2))
+        raw[key] = lab
+    return raw
+
+
+def trainer(dtype, optim_cfg, precast):
+    """The flagship with the train step's pieces: frozen towers but their
+    LoRA adapters, frozen weights precast to the compute dtype, the optimizer
+    over the trainable float32 masters with gradient clip 1.0."""
+    from bifold_tpu_torch.losses import build_loss
+    from bifold_tpu_torch.models import build_model, precast_frozen, trainable_mask
+    from bifold_tpu_torch.optim import build_optimizer
+    from bifold_tpu_torch.parallel import TrainState, make_train_step
+
+    model = build_model(FLAGSHIP, dtype=dtype, device="cuda", seed=0)
+    mask = trainable_mask(model, lora=True)
+    if precast:
+        precast_frozen(model, dtype)
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt = build_optimizer(dict(optim_cfg), params, None, max_iters=100,
+                          gradient_clip=1.0)
+    step = make_train_step(model, build_loss(dict(LOSS)), opt)
+    return model, mask, step, TrainState.create(opt, seed=0)
+
+
+def train_flagship(fa, card, warmup=3, steps=10):
+    """The bf16 flagship train step at full width and depth, batch 2: raw
+    frames -> train Processor on the card -> forward -> loss -> backward
+    through the lse and backward kernels -> clip -> Adam. Then serves the
+    trained model once, which must launch only the inference kernel."""
+    from bifold_tpu_torch.data.processor import Processor
+    from bifold_tpu_torch.data.spm import fixture_model_bytes
+    from bifold_tpu_torch.serving import ServingModel
+
+    t0 = time.perf_counter()
+    proc = Processor(TRAIN_PROCESSOR, partition="train", max_context_length=3,
+                     autoprocessor_name=FLAGSHIP["automodel_name"],
+                     spm_asset=fixture_model_bytes(), seed=0)
+    model, mask, step, state = trainer(torch.bfloat16, ADAM, precast=True)
+    named = dict(model.named_parameters())
+    before = {n: p.detach().clone() for n, p in named.items()}
+    raws = [raw_train_batch(proc, seed) for seed in range(warmup + steps)]
+    emit({"phase": "train_setup", "seconds": time.perf_counter() - t0,
+          "parameters": sum(p.numel() for p in named.values()),
+          "trainable": sum(p.numel() for n, p in named.items() if mask[n])})
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES.clear()                  # the train path's run starts here
+    losses, process_ms, step_ms, smi = [], [], [], []
+    with smi_samples(smi):
+        for i, raw in enumerate(raws):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sample = proc.process_batch(raw, "cuda")
+            torch.cuda.synchronize()
+            t_mid = time.perf_counter()
+            counts = dict(fa.LAUNCHES)
+            state, metrics = step(state, sample)
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+            delta = {key: fa.LAUNCHES[key] - counts.get(key, 0) for key in fa.LAUNCHES}
+            delta = {key: n for key, n in delta.items() if n}
+            if delta != PER_STEP:
+                raise AssertionError(f"train step {i}: kernel launches {delta}, "
+                                     f"want {PER_STEP}")
+            losses.append(float(metrics["loss"]))
+            if i >= warmup:
+                process_ms.append((t_mid - t) * 1e3)
+                step_ms.append((t_end - t_mid) * 1e3)
+    launches = dict(fa.LAUNCHES)         # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite train losses {losses}")
+    frozen_changed = [n for n, p in named.items()
+                      if not mask[n] and not torch.equal(p.detach(), before[n])]
+    stale = [n for n, p in named.items()
+             if mask[n] and torch.equal(p.detach(), before[n])]
+    if frozen_changed or [n for n in stale if "lora_A" not in n]:
+        raise AssertionError(f"frozen changed {frozen_changed[:3]}, "
+                             f"trainable unchanged {stale[:3]}")
+    p50 = statistics.median(step_ms)
+    emit({"phase": "train_flagship", "batch": TRAIN_BATCH, "warmup": warmup,
+          "steps": steps, "losses": losses,
+          "grad_norm_last": float(metrics["grad_norm"]),
+          "p50_step_ms": p50, "p50_process_ms": statistics.median(process_ms),
+          "samples_per_s": TRAIN_BATCH / (p50 / 1e3),
+          "samples_per_s_with_processor": TRAIN_BATCH / (
+              (p50 + statistics.median(process_ms)) / 1e3),
+          "max_memory_allocated_bytes": peak,
+          "sm_clock_mhz_min_median": [min(s[0] for s in smi),
+                                      statistics.median(s[0] for s in smi)] if smi else None,
+          "power_draw_w_median_max": [statistics.median(s[1] for s in smi),
+                                      max(s[1] for s in smi)] if smi else None,
+          "smi_samples": len(smi),
+          "launches_per_step": PER_STEP, "launches": launches,
+          "lora_A_unchanged": len(stale), **card})
+
+    sample = proc.process_batch(raws[-1], "cuda")
+    profile = device_profile(lambda: step(state, sample), p50)
+    emit({"phase": "where_the_time_goes", "path": "train_step", "p50_ms": p50,
+          "process_ms": statistics.median(process_ms),
+          **train_stages(model, state.optimizer, sample), **profile})
+
+    # serve the trained model: the copy leaves the float32 masters as they
+    # are, and predict launches the inference kernel only
+    test_proc = Processor(PROCESSOR, max_context_length=3,
+                          autoprocessor_name=FLAGSHIP["automodel_name"],
+                          spm_asset=fixture_model_bytes())
+    server = ServingModel(model, None, test_proc, device="cuda")
+    if any(p.dtype != torch.float32 for n, p in named.items() if mask[n]):
+        raise AssertionError("serving rounded the trainable float32 masters")
+    fa.LAUNCHES.clear()
+    obs = observation(np.random.default_rng(1), n_ctx=3)
+    action, raw_out = server.predict(**obs, instruction=INSTRUCTIONS[0],
+                                     return_raw_output=True)
+    check_action(action, raw_out, 1, FLAGSHIP["image_size"])
+    served = {key: n for key, n in fa.LAUNCHES.items() if n}
+    emit({"phase": "predict_after_training", "launches": served})
+    if served != {"fwd_infer_d48": 8, "fwd_infer_d64": 12}:
+        raise AssertionError(f"predict launched {served}")
+    return launches
+
+
+def train_stages(model, optimizer, sample, iters: int = 5):
+    """Median ms of the train step's stages, synchronised between stages:
+    forward + loss, backward (gradients of the trainable parameters) and the
+    optimizer (global norm, clip, update in place). Updates the model."""
+    from bifold_tpu_torch.losses import build_loss
+    from bifold_tpu_torch.models.dropout import set_dropout_generator
+
+    loss_fn = build_loss(dict(LOSS))
+    stages = {"forward_loss": [], "backward": [], "optimizer": []}
+    model.train()
+    for i in range(iters):
+        set_dropout_generator(model, torch.Generator("cuda").manual_seed(i))
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        loss, _ = loss_fn(model(sample), sample)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        grads = list(torch.autograd.grad(loss, optimizer.params))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        optimizer.step(grads)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for key, a, b in zip(stages, t, t[1:]):
+            stages[key].append((b - a) * 1e3)
+    set_dropout_generator(model, None)
+    return {f"{k}_ms": statistics.median(v) for k, v in stages.items()}
+
+
+F32_LOSS_RTOL = 1e-4
+F32_NORM_RTOL = 1e-3
+
+
+def f32_step_equivalence(fa):
+    """One f32 train step (TF32 off) with SGD from the same weights, batch
+    and dropout seed, through the kernels and through the math path: loss
+    within 1e-4 and trainable-gradient norm within 1e-3, relative."""
+    from bifold_tpu_torch.data.processor import Processor
+    from bifold_tpu_torch.data.spm import fixture_model_bytes
+
+    proc = Processor(TRAIN_PROCESSOR, partition="train", max_context_length=3,
+                     autoprocessor_name=FLAGSHIP["automodel_name"],
+                     spm_asset=fixture_model_bytes(), seed=0)
+    raw = raw_train_batch(proc, 99)
+    draws = proc.draw(proc._spec(raw), TRAIN_BATCH, raw["rgb"].shape[1:3], "cuda")
+    sgd = {"name": "sgd", "lr": 1e-3}
+    results = {}
+    for path in ("kernels", "math"):
+        model, mask, step, state = trainer(torch.float32, sgd, precast=False)
+        sample = proc.process_batch(raw, "cuda", draws=draws)
+        before = dict(fa.LAUNCHES)
+        if path == "math":
+            os.environ["BIFOLD_ATTN_BACKEND"] = "math"
+        try:
+            state, metrics = step(state, sample)
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("BIFOLD_ATTN_BACKEND", None)
+        launched = {k: fa.LAUNCHES[k] - before.get(k, 0) for k in PER_STEP}
+        results[path] = {"loss": float(metrics["loss"]),
+                         "grad_norm_trainable": float(metrics["grad_norm_trainable"]),
+                         "launches": launched}
+        del model, step, state
+        torch.cuda.empty_cache()
+    k, m = results["kernels"], results["math"]
+    loss_rel = abs(k["loss"] - m["loss"]) / abs(m["loss"])
+    norm_rel = abs(k["grad_norm_trainable"] - m["grad_norm_trainable"]) / m["grad_norm_trainable"]
+    emit({"phase": "f32_train_step_kernels_vs_math", **results,
+          "loss_rel_diff": loss_rel, "grad_norm_rel_diff": norm_rel,
+          "tol": {"loss": F32_LOSS_RTOL, "grad_norm": F32_NORM_RTOL}})
+    if (loss_rel > F32_LOSS_RTOL or norm_rel > F32_NORM_RTOL
+            or k["launches"] != PER_STEP or any(m["launches"].values())):
+        raise AssertionError("f32 train step: kernels and math path disagree")
 
 
 def observation(rng, n_ctx):
@@ -241,7 +706,7 @@ def serve_flagship(fa, card):
           "parameters": sum(p.numel() for p in model.parameters())})
 
     rng = np.random.default_rng(0)
-    per_request = {48: 8, 64: 12}        # 8 fusion + 12 vision layers
+    per_request = {"fwd_infer_d48": 8, "fwd_infer_d64": 12}  # fusion + vision layers
     size = FLAGSHIP["image_size"]
     fa.LAUNCHES.clear()                  # the main path's run starts here
     requests = []
@@ -263,7 +728,9 @@ def serve_flagship(fa, card):
     if delta != per_request:
         raise AssertionError(f"predict_batch: flash launches {delta}")
     check_action(action, raw, 8, size)
-    launches = dict(fa.LAUNCHES)         # ... and ends here
+    launches = {k: n for k, n in fa.LAUNCHES.items() if n}   # ... and ends here
+    if set(launches) != set(per_request):
+        raise AssertionError(f"serving launched {launches}")
     emit({"phase": "flagship_serving", "requests": len(requests), "pool": 8,
           "launches_per_request": per_request, "launches": launches})
 
@@ -383,30 +850,44 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     card = {"card": smi.split(",")[0].strip(), "power_limit": smi.split(",")[1].strip()}
     t0 = time.perf_counter()
-    builders = (fa.build,)                  # one nvcc per csrc source
-    with ThreadPoolExecutor() as pool:      # all started together
-        libs = [f.result() for f in [pool.submit(b) for b in builders]]
+    with ThreadPoolExecutor() as pool:      # one nvcc per csrc source, all
+        libs = [f.result() for f in         # started together
+                [pool.submit(fa.build, source) for source in fa.SOURCES]]
     emit({"phase": "card", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_seconds": time.perf_counter() - t0,
           "built": [os.path.basename(str(p)) for p in libs]})
 
-    worst = check_kernels(fa)
-    timings = time_kernels(fa, card_peaks(name))
-    launches = serve_flagship(fa, card)
+    peaks = card_peaks(name)
+    worst = {**check_kernels(fa), **check_train_kernels(fa)}
+    check_function_grads(fa)
+    timings = {**time_kernels(fa, peaks), **time_train_kernels(fa, peaks)}
+    for kernel, row in timings.items():
+        emit({"phase": "kernel_timing", "kernel": kernel, **row})
+    launches = train_flagship(fa, card)
+    torch.cuda.empty_cache()
+    f32_step_equivalence(fa)
+    launches.update(serve_flagship(fa, card))
 
+    sources = {"flash_fwd_infer": ("flash_fwd.cu", 250, "serving: predict"),
+               "flash_fwd_lse": ("flash_fwd.cu", 241, "training: train step"),
+               "flash_bwd": ("flash_bwd.cu", 360, "training: train step")}
     kernels = []
-    for d, where in ((48, "fusion"), (64, "vision")):
-        if launches.get(d, 0) == 0:
-            raise AssertionError(f"flash_fwd_infer_d{d} never ran on the main path")
-        row = timings[d]
-        kernels.append({
-            "name": f"flash_fwd_infer_d{d}", "route": "cuda",
-            "source": "bifold_tpu_torch/csrc/flash_fwd.cu",
-            "replaces": "bifold_tpu/ops/flash_attention.py:250",
-            "launches": launches[d], "max_abs_err": worst[d], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"], "where": where})
+    for kernel, (src, line, where) in sources.items():
+        for d, stack in ((48, "fusion"), (64, "vision")):
+            key = f"{kernel}_d{d}"
+            count = launches.get(key.replace("flash_", ""), 0)
+            if count == 0:
+                raise AssertionError(f"{key} never ran on its main path")
+            row = timings[key]
+            kernels.append({
+                "name": key, "route": "cuda",
+                "source": f"bifold_tpu_torch/csrc/{src}",
+                "replaces": f"bifold_tpu/ops/flash_attention.py:{line}",
+                "launches": count, "max_abs_err": worst[key], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "library_backend": row["library_backend"],
+                "shape": row["shape"], "where": f"{where}, {stack}"})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,18 +1,25 @@
-"""The port's flash attention (plain version + wrapper dispatch) against the
-JAX package's Pallas kernel (interpret mode) and its XLA path.
+"""The port's flash attention (plain versions, wrapper dispatch, the autograd
+Function) against the JAX package's Pallas kernels (interpret mode) and its
+XLA path.
 
 Inputs come from a numpy seed and go through both packages. Tolerances:
 1e-4 on rows with at least one unmasked key (both sides accumulate in f32,
 in different orders), 2e-3 on all-masked rows (their uniform average over
-~300 keys sums 300 values of |v| ~ 3 before dividing).
+~300 keys sums 300 values of |v| ~ 3 before dividing). lse: 1e-4 of
+max(1, |lse|) (an all-masked row's lse is -1e5 + log(nk), where one f32 ulp
+is 0.0078). Gradients: 1e-4, and dv 2e-3 where all-masked rows contribute
+(against autograd, which needs no lse, the -1e5-scale lse moves those rows'
+recomputed 1/nk mass by up to 0.4%).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from bifold_tpu.ops.attention import dot_product_attention as jax_attention
+from bifold_tpu.ops.flash_attention import _fwd_impl as jax_fwd_with_lse
 from bifold_tpu.ops.flash_attention import flash_attention as jax_flash
 from bifold_tpu_torch.ops import flash_attention as fa
 from bifold_tpu_torch.ops.attention import dot_product_attention
@@ -125,3 +132,102 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         fa.flash_attention(q, q, q)
 
+
+
+def _lse_check(out, ref):
+    out, ref = np.asarray(out), np.asarray(ref)
+    assert (np.abs(out - ref) <= NORMAL_TOL * np.maximum(1, np.abs(ref))).all()
+
+
+@pytest.mark.parametrize("d", [48, 64])
+def test_fwd_plain_matches_pallas_fwd_kernel(d):
+    """out and lse of the plain forward against the Pallas ``_fwd_kernel``
+    (``_fwd_impl``, interpret mode), with a key mask, all-masked rows and a
+    ragged n=300."""
+    q, k, v, mask = _inputs(20 + d, d=d)
+    ref_out, ref_lse = jax_fwd_with_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
+        d ** -0.5, None, 512, True)
+    out, lse = fa.flash_attention_fwd_plain(_t(q), _t(k), _t(v), _t(mask))
+    assert lse.dtype == torch.float32 and lse.shape == (2, 2, 300)
+    _check(out.numpy(), ref_out, mask)
+    _lse_check(lse.numpy(), ref_lse)
+    # an all-masked row: m = -1e5, l = nk
+    np.testing.assert_allclose(lse[1].numpy(), -1e5 + np.log(np.float32(300)),
+                               rtol=0, atol=0.008)
+
+
+def _grad_inputs(seed, d):
+    q, k, v, mask = _inputs(seed, d=d)
+    do = np.random.default_rng(seed + 1).normal(size=q.shape).astype(np.float32)
+    return q, k, v, mask, do
+
+
+def _check_grads(got, ref, tol_v=DEGENERATE_TOL):
+    for name, g, r in zip("qkv", got, ref):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(r),
+                                   atol=tol_v if name == "v" else NORMAL_TOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("d", [48, 64])
+def test_bwd_plain_matches_pallas_vjp(d):
+    """dq, dk, dv of the plain backward against jax.vjp through the Pallas
+    flash attention (its ``_dqkv_kernel`` in interpret mode); dq and dk
+    exactly 0 on the all-masked batch row."""
+    q, k, v, mask, do = _grad_inputs(30 + d, d)
+    jmask = jnp.asarray(mask)
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, jmask, interpret=True),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = vjp(jnp.asarray(do))
+    tq, tk, tv, tm = _t(q), _t(k), _t(v), _t(mask)
+    out, lse = fa.flash_attention_fwd_plain(tq, tk, tv, tm)
+    got = fa.flash_attention_bwd_plain(tq, tk, tv, tm, out, lse, _t(do))
+    _check_grads([g.numpy() for g in got], ref, tol_v=NORMAL_TOL)
+    for g in got[:2]:
+        assert torch.count_nonzero(g[1]) == 0
+    assert torch.count_nonzero(got[2][1]) > 0            # dv keeps 1/nk mass
+
+
+@pytest.mark.parametrize("d", [48, 64])
+def test_bwd_plain_matches_autograd_of_plain(d):
+    q, k, v, mask, do = _grad_inputs(40 + d, d)
+    leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+    tm = _t(mask)
+    ref = torch.autograd.grad(fa.flash_attention_plain(*leaves, tm), leaves, _t(do))
+    out, lse = fa.flash_attention_fwd_plain(*leaves, tm)
+    got = fa.flash_attention_bwd_plain(*[x.detach() for x in leaves], tm,
+                                       out.detach(), lse.detach(), _t(do))
+    _check_grads([g.numpy() for g in got], [r.numpy() for r in ref])
+
+
+def test_function_routes_grad_calls_on_the_cpu():
+    """A differentiated flash call goes through the autograd Function (its
+    plain forward and backward here) and a no-grad call through the
+    inference path; both match the plain versions and launch no kernel."""
+    q, k, v, mask, do = _grad_inputs(50, 48)
+    tm, tdo = _t(mask), _t(do)
+    launches = sum(fa.LAUNCHES.values())
+    leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+    out = dot_product_attention(*leaves, tm, backend="flash")
+    assert out.grad_fn is not None and "FlashAttention" in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, leaves, tdo)
+    p_out, p_lse = fa.flash_attention_fwd_plain(_t(q), _t(k), _t(v), tm)
+    ref = fa.flash_attention_bwd_plain(_t(q), _t(k), _t(v), tm, p_out, p_lse, tdo)
+    torch.testing.assert_close(out.detach(), p_out, rtol=0, atol=0)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    with torch.no_grad():
+        plain = dot_product_attention(*leaves, tm, backend="flash")
+    assert plain.grad_fn is None
+    torch.testing.assert_close(plain, p_out, rtol=0, atol=0)
+    assert sum(fa.LAUNCHES.values()) == launches
+
+
+def test_train_wrappers_refuse_other_devices():
+    q = torch.empty((1, 300, 2, 48), device="meta")
+    lse = torch.empty((1, 2, 300), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.flash_attention_bwd(q, q, q, None, q, lse, q)

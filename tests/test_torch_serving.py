@@ -24,7 +24,7 @@ from bifold_tpu.serving import ServingModel as JaxServingModel
 from bifold_tpu.serving import _stack_raws
 from bifold_tpu_torch.data import tokenizers as port_tokenizers
 from bifold_tpu_torch.data.processor import Processor, _core
-from bifold_tpu_torch.models import build_model
+from bifold_tpu_torch.models import build_model, trainable_mask
 from bifold_tpu_torch.models.convert import convert_bifold_inverse
 from bifold_tpu_torch.ops import flash_attention as fa
 from bifold_tpu_torch.serving import ServingModel, ServingPolicy
@@ -257,6 +257,39 @@ def test_siglip_unimanual_matches_jax():
         np.testing.assert_allclose(tr[k], np.asarray(jr[k]), atol=F32_TOL, err_msg=k)
     np.testing.assert_array_equal(ta.pick, np.asarray(ja.pick))
     np.testing.assert_array_equal(ta.place, np.asarray(ja.place))
+
+
+def test_server_leaves_the_callers_model_untouched():
+    """ServingModel precasts and switches to eval on its own copy: a bf16
+    model in training keeps its float32 trainable masters, its frozen
+    weights and its train mode, and serves what a server built from an
+    identical fresh model serves."""
+    jax_model, params = _jax_params(jnp.bfloat16)
+    state = convert_bifold_inverse(params)
+    model = build_model(CFG, dtype=torch.bfloat16, device="cpu")
+    mask = trainable_mask(model, lora=True)
+    model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in state.items()})
+    model.train()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    proc = Processor(PROC_CFG, max_context_length=3, autoprocessor_name="tiny",
+                     spm_asset=fixture_model_bytes())
+    server = ServingModel(model, None, proc, device="cpu")
+    assert model.training and not server.model.training
+    for n, p in model.named_parameters():
+        assert p.dtype == torch.float32, n
+        assert torch.equal(p.detach(), before[n]), n
+    assert any(p.dtype == torch.bfloat16 for p in server.model.parameters())
+    assert any(mask.values())
+    fresh = ServingModel(build_model(CFG, dtype=torch.bfloat16, device="cpu"),
+                         state, proc, device="cpu")
+    obs = _observation(np.random.default_rng(7), 2)
+    (a, ra), (b, rb) = (srv.predict(**obs, instruction=INSTRUCTIONS[0],
+                                    return_raw_output=True)
+                        for srv in (server, fresh))
+    for k in ra:
+        np.testing.assert_array_equal(ra[k], rb[k], err_msg=k)
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
 
 
 def test_entry_points_refuse_a_missing_card():
