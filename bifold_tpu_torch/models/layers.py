@@ -1,6 +1,6 @@
 """Shared building blocks: LayerNorm, GELUs, attention, MLP, transformer.
 
-Counterparts of bifold_tpu/models/layers.py:53-101, 132-211, 214-305 and
+Counterparts of bifold_tpu/models/layers.py:53-161, 164-211, 214-305 and
 372-439/511+. Parameters are float32 (or pre-cast: frozen ones by
 ``precast_frozen``, all big ones by the serving path); every layer computes
 in its ``dtype`` by casting weights at use, as flax does, with LayerNorm
@@ -9,6 +9,15 @@ statistics and GELUs in float32. Dropout sits where the JAX package puts it
 LoRA input (``lora_dropout``), the attention output before and after its
 projection and the FFN after the activation and after the second linear
 (``dropout``, the fusion stack's).
+
+``BIFOLD_LN_KERNEL`` (:mod:`bifold_tpu_torch.ops.layer_norm`) routes the
+LayerNorms as in the JAX package: ``pallas`` sends every norm whose width is
+a multiple of 128 through the LayerNorm kernels (:class:`_LayerNormFn`);
+``fused`` also makes each pre-norm stack carry ``(residual, pending)`` so
+that every residual add happens inside a norm (:class:`_FusedAddLayerNormFn`),
+with one add left at the end of the stack. Unset, the LayerNorm is the eager
+code below and nothing else changes. Both Functions save what JAX's custom
+VJPs save: the norm's input (or s) and the f32 row stats.
 
 Module names follow the reference torch checkpoints so that a converted
 state dict loads with ``strict=True``:
@@ -33,6 +42,7 @@ from torch.nn import functional as F
 
 from bifold_tpu_torch.models.dropout import Dropout
 from bifold_tpu_torch.models.lora import LORA_TARGETS, LoRALinear
+from bifold_tpu_torch.ops import layer_norm as ln_ops
 from bifold_tpu_torch.ops.attention import dot_product_attention
 
 __all__ = ["LayerNorm", "gelu_tanh", "gelu_exact", "GELU", "linear",
@@ -46,10 +56,56 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
+class _LayerNormFn(torch.autograd.Function):
+    """LayerNorm through the kernels (``_layer_norm``'s custom VJP with the
+    Pallas backend, bifold_tpu/models/layers.py:52-101): saves (x, mean,
+    rstd, scale); scale and bias gradients in the parameters' dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        out, mean, rstd = ln_ops.ln_forward(x, scale, bias, eps)
+        ctx.save_for_backward(x, mean, rstd, scale)
+        ctx.bias_dtype = bias.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, rstd, scale = ctx.saved_tensors
+        dx, dscale, dbias = ln_ops.ln_backward(x, dy, mean, rstd, scale)
+        return dx, dscale.to(scale.dtype), dbias.to(ctx.bias_dtype), None
+
+
+class _FusedAddLayerNormFn(torch.autograd.Function):
+    """(s, y) with s = x + delta and y = LN(s) in one kernel pass each way
+    (``_fused_add_ln``, bifold_tpu/models/layers.py:104-129): saves (s,
+    mean, rstd, scale); the backward folds the residual stream's cotangent
+    into the norm's and returns it as the gradient of both x and delta."""
+
+    @staticmethod
+    def forward(ctx, x, delta, scale, bias, eps):
+        s, y, mean, rstd = ln_ops.fused_ln_forward(x, delta, scale, bias, eps)
+        ctx.save_for_backward(s, mean, rstd, scale)
+        ctx.bias_dtype = bias.dtype
+        return s, y
+
+    @staticmethod
+    def backward(ctx, ds_out, dy):
+        s, mean, rstd, scale = ctx.saved_tensors
+        ds, dscale, dbias = ln_ops.fused_ln_backward(s, dy, ds_out, mean, rstd,
+                                                     scale)
+        return ds, ds, dscale.to(scale.dtype), dbias.to(ctx.bias_dtype), None
+
+
 class LayerNorm(nn.Module):
     """LayerNorm with the fast variance E[x^2] - E[x]^2 (clamped at 0),
     statistics in float32, output cast to ``dtype``. Written out rather than
-    ``F.layer_norm`` so the reduction matches the JAX package's."""
+    ``F.layer_norm`` so the reduction matches the JAX package's.
+
+    ``forward(x, residual=delta)`` also does the pre-norm residual add and
+    returns ``(s, y)``, s = x + delta and y = LN(s): one fused kernel pass
+    under ``BIFOLD_LN_KERNEL=fused``, a plain add and the norm otherwise.
+    Under ``pallas`` or ``fused`` a norm of width a multiple of 128 goes
+    through the kernels (on the CPU, their plain versions)."""
 
     def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.float32):
         super().__init__()
@@ -58,8 +114,19 @@ class LayerNorm(nn.Module):
         self.eps = eps
         self.dtype = dtype
 
-    def forward(self, x):
-        xf = x.to(self.dtype).float()
+    def forward(self, x, residual=None):
+        x = x.to(self.dtype)
+        kernel = x.dim() >= 2 and ln_ops.use_kernel_ln(x.shape[-1])
+        if residual is not None:
+            residual = residual.to(self.dtype)
+            if kernel and ln_ops.ln_mode() == "fused":
+                return _FusedAddLayerNormFn.apply(x, residual, self.weight,
+                                                  self.bias, self.eps)
+            s = x + residual
+            return s, self(s)
+        if kernel:
+            return _LayerNormFn.apply(x, self.weight, self.bias, self.eps)
+        xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)
         var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
         y = (xf - mean) * torch.rsqrt(var + self.eps)
@@ -159,7 +226,10 @@ class FeedForward(nn.Module):
 
 class TransformerBlock(nn.Module):
     """Pre-norm residual block with HF SigLIP encoder-layer names:
-    x + attn(ln1(x)); x + mlp(ln2(x))."""
+    x + attn(ln1(x)); x + mlp(ln2(x)). Given ``pending`` (the fused wiring
+    of bifold_tpu/models/layers.py:430-439), the input is (x, pending) with
+    x + pending the block's true input, both adds happen inside the norms,
+    and it returns (s2, mlp_out) for the next block."""
 
     def __init__(self, dim, heads, mlp_dim, dim_head=None, lora_rank=0,
                  lora_alpha=1.0, lora_dropout=0.0, ln_eps=1e-6,
@@ -172,10 +242,16 @@ class TransformerBlock(nn.Module):
         self.layer_norm2 = LayerNorm(dim, ln_eps, dtype)
         self.mlp = FeedForward(dim, mlp_dim, dtype)
 
-    def forward(self, x, key_mask=None, *, legacy_query_mask=None):
-        x = x + self.self_attn(self.layer_norm1(x), key_mask,
-                               legacy_query_mask=legacy_query_mask)
-        return x + self.mlp(self.layer_norm2(x))
+    def forward(self, x, key_mask=None, *, pending=None,
+                legacy_query_mask=None):
+        if pending is None:
+            x = x + self.self_attn(self.layer_norm1(x), key_mask,
+                                   legacy_query_mask=legacy_query_mask)
+            return x + self.mlp(self.layer_norm2(x))
+        s1, n1 = self.layer_norm1(x, residual=pending)
+        a = self.self_attn(n1, key_mask, legacy_query_mask=legacy_query_mask)
+        s2, n2 = self.layer_norm2(s1, residual=a)
+        return s2, self.mlp(n2)
 
 
 class _PreNorm(nn.Module):
@@ -204,7 +280,8 @@ class _SequentialFeedForward(nn.Module):
 
 class FusionBlock(nn.ModuleList):
     """The same pre-norm block with the reference fusion transformer's names
-    (``[PreNorm(Attention), PreNorm(FeedForward)]``), exact GELU."""
+    (``[PreNorm(Attention), PreNorm(FeedForward)]``), exact GELU, and the
+    same ``pending`` wiring."""
 
     def __init__(self, dim, heads, mlp_dim, dim_head=None, ln_eps=1e-5,
                  dropout=0.0, dtype=torch.float32):
@@ -217,18 +294,28 @@ class FusionBlock(nn.ModuleList):
                      ln_eps, dtype),
         ])
 
-    def forward(self, x, key_mask=None, *, legacy_query_mask=None):
+    def forward(self, x, key_mask=None, *, pending=None,
+                legacy_query_mask=None):
         attn, ff = self[0], self[1]
-        x = x + attn.fn(attn.norm(x), key_mask,
-                        legacy_query_mask=legacy_query_mask)
-        return x + ff.fn(ff.norm(x))
+        if pending is None:
+            x = x + attn.fn(attn.norm(x), key_mask,
+                            legacy_query_mask=legacy_query_mask)
+            return x + ff.fn(ff.norm(x))
+        s1, n1 = attn.norm(x, residual=pending)
+        a = attn.fn(n1, key_mask, legacy_query_mask=legacy_query_mask)
+        s2, n2 = ff.norm(s1, residual=a)
+        return s2, ff.fn(n2)
 
 
 class Transformer(nn.Module):
     """Stack of ``depth`` pre-norm blocks under ``layers``: HF-named
     :class:`TransformerBlock` (gelu-tanh) for the towers, :class:`FusionBlock`
     (exact gelu) for the fusion stack (``fused_qkv``, with ``dropout``);
-    the towers take ``lora_dropout`` on their adapters."""
+    the towers take ``lora_dropout`` on their adapters. Under
+    ``BIFOLD_LN_KERNEL=fused`` the stack carries (x, zeros) through the
+    blocks' ``pending`` wiring and returns s + pending, as
+    bifold_tpu/models/layers.py:687-693 and 747-750 do; the state dict is
+    the same either way."""
 
     def __init__(self, dim, depth, heads, mlp_dim, dim_head=None,
                  fused_qkv=True, lora_rank=0, lora_alpha=1.0, lora_dropout=0.0,
@@ -246,6 +333,12 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(blocks)
 
     def forward(self, x, key_mask=None, *, legacy_query_mask=None):
+        if ln_ops.ln_mode() == "fused":
+            pending = torch.zeros_like(x)
+            for block in self.layers:
+                x, pending = block(x, key_mask, pending=pending,
+                                   legacy_query_mask=legacy_query_mask)
+            return x + pending
         for block in self.layers:
             x = block(x, key_mask, legacy_query_mask=legacy_query_mask)
         return x

@@ -23,21 +23,20 @@ hold the plain versions against the JAX kernels; ``chip_smoke.py`` holds the
 CUDA kernels against the plain versions on the card.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into ``_build/`` at
-first use (plain C ABIs loaded through ``ctypes``), never at import.
+first use (plain C ABIs loaded through ``ctypes``), never at import, by
+:mod:`bifold_tpu_torch.ops._cuda`; ``build`` and ``SOURCES`` (every
+``csrc`` source) are re-exported here.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
+
+from bifold_tpu_torch.ops._cuda import (DTYPE_CODES, SOURCES, build, launch,
+                                         on_card)
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
@@ -46,16 +45,9 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
 
 _NEG = -100000.0  # the XLA backend's fill value
 KERNEL_HEAD_DIMS = (48, 64)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the CUDA kernels, keyed "<kernel>_d<head dim>"
 LAUNCHES: collections.Counter = collections.Counter()
-
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = {"flash_fwd": _CSRC / "flash_fwd.cu", "flash_bwd": _CSRC / "flash_bwd.cu"}
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-_libs: dict = {}
-_lib_lock = threading.Lock()
 
 
 # ---------------------------------------------------------------------------
@@ -125,75 +117,6 @@ def flash_attention_bwd_plain(q, k, v, key_mask, out, lse, do, *, scale=None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# ---------------------------------------------------------------------------
-# Build and bind
-# ---------------------------------------------------------------------------
-
-
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and (Path(cand) / "bin" / "nvcc").exists():
-            return str(Path(cand) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (CUDA_HOME, /usr/local/cuda, PATH): the flash "
-            "kernels are built from bifold_tpu_torch/csrc/*.cu at first use")
-    return found
-
-
-def build(name: str = "flash_fwd") -> Path:
-    """Compile ``SOURCES[name]`` for sm_90a into ``_build/`` (skipped when a
-    library built from the same source bytes is there) and return its
-    path."""
-    source = SOURCES[name]
-    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
-    out = _BUILD_DIR / f"lib{name}-{tag}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc {source.name} failed ({proc.returncode}):\n"
-                           f"{proc.stderr}")
-    tmp.replace(out)
-    return out
-
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_TAIL = [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, _I, _P]
-_SIGNATURES = {  # pointers, then b, nq, nk, h, d, strides, scale, dtype, stream
-    "flash_fwd": {"bifold_flash_fwd_infer": [_P] * 5 + [_I] * 5 + _TAIL,
-                  "bifold_flash_fwd_lse": [_P] * 6 + [_I] * 5 + _TAIL},
-    "flash_bwd": {"bifold_flash_bwd": [_P] * 10 + [_I] * 5 + _TAIL},
-}
-
-
-def _library(name: str):
-    with _lib_lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(str(build(name)))
-            for fn_name, argtypes in _SIGNATURES[name].items():
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.bifold_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.bifold_cuda_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
-        return _libs[name]
-
-
-def _launch(name, fn_name, *args):
-    lib = _library(name)
-    err = getattr(lib, fn_name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: "
-                           + lib.bifold_cuda_error_string(err).decode())
-
-
 def _check_cuda_inputs(q, k, v, key_mask):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
@@ -205,7 +128,7 @@ def _check_cuda_inputs(q, k, v, key_mask):
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} has no kernel "
                          f"(built for {KERNEL_HEAD_DIMS})")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype}; the kernel takes float32 or bfloat16")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -223,15 +146,6 @@ def _check_cuda_inputs(q, k, v, key_mask):
     if b * h > 65535 or min(b, nq, k.shape[1], h) == 0:
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} is outside "
                          "the kernel's grid (0 < B*H <= 65535, N > 0)")
-
-
-def _on_card(fn_name, q):
-    """True for a CPU tensor's plain path; raises for any device but CUDA."""
-    if q.device.type == "cpu":
-        return False
-    if q.device.type != "cuda":
-        raise ValueError(f"{fn_name}: no kernel for device {q.device}")
-    return True
 
 
 def _strides(q, k, v):
@@ -258,7 +172,7 @@ def flash_attention(q, k, v, key_mask=None, *, scale=None):
     gradient: differentiable calls go through :func:`flash_attention_train`."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if not _on_card("flash_attention", q):
+    if not on_card("flash_attention", q):
         return flash_attention_plain(q, k, v, key_mask, scale=scale)
     return _forward_on_card(q, k, v, key_mask, scale, with_lse=False)[0]
 
@@ -269,7 +183,7 @@ def flash_attention_fwd(q, k, v, key_mask=None, *, scale=None):
     :func:`flash_attention`; on the card, the lse kernel."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if not _on_card("flash_attention_fwd", q):
+    if not on_card("flash_attention_fwd", q):
         return flash_attention_fwd_plain(q, k, v, key_mask, scale=scale)
     return _forward_on_card(q, k, v, key_mask, scale, with_lse=True)
 
@@ -285,11 +199,9 @@ def _forward_on_card(q, k, v, key_mask, scale, *, with_lse):
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
             out.data_ptr()] + ([lse.data_ptr()] if with_lse else [])
     kernel = "fwd_lse" if with_lse else "fwd_infer"
-    with torch.cuda.device(q.device):
-        _launch("flash_fwd", f"bifold_flash_{kernel}", *ptrs, b, nq,
-                k.shape[1], h, d, _strides(q, k, v), float(scale),
-                _DTYPE_CODES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream)
+    launch("flash_fwd", f"bifold_flash_{kernel}", q.device, *ptrs, b, nq,
+           k.shape[1], h, d, _strides(q, k, v), float(scale),
+           DTYPE_CODES[q.dtype])
     LAUNCHES[f"{kernel}_d{d}"] += 1
     return out, lse
 
@@ -302,7 +214,7 @@ def flash_attention_bwd(q, k, v, key_mask, out, lse, do, *, scale=None):
     as :func:`flash_attention_fwd` returns it, ``do`` made contiguous)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if not _on_card("flash_attention_bwd", q):
+    if not on_card("flash_attention_bwd", q):
         return flash_attention_bwd_plain(q, k, v, key_mask, out, lse, do,
                                          scale=scale)
     _check_cuda_inputs(q, k, v, key_mask)
@@ -321,13 +233,11 @@ def flash_attention_bwd(q, k, v, key_mask, out, lse, do, *, scale=None):
     dq = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        _launch("flash_bwd", "bifold_flash_bwd", q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), _ptr(key_mask), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                b, nq, k.shape[1], h, d, _strides(q, k, v), float(scale),
-                _DTYPE_CODES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream)
+    launch("flash_bwd", "bifold_flash_bwd", q.device, q.data_ptr(),
+           k.data_ptr(), v.data_ptr(), _ptr(key_mask), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+           dv.data_ptr(), b, nq, k.shape[1], h, d, _strides(q, k, v),
+           float(scale), DTYPE_CODES[q.dtype])
     LAUNCHES[f"bwd_d{d}"] += 1
     return dq, dk, dv
 

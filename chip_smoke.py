@@ -11,14 +11,20 @@ one JSON object per line:
    main paths' shapes and on all-masked rows with a ragged n, in bf16 and in
    f32 (TF32 off), with the tolerance it is held to: the inference forward,
    the forward with lse (out and lse) and the backward (dq, dk, dv; dq and
-   dk exactly 0 on all-masked rows); then gradients through
+   dk exactly 0 on all-masked rows); the four LayerNorm kernels (out, s,
+   mean, rstd; dx, dscale, dbias) at the train step's fusion and vision
+   rows, a ragged R = 300 and R = 1, with constant rows, and dscale and
+   dbias bitwise equal across two calls; then gradients through
    ``dot_product_attention`` (the autograd Function over the kernels) against
    autograd through the plain forward;
-3. kernel timings (CUDA events): each kernel, its plain version and
+3. kernel timings: each flash kernel (CUDA events), its plain version and
    ``scaled_dot_product_attention`` as a yardstick (every SDPA backend that
    runs the inputs, pinned and timed; a row takes the fastest and names it;
    the backward's library time is forward+backward minus forward), with the
-   bound max(FLOP / bf16 peak, bytes / HBM rate);
+   bound max(FLOP / bf16 peak, bytes / HBM rate); each LayerNorm kernel,
+   its plain version and ``F.layer_norm`` / ``native_layer_norm_backward``
+   by device time (profiler) and by CUDA events, with the bound
+   max(bytes / HBM rate, FLOP / f32 CUDA-core peak);
 4. flagship training: SiglipSequential at full width and depth (384 px,
    12-layer SigLIP-base towers, LoRA r8, depth-8 fusion with 16 heads, bf16,
    bimanual, 3 context frames), batch 2, raw frames through the train
@@ -28,24 +34,35 @@ one JSON object per line:
    bitwise unchanged, trainable weights updated, exactly 8 + 12
    forward-with-lse and 8 + 12 backward launches and no inference launch
    per step; then the trained model serves one request through the
-   inference kernel only;
-5. one f32 train step (SGD) through the kernels and through the math path
-   from the same weights, batch and draws: loss and trainable-gradient norm
-   agree;
-6. flagship serving: 5 ``predict`` requests at 720 px and
-   one ``predict_batch`` of 8; launch counts per request, finite outputs of
-   the right shape, the same forward through ``backend="math"``, predict p50
-   latency and where its time goes;
-7. the ``kernels`` line (six kernel instances), then the card line, then the
+   inference kernel only. Then the same under ``BIFOLD_LN_KERNEL=pallas``
+   (66 ``ln_fwd`` + 64 ``ln_bwd`` per step) and ``fused`` (64
+   ``fused_ln_fwd`` + 2 ``ln_fwd``, 62 ``fused_ln_bwd`` + 2 ``ln_bwd``),
+   counts derived from the model's norms; then 10 more steps of each mode,
+   the three modes in turns, for a p50 that host drift affects alike;
+5. one f32 train step (SGD) through the kernels, through the math path and
+   through the kernels under ``BIFOLD_LN_KERNEL=fused``, from the same
+   weights, batch and draws: loss and trainable-gradient norm agree;
+6. flagship serving in each LayerNorm mode (default, ``pallas``,
+   ``fused``): 5 ``predict`` requests at 720 px and one ``predict_batch``
+   of 8; launch counts per request (20 flash, and 66 LayerNorm forwards in
+   the kernel modes), finite outputs of the right shape, the same forward
+   through ``backend="math"`` and, in f32, the kernel modes' actions equal
+   to the default mode's; predict p50 latency and where its time goes;
+7. the ``kernels`` line (ten kernel instances), then the card line, then the
    result line ``{"ok": true, "device": {...}}``.
 
 Each path's launch counts are reset just before it and read just after.
+Every torch.profiler session (the ``where_the_time_goes`` windows and the
+LayerNorm device timings) runs after every host-clock measurement: once the
+profiler has traced the card, later launches in the process cost more host
+time.
 Any failed phase raises, so the exit code is non-zero and no result line is
 printed; so does a machine without a CUDA card. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -76,9 +93,10 @@ INSTRUCTIONS = ("fold the left sleeve to the center",
                 "fold the towel in half from bottom to top",
                 "fold the right sleeve in", "fold the tshirt in half",
                 "flatten the cloth")
-# dense bf16 tensor-core rate and memory rate (NVIDIA data sheets)
-_PEAKS = {"PCIe": (756e12, 2.0e12), "NVL": (835e12, 3.9e12),
-          "H200": (989e12, 4.8e12), "H100": (989e12, 3.35e12)}
+# dense bf16 tensor-core rate, memory rate and f32 CUDA-core rate (NVIDIA
+# data sheets)
+_PEAKS = {"PCIe": (756e12, 2.0e12, 51e12), "NVL": (835e12, 3.9e12, 60e12),
+          "H200": (989e12, 4.8e12, 67e12), "H100": (989e12, 3.35e12, 67e12)}
 F32_TOL = 1e-4
 
 
@@ -408,6 +426,219 @@ def time_train_kernels(fa, peaks):
     return rows
 
 
+LN_KERNELS = ("ln_fwd", "ln_bwd", "fused_ln_fwd", "fused_ln_bwd")
+LN_LINES = {"ln_fwd": 141, "ln_bwd": 199, "fused_ln_fwd": 271, "fused_ln_bwd": 322}
+LN_WHERE = {"ln_fwd": "BIFOLD_LN_KERNEL=pallas|fused: training and serving",
+            "ln_bwd": "BIFOLD_LN_KERNEL=pallas|fused: training",
+            "fused_ln_fwd": "BIFOLD_LN_KERNEL=fused: training and serving",
+            "fused_ln_bwd": "BIFOLD_LN_KERNEL=fused: training"}
+# the train step's LayerNorm rows (B * N, 768) and eps: fusion 2 x 2373
+# tokens, eps 1e-5; vision 8 frames x 576 patches, eps 1e-6
+LN_SHAPES = {"fusion": ((2, 2373, 768), 1e-5), "vision": ((8, 576, 768), 1e-6)}
+LN_F32_TOL = 1e-5
+LN_STAT_RTOL = 1e-5
+LN_PARAM_TOL = 1e-4
+
+
+def ln_inputs(gen, shape, dtype):
+    """x, delta, dy, ds_out in ``dtype`` and float32 scale and bias. With
+    three rows or more, two middle rows of x are constant (1.25 and 1.0),
+    and so are those rows of s = x + delta (1.25, with delta 0 and 0.25):
+    their sums are exact in any order, so their variance is exactly 0 and
+    the clamp and rstd = 1/sqrt(eps) are exercised."""
+    c = shape[-1]
+
+    def randn(*s):
+        return torch.randn(*s, device="cuda", generator=gen)
+
+    x, delta = randn(*shape) * 2 + 0.5, randn(*shape) * 0.5
+    flat_x, flat_d = x.view(-1, c), delta.view(-1, c)
+    mid = flat_x.shape[0] // 2
+    if flat_x.shape[0] >= 3:
+        flat_x[mid], flat_d[mid] = 1.25, 0.0
+        flat_x[mid - 1], flat_d[mid - 1] = 1.0, 0.25
+    rows = [t.to(dtype) for t in (x, delta, randn(*shape), randn(*shape))]
+    return (*rows, randn(c) * 0.1 + 1.0, randn(c) * 0.1)
+
+
+def ln_close(out, ref, what, dtype):
+    """(max |err|, tolerance text, ok) of one LayerNorm output."""
+    err = (out.float() - ref.float()).abs()
+    if what == "s":
+        return float(err.max()), "bitwise", bool(torch.equal(out, ref))
+    if what in ("mean", "rstd"):
+        return (float(err.max()), f"{LN_STAT_RTOL} * |plain|",
+                bool((err <= LN_STAT_RTOL * ref.abs()).all()))
+    if what in ("dscale", "dbias"):
+        tol = LN_PARAM_TOL
+    else:
+        tol = 2.0 ** -7 if dtype == torch.bfloat16 else LN_F32_TOL
+    text = ("2^-7" if tol == 2.0 ** -7 else str(tol)) + " * max(1, |plain|)"
+    return float(err.max()), text, bool((err <= tol * ref.float().abs().clamp_min(1)).all())
+
+
+def check_ln_kernels():
+    """The four LayerNorm kernels against their plain versions, in bf16
+    and in f32, at the train step's fusion and vision rows, at a ragged
+    R = 300 (these three with constant rows) and at R = 1; the backward
+    kernels take the forward kernels' own stats, so the check isolates
+    them; dscale and dbias bitwise equal across two calls. Returns the
+    largest bf16 error per kernel at the train shapes."""
+    from bifold_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [(name, shape, eps) for name, (shape, eps) in LN_SHAPES.items()]
+    cases += [("ragged R=300", (300, 768), 1e-6), ("R=1", (1, 768), 1e-5)]
+    worst = dict.fromkeys(LN_KERNELS, 0.0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, shape, eps in cases:
+            x, delta, dy, ds_out, scale, bias = ln_inputs(gen, shape, dtype)
+            out, mean, rstd = ln.ln_forward(x, scale, bias, eps)
+            s, f_out, f_mean, f_rstd = ln.fused_ln_forward(x, delta, scale, bias, eps)
+            grads = ln.ln_backward(x, dy, mean, rstd, scale)
+            f_grads = ln.fused_ln_backward(s, dy, ds_out, f_mean, f_rstd, scale)
+            again = (ln.ln_backward(x, dy, mean, rstd, scale)[1:]
+                     + ln.fused_ln_backward(s, dy, ds_out, f_mean, f_rstd, scale)[1:])
+            torch.cuda.synchronize()
+            results = [
+                ("ln_fwd", zip(("out", "mean", "rstd"), (out, mean, rstd),
+                               ln.ln_forward_plain(x, scale, bias, eps))),
+                ("fused_ln_fwd", zip(("s", "out", "mean", "rstd"),
+                                     (s, f_out, f_mean, f_rstd),
+                                     ln.fused_ln_forward_plain(x, delta, scale, bias, eps))),
+                ("ln_bwd", zip(("dx", "dscale", "dbias"), grads,
+                               ln.ln_backward_plain(x, dy, mean, rstd, scale))),
+                ("fused_ln_bwd", zip(("dx", "dscale", "dbias"), f_grads,
+                                     ln.fused_ln_backward_plain(
+                                         s, dy, ds_out, f_mean, f_rstd, scale)))]
+            deterministic = all(torch.equal(a, b) for a, b in
+                                zip(again, grads[1:] + f_grads[1:]))
+            for kernel, outputs in results:
+                for what, got, ref in outputs:
+                    err, tol, ok = ln_close(got, ref, what, dtype)
+                    emit({"phase": "kernel_vs_plain", "kernel": kernel,
+                          "output": what, "case": label, "shape": list(shape),
+                          "dtype": str(dtype), "max_abs_err": err, "tol": tol,
+                          "ok": ok})
+                    if not ok:
+                        raise AssertionError(f"{kernel} {what} disagrees with "
+                                             f"plain: {label}, {dtype}")
+                    if dtype == torch.bfloat16 and label in LN_SHAPES:
+                        worst[kernel] = max(worst[kernel], err)
+            emit({"phase": "ln_param_grads_deterministic", "case": label,
+                  "dtype": str(dtype), "bitwise_equal": deterministic})
+            if not deterministic:
+                raise AssertionError(f"dscale/dbias differ between two calls: {label}")
+    return worst
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call: the CUDA kernels' self device time summed over
+    a torch.profiler window of ``iters`` calls, over ``iters``. Unlike
+    :func:`time_ms` it leaves out the gaps between kernels, so a call whose
+    host enqueue outlasts its kernels is timed by its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in kernels)
+    if busy_us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return busy_us / 1e3 / iters
+
+
+LN_TIMING_SETS = 8     # input sets in turn: > 100 MB between two uses of one
+
+
+def time_ln_kernels(peaks):
+    """The four LayerNorm kernels, their plain versions and, where one
+    PyTorch call computes the same function, that call (``F.layer_norm``;
+    ``aten.native_layer_norm_backward``; scale and bias in bf16 for it), in
+    bf16 at the train step's fusion and vision rows. Each is timed two ways:
+    ``*ms`` its device time per call (:func:`device_ms`) and ``*event_ms``
+    CUDA events over 20 back-to-back calls, which at these sizes measure
+    the host's enqueue. The calls take :data:`LN_TIMING_SETS` input sets in
+    turn, so more than the 50 MB L2 passes between two uses of one set and
+    the inputs come from device memory, as the main path's fresh
+    activations mostly do. Bound: max(bytes / HBM rate, f32 operations /
+    f32 CUDA-core rate), each input read and each output written once."""
+    import itertools
+
+    from bifold_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = {}
+    for stack, (shape, eps) in LN_SHAPES.items():
+        n, c = int(np.prod(shape)), shape[-1]
+        sets = []
+        for _ in range(LN_TIMING_SETS):
+            x, delta, dy, ds_out, scale, bias = ln_inputs(gen, shape, torch.bfloat16)
+            t = dict(x=x, delta=delta, dy=dy, ds_out=ds_out, scale=scale, bias=bias,
+                     w=scale.to(x.dtype), b=bias.to(x.dtype))
+            _, t["mean"], t["rstd"] = ln.ln_forward(x, scale, bias, eps)
+            t["s"], _, t["f_mean"], t["f_rstd"] = ln.fused_ln_forward(
+                x, delta, scale, bias, eps)
+            _, t["lib_mean"], t["lib_rstd"] = torch.ops.aten.native_layer_norm(
+                x, [c], t["w"], t["b"], eps)
+            sets.append(t)
+        row, stat, par = 2 * n, 4 * n // c, 4 * c   # bytes of one (R, C) bf16, (R,) f32, (C,) f32
+        calls = {
+            "ln_fwd": (lambda t: ln.ln_forward(t["x"], t["scale"], t["bias"], eps),
+                       lambda t: ln.ln_forward_plain(t["x"], t["scale"], t["bias"], eps),
+                       lambda t: torch.nn.functional.layer_norm(
+                           t["x"], (c,), t["w"], t["b"], eps),
+                       2 * row + 2 * stat + 2 * par, 7 * n),
+            "ln_bwd": (lambda t: ln.ln_backward(t["x"], t["dy"], t["mean"], t["rstd"],
+                                                t["scale"]),
+                       lambda t: ln.ln_backward_plain(t["x"], t["dy"], t["mean"],
+                                                      t["rstd"], t["scale"]),
+                       lambda t: torch.ops.aten.native_layer_norm_backward(
+                           t["dy"], t["x"], [c], t["lib_mean"], t["lib_rstd"], t["w"],
+                           t["b"], [True, True, True]),
+                       3 * row + 2 * stat + 3 * par, 13 * n),
+            "fused_ln_fwd": (lambda t: ln.fused_ln_forward(t["x"], t["delta"], t["scale"],
+                                                           t["bias"], eps),
+                             lambda t: ln.fused_ln_forward_plain(
+                                 t["x"], t["delta"], t["scale"], t["bias"], eps),
+                             None, 4 * row + 2 * stat + 2 * par, 9 * n),
+            "fused_ln_bwd": (lambda t: ln.fused_ln_backward(
+                                 t["s"], t["dy"], t["ds_out"], t["f_mean"], t["f_rstd"],
+                                 t["scale"]),
+                             lambda t: ln.fused_ln_backward_plain(
+                                 t["s"], t["dy"], t["ds_out"], t["f_mean"], t["f_rstd"],
+                                 t["scale"]),
+                             None, 4 * row + 2 * stat + 3 * par, 14 * n)}
+
+        def in_turn(fn):
+            turn = itertools.cycle(sets)
+            return lambda: fn(next(turn))
+
+        for kernel, (call, plain, library, nbytes, ops) in calls.items():
+            bytes_ms, ops_ms = nbytes / peaks[1] * 1e3, ops / peaks[2] * 1e3
+            timed = {"": call, "plain_": plain, "library_": library}
+            row_out = {}
+            for prefix, fn in timed.items():
+                row_out[f"{prefix}ms"] = None if fn is None else device_ms(in_turn(fn))
+                row_out[f"{prefix}event_ms"] = None if fn is None else time_ms(in_turn(fn))
+            rows[f"{kernel}_{stack}"] = {
+                **row_out,
+                "library_call": (None if library is None else
+                                 "F.layer_norm" if kernel == "ln_fwd"
+                                 else "aten.native_layer_norm_backward"),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes, "shape": list(shape), "eps": eps}
+        del sets
+    return rows
+
+
 TRAIN_PROCESSOR = {**PROCESSOR, "image_mean": [0.48145466, 0.4578275, 0.40821073],
                    "image_std": [0.26862954, 0.26130258, 0.27577711],
                    "spatial_augmentations": {"max_augmentation_trials": 5,
@@ -467,52 +698,144 @@ def trainer(dtype, optim_cfg, precast):
     return model, mask, step, TrainState.create(opt, seed=0)
 
 
-def train_flagship(fa, card, warmup=3, steps=10):
-    """The bf16 flagship train step at full width and depth, batch 2: raw
-    frames -> train Processor on the card -> forward -> loss -> backward
-    through the lse and backward kernels -> clip -> Adam. Then serves the
-    trained model once, which must launch only the inference kernel."""
+LN_MODES = ("", "pallas", "fused")
+# the flagship's 768-wide LayerNorms: 2 in each of the 12 blocks of either
+# tower and of the 8 fusion blocks (in the stacks), post_layernorm and
+# final_layer_norm (outside them)
+FLAGSHIP_NORMS = (64, 2)
+# stacks whose first norm is not differentiated: in either frozen tower,
+# block 0's first norm has an input (the frozen embeddings, plus zeros under
+# "fused") and parameters that carry no gradient
+FROZEN_STACKS = 2
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count so far, flash and LayerNorm, nonzero
+    ones only."""
+    from bifold_tpu_torch.ops import flash_attention as fa
+    from bifold_tpu_torch.ops import layer_norm as ln
+
+    return {k: n for counter in (fa.LAUNCHES, ln.LAUNCHES)
+            for k, n in counter.items() if n}
+
+
+def clear_launch_counts() -> None:
+    from bifold_tpu_torch.ops import flash_attention as fa
+    from bifold_tpu_torch.ops import layer_norm as ln
+
+    fa.LAUNCHES.clear()
+    ln.LAUNCHES.clear()
+
+
+def launched_since(before: dict) -> dict:
+    now = launch_counts()
+    return {k: n - before.get(k, 0) for k, n in now.items() if n != before.get(k, 0)}
+
+
+@contextlib.contextmanager
+def ln_mode(mode: str):
+    """``BIFOLD_LN_KERNEL=mode`` inside the block ('' unsets it)."""
+    old = os.environ.pop("BIFOLD_LN_KERNEL", None)
+    if mode:
+        os.environ["BIFOLD_LN_KERNEL"] = mode
+    try:
+        yield
+    finally:
+        os.environ.pop("BIFOLD_LN_KERNEL", None)
+        if old is not None:
+            os.environ["BIFOLD_LN_KERNEL"] = old
+
+
+def ln_launches(model, mode, train):
+    """The LayerNorm kernel launches of one forward (and, ``train``, its
+    backward) of ``model`` under ``BIFOLD_LN_KERNEL=mode``, counted from the
+    model: under "pallas" every norm takes ``ln_fwd`` / ``ln_bwd``; under
+    "fused" the stacks' norms take the fused kernels."""
+    from bifold_tpu_torch.models.layers import LayerNorm, Transformer
+
+    in_stacks = {id(m) for t in model.modules() if isinstance(t, Transformer)
+                 for m in t.modules() if isinstance(m, LayerNorm)}
+    norms = [m for m in model.modules()
+             if isinstance(m, LayerNorm) and m.weight.numel() % 128 == 0]
+    stacked = sum(id(m) in in_stacks for m in norms)
+    if (stacked, len(norms) - stacked) != FLAGSHIP_NORMS:
+        raise AssertionError(f"{stacked} + {len(norms) - stacked} LayerNorms, "
+                             f"want {FLAGSHIP_NORMS}")
+    other = len(norms) - stacked
+    if mode == "pallas":
+        fwd, bwd = {"ln_fwd": len(norms)}, {"ln_bwd": len(norms) - FROZEN_STACKS}
+    elif mode == "fused":
+        fwd = {"fused_ln_fwd": stacked, "ln_fwd": other}
+        bwd = {"fused_ln_bwd": stacked - FROZEN_STACKS, "ln_bwd": other}
+    else:
+        fwd, bwd = {}, {}
+    return {**fwd, **bwd} if train else fwd
+
+
+def train_flagship(card, mode="", warmup=3, steps=10) -> dict:
+    """The bf16 flagship train step at full width and depth, batch 2, with
+    ``BIFOLD_LN_KERNEL=mode``: raw frames -> train Processor on the card ->
+    forward -> loss -> backward through the lse and backward kernels (and
+    the LayerNorm kernels of the mode) -> clip -> Adam. In the default mode
+    it then serves the trained model once, which must launch only the
+    inference kernel. Peak memory is counted above what was allocated
+    before the phase. Returns the phase: its launch counts, ``one_step``
+    (one more launch-checked step on a batch made from a seed -> its ms),
+    and what :func:`where_the_time_goes` needs; the model lives as long as
+    the phase."""
     from bifold_tpu_torch.data.processor import Processor
     from bifold_tpu_torch.data.spm import fixture_model_bytes
     from bifold_tpu_torch.serving import ServingModel
 
     t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
     proc = Processor(TRAIN_PROCESSOR, partition="train", max_context_length=3,
                      autoprocessor_name=FLAGSHIP["automodel_name"],
                      spm_asset=fixture_model_bytes(), seed=0)
     model, mask, step, state = trainer(torch.bfloat16, ADAM, precast=True)
+    per_step = {**PER_STEP, **ln_launches(model, mode, train=True)}
     named = dict(model.named_parameters())
     before = {n: p.detach().clone() for n, p in named.items()}
     raws = [raw_train_batch(proc, seed) for seed in range(warmup + steps)]
-    emit({"phase": "train_setup", "seconds": time.perf_counter() - t0,
-          "parameters": sum(p.numel() for p in named.values()),
-          "trainable": sum(p.numel() for n, p in named.items() if mask[n])})
 
-    torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES.clear()                  # the train path's run starts here
-    losses, process_ms, step_ms, smi = [], [], [], []
-    with smi_samples(smi):
-        for i, raw in enumerate(raws):
+    def one_step(raw, label):
+        """(process ms, step ms, loss) of one step on ``raw``, its launches
+        held to ``per_step``."""
+        nonlocal state, metrics
+        with ln_mode(mode):
             torch.cuda.synchronize()
             t = time.perf_counter()
             sample = proc.process_batch(raw, "cuda")
             torch.cuda.synchronize()
             t_mid = time.perf_counter()
-            counts = dict(fa.LAUNCHES)
+            counts = launch_counts()
             state, metrics = step(state, sample)
             torch.cuda.synchronize()
             t_end = time.perf_counter()
-            delta = {key: fa.LAUNCHES[key] - counts.get(key, 0) for key in fa.LAUNCHES}
-            delta = {key: n for key, n in delta.items() if n}
-            if delta != PER_STEP:
-                raise AssertionError(f"train step {i}: kernel launches {delta}, "
-                                     f"want {PER_STEP}")
-            losses.append(float(metrics["loss"]))
+        delta = launched_since(counts)
+        if delta != per_step:
+            raise AssertionError(f"train step {label} ({mode or 'default'}): "
+                                 f"kernel launches {delta}, want {per_step}")
+        return (t_mid - t) * 1e3, (t_end - t_mid) * 1e3, float(metrics["loss"])
+
+    metrics = None
+    emit({"phase": "train_setup", "ln_mode": mode,
+          "seconds": time.perf_counter() - t0,
+          "parameters": sum(p.numel() for p in named.values()),
+          "trainable": sum(p.numel() for n, p in named.items() if mask[n])})
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, process_ms, step_ms, smi = [], [], [], []
+    with smi_samples(smi):
+        clear_launch_counts()            # the train path's run starts here
+        for i, raw in enumerate(raws):
+            p_ms, s_ms, loss = one_step(raw, i)
+            losses.append(loss)
             if i >= warmup:
-                process_ms.append((t_mid - t) * 1e3)
-                step_ms.append((t_end - t_mid) * 1e3)
-    launches = dict(fa.LAUNCHES)         # ... and ends here
-    peak = torch.cuda.max_memory_allocated()
+                process_ms.append(p_ms)
+                step_ms.append(s_ms)
+        launches = launch_counts()       # ... and ends here
+    peak = torch.cuda.max_memory_allocated() - base
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite train losses {losses}")
     frozen_changed = [n for n, p in named.items()
@@ -523,8 +846,8 @@ def train_flagship(fa, card, warmup=3, steps=10):
         raise AssertionError(f"frozen changed {frozen_changed[:3]}, "
                              f"trainable unchanged {stale[:3]}")
     p50 = statistics.median(step_ms)
-    emit({"phase": "train_flagship", "batch": TRAIN_BATCH, "warmup": warmup,
-          "steps": steps, "losses": losses,
+    emit({"phase": "train_flagship", "ln_mode": mode, "batch": TRAIN_BATCH,
+          "warmup": warmup, "steps": steps, "losses": losses,
           "grad_norm_last": float(metrics["grad_norm"]),
           "p50_step_ms": p50, "p50_process_ms": statistics.median(process_ms),
           "samples_per_s": TRAIN_BATCH / (p50 / 1e3),
@@ -536,14 +859,27 @@ def train_flagship(fa, card, warmup=3, steps=10):
           "power_draw_w_median_max": [statistics.median(s[1] for s in smi),
                                       max(s[1] for s in smi)] if smi else None,
           "smi_samples": len(smi),
-          "launches_per_step": PER_STEP, "launches": launches,
+          "launches_per_step": per_step, "launches": launches,
           "lora_A_unchanged": len(stale), **card})
 
     sample = proc.process_batch(raws[-1], "cuda")
-    profile = device_profile(lambda: step(state, sample), p50)
-    emit({"phase": "where_the_time_goes", "path": "train_step", "p50_ms": p50,
-          "process_ms": statistics.median(process_ms),
-          **train_stages(model, state.optimizer, sample), **profile})
+
+    def stages():
+        with ln_mode(mode):
+            return train_stages(model, state.optimizer, sample)
+
+    def profile():
+        with ln_mode(mode):
+            return device_profile(lambda: step(state, sample), p50)
+
+    phase = {"mode": mode, "launches": launches, "stages": stages, "profile": profile,
+             "one_step": lambda seed: one_step(raw_train_batch(proc, seed), seed)[1],
+             "where": {"phase": "where_the_time_goes", "path": "train_step",
+                       "ln_mode": mode, "p50_ms": p50,
+                       "process_ms": statistics.median(process_ms),
+                       "max_memory_allocated_bytes": peak}}
+    if mode:
+        return phase
 
     # serve the trained model: the copy leaves the float32 masters as they
     # are, and predict launches the inference kernel only
@@ -553,16 +889,33 @@ def train_flagship(fa, card, warmup=3, steps=10):
     server = ServingModel(model, None, test_proc, device="cuda")
     if any(p.dtype != torch.float32 for n, p in named.items() if mask[n]):
         raise AssertionError("serving rounded the trainable float32 masters")
-    fa.LAUNCHES.clear()
+    clear_launch_counts()
     obs = observation(np.random.default_rng(1), n_ctx=3)
     action, raw_out = server.predict(**obs, instruction=INSTRUCTIONS[0],
                                      return_raw_output=True)
     check_action(action, raw_out, 1, FLAGSHIP["image_size"])
-    served = {key: n for key, n in fa.LAUNCHES.items() if n}
+    served = launch_counts()
     emit({"phase": "predict_after_training", "launches": served})
     if served != {"fwd_infer_d48": 8, "fwd_infer_d64": 12}:
         raise AssertionError(f"predict launched {served}")
-    return launches
+    del server
+    return phase
+
+
+def train_interleaved(steppers, card, rounds=10):
+    """The train step p50 of each LayerNorm mode, with the modes' steps
+    taken in turns (default, pallas, fused, default, ...) on the same
+    batches, so that drift of the shared host's speed falls on all modes
+    alike."""
+    step_ms = {mode: [] for mode in steppers}
+    for r in range(rounds):
+        for mode, one_step in steppers.items():
+            step_ms[mode].append(one_step(1000 + r))
+    p50 = {mode: statistics.median(v) for mode, v in step_ms.items()}
+    emit({"phase": "train_step_interleaved", "rounds": rounds, "batch": TRAIN_BATCH,
+          "p50_step_ms": p50,
+          "samples_per_s": {m: TRAIN_BATCH / (v / 1e3) for m, v in p50.items()},
+          "step_ms": step_ms, **card})
 
 
 def train_stages(model, optimizer, sample, iters: int = 5):
@@ -598,10 +951,13 @@ F32_LOSS_RTOL = 1e-4
 F32_NORM_RTOL = 1e-3
 
 
-def f32_step_equivalence(fa):
+def f32_step_equivalence():
     """One f32 train step (TF32 off) with SGD from the same weights, batch
-    and dropout seed, through the kernels and through the math path: loss
-    within 1e-4 and trainable-gradient norm within 1e-3, relative."""
+    and dropout seed, three ways: through the flash kernels ("kernels"),
+    through the math path ("math"), and through the flash kernels with
+    ``BIFOLD_LN_KERNEL=fused`` ("ln_fused", every LayerNorm on its kernels).
+    Against "kernels", each of the other two holds the loss within 1e-4 and
+    the trainable-gradient norm within 1e-3, relative."""
     from bifold_tpu_torch.data.processor import Processor
     from bifold_tpu_torch.data.spm import fixture_model_bytes
 
@@ -611,33 +967,39 @@ def f32_step_equivalence(fa):
     raw = raw_train_batch(proc, 99)
     draws = proc.draw(proc._spec(raw), TRAIN_BATCH, raw["rgb"].shape[1:3], "cuda")
     sgd = {"name": "sgd", "lr": 1e-3}
+    want = {"kernels": PER_STEP, "math": {}, "ln_fused": None}
     results = {}
-    for path in ("kernels", "math"):
+    for path in want:
         model, mask, step, state = trainer(torch.float32, sgd, precast=False)
+        if path == "ln_fused":
+            want[path] = {**PER_STEP, **ln_launches(model, "fused", train=True)}
         sample = proc.process_batch(raw, "cuda", draws=draws)
-        before = dict(fa.LAUNCHES)
+        before = launch_counts()
         if path == "math":
             os.environ["BIFOLD_ATTN_BACKEND"] = "math"
         try:
-            state, metrics = step(state, sample)
+            with ln_mode("fused" if path == "ln_fused" else ""):
+                state, metrics = step(state, sample)
             torch.cuda.synchronize()
         finally:
             os.environ.pop("BIFOLD_ATTN_BACKEND", None)
-        launched = {k: fa.LAUNCHES[k] - before.get(k, 0) for k in PER_STEP}
         results[path] = {"loss": float(metrics["loss"]),
                          "grad_norm_trainable": float(metrics["grad_norm_trainable"]),
-                         "launches": launched}
+                         "launches": launched_since(before)}
         del model, step, state
         torch.cuda.empty_cache()
-    k, m = results["kernels"], results["math"]
-    loss_rel = abs(k["loss"] - m["loss"]) / abs(m["loss"])
-    norm_rel = abs(k["grad_norm_trainable"] - m["grad_norm_trainable"]) / m["grad_norm_trainable"]
-    emit({"phase": "f32_train_step_kernels_vs_math", **results,
-          "loss_rel_diff": loss_rel, "grad_norm_rel_diff": norm_rel,
-          "tol": {"loss": F32_LOSS_RTOL, "grad_norm": F32_NORM_RTOL}})
-    if (loss_rel > F32_LOSS_RTOL or norm_rel > F32_NORM_RTOL
-            or k["launches"] != PER_STEP or any(m["launches"].values())):
-        raise AssertionError("f32 train step: kernels and math path disagree")
+    ref = results["kernels"]
+    for path in ("math", "ln_fused"):
+        got = results[path]
+        loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        norm_rel = (abs(got["grad_norm_trainable"] - ref["grad_norm_trainable"])
+                    / ref["grad_norm_trainable"])
+        emit({"phase": f"f32_train_step_kernels_vs_{path}", "kernels": ref,
+              path: got, "loss_rel_diff": loss_rel, "grad_norm_rel_diff": norm_rel,
+              "tol": {"loss": F32_LOSS_RTOL, "grad_norm": F32_NORM_RTOL}})
+        if (loss_rel > F32_LOSS_RTOL or norm_rel > F32_NORM_RTOL
+                or ref["launches"] != want["kernels"] or got["launches"] != want[path]):
+            raise AssertionError(f"f32 train step: kernels and {path} disagree")
 
 
 def observation(rng, n_ctx):
@@ -688,7 +1050,50 @@ def math_forward(server, obs, text):
         del os.environ["BIFOLD_ATTN_BACKEND"]
 
 
-def serve_flagship(fa, card):
+def serve_requests(server, mode):
+    """The served path in one ``BIFOLD_LN_KERNEL`` mode: 5 ``predict``
+    requests (1-3 context frames) and one ``predict_batch`` of 8, each with
+    its exact launch counts and finite actions of the right shape. The
+    observations come from seed 0 in every mode."""
+    rng = np.random.default_rng(0)
+    per_request = {"fwd_infer_d48": 8, "fwd_infer_d64": 12,  # fusion + vision
+                   **ln_launches(server.model, mode, train=False)}
+    size = FLAGSHIP["image_size"]
+    requests = []
+    with ln_mode(mode):
+        clear_launch_counts()            # the main path's run starts here
+        for i, text in enumerate(INSTRUCTIONS):
+            obs = observation(rng, n_ctx=1 + i % 3)
+            before = launch_counts()
+            action, raw = server.predict(**obs, instruction=text,
+                                         return_raw_output=True)
+            delta = launched_since(before)
+            if delta != per_request:
+                raise AssertionError(f"request {i} ({mode or 'default'}): "
+                                     f"launches {delta}, want {per_request}")
+            check_action(action, raw, 1, size)
+            requests.append((obs, text, action, raw))
+        before = launch_counts()
+        pool = [dict(observation(rng, n_ctx=1 + i % 3), instruction=INSTRUCTIONS[i % 5])
+                for i in range(8)]
+        action, raw = server.predict_batch(pool, pad_to=8, return_raw_output=True)
+        delta = launched_since(before)
+        if delta != per_request:
+            raise AssertionError(f"predict_batch ({mode or 'default'}): "
+                                 f"launches {delta}, want {per_request}")
+        check_action(action, raw, 8, size)
+        launches = launch_counts()       # ... and ends here
+    emit({"phase": "flagship_serving", "ln_mode": mode, "requests": len(requests),
+          "pool": 8, "launches_per_request": per_request, "launches": launches})
+    return requests, pool, launches
+
+
+def serve_flagship(card):
+    """The bf16 flagship served at a 720 px camera in the default mode and
+    under ``BIFOLD_LN_KERNEL=pallas`` and ``fused``; the kernel forward
+    against the math path, and the LayerNorm modes against the default
+    mode, in f32; latency in every mode. Returns each mode's launch counts
+    and the phases for :func:`where_the_time_goes`."""
     from bifold_tpu_torch.data.processor import Processor
     from bifold_tpu_torch.data.spm import fixture_model_bytes
     from bifold_tpu_torch.models import build_model
@@ -704,35 +1109,8 @@ def serve_flagship(fa, card):
     server.warmup(CAMERA, pool=8)
     emit({"phase": "flagship_setup", "seconds": time.perf_counter() - t0,
           "parameters": sum(p.numel() for p in model.parameters())})
-
-    rng = np.random.default_rng(0)
-    per_request = {"fwd_infer_d48": 8, "fwd_infer_d64": 12}  # fusion + vision layers
-    size = FLAGSHIP["image_size"]
-    fa.LAUNCHES.clear()                  # the main path's run starts here
-    requests = []
-    for i, text in enumerate(INSTRUCTIONS):
-        obs = observation(rng, n_ctx=1 + i % 3)
-        before = dict(fa.LAUNCHES)
-        action, raw = server.predict(**obs, instruction=text, return_raw_output=True)
-        delta = {d: fa.LAUNCHES[d] - before.get(d, 0) for d in per_request}
-        if delta != per_request:
-            raise AssertionError(f"request {i}: flash launches {delta}, "
-                                 f"want {per_request}")
-        check_action(action, raw, 1, size)
-        requests.append((obs, text, action, raw))
-    before = dict(fa.LAUNCHES)
-    pool = [dict(observation(rng, n_ctx=1 + i % 3), instruction=INSTRUCTIONS[i % 5])
-            for i in range(8)]
-    action, raw = server.predict_batch(pool, pad_to=8, return_raw_output=True)
-    delta = {d: fa.LAUNCHES[d] - before.get(d, 0) for d in per_request}
-    if delta != per_request:
-        raise AssertionError(f"predict_batch: flash launches {delta}")
-    check_action(action, raw, 8, size)
-    launches = {k: n for k, n in fa.LAUNCHES.items() if n}   # ... and ends here
-    if set(launches) != set(per_request):
-        raise AssertionError(f"serving launched {launches}")
-    emit({"phase": "flagship_serving", "requests": len(requests), "pool": 8,
-          "launches_per_request": per_request, "launches": launches})
+    served = {mode: serve_requests(server, mode) for mode in LN_MODES}
+    requests, pool, _ = served[""]
 
     # the same forward through the math path: in bf16 (reported; the math
     # path rounds the scores to bf16 before its softmax, so near-tied
@@ -758,27 +1136,72 @@ def serve_flagship(fa, card):
             raise AssertionError("f32 kernel and math forwards disagree")
         if hm_diff > 0.05:
             raise AssertionError(f"{dtype} kernel and math heatmaps differ by {hm_diff}")
+    # the LayerNorm kernels against the default LayerNorm, in f32: the same
+    # actions, heatmaps within 1e-3
+    for mode in LN_MODES[1:]:
+        with ln_mode(mode):
+            ln_action, ln_raw = f32_server.predict(**obs, instruction=text,
+                                                   return_raw_output=True)
+        hm_diff = max(float(np.abs(f32_raw[k] - ln_raw[k]).max())
+                      for k in f32_raw if k.endswith("_heatmap"))
+        same = all(np.array_equal(getattr(f32_action, f), getattr(ln_action, f))
+                   for f in ("left_pick", "right_pick", "left_place", "right_place"))
+        emit({"phase": "ln_mode_vs_default_forward", "ln_mode": mode,
+              "dtype": "float32", "max_heatmap_diff": hm_diff,
+              "actions_identical": same,
+              "decoded_apart": decoded_apart(f32_action, ln_action, f32_raw)})
+        if not (same and hm_diff < 1e-3):
+            raise AssertionError(f"f32 forwards under {mode} and default disagree")
     del f32_server
 
-    lat = {}
-    for name, call in (
-            ("batch1", lambda: server.predict(**obs, instruction=text)),
-            ("pool8", lambda: server.predict_batch(pool, pad_to=8))):
-        times = []
+    # latency with the modes in turns (default, pallas, fused, default,
+    # ...), 11 requests each, so that drift of the shared host's speed falls
+    # on all modes alike
+    calls = {"batch1": lambda: server.predict(**obs, instruction=text),
+             "pool8": lambda: server.predict_batch(pool, pad_to=8)}
+    times = {mode: {name: [] for name in calls} for mode in LN_MODES}
+    for name, call in calls.items():
         for _ in range(11):
-            t = time.perf_counter()
-            call()
-            times.append((time.perf_counter() - t) * 1e3)
-        lat[name] = statistics.median(times)
-    emit({"phase": "predict_latency", "p50_ms_batch1": lat["batch1"],
-          "p50_ms_pool8": lat["pool8"], "requests_each": 11, **card})
-    for name, obs_list in (("batch1", [dict(obs, instruction=text)]),
-                           ("pool8", pool)):
-        emit({"phase": "where_the_time_goes", "batch": name,
-              "p50_ms": lat[name], **stage_breakdown(server, obs_list),
-              **device_profile(lambda: server.predict_batch(obs_list),
-                               lat[name])})
-    return launches
+            for mode in LN_MODES:
+                with ln_mode(mode):
+                    t = time.perf_counter()
+                    call()
+                    times[mode][name].append((time.perf_counter() - t) * 1e3)
+    phases = []
+    for mode in LN_MODES:
+        lat = {name: statistics.median(v) for name, v in times[mode].items()}
+        emit({"phase": "predict_latency", "ln_mode": mode,
+              "p50_ms_batch1": lat["batch1"], "p50_ms_pool8": lat["pool8"],
+              "requests_each": 11, "in_turns_with": list(LN_MODES), **card})
+        for name, obs_list in (("batch1", [dict(obs, instruction=text)]),
+                               ("pool8", pool)):
+            phases.append(serving_phase(server, mode, name, obs_list, lat[name]))
+    return {mode: launches for mode, (_, _, launches) in served.items()}, phases
+
+
+def serving_phase(server, mode, name, obs_list, p50):
+    """What :func:`where_the_time_goes` needs for one served batch."""
+    def stages():
+        with ln_mode(mode):
+            return stage_breakdown(server, obs_list)
+
+    def profile():
+        with ln_mode(mode):
+            return device_profile(lambda: server.predict_batch(obs_list), p50)
+
+    return {"stages": stages, "profile": profile,
+            "where": {"phase": "where_the_time_goes", "batch": name,
+                      "ln_mode": mode, "p50_ms": p50}}
+
+
+def where_the_time_goes(phases):
+    """The ``where_the_time_goes`` line of each phase: first every phase's
+    synchronised stages (host clock), then every phase's profiler window.
+    Once torch.profiler has traced the card, later launches in the process
+    cost more host time, so no host-clock measurement may follow it."""
+    stages = [phase["stages"]() for phase in phases]
+    for phase, stage in zip(phases, stages):
+        emit({**phase["where"], **stage, **phase["profile"]()})
 
 
 def stage_breakdown(server, obs_list, iters: int = 5):
@@ -858,15 +1281,28 @@ def main() -> int:
           "built": [os.path.basename(str(p)) for p in libs]})
 
     peaks = card_peaks(name)
-    worst = {**check_kernels(fa), **check_train_kernels(fa)}
+    worst = {**check_kernels(fa), **check_train_kernels(fa), **check_ln_kernels()}
     check_function_grads(fa)
     timings = {**time_kernels(fa, peaks), **time_train_kernels(fa, peaks)}
     for kernel, row in timings.items():
         emit({"phase": "kernel_timing", "kernel": kernel, **row})
-    launches = train_flagship(fa, card)
+    # every main-path run, each with its counts reset just before it: the
+    # train step and the served path, in each LayerNorm mode
+    phases = [train_flagship(card, mode) for mode in LN_MODES]
+    train_interleaved({phase["mode"]: phase["one_step"] for phase in phases}, card)
+    f32_step_equivalence()
+    served, serve_phases = serve_flagship(card)
+    launches = collections.Counter()
+    for run in [phase["launches"] for phase in phases] + list(served.values()):
+        launches.update(run)
+    # the profiler from here on: after every host-clock measurement
+    where_the_time_goes(phases + serve_phases)
+    del phases, serve_phases
     torch.cuda.empty_cache()
-    f32_step_equivalence(fa)
-    launches.update(serve_flagship(fa, card))
+    ln_timings = time_ln_kernels(peaks)
+    for kernel, row in ln_timings.items():
+        emit({"phase": "kernel_timing", "kernel": kernel, **row})
+    timings.update(ln_timings)
 
     sources = {"flash_fwd_infer": ("flash_fwd.cu", 250, "serving: predict"),
                "flash_fwd_lse": ("flash_fwd.cu", 241, "training: train step"),
@@ -888,6 +1324,19 @@ def main() -> int:
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "library_backend": row["library_backend"],
                 "shape": row["shape"], "where": f"{where}, {stack}"})
+    for kernel in LN_KERNELS:
+        if launches.get(kernel, 0) == 0:
+            raise AssertionError(f"{kernel} never ran on its main path")
+        row = timings[f"{kernel}_fusion"]
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": "bifold_tpu_torch/csrc/layer_norm.cu",
+            "replaces": f"bifold_tpu/ops/layer_norm.py:{LN_LINES[kernel]}",
+            "launches": launches[kernel], "max_abs_err": worst[kernel],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "library_call": row["library_call"],
+            "shape": row["shape"], "where": LN_WHERE[kernel]})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
