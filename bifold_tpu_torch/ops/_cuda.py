@@ -3,7 +3,10 @@
 Each ``csrc/*.cu`` source is compiled on its own by ``nvcc`` for ``sm_90a``
 into a shared library with plain C entry points, at first use (never at
 import), into the git-ignored ``bifold_tpu_torch/_build/``, named by a hash
-of the source bytes so that an edited source is rebuilt. The library is
+of the source and ``csrc/*.cuh`` bytes so that an edited source is rebuilt.
+The compiler's ``-Xptxas -v`` report (registers, shared memory and spill
+bytes of every kernel instance) is kept beside the library and returned by
+:func:`ptxas_report`. The library is
 loaded with ``ctypes``; :data:`_SIGNATURES` gives every entry point's
 argument types (pointers and the stream as ``c_void_p``, so that ctypes
 never cuts a pointer to 32 bits). Every entry point takes the stream as its
@@ -24,7 +27,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "DTYPE_CODES", "build", "launch", "on_card"]
+__all__ = ["SOURCES", "DTYPE_CODES", "build", "ptxas_report", "launch",
+           "on_card"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {name: _CSRC / f"{name}.cu"
@@ -63,25 +67,39 @@ def _nvcc() -> str:
     return found
 
 
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return _BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
 def build(name: str = "flash_fwd") -> Path:
     """Compile ``SOURCES[name]`` for sm_90a into ``_build/`` (skipped when a
-    library built from the same source bytes is there) and return its
-    path."""
+    library built from the same bytes is there) and return its path; the
+    ``-Xptxas -v`` report goes beside it (:func:`ptxas_report`)."""
     source = SOURCES[name]
-    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
-    out = _BUILD_DIR / f"lib{name}-{tag}.so"
+    out = _library_path(name)
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(source)]
+           "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o",
+           str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc {source.name} failed ({proc.returncode}):\n"
                            f"{proc.stderr}")
+    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
     tmp.replace(out)
     return out
+
+
+def ptxas_report(name: str) -> str:
+    """The ``-Xptxas -v`` output of the build of ``SOURCES[name]`` (built
+    first if needed)."""
+    return build(name).with_suffix(".ptxas.txt").read_text()
 
 
 def _library(name: str):

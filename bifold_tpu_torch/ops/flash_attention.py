@@ -22,10 +22,17 @@ backward call enqueues its dk/dv and dq kernels together). The CPU tests
 hold the plain versions against the JAX kernels; ``chip_smoke.py`` holds the
 CUDA kernels against the plain versions on the card.
 
+bfloat16 inputs run on the tensor cores (``mma.sync``, f32 accumulation;
+P and dS rounded to bf16 before their products), float32 inputs on the
+FP32 CUDA cores (the precision reference; no TF32). On the card q, k and v
+must start on 16 bytes and have (batch, token, head) strides that are
+multiples of 8 elements, as the fused ``to_qkv`` views do; anything else
+raises.
+
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into ``_build/`` at
 first use (plain C ABIs loaded through ``ctypes``), never at import, by
-:mod:`bifold_tpu_torch.ops._cuda`; ``build`` and ``SOURCES`` (every
-``csrc`` source) are re-exported here.
+:mod:`bifold_tpu_torch.ops._cuda`; ``build``, ``ptxas_report`` and
+``SOURCES`` (every ``csrc`` source) are re-exported here.
 """
 
 from __future__ import annotations
@@ -36,12 +43,12 @@ import ctypes
 import torch
 
 from bifold_tpu_torch.ops._cuda import (DTYPE_CODES, SOURCES, build, launch,
-                                         on_card)
+                                         on_card, ptxas_report)
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_train", "build",
-           "SOURCES", "LAUNCHES", "KERNEL_HEAD_DIMS"]
+           "ptxas_report", "SOURCES", "LAUNCHES", "KERNEL_HEAD_DIMS"]
 
 _NEG = -100000.0  # the XLA backend's fill value
 KERNEL_HEAD_DIMS = (48, 64)
@@ -137,6 +144,13 @@ def _check_cuda_inputs(q, k, v, key_mask):
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s head dim is not "
                              "contiguous")
+        # the kernels copy rows by 16-byte cp.async
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(f"flash_attention: {name} must start on 16 "
+                             "bytes and have (batch, token, head) strides "
+                             "that are multiples of 8 elements; got "
+                             f"{t.data_ptr() % 16} bytes past, strides "
+                             f"{t.stride()[:3]}")
     if key_mask is not None:
         if (key_mask.dtype != torch.int32 or key_mask.device != q.device
                 or tuple(key_mask.shape) != (b, k.shape[1])

@@ -4,27 +4,36 @@
 Drives the port's served path and its train step on the card and prints,
 one JSON object per line:
 
-1. the card (``nvidia-smi`` name and power limit) and the kernel build time
+1. the card (``nvidia-smi`` name and power limit), the kernel build time
    (every ``bifold_tpu_torch/csrc`` source built by ``nvcc`` for sm_90a,
-   all builds started together);
+   all builds started together) and, from the builds' ``-Xptxas -v``
+   reports, the registers, shared memory and spill bytes of every flash
+   kernel instance;
 2. each CUDA kernel against its plain PyTorch version on the card, at the
-   main paths' shapes and on all-masked rows with a ragged n, in bf16 and in
-   f32 (TF32 off), with the tolerance it is held to: the inference forward,
-   the forward with lse (out and lse) and the backward (dq, dk, dv; dq and
-   dk exactly 0 on all-masked rows); the four LayerNorm kernels (out, s,
+   main paths' shapes, on all-masked rows with a ragged n and at the mma
+   tile edges (n = 17, n = 65, B*H = 96 at n = 300, the fused-qkv views at
+   both head dims), in bf16 and in f32 (TF32 off), with the tolerance it is
+   held to: the inference forward, the forward with lse (out and lse) and
+   the backward (dq, dk, dv; dq and dk exactly 0 on all-masked rows; two
+   calls bitwise equal); q/k/v views that break the 16-byte row rule
+   raise in the wrappers and the C entry points and compute nothing; the
+   four LayerNorm kernels (out, s,
    mean, rstd; dx, dscale, dbias) at the train step's fusion and vision
    rows, a ragged R = 300 and R = 1, with constant rows, and dscale and
    dbias bitwise equal across two calls; then gradients through
    ``dot_product_attention`` (the autograd Function over the kernels) against
    autograd through the plain forward;
-3. kernel timings: each flash kernel (CUDA events), its plain version and
+3. kernel timings: each flash kernel, its plain version and
    ``scaled_dot_product_attention`` as a yardstick (every SDPA backend that
-   runs the inputs, pinned and timed; a row takes the fastest and names it;
-   the backward's library time is forward+backward minus forward), with the
-   bound max(FLOP / bf16 peak, bytes / HBM rate); each LayerNorm kernel,
-   its plain version and ``F.layer_norm`` / ``native_layer_norm_backward``
-   by device time (profiler) and by CUDA events, with the bound
-   max(bytes / HBM rate, FLOP / f32 CUDA-core peak);
+   runs the inputs, pinned and timed; a row takes the fastest and names
+   it; the backward's library time is forward+backward minus forward) by
+   CUDA events around calls queued behind a sleep kernel (also the
+   kernel's profiler device time and back-to-back events), with the bound
+   max(FLOP / bf16 peak, bytes / HBM rate); each LayerNorm kernel, its
+   plain version and ``F.layer_norm`` / ``native_layer_norm_backward`` by
+   queued events, profiler device time and back-to-back events, with the
+   bound max(bytes / HBM rate, FLOP / f32 CUDA-core peak); the profiler's
+   time is reported beside, never gated on;
 4. flagship training: SiglipSequential at full width and depth (384 px,
    12-layer SigLIP-base towers, LoRA r8, depth-8 fusion with 16 heads, bf16,
    bimanual, 3 context frames), batch 2, raw frames through the train
@@ -48,14 +57,15 @@ one JSON object per line:
    the kernel modes), finite outputs of the right shape, the same forward
    through ``backend="math"`` and, in f32, the kernel modes' actions equal
    to the default mode's; predict p50 latency and where its time goes;
-7. the ``kernels`` line (ten kernel instances), then the card line, then the
-   result line ``{"ok": true, "device": {...}}``.
+7. the ``kernels`` line (ten kernel instances; the flash rows name their
+   design), then the card line, then the result line ``{"ok": true,
+   "device": {...}}``.
 
 Each path's launch counts are reset just before it and read just after.
 Every torch.profiler session (the ``where_the_time_goes`` windows and the
-LayerNorm device timings) runs after every host-clock measurement: once the
-profiler has traced the card, later launches in the process cost more host
-time.
+kernel device timings, so phase 3 runs last) comes after every host-clock
+measurement: once the profiler has traced the card, later launches in the
+process cost more host time.
 Any failed phase raises, so the exit code is non-zero and no result line is
 printed; so does a machine without a CUDA card. Imports nothing of JAX.
 """
@@ -66,6 +76,7 @@ import collections
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -187,6 +198,21 @@ def within(out, ref, dtype):
     return float(err.max()), tol, ok
 
 
+def edge_cases():
+    """(label, b, n, h, d, fused, masking) of the tile edges, at both head
+    dims: n = 17 (one partial 16-row mma tile of a 64-row block) and n = 65
+    (one row past a full block), each with an all-masked batch row; B*H =
+    96 at n = 300 with all-masked rows; the fused-qkv strided views at
+    d 64 (the fusion cases take them at d 48)."""
+    cases = []
+    for d in (48, 64):
+        cases += [("n=17, all-masked rows", 2, 17, 3, d, True, "rows"),
+                  ("n=65, all-masked rows", 2, 65, 3, d, False, "rows"),
+                  ("B*H=96, n=300, all-masked rows", 8, 300, 12, d, d == 64,
+                   "rows")]
+    return cases + [("fused qkv views, d 64", 2, 576, 12, 64, True, None)]
+
+
 def check_kernels(fa):
     """Phase 2: the inference kernel against its plain version. Returns the
     largest bf16 error per kernel name."""
@@ -197,6 +223,7 @@ def check_kernels(fa):
              ("vision", 4, 576, 12, 64, False, None),
              ("ragged n=300, all-masked rows", 2, 300, 3, 48, False, "rows"),
              ("ragged n=300, all-masked rows", 2, 300, 3, 64, False, "rows")]
+    cases += edge_cases()
     for dtype in (torch.bfloat16, torch.float32):
         for label, b, n, h, d, fused, masking in cases:
             q, k, v = attention_inputs(gen, b, n, h, d, dtype, fused)
@@ -229,6 +256,11 @@ def train_cases():
             ("ragged n=300, all-masked rows", 2, 300, 3, 64, False, "rows")]
 
 
+def train_check_cases():
+    """:func:`train_cases` and the tile edges (:func:`edge_cases`)."""
+    return train_cases() + edge_cases()
+
+
 def within_lse(out, ref):
     """lse is f32 whatever the inputs: 1e-4 of max(1, |plain|) (an all-masked
     row's lse is -1e5 + log(nk), where one f32 ulp is 0.0078)."""
@@ -239,18 +271,25 @@ def within_lse(out, ref):
 
 def check_train_kernels(fa):
     """The forward-with-lse and backward kernels against their plain
-    versions, in bf16 and in f32; dq and dk exactly 0 on all-masked rows.
-    Returns the largest bf16 error per kernel name."""
+    versions, in bf16 and in f32; dq and dk exactly 0 on all-masked rows;
+    dq, dk and dv bitwise equal across two backward calls on the same
+    inputs. Returns the largest bf16 error per kernel name."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for label, b, n, h, d, fused, masking in train_cases():
+        for label, b, n, h, d, fused, masking in train_check_cases():
             q, k, v = attention_inputs(gen, b, n, h, d, dtype, fused)
             mask = case_mask(gen, b, n, masking)
             do = torch.randn(b, n, h, d, device="cuda", generator=gen).to(dtype)
             out, lse = fa.flash_attention_fwd(q, k, v, mask)
             grads = fa.flash_attention_bwd(q, k, v, mask, out, lse, do)
+            again = fa.flash_attention_bwd(q, k, v, mask, out, lse, do)
             torch.cuda.synchronize()
+            repeat = all(torch.equal(x, y) for x, y in zip(grads, again))
+            emit({"phase": "flash_bwd_deterministic", "kernel": f"flash_bwd_d{d}",
+                  "case": label, "dtype": str(dtype), "bitwise_equal": repeat})
+            if not repeat:
+                raise AssertionError(f"flash_bwd_d{d}: two calls differ: {label}")
             p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, mask)
             # the backward's reference takes the kernel's own out and lse,
             # so the check isolates the backward kernel
@@ -281,6 +320,65 @@ def check_train_kernels(fa):
                     raise AssertionError(f"flash_bwd_d{d}: dq/dk not exactly 0 "
                                          "on all-masked rows")
     return worst
+
+
+def check_alignment(fa):
+    """q, k or v views that break the bf16 kernels' 16-byte row rule raise
+    and compute nothing: one starting 2 bytes past a 16-byte boundary, one
+    whose token stride (h*d + 4) is not a multiple of 8 elements. The
+    wrappers raise before any launch; the C entry points, called directly,
+    return cudaErrorMisalignedAddress and leave their outputs untouched."""
+    from bifold_tpu_torch.ops._cuda import launch
+
+    b, n, h, d = 2, 300, 2, 48
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+
+    good = randn(b, n, h, d)
+    bad = {"2 bytes past 16": randn(b * n * h * d + 8)[1:1 + b * n * h * d].view(b, n, h, d),
+           "token stride h*d+4": randn(b, n, h * d + 4)[..., :h * d].view(b, n, h, d)}
+    lse = torch.zeros(b, h, n, device="cuda")
+    before = launch_counts()
+    for label, view in bad.items():
+        calls = {"flash_attention": lambda: fa.flash_attention(view, good, good),
+                 "flash_attention_fwd": lambda: fa.flash_attention_fwd(good, view, good),
+                 "flash_attention_bwd": lambda: fa.flash_attention_bwd(
+                     good, good, view, None, good, lse, good)}
+        for name, call in calls.items():
+            try:
+                call()
+            except ValueError:
+                continue
+            raise AssertionError(f"{name} took a misaligned view: {label}")
+        sentinel = [torch.full((b, n, h, d), float("nan"), device="cuda",
+                               dtype=torch.bfloat16) for _ in range(3)]
+        strides = fa._strides(view, good, good)
+        c_calls = {
+            "bifold_flash_fwd_infer": ("flash_fwd", [view.data_ptr(), good.data_ptr(),
+                                                     good.data_ptr(), None,
+                                                     sentinel[0].data_ptr()]),
+            "bifold_flash_bwd": ("flash_bwd", [view.data_ptr(), good.data_ptr(),
+                                               good.data_ptr(), None, good.data_ptr(),
+                                               lse.data_ptr(), lse.data_ptr()]
+                                 + [t.data_ptr() for t in sentinel])}
+        for fn_name, (source, ptrs) in c_calls.items():
+            try:
+                launch(source, fn_name, good.device, *ptrs, b, n, n, h, d, strides,
+                       d ** -0.5, 1)
+            except RuntimeError as err:
+                if "misaligned" not in str(err):
+                    raise
+            else:
+                raise AssertionError(f"{fn_name} took a misaligned view: {label}")
+        torch.cuda.synchronize()
+        if not all(bool(t.isnan().all()) for t in sentinel):
+            raise AssertionError(f"a refused call wrote its output: {label}")
+    launched = launched_since(before)
+    emit({"phase": "alignment_refused", "cases": list(bad), "launches": launched})
+    if launched:
+        raise AssertionError(f"refused calls counted launches: {launched}")
 
 
 def check_function_grads(fa):
@@ -317,10 +415,45 @@ def check_function_grads(fa):
     return out
 
 
+def queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call: CUDA events around ``iters`` calls queued
+    behind a sleep kernel, so that the card runs them back to back however
+    long the host takes to enqueue them (the sleep is lengthened until it
+    outlasts the enqueue). Unlike the profiler's device time
+    (:func:`device_ms`), which reads low in a process that has already run
+    many profiler sessions, it reads the same anywhere in the script."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 10 ** 8                       # ~50 ms at 2 GHz
+    while True:
+        slept, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        slept.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t) * 1e3
+        end.synchronize()
+        if host_ms < slept.elapsed_time(start):
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+
+
+def both_times(fn) -> dict:
+    """``ms``: device time per call (:func:`queued_ms`); ``profiler_ms``:
+    the profiler's (:func:`device_ms`); ``event_ms``: CUDA events over
+    back-to-back calls, which time the host for a call shorter than its
+    host enqueue."""
+    return {"ms": queued_ms(fn), "profiler_ms": device_ms(fn), "event_ms": time_ms(fn)}
+
+
 def time_kernels(fa, peaks):
     """The kernel, its plain version and SDPA (its fastest backend) at the
     main path's shapes in bf16 (fusion: all 3 context frames present; vision:
-    4 frames)."""
+    4 frames), by device time and by CUDA events (:func:`both_times`)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
     for d, (b, n, h, fused) in {48: (1, 2373, 16, True),
@@ -335,9 +468,10 @@ def time_kernels(fa, peaks):
         fwd_bound = bound(4.0 * b * h * n * valid * d,
                           4.0 * b * n * h * d * 2 + (0 if mask is None else 4 * b * n),
                           peaks)
+        kernel = both_times(lambda: fa.flash_attention(q, k, v, mask))
+        plain = queued_ms(lambda: fa.flash_attention_plain(q, k, v, mask))
         rows[f"flash_fwd_infer_d{d}"] = {
-            "ms": time_ms(lambda: fa.flash_attention(q, k, v, mask)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, mask)),
+            **kernel, "plain_ms": plain,
             "library_ms": library[backend][0], "library_backend": backend,
             "library_by_backend": library,
             "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
@@ -357,9 +491,10 @@ SDPA_BACKENDS = ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION",
 
 def sdpa_times(qt, kt, vt, sdpa_mask, dot=None):
     """The library yardstick: for each SDPA backend that runs these inputs
-    (pinned with ``sdpa_kernel``, so each time names what it timed), ms of
-    the forward and, given the output cotangent ``dot``, of forward +
-    backward: {backend: [forward ms, forward+backward ms or None]}."""
+    (pinned with ``sdpa_kernel``, so each time names what it timed), device
+    ms (:func:`queued_ms`) of the forward and, given the output cotangent
+    ``dot``, of forward + backward: {backend: [forward ms, forward+backward
+    ms or None]}."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     def forward():
@@ -376,7 +511,7 @@ def sdpa_times(qt, kt, vt, sdpa_mask, dot=None):
                 forward() if dot is None else both()
             except RuntimeError:
                 continue
-            times[name] = [time_ms(forward), None if dot is None else time_ms(both)]
+            times[name] = [queued_ms(forward), None if dot is None else queued_ms(both)]
     if not times:
         raise AssertionError("no SDPA backend runs these inputs")
     return times
@@ -387,7 +522,9 @@ def time_train_kernels(fa, peaks):
     SDPA (forward with grad, and forward + backward: the backward's library
     time is the difference; each row takes the backend fastest at its part),
     bf16, at the train step's shapes (fusion B=2 with all 3 context frames
-    present; vision 8 frames)."""
+    present; vision 8 frames), by device time and by CUDA events
+    (:func:`both_times`; the backward's device time includes delta's torch
+    ops)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = {}
     for d, (b, n, h, fused) in TRAIN_SHAPES.items():
@@ -408,17 +545,19 @@ def time_train_kernels(fa, peaks):
                           4 * act + mask_bytes + lse_bytes, peaks)
         bwd_bound = bound(10.0 * b * h * n * kept * d,
                           8 * act + mask_bytes + lse_bytes, peaks)
+        fwd = both_times(lambda: fa.flash_attention_fwd(q, k, v, mask))
+        fwd_plain = queued_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, mask))
+        bwd = both_times(lambda: fa.flash_attention_bwd(q, k, v, mask, out, lse, do))
+        bwd_plain = queued_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, mask, out, lse, do))
         rows[f"flash_fwd_lse_d{d}"] = {
-            "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, mask)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, mask)),
+            **fwd, "plain_ms": fwd_plain,
             "library_ms": library[lib_fwd][0], "library_backend": lib_fwd,
             "library_by_backend": library,
             "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
             "shape": [b, n, h, d]}
         rows[f"flash_bwd_d{d}"] = {
-            "ms": time_ms(lambda: fa.flash_attention_bwd(q, k, v, mask, out, lse, do)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_bwd_plain(
-                q, k, v, mask, out, lse, do)),
+            **bwd, "plain_ms": bwd_plain,
             "library_ms": library[lib_bwd][1] - library[lib_bwd][0],
             "library_backend": lib_bwd,
             "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
@@ -532,11 +671,13 @@ def check_ln_kernels():
     return worst
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 3):
     """Device time per call: the CUDA kernels' self device time summed over
-    a torch.profiler window of ``iters`` calls, over ``iters``. Unlike
-    :func:`time_ms` it leaves out the gaps between kernels, so a call whose
-    host enqueue outlasts its kernels is timed by its kernels."""
+    a torch.profiler window of ``iters`` calls, over ``iters``, or None when
+    the profiler saw no device time. It leaves out the gaps between
+    kernels, but once a process has run many profiler sessions it reads low
+    or sees nothing, so it is reported beside :func:`queued_ms`, never in
+    place of it."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -549,9 +690,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in kernels)
-    if busy_us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return busy_us / 1e3 / iters
+    return busy_us / 1e3 / iters if busy_us > 0 else None
 
 
 LN_TIMING_SETS = 8     # input sets in turn: > 100 MB between two uses of one
@@ -561,10 +700,13 @@ def time_ln_kernels(peaks):
     """The four LayerNorm kernels, their plain versions and, where one
     PyTorch call computes the same function, that call (``F.layer_norm``;
     ``aten.native_layer_norm_backward``; scale and bias in bf16 for it), in
-    bf16 at the train step's fusion and vision rows. Each is timed two ways:
-    ``*ms`` its device time per call (:func:`device_ms`) and ``*event_ms``
-    CUDA events over 20 back-to-back calls, which at these sizes measure
-    the host's enqueue. The calls take :data:`LN_TIMING_SETS` input sets in
+    bf16 at the train step's fusion and vision rows. Each is timed three
+    ways: ``*ms`` CUDA events around calls queued behind a sleep kernel
+    (:func:`queued_ms`; at these sizes it includes the card's gap between
+    two kernels), ``*profiler_ms`` the profiler's device time
+    (:func:`device_ms`, None when it saw nothing) and ``*event_ms`` CUDA
+    events over 20 back-to-back calls, which at these sizes measure the
+    host's enqueue. The calls take :data:`LN_TIMING_SETS` input sets in
     turn, so more than the 50 MB L2 passes between two uses of one set and
     the inputs come from device memory, as the main path's fresh
     activations mostly do. Bound: max(bytes / HBM rate, f32 operations /
@@ -625,7 +767,8 @@ def time_ln_kernels(peaks):
             timed = {"": call, "plain_": plain, "library_": library}
             row_out = {}
             for prefix, fn in timed.items():
-                row_out[f"{prefix}ms"] = None if fn is None else device_ms(in_turn(fn))
+                row_out[f"{prefix}ms"] = None if fn is None else queued_ms(in_turn(fn))
+                row_out[f"{prefix}profiler_ms"] = None if fn is None else device_ms(in_turn(fn))
                 row_out[f"{prefix}event_ms"] = None if fn is None else time_ms(in_turn(fn))
             rows[f"{kernel}_{stack}"] = {
                 **row_out,
@@ -1243,8 +1386,8 @@ def device_profile(call, wall_ms: float, iters: int = 3):
             call()
             torch.cuda.synchronize()
             prof.step()
-    kernels = [e for e in traces[0]          # device ops, not step annotations
-               if e.device_type == torch.autograd.DeviceType.CUDA
+    kernels = [e for e in (traces[0] if traces else [])   # device ops, not
+               if e.device_type == torch.autograd.DeviceType.CUDA  # step marks
                and not e.key.startswith("ProfilerStep")]
 
     def dev_us(e):
@@ -1252,10 +1395,54 @@ def device_profile(call, wall_ms: float, iters: int = 3):
 
     busy = sum(dev_us(e) for e in kernels) / 1e3 / iters
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
-    return {"device_busy_ms": busy, "device_idle_share": 1 - busy / wall_ms,
+    if busy <= 0:                        # the profiler saw nothing
+        busy = None
+    return {"device_busy_ms": busy,
+            "device_idle_share": None if busy is None else 1 - busy / wall_ms,
             "device_ops_per_call": sum(e.count for e in kernels) // iters,
             "top_kernels": [{"name": e.key[:80], "calls": e.count // iters,
                              "ms": dev_us(e) / 1e3 / iters} for e in top]}
+
+
+# the flash kernel templates in the nvcc symbol names: (template, head dim,
+# lse flag of the forward)
+_FLASH_SYMBOL = re.compile(r"(flash_fwd_mma|flash_fwd_kernel|dkdv_mma|dq_mma|"
+                           r"dkdv_kernel|dq_kernel)ILi(\d+)E(?:Lb([01])E)?")
+
+
+def ptxas_rows(fa) -> dict:
+    """Registers, shared memory and spill bytes of every flash kernel
+    instance, from the builds' ``-Xptxas -v`` reports, keyed like the
+    ``kernels`` line (the backward has a dk/dv and a dq kernel; the f32
+    instances end in "_f32")."""
+    rows = {}
+    for source in ("flash_fwd", "flash_bwd"):
+        row = None
+        for line in fa.ptxas_report(source).splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                found = _FLASH_SYMBOL.search(entry.group(1))
+                row = None
+                if found:
+                    kernel, d, with_lse = found.groups()
+                    if kernel.startswith("flash_fwd"):
+                        key = f"flash_fwd_{'lse' if with_lse == '1' else 'infer'}_d{d}"
+                    else:
+                        key = f"flash_bwd_d{d} ({kernel.split('_')[0]})"
+                    if kernel.endswith("_kernel"):
+                        key += "_f32"
+                    row = rows.setdefault(key, {})
+                continue
+            if row is None:
+                continue
+            for field, pattern in (("registers", r"Used (\d+) registers"),
+                                   ("smem_bytes", r"(\d+) bytes smem"),
+                                   ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                                   ("spill_load_bytes", r"(\d+) bytes spill loads")):
+                found = re.search(pattern, line)
+                if found:
+                    row[field] = int(found.group(1))
+    return dict(sorted(rows.items()))
 
 
 def main() -> int:
@@ -1278,14 +1465,13 @@ def main() -> int:
                 [pool.submit(fa.build, source) for source in fa.SOURCES]]
     emit({"phase": "card", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_seconds": time.perf_counter() - t0,
-          "built": [os.path.basename(str(p)) for p in libs]})
+          "built": [os.path.basename(str(p)) for p in libs],
+          "ptxas": ptxas_rows(fa)})
 
     peaks = card_peaks(name)
     worst = {**check_kernels(fa), **check_train_kernels(fa), **check_ln_kernels()}
+    check_alignment(fa)
     check_function_grads(fa)
-    timings = {**time_kernels(fa, peaks), **time_train_kernels(fa, peaks)}
-    for kernel, row in timings.items():
-        emit({"phase": "kernel_timing", "kernel": kernel, **row})
     # every main-path run, each with its counts reset just before it: the
     # train step and the served path, in each LayerNorm mode
     phases = [train_flagship(card, mode) for mode in LN_MODES]
@@ -1299,10 +1485,10 @@ def main() -> int:
     where_the_time_goes(phases + serve_phases)
     del phases, serve_phases
     torch.cuda.empty_cache()
-    ln_timings = time_ln_kernels(peaks)
-    for kernel, row in ln_timings.items():
+    timings = {**time_kernels(fa, peaks), **time_train_kernels(fa, peaks),
+               **time_ln_kernels(peaks)}
+    for kernel, row in timings.items():
         emit({"phase": "kernel_timing", "kernel": kernel, **row})
-    timings.update(ln_timings)
 
     sources = {"flash_fwd_infer": ("flash_fwd.cu", 250, "serving: predict"),
                "flash_fwd_lse": ("flash_fwd.cu", 241, "training: train step"),
@@ -1323,6 +1509,7 @@ def main() -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "library_backend": row["library_backend"],
+                "design": "mma.sync bf16",
                 "shape": row["shape"], "where": f"{where}, {stack}"})
     for kernel in LN_KERNELS:
         if launches.get(kernel, 0) == 0:

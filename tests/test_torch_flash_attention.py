@@ -231,3 +231,74 @@ def test_train_wrappers_refuse_other_devices():
         fa.flash_attention_fwd(q, q, q)
     with pytest.raises(ValueError, match="no kernel"):
         fa.flash_attention_bwd(q, q, q, None, q, lse, q)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernels' rounding points, emulated
+# ---------------------------------------------------------------------------
+
+CHIP_BF16_TOL = 2.0 ** -6     # chip_smoke.py:within, times max(1, |plain|)
+
+
+def _bf16_kernels_emulated(q, k, v, mask, do):
+    """The arithmetic of the bf16 tensor-core kernels (csrc/flash_fwd.cu,
+    csrc/flash_bwd.cu) in plain torch: bf16 operands, f32 products, the
+    scale applied to q.k^T after the product, P rounded to bf16 before P.V
+    and P^T.dO, dS rounded to bf16 before dS.K and dS^T.Q, f32 sums, l and
+    lse from the f32 P. Returns (out, lse, dq, dk, dv)."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dead = (mask == 0)[:, None, None, :]
+    s = (torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale).masked_fill(dead, -1e5)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.bfloat16().float(), vf)
+    out = (acc / l.permute(0, 2, 1)[..., None]).bfloat16()
+    lse = m[..., 0] + torch.log(l)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * out.float()).sum(dim=-1).transpose(1, 2)
+    ds = (p * (dp - delta[..., None]) * scale).masked_fill(dead, 0.0).bfloat16().float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), dof)
+    return out, lse, dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+def _fusion_like_mask(b):
+    """[13 text | 3 x 49 context | 49 current] tokens with the last context
+    frame masked: the fusion stack's key mask at a small width."""
+    mask = np.ones((b, 13 + 4 * 49), np.int32)
+    mask[:, 13 + 2 * 49: 13 + 3 * 49] = 0
+    return mask
+
+
+@pytest.mark.parametrize("d", [48, 64])
+@pytest.mark.parametrize("masking", ["all-masked rows", "fusion-like"])
+def test_bf16_rounding_points_within_chip_tolerance(d, masking):
+    """The bf16 kernels' extra rounding points (P and dS to bf16 before their
+    products, the scale after q.k^T) keep out, dq, dk and dv within
+    chip_smoke.py's bf16 tolerance, 2^-6 * max(1, |plain|), of the plain
+    versions fed the same bf16 inputs, and lse within 1e-4 * max(1, |plain|);
+    dq and dk stay exactly 0 on an all-masked row. n = 300 with a random
+    key mask and an all-masked batch row, or n = 209 with a fusion-like
+    mask."""
+    if masking == "all-masked rows":
+        q, k, v, mask = _inputs(60 + d, d=d)
+    else:
+        mask = _fusion_like_mask(2)
+        q, k, v, _ = _inputs(70 + d, n=mask.shape[1], d=d)
+    do = np.random.default_rng(80 + d).normal(size=q.shape).astype(np.float32)
+    tq, tk, tv, tdo = (_t(x).bfloat16() for x in (q, k, v, do))
+    tm = _t(mask)
+    out, lse, *grads = _bf16_kernels_emulated(tq, tk, tv, tm, tdo)
+    p_out, p_lse = fa.flash_attention_fwd_plain(tq, tk, tv, tm)
+    p_grads = fa.flash_attention_bwd_plain(tq, tk, tv, tm, out, lse, tdo)
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), [out, *grads], [p_out, *p_grads]):
+        err = (got.float() - ref.float()).abs()
+        assert (err <= CHIP_BF16_TOL * ref.float().abs().clamp_min(1)).all(), (
+            name, float(err.max()))
+    assert ((lse - p_lse).abs() <= NORMAL_TOL * p_lse.abs().clamp_min(1)).all()
+    if masking == "all-masked rows":
+        assert all(torch.count_nonzero(g[1]) == 0 for g in grads[:2])
