@@ -10,8 +10,9 @@ bytes of every kernel instance) is kept beside the library and returned by
 loaded with ``ctypes``; :data:`_SIGNATURES` gives every entry point's
 argument types (pointers and the stream as ``c_void_p``, so that ctypes
 never cuts a pointer to 32 bits). Every entry point takes the stream as its
-last argument and returns a ``cudaError_t``; :func:`launch` passes the
-device's current stream and raises on a nonzero error. :func:`on_card` is
+last argument (a query, none) and returns a ``cudaError_t``;
+:func:`launch` passes the device's current stream, and it and :func:`call`
+raise on a nonzero error. :func:`on_card` is
 the wrappers' one rule for choosing between a kernel and its plain version.
 """
 
@@ -27,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "DTYPE_CODES", "build", "ptxas_report", "launch",
+__all__ = ["SOURCES", "DTYPE_CODES", "build", "ptxas_report", "call", "launch",
            "on_card"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -46,12 +47,14 @@ _SIGNATURES = {
     "flash_fwd": {"bifold_flash_fwd_infer": [_P] * 5 + [_I] * 5 + _FLASH_TAIL,
                   "bifold_flash_fwd_lse": [_P] * 6 + [_I] * 5 + _FLASH_TAIL},
     "flash_bwd": {"bifold_flash_bwd": [_P] * 10 + [_I] * 5 + _FLASH_TAIL},
-    # pointers, then rows, cols, eps (forward) or partial rows (backward),
-    # dtype, param dtype, stream
+    # pointers, then rows, cols, eps (forward) or blocks (backward), dtype,
+    # param dtype, stream; the occupancy query: cols, dtype, fused, three
+    # int pointers out, no stream
     "layer_norm": {"bifold_ln_fwd": [_P] * 6 + [_I, _I, _F, _I, _I, _P],
                    "bifold_fused_ln_fwd": [_P] * 8 + [_I, _I, _F, _I, _I, _P],
                    "bifold_ln_bwd": [_P] * 9 + [_I] * 5 + [_P],
-                   "bifold_fused_ln_bwd": [_P] * 10 + [_I] * 5 + [_P]},
+                   "bifold_fused_ln_bwd": [_P] * 10 + [_I] * 5 + [_P],
+                   "bifold_ln_bwd_occupancy": [_I] * 3 + [ctypes.POINTER(_I)] * 3},
 }
 
 
@@ -117,16 +120,20 @@ def _library(name: str):
         return _libs[name]
 
 
-def launch(name, fn_name, device, *args):
-    """Call ``fn_name`` of ``SOURCES[name]``'s library with ``args`` and the
-    current stream of ``device``, on that device; raise on an error."""
+def call(name, fn_name, device, *args):
+    """Call ``fn_name`` of ``SOURCES[name]``'s library with ``args``, on
+    ``device``; raise on an error."""
     lib = _library(name)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*args, stream)
+        err = getattr(lib, fn_name)(*args)
     if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: "
+        raise RuntimeError(f"{fn_name} failed: "
                            + lib.bifold_cuda_error_string(err).decode())
+
+
+def launch(name, fn_name, device, *args):
+    """:func:`call` with the current stream of ``device`` appended."""
+    call(name, fn_name, device, *args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def on_card(fn_name, x) -> bool:

@@ -33,19 +33,22 @@ one setting means one routing in both.
 from __future__ import annotations
 
 import collections
+import ctypes
 import os
 
 import torch
 
-from bifold_tpu_torch.ops._cuda import DTYPE_CODES, launch, on_card
+from bifold_tpu_torch.ops._cuda import DTYPE_CODES, call, launch, on_card
 
 __all__ = ["ln_forward", "ln_backward", "fused_ln_forward",
            "fused_ln_backward", "ln_forward_plain", "ln_backward_plain",
            "fused_ln_forward_plain", "fused_ln_backward_plain", "ln_mode",
-           "use_kernel_ln", "LAUNCHES", "MAX_COLS"]
+           "use_kernel_ln", "backward_grid", "LAUNCHES", "MAX_COLS"]
 
 MAX_COLS = 1024                # csrc/layer_norm.cu kMaxCols
-_PARTIAL_ROWS = 264            # backward blocks at most: 2 per SM of an H100
+# (device index, kernel, dtype code, C) -> (SMs, backward blocks per SM,
+# warps per block)
+_RESIDENT: dict = {}
 
 # launches of the CUDA kernels, keyed by kernel
 LAUNCHES: collections.Counter = collections.Counter()
@@ -214,31 +217,60 @@ def fused_ln_forward(x, delta, scale, bias, eps):
             rstd.reshape(stat))
 
 
+def backward_grid(sms: int, per_sm: int, warps: int, rows: int) -> int:
+    """Blocks of one backward launch: all resident at once (at most ``sms``
+    x ``per_sm``), ``warps`` per block, each warp a contiguous run of rows.
+    The fewest blocks that give no warp more rows than the full card
+    would, so that each warp takes the same number of rows or one fewer,
+    and the column sums read no more partial rows than needed."""
+    if sms < 1 or per_sm < 1 or warps < 1 or rows < 1:
+        raise ValueError(f"backward_grid: {sms} SMs, {per_sm} blocks per SM, "
+                         f"{warps} warps per block, {rows} rows")
+    per_warp = -(-rows // (sms * per_sm * warps))
+    return -(-rows // (warps * per_warp))
+
+
+def _resident(device, kernel, dtype_code, c):
+    """(SM count, resident blocks per SM, warps per block) of the backward
+    instance for ``c`` columns and ``dtype_code`` on ``device``, asked of
+    the built kernel once and cached. The query also sets the instance's
+    shared-memory limit on the device, which its launches need, so every
+    launch asks here first."""
+    key = (device.index, kernel, dtype_code, c)
+    if key not in _RESIDENT:
+        per_sm, sms, warps = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        call("layer_norm", "bifold_ln_bwd_occupancy", device, c, dtype_code,
+             int(kernel == "fused_ln_bwd"), ctypes.byref(per_sm), ctypes.byref(sms),
+             ctypes.byref(warps))
+        _RESIDENT[key] = (sms.value, per_sm.value, warps.value)
+    return _RESIDENT[key]
+
+
 def _backward_on_card(fn_name, kernel, x, dy, ds_out, mean, rstd, scale):
     rows = _rows(fn_name, x, *((dy,) if ds_out is None else (dy, ds_out)))
     mean2, rstd2 = _stats(fn_name, x, mean, rstd)
     pdt = _params(fn_name, x, scale)
     r, c = rows[0].shape
+    code = DTYPE_CODES[x.dtype]
+    blocks = backward_grid(*_resident(x.device, kernel, code, c), r)
     dx = torch.empty_like(rows[0])
-    partial = torch.empty((_PARTIAL_ROWS, 2, c), dtype=torch.float32,
-                          device=x.device)
-    dscale = torch.empty(c, dtype=torch.float32, device=x.device)
-    dbias = torch.empty_like(dscale)
+    partial = torch.empty((blocks, 2, c), dtype=torch.float32, device=x.device)
+    dparams = torch.empty((2, c), dtype=torch.float32, device=x.device)
     launch("layer_norm", f"bifold_{kernel}", x.device,
            *[t.data_ptr() for t in rows], mean2.data_ptr(), rstd2.data_ptr(),
            scale.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-           dscale.data_ptr(), dbias.data_ptr(), r, c, _PARTIAL_ROWS,
-           DTYPE_CODES[x.dtype], pdt)
+           dparams[0].data_ptr(), dparams[1].data_ptr(),
+           r, c, blocks, code, pdt)
     LAUNCHES[kernel] += 1
-    return dx.reshape(x.shape), dscale, dbias
+    return dx.reshape(x.shape), dparams[0], dparams[1]
 
 
 def ln_backward(x, dy, mean, rstd, scale):
     """(dx (..., C) [x.dtype], dscale (C,) f32, dbias (C,) f32) from the
     saved input, the output cotangent and the row stats. On the CPU
-    :func:`ln_backward_plain`; on the card the backward kernel and its
-    column sum (dy of x's shape and dtype) or it raises. dscale and dbias
-    are deterministic: no atomics."""
+    :func:`ln_backward_plain`; on the card one launch of the backward
+    kernel (dy of x's shape and dtype) or it raises. dscale and dbias are
+    deterministic: summed in an order fixed by the grid, no atomics."""
     if not on_card("ln_backward", x):
         return ln_backward_plain(x, dy, mean, rstd, scale)
     return _backward_on_card("ln_backward", "ln_bwd", x, dy, None, mean, rstd,

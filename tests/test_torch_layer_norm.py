@@ -237,15 +237,25 @@ def test_card_wrappers_pass_what_the_signatures_take(monkeypatch):
     from bifold_tpu_torch.ops import _cuda
     from bifold_tpu_torch.ops import flash_attention as fa
 
-    launched = []
+    launched, blocks = [], []
 
     def record(name, fn_name, device, *args):
         assert len(args) + 1 == len(_cuda._SIGNATURES[name][fn_name]), fn_name
         launched.append(fn_name)
+        if fn_name.endswith("ln_bwd"):     # rows, cols, blocks, dtype, pdtype
+            blocks.append(args[-3])
+
+    def query(name, fn_name, device, *args):   # 132 SMs, 4 blocks of 4 warps
+        assert len(args) == len(_cuda._SIGNATURES[name][fn_name]), fn_name
+        assert fn_name == "bifold_ln_bwd_occupancy"
+        for ref, value in zip(args[-3:], (4, 132, 4)):
+            ref._obj.value = value
 
     for mod in (tln, fa):
         monkeypatch.setattr(mod, "launch", record)
         monkeypatch.setattr(mod, "on_card", lambda fn_name, x: True)
+    monkeypatch.setattr(tln, "call", query)
+    monkeypatch.setattr(tln, "_RESIDENT", {})
     monkeypatch.setattr(fa, "_check_cuda_inputs", lambda *args: None)
     for mod in (tln, fa):          # fresh counters: other tests read them
         monkeypatch.setattr(mod, "LAUNCHES", type(mod.LAUNCHES)())
@@ -266,10 +276,70 @@ def test_card_wrappers_pass_what_the_signatures_take(monkeypatch):
     assert dict(tln.LAUNCHES) == dict.fromkeys(
         ("ln_fwd", "fused_ln_fwd", "ln_bwd", "fused_ln_bwd"), 1)
     assert dict(fa.LAUNCHES) == {"fwd_lse_d48": 1, "fwd_infer_d48": 1, "bwd_d48": 1}
+    assert blocks == [3, 3]                  # 10 rows, a warp each, 4 per block
+    assert list(tln._RESIDENT.values()) == [(132, 4, 4)] * 2
     with pytest.raises(ValueError, match="multiple of 128"):
         tln.ln_forward(torch.ones(2, 192), torch.ones(192), torch.zeros(192), 1e-6)
     with pytest.raises(ValueError, match="differ"):
         tln.fused_ln_forward(x, delta.to(torch.bfloat16), scale, bias, 1e-6)
+
+
+@pytest.mark.parametrize("sms,per_sm,warps,rows,want", [
+    (132, 3, 4, 4746, 396),    # fused bf16 at the fusion rows: 3 rows a warp
+    (132, 4, 4, 4608, 384),    # vision rows
+    (132, 4, 4, 40000, 527),   # 19 rows a warp
+    (132, 4, 4, 2112, 528),    # exactly one row for every warp of the card
+    (132, 4, 4, 2113, 265),    # one past: two rows a warp, half the blocks
+    (132, 4, 4, 300, 75),      # fewer rows than warps: one each
+    (132, 4, 4, 5, 2),
+    (132, 4, 4, 1, 1),
+    (1, 1, 4, 9, 1),           # one block: its 4 warps take 2, 2, 2, 3 rows
+    (132, 1, 12, 4746, 132),   # one block of 12 warps per SM
+    (132, 2, 8, 300, 38),
+])
+def test_backward_grid_rule(sms, per_sm, warps, rows, want):
+    """The backward's grid: resident at once, the fewest blocks that keep
+    the largest number of rows per warp at the full card's, so that warps
+    differ by one row at most (warp g of W takes rows [g R / W, (g + 1) R /
+    W), as csrc/layer_norm.cu splits them)."""
+    blocks = tln.backward_grid(sms, per_sm, warps, rows)
+    assert blocks == want and 1 <= blocks <= sms * per_sm
+    total = warps * blocks
+    most = -(-rows // total)
+    assert most == -(-rows // (warps * sms * per_sm))
+    assert blocks == 1 or -(-rows // (warps * (blocks - 1))) > most
+    per_warp = [(g + 1) * rows // total - g * rows // total for g in range(total)]
+    assert sum(per_warp) == rows
+    assert max(per_warp) == most and max(per_warp) - min(per_warp) <= 1
+
+
+@pytest.mark.parametrize("args", [(0, 4, 4, 10), (132, 0, 4, 10), (132, 4, 0, 10),
+                                  (132, 4, 4, 0)])
+def test_backward_grid_rule_refuses_empty(args):
+    with pytest.raises(ValueError, match="backward_grid"):
+        tln.backward_grid(*args)
+
+
+def test_backward_state_is_cached_per_device(monkeypatch):
+    """The occupancy query (which also sets the instance's shared-memory
+    limit) runs once per (device, kernel, dtype, width)."""
+    monkeypatch.setattr(tln, "_RESIDENT", {})
+    asked = []
+
+    def query(name, fn_name, device, cols, dtype, fused, per_sm, sms, warps):
+        asked.append((cols, dtype, fused))
+        per_sm._obj.value, sms._obj.value, warps._obj.value = 3 + fused, 132, 4
+
+    monkeypatch.setattr(tln, "call", query)
+    cpu = torch.device("cpu")
+    for _ in range(2):
+        assert tln._resident(cpu, "fused_ln_bwd", 1, 768) == (132, 4, 4)
+        assert tln._resident(cpu, "ln_bwd", 1, 768) == (132, 3, 4)
+    assert tln._resident(cpu, "ln_bwd", 0, 768) == (132, 3, 4)
+    assert asked == [(768, 1, 1), (768, 1, 0), (768, 0, 0)]
+    assert tln._resident(torch.device("cpu", 1), "ln_bwd", 1, 768) == (132, 3, 4)
+    assert tln._resident(cpu, "ln_bwd", 1, 1024) == (132, 3, 4)
+    assert asked[3:] == [(768, 1, 0), (1024, 1, 0)]
 
 
 # ---------------------------------------------------------------------------

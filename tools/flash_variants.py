@@ -57,8 +57,12 @@ BWD_SHAPES = {"train_d48": FWD_SHAPES["train_d48"], "train_d64": FWD_SHAPES["tra
 
 
 class _Report:
+    """The ``-Xptxas -v`` reports of a variant's sources, in the shape
+    ``chip_smoke.ptxas_rows`` reads (``SOURCES``, ``ptxas_report``)."""
+
     def __init__(self, texts):
         self.texts = texts
+        self.SOURCES = tuple(texts)
 
     def ptxas_report(self, source):
         return self.texts.get(source, "")
