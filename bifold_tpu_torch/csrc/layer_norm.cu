@@ -23,7 +23,11 @@
 //   - y = (x - mean) * rstd * scale + bias in f32, stored in x's type; scale
 //     and bias are read as f32 whether they are stored in f32 or bf16;
 //   - dxhat = dy * scale, dx = rstd * (dxhat - mean(dxhat)
-//     - xhat * mean(dxhat * xhat)), all in f32;
+//     - xhat * mean(dxhat * xhat)), all in f32, each product and
+//     difference rounded as the plain version rounds it; the two row means
+//     are compensated sums (two-sum per lane and across the warp), within
+//     about one ulp of the exact means, because on a constant row rstd =
+//     1/sqrt(eps) multiplies their error by up to 1000;
 //   - rows (x, delta, dy, ds_out, s, out, dx) are float32 or bfloat16, all of
 //     one type, contiguous (R, C) with 16-byte aligned bases; C is a multiple
 //     of 128 up to 1024; any R >= 1 runs, with no padding.
@@ -182,6 +186,39 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Knuth's two-sum: s = fl(a + b) and e = (a + b) - s exactly. e is the
+// exact error, so the result does not depend on which of a, b comes first.
+// The _rn intrinsics keep the compiler from contracting or reordering.
+__device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
+  s = __fadd_rn(a, b);
+  const float bb = __fsub_rn(s, a);
+  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
+}
+
+// a compensated running sum: hi + lo, with lo gathering the error of each
+// addition into hi
+__device__ __forceinline__ void add_compensated(float& hi, float& lo, float v) {
+  float e;
+  two_sum(hi, v, hi, e);
+  lo = __fadd_rn(lo, e);
+}
+
+// the butterfly over (hi, lo) pairs, then hi + lo: within about one ulp of
+// the exact sum of the 32 lanes' terms, whose order then hardly matters.
+// Every lane ends with the same bits (two_sum's s and e, and lo + lo', are
+// symmetric in the two lanes).
+__device__ __forceinline__ float warp_sum_compensated(float hi, float lo) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ohi = __shfl_xor_sync(0xffffffffu, hi, o);
+    const float olo = __shfl_xor_sync(0xffffffffu, lo, o);
+    float e;
+    two_sum(hi, ohi, hi, e);
+    lo = __fadd_rn(__fadd_rn(lo, olo), e);
+  }
+  return __fadd_rn(hi, lo);
 }
 
 template <typename T, int S, bool kFused>
@@ -376,7 +413,10 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM) ln_bwd_kernel(
           fetch(i + a, (slot + a) % kStages);
       const T* xs = ring + slot * kRowT * cols;
       const T* gs = xs + cols;
-      float sum1 = 0.f, sum2 = 0.f;
+      // the row means of dxhat and dxhat * xhat, each term rounded as the
+      // plain version rounds it, summed with compensation: on a constant
+      // row rstd = 1/sqrt(eps) (up to 1000) multiplies any error of m1
+      float hi1 = 0.f, lo1 = 0.f, hi2 = 0.f, lo2 = 0.f;
 #pragma unroll
       for (int j = 0; j < S; ++j) {
         const int chunk = j * 32 + lane;
@@ -390,14 +430,14 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM) ln_bwd_kernel(
             const float xh = (xv[e] - mu[slot]) * rs[slot];
             dsc[j][e] += g[e] * xh;
             dbi[j][e] += g[e];
-            const float gh = g[e] * s8[e];  // dxhat
-            sum1 += gh;
-            sum2 += gh * xh;
+            const float gh = __fmul_rn(g[e], s8[e]);  // dxhat
+            add_compensated(hi1, lo1, gh);
+            add_compensated(hi2, lo2, __fmul_rn(gh, xh));
           }
         }
       }
-      const float m1 = warp_sum(sum1) / cols;
-      const float m2 = warp_sum(sum2) / cols;
+      const float m1 = warp_sum_compensated(hi1, lo1) / cols;
+      const float m2 = warp_sum_compensated(hi2, lo2) / cols;
       const int64_t base = static_cast<int64_t>(row0 + i) * cols;
 #pragma unroll
       for (int j = 0; j < S; ++j) {
@@ -411,7 +451,9 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM) ln_bwd_kernel(
 #pragma unroll
           for (int e = 0; e < kVec; ++e) {
             const float xh = (xv[e] - mu[slot]) * rs[slot];
-            const float v = rs[slot] * (g[e] * s8[e] - m1 - xh * m2);
+            // rounded as the plain version rounds: no contraction
+            const float v = rs[slot] * __fsub_rn(__fsub_rn(__fmul_rn(g[e], s8[e]), m1),
+                                                 __fmul_rn(xh, m2));
             if constexpr (kFused)
               d[e] += v;  // the residual stream's cotangent folded in
             else

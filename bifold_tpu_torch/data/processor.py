@@ -205,6 +205,7 @@ class Processor:
         self.max_context_length = max_context_length or 0
         self.process_context = max_context_length is not None
         self.autoprocessor_name = autoprocessor_name
+        self.spm_asset = spm_asset
         self.tokenize = build_tokenizer(autoprocessor_name, spm_asset=spm_asset)
         self.seed = seed
         self._generators: Dict[torch.device, torch.Generator] = {}

@@ -126,9 +126,11 @@ def precast_frozen(model: nn.Module, compute_dtype, *,
 def build_model(cfg: dict, *, dtype=torch.float32, device="cuda",
                 seed: int = 0) -> nn.Module:
     """Model from its config node (``name`` + constructor fields), built on
-    ``device`` with a seeded init, in eval mode. Config values the port does
-    not implement (MoE, graph conditioning, other heads or fusions) raise."""
-    cfg = {k: (tuple(v) if isinstance(v, list) else v) for k, v in dict(cfg).items()}
+    ``device`` with a seeded init, in eval mode; ``model.config`` keeps the
+    node (a serving artifact records it). Config values the port does not
+    implement (MoE, graph conditioning, other heads or fusions) raise."""
+    node = dict(cfg)
+    cfg = {k: (tuple(v) if isinstance(v, list) else v) for k, v in node.items()}
     name = cfg.pop("name")
     if name not in MODELS:
         raise KeyError(f"model {name!r} is not ported (have {sorted(MODELS)})")
@@ -145,6 +147,7 @@ def build_model(cfg: dict, *, dtype=torch.float32, device="cuda",
         model = MODELS[name](**{k: v for k, v in cfg.items() if k in fields},
                              dtype=dtype)
     init_weights(model, torch.Generator(device=device).manual_seed(seed))
+    model.config = node
     return model.eval()
 
 

@@ -15,9 +15,10 @@ LayerNorms as in the JAX package: ``pallas`` sends every norm whose width is
 a multiple of 128 through the LayerNorm kernels (:class:`_LayerNormFn`);
 ``fused`` also makes each pre-norm stack carry ``(residual, pending)`` so
 that every residual add happens inside a norm (:class:`_FusedAddLayerNormFn`),
-with one add left at the end of the stack. Unset, the LayerNorm is the eager
-code below and nothing else changes. Both Functions save what JAX's custom
-VJPs save: the norm's input (or s) and the f32 row stats.
+with one add left at the end of the stack. Unset, the same Function runs
+the kernels' plain versions and nothing else changes. Every LayerNorm Function and both GELUs save what JAX's custom
+VJPs save: the norm's input (or s), the f32 row stats and scale; the GELU's
+input.
 
 Module names follow the reference torch checkpoints so that a converted
 state dict loads with ``strict=True``:
@@ -57,22 +58,29 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
 
 
 class _LayerNormFn(torch.autograd.Function):
-    """LayerNorm through the kernels (``_layer_norm``'s custom VJP with the
-    Pallas backend, bifold_tpu/models/layers.py:52-101): saves (x, mean,
-    rstd, scale); scale and bias gradients in the parameters' dtypes."""
+    """LayerNorm with ``_layer_norm``'s custom VJP
+    (bifold_tpu/models/layers.py:52-101): saves only (x, mean, rstd, scale),
+    x in the compute dtype and the row stats in f32, and recomputes xhat in
+    the backward; scale and bias gradients in the parameters' dtypes.
+    ``kernel``: through the LayerNorm kernels (the Pallas branch), else
+    their plain versions (the XLA branch, the default mode, on any device).
+    Differentiated op by op instead, autograd would keep the f32
+    intermediates of every norm of a stack."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
-        out, mean, rstd = ln_ops.ln_forward(x, scale, bias, eps)
+    def forward(ctx, x, scale, bias, eps, kernel):
+        fwd = ln_ops.ln_forward if kernel else ln_ops.ln_forward_plain
+        out, mean, rstd = fwd(x, scale, bias, eps)
         ctx.save_for_backward(x, mean, rstd, scale)
-        ctx.bias_dtype = bias.dtype
+        ctx.bias_dtype, ctx.kernel = bias.dtype, kernel
         return out
 
     @staticmethod
     def backward(ctx, dy):
         x, mean, rstd, scale = ctx.saved_tensors
-        dx, dscale, dbias = ln_ops.ln_backward(x, dy, mean, rstd, scale)
-        return dx, dscale.to(scale.dtype), dbias.to(ctx.bias_dtype), None
+        bwd = ln_ops.ln_backward if ctx.kernel else ln_ops.ln_backward_plain
+        dx, dscale, dbias = bwd(x, dy, mean, rstd, scale)
+        return dx, dscale.to(scale.dtype), dbias.to(ctx.bias_dtype), None, None
 
 
 class _FusedAddLayerNormFn(torch.autograd.Function):
@@ -124,30 +132,63 @@ class LayerNorm(nn.Module):
                                                   self.bias, self.eps)
             s = x + residual
             return s, self(s)
-        if kernel:
-            return _LayerNormFn.apply(x, self.weight, self.bias, self.eps)
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight.float() + self.bias.float()).to(self.dtype)
+        return _LayerNormFn.apply(x, self.weight, self.bias, self.eps, kernel)
 
 
 _SQRT_2_OVER_PI = 0.7978845608028654
 _TANH_C = 0.044715
 
 
+class _GeluTanhFn(torch.autograd.Function):
+    """JAX's ``gelu_tanh`` custom VJP (bifold_tpu/models/layers.py:168-186):
+    saves only x and recomputes tanh in the backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        xf = x.float()
+        t = torch.tanh(_SQRT_2_OVER_PI * (xf + _TANH_C * xf ** 3))
+        return (0.5 * xf * (1.0 + t)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        xf = x.float()
+        t = torch.tanh(_SQRT_2_OVER_PI * (xf + _TANH_C * xf ** 3))
+        du = _SQRT_2_OVER_PI * (1.0 + 3.0 * _TANH_C * xf * xf)
+        dgelu = 0.5 * (1.0 + t) + 0.5 * xf * (1.0 - t * t) * du
+        return (dy.float() * dgelu).to(x.dtype)
+
+
+class _GeluExactFn(torch.autograd.Function):
+    """JAX's ``gelu_exact`` custom VJP (bifold_tpu/models/layers.py:189-210):
+    saves only x and recomputes erf in the backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        xf = x.float()
+        return (xf * (0.5 * (1.0 + torch.erf(xf / math.sqrt(2.0))))).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        xf = x.float()
+        cdf = 0.5 * (1.0 + torch.erf(xf / math.sqrt(2.0)))
+        pdf = torch.exp(-0.5 * xf * xf) * (1.0 / math.sqrt(2.0 * math.pi))
+        return (dy.float() * (cdf + xf * pdf)).to(x.dtype)
+
+
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """gelu(approximate='tanh') computed in float32, cast back."""
-    xf = x.float()
-    t = torch.tanh(_SQRT_2_OVER_PI * (xf + _TANH_C * xf ** 3))
-    return (0.5 * xf * (1.0 + t)).to(x.dtype)
+    """gelu(approximate='tanh') computed in float32, cast back; its backward
+    keeps only x."""
+    return _GeluTanhFn.apply(x)
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
-    """Exact (erf) gelu computed in float32, cast back."""
-    xf = x.float()
-    return (xf * (0.5 * (1.0 + torch.erf(xf / math.sqrt(2.0))))).to(x.dtype)
+    """Exact (erf) gelu computed in float32, cast back; its backward keeps
+    only x."""
+    return _GeluExactFn.apply(x)
 
 
 class GELU(nn.Module):

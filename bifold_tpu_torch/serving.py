@@ -1,10 +1,9 @@
 """Batch-1 and pooled serving: camera frames + instruction -> pixel Action.
 
-Counterpart of bifold_tpu/serving.py:69-102, 187-465 and 717-740. The
-control loop's path: tokenization and record assembly on the host, one
-upload per input tensor, then preprocessing (``data.processor._core``), the
-forward and the heatmap decode on the device, and one fetch of the packed
-pixel actions.
+Counterpart of bifold_tpu/serving.py. The control loop's path: tokenization
+and record assembly on the host, one upload per input tensor, then
+preprocessing (``data.processor._core``), the forward and the heatmap
+decode on the device, and one fetch of the packed pixel actions.
 
 The wire keeps the JAX package's value semantics: rgb travels as uint8,
 masks as k/255-quantized uint8 (binary masks exact, soft masks to 1/255),
@@ -12,26 +11,53 @@ depth as float32 or, with ``depth_wire_dtype="float16"``, float16.
 
     model = build_model(cfg, dtype=torch.bfloat16)
     server = ServingModel(model, state_dict, Processor(...), device="cuda")
+    server = ServingModel.from_checkpoint("checkpoints/best.ckpt", cfg)
     action = server.predict(rgb, depth, mask, "fold the left sleeve in")
+
+The deployment half (bifold_tpu/serving.py:105-184, 358-386, 467, 536-700):
+
+- ``quantize="int8"``: weight-only symmetric int8 with one scale per output
+  channel (and per layer of a stack), chosen and computed as the JAX
+  package does (:func:`quantize_weights`). The int8 payloads and scales stay
+  on the device and are dequantized in the compute dtype where the forward
+  uses them, ``q.to(dtype) * scale.to(dtype)``.
+- :meth:`ServingModel.from_checkpoint` serves a checkpoint the JAX trainer
+  wrote, read without JAX (:mod:`bifold_tpu_torch.utils.checkpoint`).
+- :meth:`ServingModel.export` writes the port's own artifact (not
+  StableHLO): the served weights, the model config and compute dtype, the
+  wire schema of one observation shape and pool size, and the processor
+  with its tokenizer model; :meth:`ServingModel.load_exported` serves it
+  without the caller's config.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Optional
+import re
+import zipfile
+from pathlib import Path
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch import nn
+from torch.nn.utils import parametrize
 
 from bifold_tpu_torch.env.action import Action
-from bifold_tpu_torch.models import decode_action, resolve_device
+from bifold_tpu_torch.models import build_model, decode_action, resolve_device
 from bifold_tpu_torch.data.processor import Processor, _core
 
-__all__ = ["ServingModel", "ServingPolicy"]
+__all__ = ["ServingModel", "ServingPolicy", "ExportedServingModel",
+           "ProgramMemory", "quantize_weights", "dequantize_weights",
+           "ARTIFACT_FORMAT"]
 
 _BINARY_INPUTS = ("mask", "ctx_mask")
 _DEPTH_INPUTS = ("depth", "ctx_depth")
 _PRECAST_MIN_SIZE = 2 ** 16
+# the JAX package's packing order and wire bytes per element
+_WIRE_ORDER = ("rgb", "depth", "mask", "ctx_rgb", "ctx_depth", "ctx_mask",
+               "ctx_count", "instruction")
+ARTIFACT_FORMAT = "bifold_tpu_torch.serving/1"
 
 
 def _stack_raws(raws):
@@ -43,48 +69,309 @@ def _stack_raws(raws):
     return batched
 
 
+def _wire_dtype(name: str, depth_f16: bool):
+    """The wire type of one raw input."""
+    if name in _BINARY_INPUTS or name in ("rgb", "ctx_rgb"):
+        return np.uint8
+    if name in ("instruction", "ctx_count"):
+        return np.int32
+    return np.float16 if depth_f16 and name in _DEPTH_INPUTS else np.float32
+
+
 def _wire(name: str, arr: np.ndarray, depth_f16: bool) -> np.ndarray:
     """The host-side wire encoding of one raw input."""
     if name in _BINARY_INPUTS:
         return np.clip(np.round(arr.astype(np.float32) * 255.0), 0, 255).astype(np.uint8)
-    if name in ("rgb", "ctx_rgb"):
-        return arr.astype(np.uint8)
-    if name in ("instruction", "ctx_count"):
-        return arr.astype(np.int32)
-    if depth_f16 and name in _DEPTH_INPUTS:
-        return arr.astype(np.float16)
-    return arr.astype(np.float32)
+    return arr.astype(_wire_dtype(name, depth_f16))
+
+
+def _wire_schema(batched: Dict[str, np.ndarray], depth_f16: bool):
+    """((name, byte offset, shape), ...) of the observation on the JAX
+    package's packed wire (bifold_tpu/serving.py:69): the layout an
+    artifact is pinned to."""
+    schema, off = [], 0
+    for name in _WIRE_ORDER:
+        if name in batched:
+            shape = tuple(int(d) for d in np.shape(batched[name]))
+            schema.append((name, off, shape))
+            off += int(np.prod(shape)) * np.dtype(_wire_dtype(name, depth_f16)).itemsize
+    return tuple(schema)
+
+
+def _spm_asset_bytes(processor) -> Optional[bytes]:
+    """The spiece.model bytes behind ``processor``'s tokenizer, to embed in
+    an artifact: the pinned asset, else what the tokenizer's build would
+    resolve; None for the hashing fallback."""
+    from bifold_tpu_torch.data.tokenizers import siglip_spm_path
+
+    asset = getattr(processor, "spm_asset", None)
+    if isinstance(asset, bytes):
+        return asset
+    if asset is not None:
+        return Path(asset).read_bytes()
+    if processor.autoprocessor_name:
+        found = siglip_spm_path(processor.autoprocessor_name)
+        if found is not None:
+            return found.read_bytes()
+    return None
+
+
+# ---------------------------------------------------------------------------
+# int8 weight-only quantization
+# ---------------------------------------------------------------------------
+
+QUANT_TAG = "__int8_q__"
+# The JAX package keeps float every leaf whose param path has a segment that
+# _QUANT_EXCLUDE matches (bifold_tpu/serving.py:117): the token and
+# positional tables and the learned modality tokens, which are gathered or
+# added, never a matmul operand. In the port's names those are exactly
+# these; HF's "embeddings." segment must not exclude the patch embedding, a
+# conv matmul that stays quantized.
+_QUANT_EXCLUDE = re.compile(
+    r"(^|\.)(token_embedding|position_embedding|token_type_embeddings)\.weight$"
+    r"|^(text_token|image_token|context_pos_embedding)$")
+_STACK = re.compile(r"^(.*\.layers)\.(\d+)\.")
+
+
+def _stack_depths(names) -> Dict[str, int]:
+    """{stack prefix: depth} of the ``....layers.<i>.`` stacks, which the
+    JAX package stores as one leaf per parameter with a leading depth axis
+    (its nn.scan layout, used when depth > 1)."""
+    layers: Dict[str, set] = {}
+    for name in names:
+        m = _STACK.match(name)
+        if m:
+            layers.setdefault(m.group(1), set()).add(m.group(2))
+    return {prefix: len(ids) for prefix, ids in layers.items()}
+
+
+def _reduce_dims(w: torch.Tensor):
+    """The dims one int8 scale covers: a Linear weight (out, in) reduces
+    over ``in`` (JAX: axis 0 of (in, out), or 1 of (depth, in, out)); a conv
+    weight (out, in, kh, kw) over ``in`` and ``kw`` (JAX: axes 1-2 of (kh,
+    kw, in, out)), so one scale per output channel and kernel row."""
+    if w.dim() == 2:
+        return (1,)
+    if w.dim() == 4:
+        return (1, 3)
+    raise NotImplementedError(f"int8 scales for a {w.dim()}-d weight")
+
+
+# XLA compiles the JAX package's absmax / 127.0 as absmax times the f32
+# reciprocal of 127, which rounds differently in some elements
+_INV_127 = float(np.float32(1) / np.float32(127))
+
+
+def _quantize_leaf(w: torch.Tensor, dims):
+    """int8 payload and f32 scale (bifold_tpu/serving.py:121)."""
+    wf = w.float()
+    scale = wf.abs().amax(dim=dims, keepdim=True) * _INV_127
+    q = torch.round(wf / scale.clamp_min(1e-30)).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+@torch.no_grad()
+def quantize_weights(weights: Dict[str, torch.Tensor], min_size: int = 2 ** 16):
+    """Symmetric per-output-channel int8 of the tensors the JAX package
+    quantizes (bifold_tpu/serving.py:135) when its params tree is mapped to
+    these names by ``convert_bifold_inverse``: float32 or bfloat16 weights
+    of two dims or more whose JAX leaf has at least ``min_size`` elements
+    (a stacked leaf holds every layer of its stack), but the tables that
+    :data:`_QUANT_EXCLUDE` names. ``weights`` maps the port's parameter
+    names to tensors; each quantized one becomes ``{QUANT_TAG: int8,
+    "scale": f32}``, computed where it lies. A one-dim tensor of a stack,
+    which JAX would quantize across layers at a ``min_size`` this small,
+    raises."""
+    depths = _stack_depths(weights)
+    out = {}
+    for name, w in weights.items():
+        m = _STACK.match(name)
+        depth = depths[m.group(1)] if m else 1
+        size = w.numel() * (depth if depth > 1 else 1)
+        if (_QUANT_EXCLUDE.search(name) or size < min_size
+                or w.dtype not in (torch.float32, torch.bfloat16)
+                or w.dim() + (depth > 1) < 2):
+            out[name] = w
+        elif w.dim() < 2:
+            raise NotImplementedError(
+                f"{name}: the JAX package quantizes its stacked leaf across "
+                f"layers at quantize_min_size={min_size}; the port does not")
+        else:
+            q, scale = _quantize_leaf(w, _reduce_dims(w))
+            out[name] = {QUANT_TAG: q, "scale": scale}
+    return out
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """``q.to(dtype) * scale.to(dtype)``: the JAX package's rounding."""
+    return q.to(dtype) * scale.to(dtype)
+
+
+def dequantize_weights(weights, compute_dtype):
+    """Inverse of :func:`quantize_weights`; identity on other entries."""
+    return {name: dequantize(v[QUANT_TAG], v["scale"], compute_dtype)
+            if isinstance(v, dict) else v for name, v in weights.items()}
+
+
+class _Int8Weight(nn.Module):
+    """Parametrization of a quantized weight: its originals are the int8
+    payload and the f32 scale, and every use reads :func:`dequantize` of
+    them in the compute dtype, so the weight stays int8 on the device."""
+
+    def __init__(self, q, scale, dtype):
+        super().__init__()
+        self.dtype = dtype
+        self._pair = (q, scale)
+
+    def right_inverse(self, weight):
+        pair, self._pair = self._pair, None
+        return pair
+
+    def forward(self, q, scale):
+        return dequantize(q, scale, self.dtype)
+
+
+@torch.no_grad()
+def _install(model: nn.Module, weights: Dict, dtype) -> None:
+    """Make ``weights`` (parameter name -> tensor, or a quantized entry of
+    :func:`quantize_weights`) the model's parameters, in their dtypes; every
+    parameter must be named."""
+    params = dict(model.named_parameters())
+    if set(weights) != set(params):
+        raise ValueError(f"served weights do not match the model: missing "
+                         f"{sorted(set(params) - set(weights))[:5]}, unexpected "
+                         f"{sorted(set(weights) - set(params))[:5]}")
+    for name, value in weights.items():
+        param = params[name]
+        module_name, _, attr = name.rpartition(".")
+        shape = value[QUANT_TAG].shape if isinstance(value, dict) else value.shape
+        if shape != param.shape:
+            raise ValueError(f"{name}: shape {tuple(shape)}, the model has "
+                             f"{tuple(param.shape)}")
+        if isinstance(value, dict):
+            param.requires_grad_(False)
+            parametrize.register_parametrization(
+                model.get_submodule(module_name), attr,
+                _Int8Weight(value[QUANT_TAG].to(param.device),
+                            value["scale"].to(param.device), dtype), unsafe=True)
+        else:
+            param.data = value.to(param.device)
+
+
+def _served_weights(model: nn.Module) -> Dict:
+    """The inverse of :func:`_install`: parameter name -> tensor, or the
+    quantized entry of an int8 weight."""
+    out = {}
+    for name, module in model.named_modules():
+        if parametrize.is_parametrized(module):
+            for attr, originals in module.parametrizations.items():
+                out[f"{name}.{attr}" if name else attr] = {
+                    QUANT_TAG: originals.original0.detach(),
+                    "scale": originals.original1.detach()}
+    for name, p in model.named_parameters():
+        if ".parametrizations." not in f".{name}":
+            out[name] = p.detach()
+    return out
+
+
+class ProgramMemory(NamedTuple):
+    """Device memory of one served request (``program_memory``): the bytes
+    of the served weights, and the peak the request allocated above what
+    was allocated before it."""
+    weight_bytes: int
+    peak_over_weights_bytes: int
 
 
 class ServingModel:
     """Serve a copy of ``model`` (its weights replaced by ``state_dict`` when
     given) on ``device``, in eval mode. Big float32 weights (>= 2**16
     elements) are cast to the model's compute dtype once, as the JAX server
-    does; small ones (biases, LayerNorm) stay float32. The copy leaves the
-    caller's module as it was (a model can be served mid-training without
-    rounding its float32 trainable masters), as the JAX server works on a
-    new params tree."""
+    does; small ones (biases, LayerNorm) stay float32. With
+    ``quantize="int8"`` the weights :func:`quantize_weights` picks (at
+    ``quantize_min_size``) are held as int8 and scales instead, and nothing
+    else is cast. The copy leaves the caller's module as it was (a model can
+    be served mid-training without rounding its float32 trainable masters),
+    as the JAX server works on a new params tree."""
 
     def __init__(self, model, state_dict, processor: Processor, *,
                  threshold: Optional[float] = None,
-                 depth_wire_dtype: str = "float32", device="cuda"):
-        if depth_wire_dtype not in ("float32", "float16"):
-            raise ValueError(f"depth_wire_dtype {depth_wire_dtype!r}")
-        self.device = resolve_device(device)
-        self.model = copy.deepcopy(model).to(self.device).eval()
+                 depth_wire_dtype: str = "float32",
+                 quantize: Optional[str] = None,
+                 quantize_min_size: int = 2 ** 16, device="cuda"):
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize {quantize!r}; None or 'int8'")
+        device = resolve_device(device)
+        served = copy.deepcopy(model).to(device).eval()
         if state_dict is not None:
-            self.model.load_state_dict(
+            served.load_state_dict(
                 {k: torch.from_numpy(np.array(v)) if isinstance(v, np.ndarray) else v
                  for k, v in state_dict.items()}, strict=True)
         cdtype = getattr(model, "dtype", torch.float32)
-        if cdtype != torch.float32:
-            with torch.no_grad():
-                for p in self.model.parameters():
-                    if p.dtype == torch.float32 and p.numel() >= _PRECAST_MIN_SIZE:
-                        p.data = p.data.to(cdtype)
+        weights = {n: p.detach() for n, p in served.named_parameters()}
+        if quantize == "int8":
+            weights = quantize_weights(weights, quantize_min_size)
+        elif cdtype != torch.float32:
+            weights = {n: w.to(cdtype) if w.dtype == torch.float32
+                       and w.numel() >= _PRECAST_MIN_SIZE else w
+                       for n, w in weights.items()}
+        _install(served, weights, cdtype)
+        self._setup(served, processor, threshold, depth_wire_dtype, quantize)
+
+    def _setup(self, model, processor, threshold, depth_wire_dtype, quantize):
+        if depth_wire_dtype not in ("float32", "float16"):
+            raise ValueError(f"depth_wire_dtype {depth_wire_dtype!r}")
+        self.model = model
+        self.device = next(model.parameters()).device
         self.processor = processor
+        self.quantize = quantize
         self.threshold = float(model.threshold if threshold is None else threshold)
         self._depth_wire_f16 = depth_wire_dtype == "float16"
+
+    @classmethod
+    def _served(cls, model, processor, threshold, depth_wire_dtype, quantize):
+        """A server around ``model`` as it is (its weights installed)."""
+        server = cls.__new__(cls)
+        server._setup(model, processor, threshold, depth_wire_dtype, quantize)
+        return server
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_path, cfg, threshold: Optional[float] = None,
+                        depth_wire_dtype: str = "float32",
+                        quantize: Optional[str] = None,
+                        quantize_min_size: int = 2 ** 16,
+                        device="cuda") -> "ServingModel":
+        """Serve a checkpoint of the JAX trainer (bifold_tpu/serving.py:358):
+        the model from ``cfg["model"]``, its params converted by
+        ``convert_bifold_inverse`` and loaded with ``strict=True``, and the
+        test-partition Processor from ``cfg["processor"]`` with the
+        checkpoint's sibling ``spiece.model`` when there is one. The model
+        computes in ``cfg["precision"]["compute_dtype"]``, float32 when the
+        config names none, as the JAX trainer reads it (trainer.py:98; the
+        JAX package's from_checkpoint builds float32 whatever the config
+        says). Reads the file without JAX; ``extra_vars`` (the UNet
+        family's BatchNorm statistics) belong to no family the port has and
+        raise."""
+        from bifold_tpu_torch.models.convert import convert_bifold_inverse
+        from bifold_tpu_torch.utils.checkpoint import load_checkpoint
+
+        mcfg = dict(cfg["model"])
+        payload = load_checkpoint(checkpoint_path)
+        if payload.get("extra_vars"):
+            raise NotImplementedError(
+                f"checkpoint carries extra_vars {sorted(payload['extra_vars'])}: "
+                "no model family of the PyTorch port has such state")
+        dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[
+            dict(cfg.get("precision") or {}).get("compute_dtype", "float32")]
+        model = build_model(mcfg, dtype=dtype, device=device)
+        sibling = Path(checkpoint_path).parent / "spiece.model"
+        processor = Processor(dict(cfg["processor"]), partition="test",
+                              max_context_length=mcfg.get("context_length"),
+                              autoprocessor_name=mcfg.get("automodel_name"),
+                              spm_asset=sibling if sibling.exists() else None)
+        return cls(model, convert_bifold_inverse(payload["params"]), processor,
+                   threshold=threshold, depth_wire_dtype=depth_wire_dtype,
+                   quantize=quantize, quantize_min_size=quantize_min_size,
+                   device=device)
 
     def _action_fields(self):
         return (("left_pick", "right_pick", "left_place", "right_place")
@@ -109,24 +396,14 @@ class ServingModel:
             [dict(rgb=rgb, depth=depth, mask=mask, instruction=instruction,
                   context=context)], return_raw_output=return_raw_output)
 
-    @torch.inference_mode()
     def predict_batch(self, observations: List[Dict],
                       pad_to: Optional[int] = None,
                       return_raw_output: bool = False):
         """K observations -> K Actions in one padded batch. ``pad_to``
         repeats the last observation so a pool always runs at one batch
         size; padded rows are dropped from the result."""
-        n = len(observations)
         batched, spec = self._prepare(observations, pad_to)
-        sample = self._preprocess(spec, self._upload(batched))
-        out = self.model(sample)
-        packed = self._decode(out, sample)[:n].cpu().numpy()   # the one fetch
-        action = Action(**{f: packed[:, i]
-                           for i, f in enumerate(self._action_fields())})
-        if return_raw_output:
-            return action, {k: v[:n].cpu().numpy() for k, v in out.items()
-                            if isinstance(v, torch.Tensor)}
-        return action
+        return self._serve(batched, spec, len(observations), return_raw_output)
 
     # the stages of predict_batch, separately callable for timing
 
@@ -143,6 +420,19 @@ class ServingModel:
             raws = raws + [raws[-1]] * (pad_to - n)
         batched = _stack_raws(raws)
         return batched, self.processor._spec(batched)
+
+    @torch.inference_mode()
+    def _serve(self, batched, spec, n: int, return_raw_output: bool):
+        """Upload, preprocess, forward, decode; the first ``n`` rows out."""
+        sample = self._preprocess(spec, self._upload(batched))
+        out = self.model(sample)
+        packed = self._decode(out, sample)[:n].cpu().numpy()   # the one fetch
+        action = Action(**{f: packed[:, i]
+                           for i, f in enumerate(self._action_fields())})
+        if return_raw_output:
+            return action, {k: v[:n].cpu().numpy() for k, v in out.items()
+                            if isinstance(v, torch.Tensor)}
+        return action
 
     def _preprocess(self, spec, x: Dict[str, torch.Tensor]):
         """Device: the processor core on the uploaded raw inputs."""
@@ -176,6 +466,175 @@ class ServingModel:
             self.predict_batch([obs], pad_to=int(pool))
         else:
             self.predict(**obs)
+
+    def program_memory(self, rgb=None, depth=None, mask=None,
+                       instruction: str = "", context=None) -> Optional[ProgramMemory]:
+        """Device memory of one request at this observation shape
+        (bifold_tpu/serving.py:467 returns the compiled program's memory
+        stats; eager PyTorch has no program, so this measures one request):
+        the served weights' bytes and the peak the request allocates above
+        them. None on the CPU, as JAX returns None where a backend has no
+        memory analysis."""
+        if self.device.type != "cuda":
+            return None
+        weights = sum(t.numel() * t.element_size()
+                      for t in (*self.model.parameters(), *self.model.buffers()))
+        torch.cuda.synchronize(self.device)
+        torch.cuda.reset_peak_memory_stats(self.device)
+        base = torch.cuda.memory_allocated(self.device)
+        self.predict(rgb=rgb, depth=depth, mask=mask, instruction=instruction,
+                     context=context)
+        torch.cuda.synchronize(self.device)
+        return ProgramMemory(weights, torch.cuda.max_memory_allocated(self.device) - base)
+
+    # ------------------------------------------------------------------
+    # Deployment artifact
+    # ------------------------------------------------------------------
+
+    def export(self, path, rgb=None, depth=None, mask=None,
+               instruction: str = "export", context=None, batch: int = 1):
+        """Write a serving artifact for ONE observation shape (the given
+        one) at ``batch`` pooled rows per call (bifold_tpu/serving.py:536):
+        the port's own format, read by :meth:`load_exported` with
+        ``torch.load(weights_only=True)``. It holds the served weights
+        (bf16-precast, or int8 and scales), the model config and compute
+        dtype, the wire schema and depth-wire flag, the action fields and
+        threshold, the processor config, ``max_context_length``,
+        ``autoprocessor_name`` and the embedded sentencepiece model, the
+        pool size, and a ``format`` field naming it. The model must come
+        from ``build_model`` (its config is recorded)."""
+        config = getattr(self.model, "config", None)
+        if config is None:
+            raise ValueError("export records the model config: serve a model "
+                             "built by bifold_tpu_torch.models.build_model")
+        batch = max(1, int(batch))
+        raw = self.processor.make_raw(rgb=rgb, depth=depth, mask=mask,
+                                      instruction=instruction, context=context)
+        schema = _wire_schema(_stack_raws([raw] * batch), self._depth_wire_f16)
+
+        def host(v):
+            return ({QUANT_TAG: v[QUANT_TAG].cpu(), "scale": v["scale"].cpu()}
+                    if isinstance(v, dict) else v.cpu())
+
+        payload = {
+            "format": ARTIFACT_FORMAT,
+            "model_config": dict(config),
+            "compute_dtype": str(self.model.dtype).removeprefix("torch."),
+            "weights": {k: host(v) for k, v in _served_weights(self.model).items()},
+            "quantize": self.quantize,
+            "threshold": self.threshold,
+            "schema": schema,
+            "depth_wire_f16": self._depth_wire_f16,
+            "fields": tuple(self._action_fields()),
+            "processor_cfg": dict(self.processor.cfg),
+            # None (not 0) when context is off: the Processor keys
+            # process_context on max_context_length being given
+            "max_context_length": (self.processor.max_context_length
+                                   if self.processor.process_context else None),
+            "autoprocessor_name": self.processor.autoprocessor_name,
+            "spm_model_bytes": _spm_asset_bytes(self.processor),
+            "batch": batch,
+        }
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(path.suffix + ".tmp")
+        torch.save(payload, tmp)
+        tmp.replace(path)
+        return path
+
+    @staticmethod
+    def load_exported(path, device="cuda") -> "ExportedServingModel":
+        return ExportedServingModel(path, device=device)
+
+
+class ExportedServingModel:
+    """Serve a :meth:`ServingModel.export` artifact: the model is rebuilt
+    from the recorded config and given the recorded weights, so the caller
+    passes no config; the host tokenizes with the embedded sentencepiece
+    model. One observation layout and one pool size, as recorded: a bigger
+    pool or another layout raises ``ValueError``. An artifact of the JAX
+    package (a pickled ``jax.export`` program) is refused."""
+
+    def __init__(self, path, device="cuda"):
+        device = resolve_device(device)
+        if not zipfile.is_zipfile(path):
+            raise ValueError(
+                f"{path} is not a serving artifact of the PyTorch port (a "
+                "torch.save archive); artifacts of the JAX package hold a "
+                "jax.export program and serve with bifold_tpu.serving only")
+        p = torch.load(path, map_location="cpu", weights_only=True)
+        if not isinstance(p, dict) or p.get("format") != ARTIFACT_FORMAT:
+            raise ValueError(f"{path}: artifact format "
+                             f"{p.get('format') if isinstance(p, dict) else None!r}, "
+                             f"this port reads {ARTIFACT_FORMAT!r}")
+        dtype = getattr(torch, p["compute_dtype"])
+        model = build_model(p["model_config"], dtype=dtype, device=device)
+        _install(model, p["weights"], dtype)
+        self.processor = Processor(
+            p["processor_cfg"], partition="test",
+            max_context_length=p["max_context_length"],
+            autoprocessor_name=p["autoprocessor_name"],
+            spm_asset=p["spm_model_bytes"])
+        self.server = ServingModel._served(
+            model, self.processor, p["threshold"],
+            "float16" if p["depth_wire_f16"] else "float32", p["quantize"])
+        self.schema = tuple((str(n), int(o), tuple(int(d) for d in s))
+                            for n, o, s in p["schema"])
+        self.fields = tuple(p["fields"])
+        self.batch = int(p["batch"])
+        self.threshold = self.server.threshold
+        self.quantize = p["quantize"]
+
+    def predict(self, rgb=None, depth=None, mask=None, instruction: str = "",
+                context: Optional[List[Dict]] = None,
+                return_raw_output: bool = False):
+        return self.predict_batch(
+            [dict(rgb=rgb, depth=depth, mask=mask, instruction=instruction,
+                  context=context)], return_raw_output=return_raw_output)
+
+    def warmup(self, input_size: Optional[int] = None,
+               pool: Optional[int] = None) -> None:
+        """One request at the recorded observation shape (``input_size``
+        and ``pool`` are accepted, as :meth:`ServingModel.warmup` takes
+        them, and ignored: the artifact pins both)."""
+        shapes = {name: shape for name, _, shape in self.schema}
+        rng = np.random.default_rng(0)
+        obs: Dict = {}
+        if "rgb" in shapes:
+            obs["rgb"] = rng.integers(0, 255, shapes["rgb"][1:], dtype=np.uint8)
+        if "depth" in shapes:
+            obs["depth"] = rng.random(shapes["depth"][1:]).astype(np.float32)
+        if "mask" in shapes:
+            obs["mask"] = np.ones(shapes["mask"][1:], np.float32)
+        if "ctx_rgb" in shapes:
+            obs["context"] = [dict(
+                rgb=rng.integers(0, 255, shapes["ctx_rgb"][2:], dtype=np.uint8),
+                depth=(rng.random(shapes["ctx_depth"][2:]).astype(np.float32)
+                       if "ctx_depth" in shapes else None),
+                mask=(np.ones(shapes["ctx_mask"][2:], np.float32)
+                      if "ctx_mask" in shapes else None))
+                for _ in range(shapes["ctx_rgb"][1])]
+        self.predict(**obs, instruction="warmup")
+
+    def predict_batch(self, observations: List[Dict],
+                      pad_to: Optional[int] = None,
+                      return_raw_output: bool = False):
+        """Up to ``self.batch`` observations, padded to it with the last one
+        (padded rows dropped). ``pad_to`` only checks that the pool fits."""
+        n = len(observations)
+        if pad_to and pad_to > self.batch:
+            raise ValueError(f"pool of {pad_to} exceeds the exported batch "
+                             f"{self.batch}; re-export with batch={pad_to}")
+        if not 1 <= n <= self.batch:
+            raise ValueError(f"the artifact serves 1..{self.batch} observations "
+                             f"per call, got {n} (re-export with batch={n})")
+        batched, spec = self.server._prepare(observations, self.batch)
+        schema = _wire_schema(batched, self.server._depth_wire_f16)
+        if schema != self.schema:
+            raise ValueError(f"observation layout {schema} does not match the "
+                             f"artifact's {self.schema}; an artifact covers "
+                             "exactly one observation shape")
+        return self.server._serve(batched, spec, n, return_raw_output)
 
 
 class ServingPolicy:

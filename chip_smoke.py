@@ -20,7 +20,9 @@ one JSON object per line:
    four LayerNorm kernels (out, s, mean, rstd; dx, dscale, dbias) at
    C = 128, 256, 768 and 1024 (1-4 chunks per lane) times R = 1, 2, 5,
    300 and the train step's fusion and vision rows, and at 40000 x 768,
-   with constant rows; the backward's dx, dscale and dbias bitwise equal
+   with constant rows (the f32 dx within 1e-5 x max(1, |plain|) on every
+   row, and both versions' distance from the float64 dx printed on the
+   constant rows); the backward's dx, dscale and dbias bitwise equal
    across two calls, and backward calls of four shapes queued back to
    back on two streams, each equal to its plain version; then gradients through
    ``dot_product_attention`` (the autograd Function over the kernels) against
@@ -59,7 +61,14 @@ one JSON object per line:
    the kernel modes), finite outputs of the right shape, the same forward
    through ``backend="math"`` and, in f32, the kernel modes' actions equal
    to the default mode's; predict p50 latency and where its time goes;
-7. the ``kernels`` line (ten kernel instances; each row names its design,
+7. the deployment half of serving on the same flagship
+   (:func:`deployment_phase`): int8 weights, a JAX trainer checkpoint read
+   without JAX, batch-1 and batch-8 artifacts and the HTTP daemon, each
+   bitwise against the live server with exact launches per request in
+   every LayerNorm mode; weight bytes, artifact load times, the daemon's
+   coalescing and its p50 beside in-process; then peak train memory per
+   LayerNorm mode;
+8. the ``kernels`` line (ten kernel instances; each row names its design,
    the LayerNorm rows with the ptxas numbers of their bf16 C = 768
    instance), then the card line, then the result line ``{"ok": true,
    "device": {...}}``.
@@ -85,6 +94,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -611,17 +621,15 @@ def ln_close(out, ref, what, dtype, exact=None, against_plain=True):
     plain version's bound everywhere) of one LayerNorm output. The bound is
     tol x max(1, |plain|): tol is LN_PARAM_TOL for dscale and dbias, 2^-7
     for bf16 rows and LN_F32_TOL for f32 rows; s is bitwise, mean and rstd
-    within LN_STAT_RTOL x |plain|. ``exact`` (the backward's float64 result
-    on the same inputs, :func:`ln_exact`) adds two checks: dscale and dbias
-    within LN_PARAM_TOL x max(1, |float64|) of it, and an f32 dx no further
-    from it than the plain version is, plus LN_F32_TOL x max(1, |plain|),
-    plus the rounding bound of the kernel's two f32 row sums times rstd
-    (``exact["sum_bound"]``). With ``exact``, an f32 dx is held to the plain
-    version's bound on every row but the constant ones: there rstd =
-    1/sqrt(eps) (up to 1000) turns the last ulps of the row sums, whose
-    order the kernel and torch choose differently, into 1e-5 of dx or more
-    (R = 4608, C = 1024: 1.7e-5 on an O(1) element), and the float64 check
-    holds them.
+    within LN_STAT_RTOL x |plain|. It holds on every row, the constant ones
+    included, where rstd = 1/sqrt(eps) (up to 1000) turns the last ulps of
+    the row means into 1e-5 of dx: the kernel sums them with compensation.
+    ``exact`` (the backward's float64 result on the same inputs,
+    :func:`ln_exact`) adds two checks beside it: dscale and dbias within
+    LN_PARAM_TOL x max(1, |float64|) of it, and an f32 dx no further from
+    it than the plain version is, plus LN_F32_TOL x max(1, |plain|), plus
+    the rounding bound of the kernel's two f32 row sums times rstd
+    (``exact["sum_bound"]``).
     ``against_plain`` False leaves the bound out of ``ok`` (dscale and dbias
     over many rows, :func:`ln_against_plain`). The fourth value reports the
     bound on every element whether or not it is required."""
@@ -638,17 +646,12 @@ def ln_close(out, ref, what, dtype, exact=None, against_plain=True):
         tol = 2.0 ** -7 if dtype == torch.bfloat16 else LN_F32_TOL
     name = "2^-7" if tol == 2.0 ** -7 else str(tol)
     plain_allowed = tol * ref.double().abs().clamp_min(1)
-    f32_dx = exact is not None and what == "dx" and dtype == torch.float32
-    bound = plain_allowed
-    if f32_dx:
-        bound = plain_allowed.masked_fill(exact["constant"], float("inf"))
-    checks = [(f"{name} * max(1, |plain|)" + (" off the constant rows" if f32_dx else ""),
-               err.double(), bound, against_plain)]
+    checks = [(f"{name} * max(1, |plain|)", err.double(), plain_allowed, against_plain)]
     if exact is not None and what in ("dscale", "dbias"):
         checks.append((f"{name} * max(1, |float64 sum|) from it",
                        (out.double() - exact[what]).abs(),
                        tol * exact[what].abs().clamp_min(1), True))
-    if f32_dx:
+    if exact is not None and what == "dx" and dtype == torch.float32:
         checks.append((f"|plain - float64 dx| + {name} * max(1, |plain|) + rstd x the "
                        "row sums' rounding bound from it",
                        (out.double() - exact[what]).abs(),
@@ -666,6 +669,23 @@ def ln_close(out, ref, what, dtype, exact=None, against_plain=True):
             ok = ok and held
     return (float(err.max()), " and ".join(texts), ok,
             bool((err.double() <= plain_allowed).all()))
+
+
+def constant_row_errors(results, exact):
+    """{backward kernel: {"plain": max |plain - float64 dx|, "kernel": max
+    |kernel - float64 dx|}} over the constant rows of one case, or {} when
+    it has none: how far each version is from the exact dx where rstd is
+    largest."""
+    errs = {}
+    for kernel in ("ln_bwd", "fused_ln_bwd"):
+        constant = exact[kernel]["constant"]
+        if not bool(constant.any()):
+            continue
+        _, got, plain = results[kernel][0]
+        want = exact[kernel]["dx"][constant]
+        errs[kernel] = {"plain": float((plain.double()[constant] - want).abs().max()),
+                        "kernel": float((got.double()[constant] - want).abs().max())}
+    return errs
 
 
 def ln_exact(rows, dy, ds_out, m, r, scale):
@@ -763,9 +783,10 @@ def check_ln_kernels():
     backward against its float64 result), in bf16 and in f32, at every
     case of :func:`ln_cases` (constant rows wherever R >= 3), as
     :func:`ln_close` says: one line per case and dtype with each output's
-    largest error and tolerance, and the outputs that miss the plain
-    version's bound where it is not required (the constant rows of an f32
-    dx, or as :func:`ln_against_plain` says).
+    largest error and tolerance, the outputs that miss the plain
+    version's bound where it is not required (as :func:`ln_against_plain`
+    says) and, in f32, both versions' distance from the float64 dx on the
+    constant rows (:func:`constant_row_errors`).
     Both backward kernels bitwise equal (dx, dscale, dbias) across two
     calls; then :func:`check_ln_back_to_back`. Returns the largest bf16
     error per kernel at the train shapes."""
@@ -797,6 +818,8 @@ def check_ln_kernels():
             emit({"phase": "ln_kernels_vs_plain", "case": label, "shape": list(shape),
                   "dtype": str(dtype), "max_abs_err": errs, "tol": tols,
                   "ok": not failed, "plain_bound_missed_where_exempt": missed,
+                  "constant_rows_dx_from_float64": constant_row_errors(results, exact)
+                  if dtype == torch.float32 else None,
                   "bwd_bitwise_equal_across_calls": deterministic})
             if failed:
                 raise AssertionError(f"{failed} disagree with plain: {label}, {dtype}: {tols}")
@@ -1498,6 +1521,275 @@ def serve_flagship(card):
     return {mode: launches for mode, (_, _, launches) in served.items()}, phases
 
 
+ACTION_FIELDS = ("left_pick", "right_pick", "left_place", "right_place")
+
+
+def same_output(a, b) -> bool:
+    """Two (Action, raw outputs) results bitwise equal."""
+    (aa, ar), (ba, br) = a, b
+    return (sorted(ar) == sorted(br) and all(np.array_equal(ar[k], br[k]) for k in ar)
+            and all(np.array_equal(getattr(aa, f), getattr(ba, f)) for f in ACTION_FIELDS))
+
+
+def counted(call, mode, want, label):
+    """``call()`` under ``BIFOLD_LN_KERNEL=mode``, its kernel launches held
+    to ``want``."""
+    with ln_mode(mode):
+        before = launch_counts()
+        out = call()
+        got = launched_since(before)
+    if got != want:
+        raise AssertionError(f"{label} ({mode or 'default'}): launches {got}, want {want}")
+    return out
+
+
+def write_jax_checkpoint(path, params) -> None:
+    """A checkpoint in the JAX trainer's format (the pickled payload of
+    bifold_tpu/utils/checkpoint.py:_build_payload) holding ``params``, a
+    params tree of numpy arrays, and nothing to resume from."""
+    import pickle
+    import random
+
+    payload = {"params": params, "opt_state": None, "extra_vars": None, "epoch": 0,
+               "step": 0, "step_in_epoch": 0, "best_eval": None,
+               "np_rng_state": np.random.get_state(), "py_rng_state": random.getstate(),
+               "host_rng_states": {}, "jax_key": None, "loop_key": None,
+               "metadata": {"model": FLAGSHIP}}
+    with open(path, "wb") as f:
+        pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def http_call(port, method, path, body=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def http_predict(port, observations, query=""):
+    """(Action, raw outputs) of one POST /predict of ``observations``."""
+    import io
+
+    from bifold_tpu_torch.env.action import Action
+    from bifold_tpu_torch.serve import RemotePolicy
+
+    status, data = http_call(port, "POST", "/predict" + query,
+                             RemotePolicy._pack(observations))
+    if status != 200:
+        raise AssertionError(f"daemon answered {status}: {data[:300]!r}")
+    out = dict(np.load(io.BytesIO(data)))
+    return (Action(**{f: out[f] for f in ACTION_FIELDS}),
+            {k[4:]: v for k, v in out.items() if k.startswith("raw_")})
+
+
+def deployment_phase(card, device="cuda"):
+    """The deployment half of serving on the bf16 flagship (384 px, 3
+    context frames, seeded weights) at a 720 px camera, each path against
+    the live in-process server on the same observation, with exact flash
+    and LayerNorm launches per request in every ``BIFOLD_LN_KERNEL`` mode:
+
+    - int8: the quantized weights are int8 on the card, and the heatmaps
+      and actions bitwise equal a server that holds their dequantized
+      values as plain bf16 tensors and every other weight as the int8
+      server does; weight bytes and per-request peak against the bf16
+      server (``program_memory``);
+    - checkpoint: the live weights written as a JAX trainer checkpoint
+      through the port's ``convert_bifold`` serve, by
+      ``ServingModel.from_checkpoint``, bitwise what the live server serves;
+    - artifacts: batch-1 and batch-8 exports, loaded back (load time
+      printed), serve bitwise what the live server serves;
+    - daemon: an in-process HTTP daemon on an ephemeral localhost port
+      answers single, pooled and raw requests bitwise as in-process
+      ``predict`` / ``predict_batch`` do, and a bad body with a 400; a
+      second one with ``--max-batch 8`` coalesces 8 concurrent clients into
+      fewer dispatches, each client's actions those of its observation in an
+      in-process pool of 8; HTTP p50 beside in-process p50 (11 requests
+      each, in turns).
+
+    Returns the launches of every request here. ``device="cpu"`` runs the
+    same steps on the CPU (a rehearsal at a tiny size, with the launch
+    checks stubbed by the caller)."""
+    import tempfile
+    import threading
+
+    from bifold_tpu_torch.data.processor import Processor
+    from bifold_tpu_torch.data.spm import fixture_model_bytes
+    from bifold_tpu_torch.models import build_model
+    from bifold_tpu_torch.models.convert import convert_bifold
+    from bifold_tpu_torch.serve import make_httpd
+    from bifold_tpu_torch.serving import (QUANT_TAG, ServingModel, _install,
+                                          _served_weights, dequantize_weights)
+
+    t0 = time.perf_counter()
+    model = build_model(FLAGSHIP, dtype=torch.bfloat16, device=device, seed=0)
+    proc = Processor(PROCESSOR, max_context_length=3,
+                     autoprocessor_name=FLAGSHIP["automodel_name"],
+                     spm_asset=fixture_model_bytes())
+    live = ServingModel(model, None, proc, device=device)
+    rng = np.random.default_rng(21)
+    obs = dict(observation(rng, n_ctx=3), instruction=INSTRUCTIONS[1])
+    pool = [dict(observation(rng, n_ctx=1 + i % 3), instruction=INSTRUCTIONS[i % 5])
+            for i in range(8)]
+    want = {mode: {"fwd_infer_d48": 8, "fwd_infer_d64": 12,
+                   **ln_launches(live.model, mode, train=False)} for mode in LN_MODES}
+    clear_launch_counts()                # the deployment paths' run starts here
+
+    def one(server, mode, label):
+        return counted(lambda: server.predict(**obs, return_raw_output=True), mode,
+                       want[mode], label)
+
+    def pooled(server, mode, label):
+        return counted(lambda: server.predict_batch(pool, pad_to=8, return_raw_output=True),
+                       mode, want[mode], label)
+
+    ref = {mode: one(live, mode, "live") for mode in LN_MODES}
+    ref_pool = {mode: pooled(live, mode, "live pool") for mode in LN_MODES}
+    check_action(*ref[""], 1, FLAGSHIP["image_size"])
+    results = {}
+
+    # int8
+    int8 = ServingModel(model, None, proc, device=device, quantize="int8")
+    served = _served_weights(int8.model)
+    quantized = [k for k, v in served.items() if isinstance(v, dict)]
+    on_card = [n for n, p in int8.model.named_parameters()
+               if p.dtype == torch.int8 and p.device.type == torch.device(device).type]
+    if not quantized or len(on_card) != len(quantized):
+        raise AssertionError(f"{len(quantized)} quantized weights, {len(on_card)} int8 "
+                             "tensors on the card")
+    plain_model = build_model(FLAGSHIP, dtype=torch.bfloat16, device=device, seed=0)
+    _install(plain_model, dequantize_weights(served, torch.bfloat16), torch.bfloat16)
+    dequantized = ServingModel._served(plain_model, proc, None, "float32", None)
+    live_params = dict(live.model.named_parameters())
+    q_bytes = sum(v[QUANT_TAG].numel() + 4 * v["scale"].numel() for k, v in served.items()
+                  if isinstance(v, dict))
+    bf16_bytes = sum(live_params[k].numel() * live_params[k].element_size() for k in quantized)
+    mem = {"bf16": live.program_memory(**obs), "int8": int8.program_memory(**obs)}
+    if device == "cuda" and None in mem.values():
+        raise AssertionError("program_memory measured nothing on the card")
+    same = {mode: same_output(one(int8, mode, "int8"), one(dequantized, mode, "dequantized"))
+            for mode in LN_MODES}
+    results["int8"] = same
+    emit({"phase": "deploy_int8", "quantized_tensors": len(quantized),
+          "int8_on_card": len(on_card), "bitwise_vs_dequantized_bf16": same,
+          "quantized_bytes_int8_with_scales": q_bytes,
+          "same_tensors_bytes_bf16": bf16_bytes,
+          "weight_bytes": {k: m and m.weight_bytes for k, m in mem.items()},
+          "request_peak_over_weights_bytes": {k: m and m.peak_over_weights_bytes
+                                              for k, m in mem.items()}, **card})
+    del int8, dequantized, plain_model, served
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # a JAX trainer checkpoint of the live weights
+        t = time.perf_counter()
+        write_jax_checkpoint(tmp / "last.ckpt", convert_bifold(
+            {k: v.float() for k, v in model.state_dict().items()}))
+        (tmp / "spiece.model").write_bytes(fixture_model_bytes())
+        written = time.perf_counter() - t
+        t = time.perf_counter()
+        from_ckpt = ServingModel.from_checkpoint(
+            tmp / "last.ckpt", {"model": FLAGSHIP, "processor": PROCESSOR,
+                                "precision": {"compute_dtype": "bfloat16"}},
+            device=device)
+        loaded = time.perf_counter() - t
+        same = {mode: same_output(one(from_ckpt, mode, "checkpoint"), ref[mode])
+                for mode in LN_MODES}
+        results["checkpoint"] = same
+        emit({"phase": "deploy_checkpoint", "bytes": (tmp / "last.ckpt").stat().st_size,
+              "write_seconds": written, "load_seconds": loaded,
+              "bitwise_vs_live": same})
+        del from_ckpt
+
+        # artifacts
+        for batch in (1, 8):
+            t = time.perf_counter()
+            path = live.export(tmp / f"serve_b{batch}.pt", **obs, batch=batch)
+            exported_s = time.perf_counter() - t
+            t = time.perf_counter()
+            art = ServingModel.load_exported(path, device=device)
+            loaded = time.perf_counter() - t
+            if batch == 1:
+                same = {mode: same_output(one(art, mode, "artifact b1"), ref[mode])
+                        for mode in LN_MODES}
+            else:
+                same = {mode: same_output(pooled(art, mode, "artifact b8"), ref_pool[mode])
+                        for mode in LN_MODES}
+            results[f"artifact_b{batch}"] = same
+            emit({"phase": "deploy_artifact", "batch": batch,
+                  "bytes": path.stat().st_size, "export_seconds": exported_s,
+                  "load_seconds": loaded, "bitwise_vs_live": same})
+            del art
+
+    # the daemon, without and with the dynamic batcher
+    httpd = make_httpd(live)
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        health = json.loads(http_call(port, "GET", "/healthz")[1])
+        same = {mode: same_output(counted(lambda: http_predict(port, [obs], "?raw=1"),
+                                          mode, want[mode], "daemon"), ref[mode])
+                for mode in LN_MODES}
+        same_pool = {mode: same_output(counted(
+            lambda: http_predict(port, pool, "?raw=1&pad=8"), mode, want[mode],
+            "daemon pool"), ref_pool[mode]) for mode in LN_MODES}
+        bad = http_call(port, "POST", "/predict", b"not an npz")[0]
+        times = {"http": [], "in_process": []}
+        for _ in range(11):
+            for name, call in (("http", lambda: http_predict(port, [obs])),
+                               ("in_process", lambda: live.predict(**obs))):
+                t = time.perf_counter()
+                call()
+                times[name].append((time.perf_counter() - t) * 1e3)
+        metrics = json.loads(http_call(port, "GET", "/metrics")[1])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    results["daemon"], results["daemon_pool"] = same, same_pool
+
+    httpd = make_httpd(live, max_batch=8, batch_window_ms=50.0)
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    answers = [None] * 8
+
+    def client(i):
+        answers[i] = http_predict(port, [pool[i]])[0]
+
+    try:
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        coalesced = (httpd.batcher.requests, httpd.batcher.batches)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    alone = [live.predict_batch([o], pad_to=8) for o in pool]
+    clients_ok = all(a is not None and all(
+        np.array_equal(getattr(a, f), getattr(b, f)) for f in ACTION_FIELDS)
+        for a, b in zip(answers, alone))
+    emit({"phase": "deploy_daemon", "healthz": health, "bitwise_vs_in_process": same,
+          "pool8_bitwise_vs_in_process": same_pool, "bad_body_status": bad,
+          "concurrent_clients": 8, "requests_dispatches": list(coalesced),
+          "clients_actions_equal_in_process": clients_ok,
+          "p50_ms": {k: statistics.median(v) for k, v in times.items()},
+          "requests_each": 11, "daemon_metrics": metrics, **card})
+    launches = launch_counts()           # ... and ends here
+    failed = [f"{path} {mode}" for path, by_mode in results.items()
+              for mode, ok in by_mode.items() if not ok]
+    if failed or bad != 400 or not clients_ok or not coalesced[1] < coalesced[0] == 8:
+        raise AssertionError(f"deployment: differs from live {failed}, bad body {bad}, "
+                             f"clients ok {clients_ok}, requests/dispatches {coalesced}")
+    emit({"phase": "deployment", "seconds": time.perf_counter() - t0,
+          "launches": launches, "ok": True})
+    return launches
+
+
 def serving_phase(server, mode, name, obs_list, p50):
     """What :func:`where_the_time_goes` needs for one served batch."""
     def stages():
@@ -1668,8 +1960,12 @@ def main() -> int:
     train_interleaved({phase["mode"]: phase["one_step"] for phase in phases}, card)
     f32_step_equivalence()
     served, serve_phases = serve_flagship(card)
+    deployed = deployment_phase(card)
+    emit({"phase": "train_peak_memory", "max_memory_allocated_bytes": {
+        phase["mode"] or "default": phase["where"]["max_memory_allocated_bytes"]
+        for phase in phases}, **card})
     launches = collections.Counter()
-    for run in [phase["launches"] for phase in phases] + list(served.values()):
+    for run in [phase["launches"] for phase in phases] + list(served.values()) + [deployed]:
         launches.update(run)
     # the profiler from here on: after every host-clock measurement
     where_the_time_goes(phases + serve_phases)
