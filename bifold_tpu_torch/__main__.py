@@ -1,0 +1,80 @@
+"""CLI entry point: ``python -m bifold_tpu_torch [overrides...]``.
+
+Counterpart of bifold_tpu/__main__.py:122 (``main``): compose the config
+from ``bifold_tpu_torch/conf`` with Hydra-style overrides (``model=siglip``,
+``optim.lr=1e-3``, ``+k=v``, ``~k``), make the run dir
+``<run_dir>/<override_dirname>``, snapshot the composed config there, then
+train and evaluate (``eval_only=true``: evaluate only). An override string
+longer than a file name may be (255 bytes) names the run dir by its first
+200 bytes and a hash of the whole (:func:`run_dir_name`); the JAX CLI fails
+on such a run dir. It trains on the CUDA card, which must be present,
+unless the config asks for the CPU (``use_cpu=true``). The ``advise`` subcommand of the JAX package (mesh
+layouts over many devices) is ROADMAP queue item 5 and raises.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import sys
+from pathlib import Path
+
+from bifold_tpu_torch.config import Config, compose
+from bifold_tpu_torch.trainer import Trainer
+
+# overrides that do not change the run dir's identity (the reference's
+# hydra.job.config.override_dirname exclude list)
+_NON_SEMANTIC = {"use_wandb", "num_workers", "debug", "eval_only", "load_best",
+                 "visualize_model_inputs", "visualize_predictions", "run_dir",
+                 "log_every"}
+
+
+def override_dirname(overrides: list[str]) -> str:
+    parts = []
+    for ov in overrides:
+        key = ov.lstrip("+~").split("=")[0]
+        if key.split(".")[0] in _NON_SEMANTIC:
+            continue
+        parts.append(ov.replace("/", "_"))
+    return ",".join(parts) or "default"
+
+
+_NAME_MAX = 255
+
+
+def run_dir_name(dirname: str) -> str:
+    """``dirname`` when a file name can hold it, else its first 200 bytes,
+    ``-`` and 16 hex digits of its SHA-1."""
+    raw = dirname.encode()
+    if len(raw) <= _NAME_MAX:
+        return dirname
+    head = raw[:200].decode(errors="ignore")
+    return f"{head}-{hashlib.sha1(raw).hexdigest()[:16]}"
+
+
+def main(argv: list[str] | None = None) -> int:
+    overrides = list(sys.argv[1:] if argv is None else argv)
+    if overrides and overrides[0] == "advise":
+        raise NotImplementedError(
+            "the advise subcommand ranks mesh layouts over many devices; meshes of "
+            "more than one device are ROADMAP queue item 5")
+    if "--help" in overrides or "-h" in overrides:
+        print(__doc__)
+        print("Groups: model, dataset@train_dataset, dataset@test_dataset, "
+              "processor, loss, optim, scheduler")
+        return 0
+    cfg = compose(overrides)
+    dirname = override_dirname(overrides)
+    run_dir = Path(cfg["run_dir"]) / run_dir_name(dirname)
+    trainer = Trainer(Config(cfg), run_dir=run_dir, run_name=dirname)
+    if not cfg["eval_only"]:
+        trainer.prepare_train()
+        trainer.train()
+        if trainer.preempted:
+            # the checkpoint is written; skip the final eval and exit promptly
+            return 0
+    trainer.eval()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

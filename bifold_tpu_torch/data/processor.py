@@ -13,9 +13,13 @@ The ``"train"`` partition adds, as the JAX package does: depth shift and
 noise (off in the shipped config), joint spatial augmentation of ``rgb``,
 ``depth``, ``raw_rgb``, ``rgb_context`` and ``depth_context`` (and ``mask``
 with ``augment_mask``) with the label pixels, and ``<label>_heatmap``
-Gaussian targets. Its random draws come from a ``torch.Generator`` per
-device seeded by ``seed`` (:meth:`Processor.draw`); :func:`_core` takes them
-as an argument, so a caller can hand in any draws.
+Gaussian targets. Its random draws (:meth:`Processor.draw`) come from the
+``generator`` a call hands in: the data loader derives one per batch from
+(seed, epoch, batch index), so a batch's augmentation does not depend on
+which batches were built before it and a resumed epoch rebuilds its batches
+exactly. A call without one draws from a ``torch.Generator`` per device
+seeded by ``seed``, whose state a checkpoint keeps. :func:`_core` takes the
+draws as an argument, so a caller can hand in any draws.
 """
 
 from __future__ import annotations
@@ -188,7 +192,8 @@ class Processor:
     """Train- and test-partition preprocessing. ``cfg`` is the ``processor``
     config node; ``autoprocessor_name`` selects SigLIP normalization and the
     SigLIP tokenizer (``spm_asset``: a ``spiece.model`` path or bytes);
-    ``seed`` seeds the train partition's draws."""
+    ``seed`` seeds the train partition's draws of calls without a generator.
+    The JAX package's graph features are not ported."""
 
     def __init__(self, cfg, partition: str = "test",
                  max_context_length: Optional[int] = None,
@@ -200,6 +205,7 @@ class Processor:
         if cfg.get("requires_graph"):
             raise NotImplementedError("graph features are not ported")
         self.cfg = cfg
+        self.requires_graph = False
         self.partition = partition
         self.image_size = int(cfg["model_image_size"])
         self.max_context_length = max_context_length or 0
@@ -233,9 +239,11 @@ class Processor:
         )
 
     def make_raw(self, rgb=None, depth=None, mask=None, instruction=None,
-                 context=None, **labels) -> Dict[str, Any]:
-        """Fixed-schema raw record (host side). ``context`` is a list of
-        dicts with depth/rgb/mask keys (latest last), truncated to
+                 matrix_world_to_camera=None, K=None, context=None,
+                 **labels) -> Dict[str, Any]:
+        """Fixed-schema raw record (host side), the same arrays as the JAX
+        package's ``make_raw``. ``context`` is a list of dicts with
+        depth/rgb/mask keys (latest last), truncated to
         ``max_context_length``; ``labels`` are pick/place pixel arrays."""
         raw: Dict[str, Any] = {}
         if rgb is not None:
@@ -247,6 +255,10 @@ class Processor:
         if instruction is not None:
             raw["raw_instruction"] = instruction
             raw["instruction"] = self.tokenize(instruction)
+        if matrix_world_to_camera is not None:
+            raw["matrix_world_to_camera"] = np.asarray(matrix_world_to_camera, np.float32)
+        if K is not None:
+            raw["K"] = np.asarray(K, np.float32)
         if self.process_context:
             t = self.max_context_length
             frames = list(context or [])[-t:]
@@ -288,15 +300,17 @@ class Processor:
             self._generators[device] = torch.Generator(device).manual_seed(self.seed)
         return self._generators[device]
 
-    def draw(self, spec: _CoreSpec, batch: int, in_shape, device) -> Dict[str, Any]:
+    def draw(self, spec: _CoreSpec, batch: int, in_shape, device,
+             generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """The train partition's random numbers for one batch of ``batch``
-        samples at input resolution ``in_shape`` (H, W), from this
-        processor's generator on ``device``: uniform depth shifts, standard
-        normals for depth noise, and ``max_trials`` uniform (angle, dx, dy)
-        augmentation trials per sample."""
+        samples at input resolution ``in_shape`` (H, W), from ``generator``
+        (a generator on ``device``) or else this processor's generator on
+        ``device``: uniform depth shifts, standard normals for depth noise,
+        and ``max_trials`` uniform (angle, dx, dy) augmentation trials per
+        sample."""
         if not spec.train:
             return {}
-        gen = self._generator(device)
+        gen = generator if generator is not None else self._generator(device)
         t = spec.n_context
 
         def uniform(shape, lo, hi):
@@ -320,21 +334,43 @@ class Processor:
             draws["dys"] = uniform(shape, *spec.translate_range)
         return draws
 
+    def generator_states(self) -> Dict[str, torch.Tensor]:
+        """``get_state()`` of each device's generator of calls without a
+        generator, keyed by device name (a checkpoint keeps them)."""
+        return {str(d): g.get_state() for d, g in self._generators.items()}
+
+    def set_generator_states(self, states: Dict[str, torch.Tensor]) -> None:
+        for name, state in states.items():
+            self._generator(torch.device(name)).set_state(torch.as_tensor(state))
+
     def process_batch(self, batch: Dict[str, Any], device,
-                      draws: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+                      draws: Optional[Dict[str, Any]] = None,
+                      generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """A collated raw batch (numpy, leading dim B, as :meth:`make_raw`
         records stack) -> the sample dict on ``device``. The train partition
-        draws its random numbers here unless ``draws`` are given."""
+        draws its random numbers here, from ``generator`` when given,
+        unless ``draws`` are given."""
         device = torch.device(device)
-        spec = self._spec(batch)
         x = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
              for k, v in batch.items() if isinstance(v, np.ndarray)}
+        return self.process_tensors(batch, x, draws=draws, generator=generator)
+
+    def process_tensors(self, batch: Dict[str, Any], x: Dict[str, torch.Tensor],
+                        draws: Optional[Dict[str, Any]] = None,
+                        generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """:meth:`process_batch` on ``x``, the batch's arrays already on
+        their device as tensors; the other keys come from ``batch``
+        (``label_keys``, ``raw_instruction``)."""
+        spec = self._spec(batch)
         first = next(x[k] for k in ("rgb", "depth", "mask") if k in x)
         if draws is None:
-            draws = self.draw(spec, first.shape[0], tuple(first.shape[1:3]), device)
+            draws = self.draw(spec, first.shape[0], tuple(first.shape[1:3]),
+                              first.device, generator)
         out = _core(spec, x.get("rgb"), x.get("depth"), x.get("mask"),
                     x.get("ctx_rgb"), x.get("ctx_depth"), x.get("ctx_mask"),
                     x.get("ctx_count"), {k: x[k] for k in spec.label_keys}, draws)
         if "instruction" in x:
             out["instruction"] = x["instruction"]
+        if "raw_instruction" in batch:
+            out["raw_instruction"] = batch["raw_instruction"]
         return out

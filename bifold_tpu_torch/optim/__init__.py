@@ -4,10 +4,11 @@ Counterpart of bifold_tpu/optim/__init__.py:30-138. The JAX package builds
 an optax chain; this module applies the same chain, in the same order and
 with the same float32 formulas, to a list of torch parameters in place:
 
-    [apply_if_finite(                      skip_nonfinite > 0
-        clip_by_global_norm(gradient_clip)  gradient_clip set
-        -> <optimizer>
-        -> scale by -schedule(count))]      count before the update
+    [MultiSteps(k,                         accumulate_steps k > 1
+        [apply_if_finite(                  skip_nonfinite > 0
+            clip_by_global_norm(gradient_clip)  gradient_clip set
+            -> <optimizer>
+            -> scale by -schedule(count))])]    count before the update
 
 - ``adam``: torch.optim.Adam's semantics, i.e. COUPLED L2 (wd * p joins the
   gradient before the moments, optax ``add_decayed_weights`` then adam);
@@ -18,8 +19,25 @@ The clip is optax's ``(g / norm) * max_norm`` when ``norm >= max_norm``, over
 the trainable gradients only (the parameters given), written out because
 ``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm. Frozen parameters
 are simply not handed to the optimizer (the JAX package masks them with
-``optax.set_to_zero``). ``accumulate_steps`` (optax.MultiSteps) is not
-ported.
+``optax.set_to_zero``).
+
+``accumulate_steps`` k > 1 is ``optax.MultiSteps``: each micro-step's
+gradients join a running mean (``acc + (g - acc) / (n + 1)``, Welford's
+form, as optax computes it); every k-th micro-step the inner chain above
+updates from the mean, and the accumulator restarts at zero. The clip, the
+non-finite check and the schedule act per update, and the schedule spans
+``ceil(max_iters / k)`` updates. Inside MultiSteps, ``apply_if_finite``
+judges the mean gradient of each update, and its counters advance only on
+updates, as they do here. With finite gradients the two agree step for
+step. A non-finite micro-gradient differs: here it spoils only its own
+update, which ``skip_nonfinite`` skips; optax restarts its accumulator as
+0 x acc and adds 0 x update on the other micro-steps, so the NaN stays and
+reaches the parameters once the skips run out (a fault of the JAX package,
+ROADMAP section 3).
+
+:meth:`Optimizer.state_dict` is the port's own checkpoint form of the
+state (the moments keyed by parameter name when the optimizer was given
+names); :meth:`Optimizer.load_state_dict` restores it in place.
 """
 
 from __future__ import annotations
@@ -147,12 +165,17 @@ class Optimizer:
 
     def __init__(self, params: List[torch.Tensor], name: str,
                  schedule: Schedule, *, gradient_clip: Optional[float] = None,
-                 skip_nonfinite: int = 0, betas=(0.9, 0.999), eps: float = 1e-8,
+                 skip_nonfinite: int = 0, accumulate_steps: int = 1,
+                 betas=(0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0.0, momentum: float = 0.0,
-                 nesterov: bool = False):
+                 nesterov: bool = False, names: Optional[List[str]] = None):
         if name not in ("adam", "adamw", "sgd"):
             raise KeyError(f"optimizer {name!r} is not ported")
         self.params = list(params)
+        self.names = list(names) if names is not None else [
+            str(i) for i in range(len(self.params))]
+        if len(self.names) != len(self.params):
+            raise ValueError(f"{len(self.names)} names for {len(self.params)} parameters")
         self.name = name
         self.schedule = schedule
         self.gradient_clip = gradient_clip
@@ -165,6 +188,13 @@ class Optimizer:
         self.count = 0           # updates applied (the schedule's count)
         self.notfinite_count = 0
         self.total_notfinite = 0
+        self.accumulate_steps = max(1, int(accumulate_steps))
+        self.mini_step = 0       # micro-steps in the running mean
+        # step() calls begun and returned: an exception that leaves them
+        # unequal stopped a call part-way through writing the state
+        self.steps_begun = self.steps_done = 0
+        self.acc = ([torch.zeros_like(p) for p in self.params]
+                    if self.accumulate_steps > 1 else None)
         adam = name in ("adam", "adamw")
         self.mu = [torch.zeros_like(p) for p in self.params] if adam else None
         self.nu = [torch.zeros_like(p) for p in self.params] if adam else None
@@ -205,7 +235,28 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> None:
-        """One update from ``grads`` (aligned with ``params``)."""
+        """One micro-step from ``grads`` (aligned with ``params``): an update
+        without accumulation, else a join to the running mean and an update
+        from it on every ``accumulate_steps``-th call."""
+        self.steps_begun += 1
+        if self.acc is None:
+            self._update(grads)
+        else:
+            n = self.mini_step
+            for a, g in zip(self.acc, grads):
+                a.add_((g - a) / (n + 1))
+            if n == self.accumulate_steps - 1:
+                self._update(self.acc)
+                for a in self.acc:
+                    a.zero_()
+            self.mini_step = (n + 1) % self.accumulate_steps
+        self.steps_done += 1
+
+    @property
+    def in_update(self) -> bool:
+        return self.steps_begun != self.steps_done
+
+    def _update(self, grads: List[torch.Tensor]) -> None:
         if self.skip_nonfinite:
             finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
             self.notfinite_count = 0 if finite else self.notfinite_count + 1
@@ -220,23 +271,68 @@ class Optimizer:
             p.add_(u * step_size)
         self.count += 1
 
+    _MOMENTS = ("mu", "nu", "trace", "acc")
+
+    def state_dict(self) -> dict:
+        """The state as host tensors: counters, and each moment list
+        (``mu``/``nu`` for Adam, ``trace`` for SGD with momentum, ``acc``
+        under accumulation) as a dict keyed by parameter name."""
+        out = {"format": "bifold_tpu_torch.optim/1", "name": self.name,
+               "count": self.count, "notfinite_count": self.notfinite_count,
+               "total_notfinite": self.total_notfinite,
+               "accumulate_steps": self.accumulate_steps,
+               "mini_step": self.mini_step}
+        for key in self._MOMENTS:
+            values = getattr(self, key)
+            if values is not None:
+                out[key] = {n: v.detach().cpu().clone() for n, v in zip(self.names, values)}
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict`'s output (tensors or arrays) in place.
+        A moment absent from ``state`` keeps its value; one of another
+        shape, or a moment this optimizer does not keep, raises."""
+        if state.get("name", self.name) != self.name:
+            raise ValueError(f"optimizer state of {state['name']!r}, not {self.name!r}")
+        for key in ("count", "notfinite_count", "total_notfinite", "mini_step"):
+            if key in state:
+                setattr(self, key, int(state[key]))
+        for key in self._MOMENTS:
+            if key not in state:
+                continue
+            values = getattr(self, key)
+            if values is None:
+                raise ValueError(f"optimizer state carries {key!r}, which {self.name} "
+                                 f"(accumulate_steps={self.accumulate_steps}) has not")
+            for n, v in zip(self.names, values):
+                if n not in state[key]:
+                    continue
+                saved = torch.as_tensor(state[key][n])
+                if saved.shape != v.shape:
+                    raise ValueError(f"optimizer {key} of {n}: saved shape "
+                                     f"{tuple(saved.shape)}, parameter {tuple(v.shape)}")
+                v.copy_(saved)
+
 
 OPTIMIZERS = ("adam", "adamw", "sgd")
 
 
 def build_optimizer(optim_cfg: dict, params: List[torch.Tensor],
                     scheduler_cfg: Optional[dict] = None, *, max_iters: int = 1,
-                    gradient_clip: Optional[float] = None) -> Optimizer:
+                    gradient_clip: Optional[float] = None,
+                    names: Optional[List[str]] = None) -> Optimizer:
     """The optimizer of an ``optim`` config node (``name``, ``lr`` and the
-    optimizer's keywords, ``skip_nonfinite``) over the trainable ``params``,
-    with the ``scheduler`` node's schedule over ``max_iters`` updates."""
+    optimizer's keywords, ``skip_nonfinite``, ``accumulate_steps``) over the
+    trainable ``params`` (named by ``names`` in its state dict), with the
+    ``scheduler`` node's schedule over ``ceil(max_iters /
+    accumulate_steps)`` updates (``max_iters`` counts micro-steps)."""
     node = dict(optim_cfg)
     name = node.pop("name")
     base_lr = node.pop("lr")
-    if int(node.pop("accumulate_steps", 1) or 1) != 1:
-        raise NotImplementedError("accumulate_steps > 1 is not ported")
+    accumulate = int(node.pop("accumulate_steps", 1) or 1)
     skip = int(node.pop("skip_nonfinite", 0) or 0)
-    schedule = build_schedule(scheduler_cfg, base_lr, max(1, max_iters))
+    schedule = build_schedule(scheduler_cfg, base_lr, max(1, -(-max_iters // accumulate)))
     allowed = {"adam": {"betas", "eps", "weight_decay"},
                "adamw": {"betas", "eps", "weight_decay"},
                "sgd": {"momentum", "nesterov"}}.get(name)
@@ -248,4 +344,5 @@ def build_optimizer(optim_cfg: dict, params: List[torch.Tensor],
     if name == "adamw":
         node.setdefault("weight_decay", 0.01)
     return Optimizer(params, name, schedule, gradient_clip=gradient_clip,
-                     skip_nonfinite=skip, **node)
+                     skip_nonfinite=skip, accumulate_steps=accumulate, names=names,
+                     **node)

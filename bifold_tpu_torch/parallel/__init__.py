@@ -1,7 +1,9 @@
-"""The train step, on one device.
+"""The train and eval steps, on one device.
 
 Counterpart of bifold_tpu/parallel/__init__.py:330-432 (``make_train_step``)
-for a single device; the data/FSDP/tensor/pipeline modes are not ported.
+and :489 (``make_eval_step``) for a single device; the data/FSDP/tensor/
+pipeline modes are not ported, and :func:`check_mesh` refuses a ``mesh``
+config that asks for them.
 
 ``step(state, batch) -> (state, metrics)``: the model runs in ``train()``
 mode on the processed batch with a dropout generator made fresh for this
@@ -12,6 +14,10 @@ gradient and no dW work), and the optimizer updates them in place. Metrics
 are device tensors, read by the caller when it needs them: ``loss``,
 ``grad_norm`` and ``grad_norm_trainable`` (the same value here: frozen
 parameters carry no gradient), and the loss's per-head terms.
+
+``eval_step(batch) -> output``: the model in ``eval()`` mode under
+``torch.inference_mode()`` (no dropout, no autograd graph, so attention
+takes the inference kernel), its previous mode restored afterwards.
 """
 
 from __future__ import annotations
@@ -25,7 +31,26 @@ from torch import nn
 from bifold_tpu_torch.models.dropout import set_dropout_generator
 from bifold_tpu_torch.optim import Optimizer
 
-__all__ = ["TrainState", "make_train_step"]
+__all__ = ["TrainState", "make_train_step", "make_eval_step", "check_mesh",
+           "MESH_AXES"]
+
+MESH_AXES = ("dcn", "dp", "fsdp", "tp", "pp", "sp", "ep")
+
+
+def check_mesh(mesh_cfg) -> None:
+    """Raise unless ``mesh_cfg`` (the config's ``mesh`` node) asks for one
+    device: every axis 1, or ``dp: -1`` ("all devices"), which is one here;
+    ``pp_microbatches`` has no effect without pipeline stages."""
+    node = dict(mesh_cfg or {})
+    node.pop("pp_microbatches", None)
+    unknown = set(node) - set(MESH_AXES)
+    if unknown:
+        raise KeyError(f"unknown mesh axes {sorted(unknown)} (have {MESH_AXES})")
+    wide = {k: v for k, v in node.items() if v != 1 and not (k == "dp" and v == -1)}
+    if wide:
+        raise NotImplementedError(
+            f"mesh {wide}: the port trains on one device; meshes of more than one "
+            "device are ROADMAP queue item 5")
 
 
 @dataclasses.dataclass
@@ -67,5 +92,20 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
                    "grad_norm_trainable": gnorm,
                    **{k: v.detach() for k, v in inter.items()}}
         return state, metrics
+
+    return step
+
+
+def make_eval_step(model: nn.Module) -> Callable:
+    """The no-grad forward of ``model`` on a processed batch."""
+
+    def step(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.inference_mode():
+                return model(batch)
+        finally:
+            model.train(was_training)
 
     return step

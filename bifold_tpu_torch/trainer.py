@@ -1,0 +1,647 @@
+"""Trainer: the train/eval loop of the PyTorch port.
+
+Counterpart of bifold_tpu/trainer.py:79-763 (``Trainer``): seeding, model
+and dataloader construction, the epoch loop with the per-step schedule and
+gradient clipping, periodic pixel eval driving best/last checkpoints with
+the RNG states for exact resume, eval-result yaml merging.
+
+How the port differs:
+
+- one device (``use_cpu: true`` asks for the CPU, else the CUDA card,
+  which must be present); the ``mesh`` config must ask for one device;
+- frozen parameters are ``requires_grad=False`` and the optimizer updates
+  the trainable float32 masters in place; ``donate_state`` is accepted and
+  does nothing;
+- ``steps_per_dispatch: k``: JAX stacks k batches into one program,
+  bitwise equal to k single steps. The port pulls k batches from the loader
+  and then steps through them one at a time, each step with its own
+  bookkeeping (counters, preemption, ``save_steps``, logging), so its
+  numerics and checkpoints are those of single steps. Pulling ahead keeps
+  the loader's thread from competing with the steps' launches for the
+  interpreter;
+- randomness comes from torch generators, not JAX keys (the port cannot
+  reproduce JAX's draws, only its own): ``self.key`` is a CPU generator
+  seeded by ``seed``; each epoch draws a seed from it for the epoch's step
+  generator (``parallel.TrainState.key``, the counterpart of JAX's
+  ``loop_key``), from which every step draws its dropout seed. Both states
+  ride in every checkpoint (``jax_key``, ``loop_key``; form documented in
+  :mod:`bifold_tpu_torch.utils.checkpoint`), and each batch's augmentation
+  comes from a generator derived from (seed, epoch, batch index)
+  (:mod:`bifold_tpu_torch.data.loader`), so a resume mid-epoch continues
+  exactly;
+- ``profile_steps`` records the first steps with ``torch.profiler`` into
+  ``run_dir/profile``.
+
+Not ported, and refused with the ROADMAP queue item that holds them:
+``precision.remat: true`` (item 3), ``visualize_model_inputs`` and
+``visualize_predictions`` (item 6), model families other than ``siglip``
+and ``siglip_sequential`` (item 4), meshes of more than one device (item
+5). With ``simulator: softgym`` the final eval says that the closed loop is
+not ported (item 6) and takes pixel metrics, as the JAX Trainer does when
+its evaluator cannot be imported.
+"""
+
+from __future__ import annotations
+
+import itertools
+import random
+import signal
+import threading
+import time
+import warnings
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from bifold_tpu_torch import parallel
+from bifold_tpu_torch.config import Config, save as save_config
+from bifold_tpu_torch.data import get_dataloaders
+from bifold_tpu_torch.env.action import Action
+from bifold_tpu_torch.losses import build_loss
+from bifold_tpu_torch.metrics import Metrics
+from bifold_tpu_torch.models import (MODELS, build_model, decode_action,
+                                     precast_frozen, resolve_device,
+                                     trainable_mask)
+from bifold_tpu_torch.models.convert import convert_bifold, convert_bifold_inverse
+from bifold_tpu_torch.models.dropout import set_dropout_generator
+from bifold_tpu_torch.optim import build_optimizer
+from bifold_tpu_torch.utils.checkpoint import (WRITER, AsyncCheckpointer,
+                                               latest_checkpoint, load_checkpoint,
+                                               save_checkpoint,
+                                               unpack_generator_state)
+from bifold_tpu_torch.utils.logging import Writer
+
+__all__ = ["Trainer", "Preempted", "seed_randomness", "split_batch"]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def seed_randomness(seed: int) -> torch.Generator:
+    """Seed python, numpy and torch, and return the root generator (the
+    counterpart of the JAX package's root key)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return torch.Generator().manual_seed(seed)
+
+
+def _draw_seed(gen: torch.Generator) -> int:
+    return int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+
+
+_HOST_KEYS = ("raw_instruction", "label_keys")
+
+
+def split_batch(batch: Dict[str, Any]):
+    """(tensors for the model, host-side entries): strings and metadata stay
+    on the host."""
+    device = {k: v for k, v in batch.items()
+              if k not in _HOST_KEYS and not isinstance(v, (list, tuple, str))}
+    host = {k: v for k, v in batch.items() if k not in device}
+    return device, host
+
+
+def _numpy(x):
+    """A tensor as a host array (bfloat16 as float32); None stays None."""
+    if x is None:
+        return None
+    return x.detach().float().cpu().numpy() if x.dtype == torch.bfloat16 \
+        else x.detach().cpu().numpy()
+
+
+def _inert_states(obj, kind: str):
+    """The inert optax states named ``kind`` anywhere in a loaded JAX
+    ``opt_state`` (see :mod:`bifold_tpu_torch.utils.checkpoint`)."""
+    if type(obj).__qualname__.endswith("." + kind):
+        yield obj
+    children = getattr(obj, "args", None)
+    if isinstance(obj, dict):
+        children = obj.values()
+    elif isinstance(obj, (list, tuple)):
+        children = obj
+    for child in children or ():
+        yield from _inert_states(child, kind)
+
+
+def _fill(tree, template):
+    """``tree`` with every leaf that is not an array (optax's ``MaskedNode``
+    of a frozen parameter) replaced by ``template``'s leaf."""
+    if isinstance(template, dict):
+        tree = tree if isinstance(tree, dict) else {}
+        return {k: _fill(tree.get(k), v) for k, v in template.items()}
+    return tree if isinstance(tree, (np.ndarray, torch.Tensor)) else template
+
+
+class Preempted(Exception):
+    """Raised at a step boundary after SIGTERM. train() catches it, writes a
+    step-granular last.ckpt and returns; the next run resumes mid-epoch."""
+
+
+class Trainer:
+    def __init__(self, cfg: Config, run_dir: Optional[str | Path] = None,
+                 run_name: Optional[str] = None, device=None):
+        self.cfg = cfg
+        self.run_dir = Path(run_dir if run_dir is not None else cfg["run_dir"])
+        self.run_dir.mkdir(parents=True, exist_ok=True)
+        self._refuse_unported(cfg)
+        save_config(cfg, self.run_dir / "config.yaml")
+        if device is None:
+            device = "cpu" if cfg.get("use_cpu") else "cuda"
+        self.device = resolve_device(device)
+
+        self.key = seed_randomness(int(cfg["seed"]))
+        parallel.check_mesh(cfg.get("mesh", {}))
+        self.writer = Writer(self.run_dir, use_wandb=bool(cfg.get("use_wandb")),
+                             group=str(dict(cfg["train_dataset"]).get("name")),
+                             name=run_name,
+                             config=cfg.to_dict() if isinstance(cfg, Config) else dict(cfg))
+
+        precision = dict(cfg.get("precision", {}))
+        self.dtype = _DTYPES[precision.get("compute_dtype", "float32")]
+        self.model = build_model(cfg["model"], dtype=self.dtype, device=self.device,
+                                 seed=_draw_seed(self.key))
+        (self.train_dataloader, self.test_dataloader,
+         self.processor) = get_dataloaders(cfg, device=self.device)
+
+        self.metrics = Metrics(dict(cfg["metrics"]))
+        self.epoch = 0
+        self.global_step = 0
+        # mid-epoch resume bookkeeping: steps applied within the current
+        # epoch and the in-flight step generator; both ride in every
+        # checkpoint so an interrupt anywhere resumes exactly
+        self._step_in_epoch = 0
+        self._loop_key: Optional[torch.Generator] = None
+        self._resume_step_in_epoch = 0
+        self._resume_loop_key: Optional[torch.Generator] = None
+        self._terminate = False
+        self.preempted = False
+        self._profiler = None
+        self._async_ckpt = None
+        self.optimizer = None
+        self._train_step = None
+        self._eval_step = parallel.make_eval_step(self.model)
+        self.loss_fn = None
+
+        n_params = sum(p.numel() for p in self.model.parameters())
+        print(f"[trainer] model={dict(cfg['model'])['name']} params={n_params / 1e6:.1f}M "
+              f"device={self.device}")
+
+    @staticmethod
+    def _refuse_unported(cfg) -> None:
+        name = dict(cfg["model"]).get("name")
+        if name not in MODELS:
+            raise NotImplementedError(
+                f"model {name!r} is not ported (have {sorted(MODELS)}); the other "
+                "model families are ROADMAP queue item 4")
+        precision = dict(cfg.get("precision", {}))
+        if precision.get("remat"):
+            raise NotImplementedError("precision.remat: true is not ported "
+                                      "(ROADMAP queue item 3)")
+        if precision.get("param_dtype", "float32") != "float32":
+            raise NotImplementedError(
+                f"precision.param_dtype {precision['param_dtype']!r}: the port keeps "
+                "float32 masters only")
+        for key in ("visualize_model_inputs", "visualize_predictions"):
+            if cfg.get(key):
+                raise NotImplementedError(f"{key} is not ported (ROADMAP queue item 6)")
+
+    # ------------------------------------------------------------------
+
+    def prepare_train(self) -> None:
+        """Loss, optimizer and schedule, then resume from ``last``."""
+        cfg = self.cfg
+        self.loss_fn = build_loss(dict(cfg["loss"]))
+        max_iters = max(1, len(self.train_dataloader) * int(cfg["epochs"]))
+        lora = bool(dict(cfg["model"]).get("lora", False))
+        self._tmask = trainable_mask(self.model, lora=lora)
+        self._precast = bool(cfg.get("precast_frozen", True))
+        if self._precast:
+            precast_frozen(self.model, self.dtype)
+        named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
+        sched_cfg = dict(cfg["scheduler"]) if cfg.get("scheduler") else None
+        self.optimizer = build_optimizer(
+            dict(cfg["optim"]), [p for _, p in named], sched_cfg, max_iters=max_iters,
+            gradient_clip=cfg.get("gradient_clip"), names=[n for n, _ in named])
+        self._train_step = parallel.make_train_step(self.model, self.loss_fn,
+                                                    self.optimizer)
+        self._pull_ahead = max(1, int(cfg.get("steps_per_dispatch") or 1))
+        self.load_model(prefer="last")
+
+    # ------------------------------------------------------------------
+    # Checkpointing
+    # ------------------------------------------------------------------
+
+    @property
+    def ckpt_dir(self) -> Path:
+        return self.run_dir / "checkpoints"
+
+    def _processors(self) -> Dict[str, Any]:
+        """The distinct Processors whose own generators (calls without a
+        per-batch generator) a checkpoint keeps."""
+        procs, seen = {}, set()
+        for name, obj in (("processor", self.processor),
+                          ("train_processor", getattr(self.train_dataloader,
+                                                      "processor", None)),
+                          ("test_processor", getattr(self.test_dataloader,
+                                                     "processor", None))):
+            if obj is not None and id(obj) not in seen:
+                seen.add(id(obj))
+                procs[f"torch:{name}"] = obj
+        return procs
+
+    def params_tree(self) -> Dict[str, Any]:
+        """The model's weights as the JAX package's params tree (float32
+        numpy leaves; bfloat16 weights as their exact float32 upcast)."""
+        return convert_bifold({k: v.float() if v.dtype == torch.bfloat16 else v
+                               for k, v in self.model.state_dict().items()})
+
+    def save_model(self, name: str) -> None:
+        # async_checkpoint=true moves the pickle and the write off the loop
+        # (the copy to host memory stays inline)
+        if bool(self.cfg.get("async_checkpoint", False)):
+            if self._async_ckpt is None:
+                self._async_ckpt = AsyncCheckpointer()
+            saver = self._async_ckpt.save
+        else:
+            if self._async_ckpt is not None:
+                self._async_ckpt.wait()
+            saver = save_checkpoint
+        saver(
+            self.ckpt_dir / f"{name}.ckpt",
+            params=self.params_tree(),
+            opt_state=self.optimizer.state_dict() if self.optimizer else None,
+            extra_vars={}, epoch=self.epoch, step=self.global_step,
+            best_eval=self.metrics.best_eval, step_in_epoch=self._step_in_epoch,
+            loop_key=None if self._loop_key is None else self._loop_key.get_state(),
+            jax_key=self.key.get_state(),
+            host_rng_states={k: p.generator_states()
+                             for k, p in self._processors().items()},
+            metadata={"model": dict(self.cfg["model"]),
+                      "tracked_metric": self.metrics.tracked_metric})
+
+    def load_model(self, prefer: str = "last", path: Optional[Path] = None) -> bool:
+        """Restore the newest ``prefer`` (else last, else best) checkpoint of
+        this run: weights (re-applying ``precast_frozen``), optimizer state,
+        counters, the root and step generators and the Processors'
+        generators. Reads both the port's files and the JAX package's (of
+        which only the weights, the epoch counters and the Adam moments
+        carry over)."""
+        if self._async_ckpt is not None:
+            self._async_ckpt.wait()     # the file we read must be complete
+        path = path or latest_checkpoint(self.ckpt_dir, prefer=prefer)
+        if path is None:
+            return False
+        payload = load_checkpoint(path)
+        if payload.get("extra_vars"):
+            raise NotImplementedError(
+                f"checkpoint carries extra_vars {sorted(payload['extra_vars'])}: "
+                "no model family of the port has such state")
+        weights = convert_bifold_inverse(payload["params"])
+        self.model.load_state_dict(
+            {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+             for k, v in weights.items()}, strict=True)
+        if not getattr(self, "_precast", False):
+            low = [n for n, p in self.model.named_parameters()
+                   if isinstance(weights[n], torch.Tensor)
+                   and weights[n].dtype == torch.bfloat16]
+            if low:
+                warnings.warn(
+                    f"precast_frozen=false but {len(low)} restored weights were "
+                    f"bfloat16 in the checkpoint, e.g. {low[0]}", stacklevel=2)
+        ours = dict(payload.get("metadata") or {}).get("writer") == WRITER
+        if self.optimizer is not None and payload.get("opt_state") is not None:
+            self.optimizer.load_state_dict(
+                payload["opt_state"] if ours else self._jax_opt_state(payload))
+        self.epoch = int(payload.get("epoch", 0))
+        self.global_step = int(payload.get("step", 0))
+        self.metrics.best_eval = payload.get("best_eval")
+        self._resume_step_in_epoch = int(payload.get("step_in_epoch", 0) or 0)
+        self._resume_loop_key = None
+        if ours:
+            if payload.get("jax_key") is not None:
+                self.key.set_state(unpack_generator_state(payload["jax_key"]))
+            if payload.get("loop_key") is not None:
+                self._resume_loop_key = torch.Generator()
+                self._resume_loop_key.set_state(unpack_generator_state(payload["loop_key"]))
+            saved = payload.get("host_rng_states") or {}
+            for k, proc in self._processors().items():
+                if k in saved:
+                    proc.set_generator_states(saved[k])
+        print(f"[trainer] resumed from {path} (epoch {self.epoch})")
+        return True
+
+    def _jax_opt_state(self, payload) -> dict:
+        """The Adam moments and update count of a JAX checkpoint's optax
+        state (``ScaleByAdamState(count, mu, nu)``), in the port's
+        optimizer state form; {} when it has none."""
+        adam = next(_inert_states(payload["opt_state"], "ScaleByAdamState"), None)
+        if adam is None or self.optimizer.mu is None:
+            return {}
+        count, mu, nu = adam.args
+        names = set(self.optimizer.names)
+        out = {"count": int(np.asarray(count))}
+        for key, tree in (("mu", mu), ("nu", nu)):
+            moments = convert_bifold_inverse(_fill(tree, payload["params"]))
+            out[key] = {n: v for n, v in moments.items() if n in names}
+        return out
+
+    # ------------------------------------------------------------------
+    # Training loop
+    # ------------------------------------------------------------------
+
+    def train(self) -> None:
+        cfg = self.cfg
+        eval_epochs = int(cfg.get("eval_epochs") or 0)
+        save_epochs = cfg.get("save_epochs")
+        # SIGTERM becomes a checkpoint at the next step boundary and a clean
+        # return. Signals reach the main thread only; elsewhere the flag can
+        # be set on the trainer directly. _terminate is cleared where it is
+        # honoured, not here: a flag set just before train() still preempts.
+        self.preempted = False
+        installed = False
+        prev_handler = None
+
+        def _on_term(signum, frame):
+            self._terminate = True
+            print("[trainer] SIGTERM: checkpointing at the next step "
+                  "boundary", flush=True)
+
+        if threading.current_thread() is threading.main_thread():
+            prev_handler = signal.signal(signal.SIGTERM, _on_term)
+            installed = True
+        try:
+            for epoch in range(self.epoch, int(cfg["epochs"])):
+                self.epoch = epoch
+                self.train_epoch()
+                # the epoch is complete: checkpoints from here on resume
+                # after it
+                self.epoch = epoch + 1
+                if self._terminate:   # the notice landed on the last step
+                    raise Preempted()
+                if eval_epochs and (epoch + 1) % eval_epochs == 0:
+                    has_improved, metric_dict = self.eval_epoch(epoch)
+                    self.writer.log({f"eval/{k}": v for k, v in metric_dict.items()},
+                                    self.global_step)
+                    if has_improved:
+                        self.save_model("best")
+                    if self._terminate:   # the notice landed during the eval
+                        raise Preempted()
+                if save_epochs and (epoch + 1) % int(save_epochs) == 0:
+                    self.save_model("last")
+        except Preempted:
+            self.preempted = True
+            self._terminate = False   # consumed: a later train() resumes
+            self.save_model("last")
+            print(f"[trainer] preempted at epoch {self.epoch} step "
+                  f"{self._step_in_epoch}; saved step-granular last.ckpt — "
+                  f"the next run resumes mid-epoch", flush=True)
+            if self._async_ckpt is not None:
+                self._async_ckpt.wait()
+            return
+        except (KeyboardInterrupt, Exception):
+            # persist progress before dying; a failed save must not mask the
+            # original exception
+            try:
+                if self.optimizer.in_update:
+                    # stopped part-way through writing the weights: no
+                    # checkpoint can match them, the one on disk stands
+                    print(f"[trainer] interrupted inside an optimizer update "
+                          f"at epoch {self.epoch}; last.ckpt not rewritten")
+                else:
+                    self.save_model("last")
+                    print(f"[trainer] interrupted at epoch {self.epoch}; "
+                          f"saved checkpoints/last.ckpt for resume")
+            except Exception as save_err:  # noqa: BLE001
+                print(f"[trainer] interrupt checkpoint failed: {save_err!r}")
+            raise
+        finally:
+            self._stop_profiler()
+            # restore by whether we installed (signal() returns None for a
+            # handler installed from C, and leaking _on_term would make the
+            # process unkillable by SIGTERM)
+            if installed:
+                signal.signal(signal.SIGTERM,
+                              prev_handler if prev_handler is not None
+                              else signal.SIG_DFL)
+        self.epoch = int(cfg["epochs"])
+        if self._terminate:
+            # the notice landed after the last step: training is complete,
+            # but callers must still skip post-training work
+            self._terminate = False
+            self.preempted = True
+        self.save_model("last")
+        if self._async_ckpt is not None:
+            self._async_ckpt.wait()     # surface write errors before returning
+
+    def _stop_profiler(self) -> None:
+        """Stop the ``profile_steps`` trace (idempotent) and export it to
+        ``run_dir/profile/trace.json``."""
+        prof, self._profiler = self._profiler, None
+        if prof is None:
+            return
+        try:
+            prof.stop()
+            out = self.run_dir / "profile"
+            out.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(out / "trace.json"))
+        except Exception as e:  # noqa: BLE001 - best-effort cleanup
+            print(f"[trainer] profiler stop failed: {e!r}")
+
+    def _synchronize(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _pulled_ahead(self):
+        """The epoch's batches, taken from the loader ``steps_per_dispatch``
+        at a time before the first of them is stepped."""
+        it = iter(self.train_dataloader)
+        while group := list(itertools.islice(it, self._pull_ahead)):
+            yield from group
+
+    def train_epoch(self) -> float:
+        # log_every=0 disables step logging (epoch summaries still emit)
+        log_every = int(self.cfg.get("log_every", 50) or 0)
+        save_steps = int(self.cfg.get("save_steps") or 0)
+        running, n_steps = 0.0, 0
+        t_epoch = time.time()
+        samples = 0
+        profile_steps = int(self.cfg.get("profile_steps") or 0)
+        if profile_steps and self.epoch == 0 and self._profiler is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+            self._profiler = profile(activities=activities)
+            self._profiler.start()
+        self.train_dataloader.set_epoch(self.epoch)
+        start = 0
+        if self._resume_step_in_epoch:
+            # mid-epoch resume: the same epoch permutation (index-derived),
+            # the applied batches skipped, the in-flight step generator
+            # continued (self.key was already drawn past this epoch)
+            start = self._resume_step_in_epoch
+            loop_key = self._resume_loop_key or torch.Generator().manual_seed(
+                _draw_seed(self.key))
+            self.train_dataloader.start_batch = start
+            print(f"[trainer] resuming epoch {self.epoch} at step {start}")
+        else:
+            loop_key = torch.Generator().manual_seed(_draw_seed(self.key))
+        self._resume_step_in_epoch, self._resume_loop_key = 0, None
+        self._step_in_epoch = start
+        self._loop_key = loop_key
+        state = parallel.TrainState(self.optimizer, loop_key, self.global_step)
+        checked_grads = not bool(self.cfg.get("debug"))
+        readback_window = max(0, int(self.cfg.get("loss_readback_window", 2) or 0))
+        pending = []   # loss tensors read back late
+
+        for b in self._pulled_ahead():
+            batch = split_batch(b)[0]
+            if not checked_grads:
+                self._debug_check_gradients(batch)
+                checked_grads = True
+            t0 = time.time()
+            key_before, done = loop_key.get_state(), self.optimizer.steps_done
+            try:
+                state, step_metrics = self._train_step(state, batch)
+            except BaseException:
+                # keep the counters and the step generator with the weights,
+                # so that train()'s interrupt checkpoint matches them
+                if self.optimizer.steps_done != done:     # the update went in
+                    self.global_step += 1
+                    self._step_in_epoch += 1
+                elif not self.optimizer.in_update:        # no weight changed
+                    loop_key.set_state(key_before)
+                raise
+            # the step has updated the weights, the optimizer state and the
+            # step generator in place: the counters move with it
+            self.global_step += 1
+            self._step_in_epoch += 1
+            n_steps += 1
+            pending.append(step_metrics["loss"])
+            while len(pending) > readback_window:
+                running += float(pending.pop(0))
+            first = next(v for v in batch.values() if isinstance(v, torch.Tensor))
+            samples += int(first.shape[0])
+            if self._terminate:
+                raise Preempted()
+            if save_steps and self.global_step % save_steps == 0:
+                self.save_model("last")
+            if self._profiler is not None and n_steps >= profile_steps:
+                self._synchronize()
+                self._stop_profiler()
+            if log_every and self.global_step % log_every == 0:
+                while pending:           # a sync point: running is current
+                    running += float(pending.pop(0))
+                self.writer.log(
+                    {"train/loss": float(step_metrics["loss"]),
+                     **{f"train/{k}": float(v) for k, v in step_metrics.items()
+                        if k != "loss"},
+                     "train/lr": self.optimizer.schedule(self.global_step),
+                     "train/step_time_s": time.time() - t0},
+                    self.global_step)
+        while pending:
+            running += float(pending.pop(0))
+        if self._profiler is not None:
+            # epoch 0 ended before profile_steps steps: close the trace here
+            self._synchronize()
+            self._stop_profiler()
+        # epoch complete: later checkpoints are epoch-boundary ones
+        self._step_in_epoch = 0
+        self._loop_key = None
+        dt = time.time() - t_epoch
+        mean_loss = running / max(n_steps, 1)
+        throughput = samples / dt if dt > 0 else 0.0
+        self.writer.log({"train/epoch": self.epoch, "train/mean_loss": mean_loss,
+                         "train/samples_per_sec": throughput}, self.global_step)
+        print(f"[epoch {self.epoch}] loss={mean_loss:.4f} "
+              f"({throughput:.1f} samples/s)")
+        return mean_loss
+
+    def _debug_check_gradients(self, batch) -> None:
+        """Debug-mode invariant: every trainable parameter receives a nonzero
+        gradient on the first step (``lora_A`` excluded: it has zero
+        gradient at init, since ``lora_B`` starts at zero)."""
+        named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
+        self.model.train()
+        set_dropout_generator(self.model, torch.Generator(self.device).manual_seed(0))
+        try:
+            loss, _ = self.loss_fn(self.model(batch), batch)
+            grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+        finally:
+            set_dropout_generator(self.model, None)
+        dead = [n for (n, _), g in zip(named, grads)
+                if (g is None or float(g.abs().max()) == 0.0) and "lora_A" not in n]
+        if dead:
+            print(f"[debug] WARNING: {len(dead)} trainable params got zero "
+                  f"gradient, e.g. {dead[:5]}")
+        else:
+            print("[debug] all trainable params received gradients "
+                  "(lora_A excluded: zero at init by construction)")
+
+    # ------------------------------------------------------------------
+    # Evaluation
+    # ------------------------------------------------------------------
+
+    def get_action(self, batch: Dict[str, Any], return_raw_output: bool = False):
+        """No-grad forward (the inference kernel on the card) and decode ->
+        Action of numpy (B, 2) pixel arrays."""
+        device_batch, _ = split_batch(batch)
+        out = self._eval_step(device_batch)
+        model = self.model
+        decoded = decode_action(out, device_batch, is_bimanual=model.is_bimanual,
+                                constrain_pick_mask=getattr(model, "constrain_pick_mask", True),
+                                threshold=float(model.threshold))
+        decoded = {k: _numpy(v) for k, v in decoded.items()}
+        if model.is_bimanual:
+            action = Action(left_pick=decoded["left_pick"],
+                            right_pick=decoded["right_pick"],
+                            left_place=decoded["left_place"],
+                            right_place=decoded["right_place"])
+        else:
+            action = Action(pick=decoded["pick"], place=decoded["place"])
+        if return_raw_output:
+            return action, {k: _numpy(v) for k, v in out.items()}
+        return action
+
+    def eval_epoch(self, epoch: Optional[int] = None):
+        """Pixel metrics; at the final eval (epoch None) with ``simulator:
+        softgym`` it says that the closed loop is not ported and takes pixel
+        metrics (bifold_tpu/trainer.py:701-707)."""
+        if epoch is None and self.cfg.get("simulator") == "softgym":
+            print("[eval] the softgym closed loop is not ported (ROADMAP queue "
+                  "item 6); pixel metrics instead", flush=True)
+        return self.eval_epoch_pixel()
+
+    def eval_epoch_pixel(self):
+        self.metrics.reset()
+        for batch in self.test_dataloader:
+            action, raw_output = self.get_action(batch, return_raw_output=True)
+            sample = {k: _numpy(v) if isinstance(v, torch.Tensor) else v
+                      for k, v in batch.items()}
+            self.metrics(action=action, sample=sample, raw_output=raw_output)
+        return self.metrics.summary()
+
+    def eval(self) -> Dict[str, float]:
+        """Final eval: load best (or last), run, merge into
+        ``eval_<dataset>.yaml``."""
+        import yaml
+
+        prefer = "best" if self.cfg.get("load_best") else "last"
+        self.load_model(prefer=prefer)
+        _, metric_dict = self.eval_epoch(None)
+        ds_name = dict(self.cfg["test_dataset"]).get("name") or \
+            dict(self.cfg["train_dataset"]).get("name")
+        out_path = self.run_dir / f"eval_{ds_name}.yaml"
+        old: Dict[str, Any] = {}
+        if out_path.exists():
+            old = yaml.safe_load(out_path.read_text()) or {}
+            for k, v in metric_dict.items():
+                if k in old and old[k] is not None:
+                    print(f"[eval] {k}: {old[k]} -> {v}")
+        old.update({k: (None if v is None or (isinstance(v, float) and np.isnan(v))
+                        else float(v)) for k, v in metric_dict.items()})
+        out_path.write_text(yaml.safe_dump(old, sort_keys=False))
+        print(f"[eval] {metric_dict}")
+        return metric_dict

@@ -54,7 +54,19 @@ one JSON object per line:
    the three modes in turns, for a p50 that host drift affects alike;
 5. one f32 train step (SGD) through the kernels, through the math path and
    through the kernels under ``BIFOLD_LN_KERNEL=fused``, from the same
-   weights, batch and draws: loss and trainable-gradient norm agree;
+   weights, batch and draws: loss and trainable-gradient norm agree; then
+   the training entry point (:func:`trainer_cli`): ``main`` of
+   ``bifold_tpu_torch.__main__`` trains the bf16 flagship on synthetic
+   data for an epoch of 8 steps with pixel eval and ``best``/``last``
+   checkpoints (exact launches per step and per eval batch, finite
+   metrics, the best checkpoint served), resumes it for a second epoch,
+   and holds a fused-mode run interrupted at its third step and resumed
+   bitwise equal to an uninterrupted one, and an abandoned loader iterator
+   (its thread gone, its batch equal to the batch rebuilt); the Trainer's
+   step p50 beside the train step's, checkpoint and resume seconds, and
+   (with the profiler, at the end) its device idle share; then the
+   Trainer's step p50 and samples/s with ``steps_per_dispatch`` 1 and 8 in
+   turns (:func:`trainer_pull_ahead`);
 6. flagship serving in each LayerNorm mode (default, ``pallas``,
    ``fused``): 5 ``predict`` requests at 720 px and one ``predict_batch``
    of 8; launch counts per request (20 flash, and 66 LayerNorm forwards in
@@ -1790,6 +1802,326 @@ def deployment_phase(card, device="cuda"):
     return launches
 
 
+CLI_OVERRIDES = ("train_dataset=synthetic", "train_dataset.image_size=384",
+                 "train_dataset.is_bimanual=true",
+                 "train_dataset.max_context_length=3", "train_dataset.n_samples=16",
+                 "test_dataset=null", "model=siglip_sequential", "batch_size=2",
+                 "test_batch_size=2", "epochs=1", "eval_epochs=1", "simulator=null",
+                 "log_every=1")
+INFER = {"fwd_infer_d48": 8, "fwd_infer_d64": 12}
+
+
+def observed_trainer(record):
+    """A Trainer subclass that records, in ``record``, every train step's
+    and eval batch's kernel launches, the time of the first step's end,
+    the epochs it trains and its checkpoint write and load seconds."""
+    from bifold_tpu_torch.trainer import Trainer
+
+    class Observed(Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            record.setdefault("trainers", []).append(self)
+            eval_step = self._eval_step
+
+            def counted_eval(batch):
+                before = launch_counts()
+                out = eval_step(batch)
+                record.setdefault("evals", []).append(launched_since(before))
+                return out
+
+            self._eval_step = counted_eval
+
+        def prepare_train(self):
+            super().prepare_train()
+            step = self._train_step
+
+            def counted_step(state, batch):
+                before = launch_counts()
+                out = step(state, batch)
+                record.setdefault("steps", []).append(launched_since(before))
+                if "first_step_end" not in record:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize()
+                    record["first_step_end"] = time.perf_counter()
+                return out
+
+            self._train_step = counted_step
+
+        def train_epoch(self):
+            record.setdefault("epochs", []).append(self.epoch)
+            return super().train_epoch()
+
+        def save_model(self, name):
+            t = time.perf_counter()
+            super().save_model(name)
+            record.setdefault("saves", []).append(time.perf_counter() - t)
+
+        def load_model(self, *args, **kwargs):
+            t = time.perf_counter()
+            loaded = super().load_model(*args, **kwargs)
+            if loaded:
+                record.setdefault("loads", []).append(time.perf_counter() - t)
+            return loaded
+
+    return Observed
+
+
+def run_cli(overrides, record):
+    """``python -m bifold_tpu_torch`` in this process, its Trainer observed
+    into ``record``; returns (exit code, run dir, seconds)."""
+    from bifold_tpu_torch import __main__ as cli
+    from bifold_tpu_torch.config import compose
+
+    run_dir = Path(compose(overrides)["run_dir"]) / cli.run_dir_name(
+        cli.override_dirname(overrides))
+    real = cli.Trainer
+    cli.Trainer = observed_trainer(record)
+    t = time.perf_counter()
+    record["start"] = t
+    try:
+        code = cli.main(list(overrides))
+    finally:
+        cli.Trainer = real
+    return code, run_dir, time.perf_counter() - t
+
+
+def trainer_cli(card, flagship_p50, device="cuda"):
+    """The port's training entry point on the card: ``main`` of
+    ``bifold_tpu_torch.__main__`` trains the full-width bf16 flagship
+    (:data:`CLI_OVERRIDES`: synthetic 384 px bimanual data with 3 context
+    frames, 16 samples, batch 2, one epoch of 8 steps), evaluates pixel
+    metrics and writes ``best`` and ``last``. Gates: exit code 0, exactly
+    ``PER_STEP`` launches per step and only the inference kernel's per eval
+    batch, finite metrics, the run dir's files, and the port's server serving
+    ``best.ckpt`` with the launches of a request. Then ``epochs=2`` from the
+    first run's checkpoints trains epoch 1 only; under
+    ``BIFOLD_LN_KERNEL=fused`` a 5-step run, its per-step launches those of
+    ``train_flagship`` in that mode, against a run interrupted at its third
+    step and resumed: the weights end bitwise equal; the fused run's loader
+    abandoned after one batch: its thread ends within the join, and the
+    batch taken equals the batch a fresh iterator rebuilds. Prints the
+    Trainer's step p50 (``train/step_time_s``) and samples/s beside
+    ``flagship_p50``, the time to the first step, checkpoint write and resume
+    seconds. Returns the launches and the trainer for :func:`trainer_profile`.
+    ``device="cpu"`` runs the same steps on the CPU (``use_cpu=true``; a
+    rehearsal at a tiny size, with the launch checks stubbed by the
+    caller)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from bifold_tpu_torch.__main__ import override_dirname, run_dir_name
+    from bifold_tpu_torch.config import Config, compose, load_yaml
+    from bifold_tpu_torch.serving import ServingModel
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bifold_cli_"))
+    overrides = list(CLI_OVERRIDES) + [f"run_dir={tmp}"] + (
+        ["use_cpu=true"] if device == "cpu" else [])
+    first = {}
+    clear_launch_counts()                # the Trainer's runs start here
+    code, run_dir, seconds = run_cli(overrides, first)
+    files = [f for f in ("config.yaml", "metrics.jsonl", "eval_synthetic.yaml",
+                         "checkpoints/best.ckpt", "checkpoints/last.ckpt")
+             if not (run_dir / f).exists()]
+    evals = load_yaml(run_dir / "eval_synthetic.yaml") if not files else {}
+    logged = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    step_s = [r["train/step_time_s"] for r in logged if "train/step_time_s" in r]
+    sps = [r["train/samples_per_sec"] for r in logged if "train/samples_per_sec" in r]
+    bad_steps = [d for d in first.get("steps", []) if d != PER_STEP]
+    bad_evals = [d for d in first.get("evals", []) if d != INFER]
+    finite = bool(evals) and all(v is None or np.isfinite(v) for v in evals.values()) \
+        and evals.get("kp_mse") is not None
+
+    # the best checkpoint served by the port's server
+    cfg = load_yaml(run_dir / "config.yaml")
+    server = ServingModel.from_checkpoint(run_dir / "checkpoints/best.ckpt", cfg,
+                                          device=device)
+    obs = observation(np.random.default_rng(7), n_ctx=3)
+    action, raw = counted(lambda: server.predict(**obs, instruction=INSTRUCTIONS[0],
+                                                 return_raw_output=True),
+                          "", INFER, "served best.ckpt")
+    check_action(action, raw, 1, FLAGSHIP["image_size"])
+    del server
+
+    # epochs=2 from the first run's checkpoints: only epoch 1 trains
+    second = {}
+    overrides2 = [o if o != "epochs=1" else "epochs=2" for o in overrides]
+    run_dir2 = Path(compose(overrides2)["run_dir"]) / run_dir_name(override_dirname(overrides2))
+    shutil.copytree(run_dir / "checkpoints", run_dir2 / "checkpoints")
+    code2, _, seconds2 = run_cli(overrides2, second)
+    resumed_ok = (code2 == 0 and second.get("epochs") == [1]
+                  and second["trainers"][0].global_step == 16
+                  and all(d == PER_STEP for d in second.get("steps", [])))
+    logged = [json.loads(line) for line in (run_dir2 / "metrics.jsonl").read_text().splitlines()]
+    step_s += [r["train/step_time_s"] for r in logged if "train/step_time_s" in r]
+    sps += [r["train/samples_per_sec"] for r in logged if "train/samples_per_sec" in r]
+    del first["trainers"], second["trainers"]
+
+    # fused LayerNorms: 5 steps straight, and interrupted at the 3rd + resumed
+    def fused_trainer(name, record):
+        cfg = compose([o for o in overrides if not o.startswith("log_every")] + [
+            "train_dataset.n_samples=10", "eval_epochs=0", "loss_readback_window=2",
+            f"run_dir={tmp / name}"])
+        return observed_trainer(record)(Config(cfg), run_dir=tmp / name)
+
+    straight, broken, resumed = {}, {}, {}
+    with ln_mode("fused"):
+        ta = fused_trainer("a", straight)
+        ta.prepare_train()
+        ta.train()
+        tb = fused_trainer("b", broken)
+        tb.prepare_train()
+        real_step, calls = tb._train_step, [0]
+
+        def interrupted(state, batch):
+            calls[0] += 1
+            if calls[0] == 3:
+                raise KeyboardInterrupt
+            return real_step(state, batch)
+
+        tb._train_step = interrupted
+        try:
+            tb.train()
+            raise AssertionError("the interrupted run did not stop")
+        except KeyboardInterrupt:
+            pass
+        tc = fused_trainer("b", resumed)
+        tc.prepare_train()
+        start = (tc.epoch, tc._resume_step_in_epoch)
+        tc.train()
+    # an abandoned prefetch iterator: its thread gone within the join, and
+    # the batch taken before it (made on the loader's side stream) equal to
+    # the same batch rebuilt by a fresh iterator
+    loader = ta.train_dataloader
+    loader.set_epoch(0)
+    it = iter(loader)
+    taken = next(it)
+    t = time.perf_counter()
+    it.close()
+    close_s = time.perf_counter() - t
+    alive = [th.name for th in threading.enumerate() if th.name == "bifold-loader"]
+    it = iter(loader)
+    rebuilt = next(it)
+    it.close()
+    rebuilt_equal = all(torch.equal(v, rebuilt[k]) for k, v in taken.items()
+                        if isinstance(v, torch.Tensor))
+    del taken, rebuilt
+    fused_step = {**PER_STEP, **ln_launches(ta.model, "fused", train=True)}
+    bad_fused = [d for d in straight["steps"] + broken["steps"] + resumed["steps"]
+                 if d != fused_step]
+    a_params = dict(ta.model.named_parameters())
+    diffs = {n: float((p.detach().float() - a_params[n].detach().float()).abs().max())
+             for n, p in tc.model.named_parameters() if p.requires_grad}
+    bitwise = all(torch.equal(p, a_params[n]) for n, p in tc.model.named_parameters())
+    launches = launch_counts()           # ... and end here
+    del tb, tc, broken["trainers"], resumed["trainers"]
+
+    p50 = statistics.median(step_s) * 1e3 if step_s else None
+    emit({"phase": "trainer_cli", "exit_codes": [code, code2], "seconds": seconds,
+          "steps": len(first.get("steps", [])), "launches_per_step": PER_STEP,
+          "steps_with_other_launches": bad_steps, "eval_batches": len(first.get("evals", [])),
+          "eval_batches_with_other_launches": bad_evals, "eval": evals,
+          "missing_files": files, "served_best": True,
+          "trainer_step_p50_ms": p50, "trainer_step_time_samples_ms": [s * 1e3 for s in step_s],
+          "trainer_samples_per_s": sps, "train_flagship_p50_ms": flagship_p50,
+          "time_to_first_step_s": first["first_step_end"] - first["start"],
+          "checkpoint_write_s": first.get("saves"), "resume_load_s": second.get("loads"),
+          "resumed_epochs": second.get("epochs"), "resumed_ok": resumed_ok,
+          "seconds_epochs2": seconds2, "fused_launches_per_step": fused_step,
+          "fused_steps_with_other_launches": bad_fused,
+          "interrupted_resume_start": list(start),
+          "interrupt_resume_bitwise": bitwise,
+          "interrupt_resume_max_abs_diff": max(diffs.values()),
+          "interrupt_resume_load_s": resumed.get("loads"),
+          "abandoned_loader": {"close_s": close_s, "threads_alive": alive,
+                               "batch_rebuilt_equal": rebuilt_equal},
+          "phase_seconds": time.perf_counter() - t0, "launches": launches, **card})
+    if (code != 0 or files or bad_steps or bad_evals or not finite
+            or len(first.get("steps", [])) != 8 or not first.get("evals")
+            or not resumed_ok or bad_fused or start != (0, 2) or not bitwise
+            or alive or not rebuilt_equal or close_s > 6):
+        raise AssertionError("trainer_cli failed (see its line)")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches, ta, p50
+
+
+def trainer_profile(trainer, card, step_ms):
+    """torch.profiler over one more epoch of ``trainer`` (5 steps through its
+    loader, in the default LayerNorm mode, the mode of the CLI runs that
+    gave ``step_ms``): the device's busy time per step and its idle share of
+    ``step_ms`` (the Trainer's unprofiled step p50, as :func:`device_profile`
+    takes it) and of the profiled epoch's wall time (the profiler slows the
+    host's launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.epoch = 1
+    with ln_mode(""), profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.train_epoch()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", 0) or 0 for e in kernels) / 1e3 / 5
+    emit({"phase": "trainer_device_profile", "steps": 5, "ln_mode": "default",
+          "profiled_wall_ms_per_step": wall / 5, "device_busy_ms_per_step": busy or None,
+          "unprofiled_step_p50_ms": step_ms,
+          "device_idle_share": 1 - busy / step_ms if busy and step_ms else None,
+          "device_idle_share_profiled": 1 - busy / (wall / 5) if busy else None,
+          "device_ops_per_step": sum(e.count for e in kernels) // 5, **card})
+
+
+def trainer_pull_ahead(card):
+    """The Trainer of :data:`CLI_OVERRIDES` with ``steps_per_dispatch`` 1
+    (each batch stepped as it arrives, the loader's thread making the next
+    ones meanwhile) and 8 (the default: 8 batches pulled, then stepped),
+    one epoch of 8 steps each in turns (1, 8, 8, 1, 1, 8, 8, 1), checkpoints
+    off: each setting's step p50 (``train/step_time_s``) and samples/s per
+    epoch. A measurement; no gate."""
+    import shutil
+    import tempfile
+
+    from bifold_tpu_torch.config import Config, compose
+    from bifold_tpu_torch.trainer import Trainer
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bifold_pull_"))
+    clear_launch_counts()
+    trainers = {}
+    for k in (1, 8):
+        cfg = compose(list(CLI_OVERRIDES) + [
+            "epochs=4", "eval_epochs=0", f"steps_per_dispatch={k}",
+            f"run_dir={tmp / str(k)}"])
+        trainers[k] = Trainer(Config(cfg), run_dir=tmp / str(k))
+        trainers[k].save_model = lambda name: None
+        trainers[k].prepare_train()
+    step_ms = {1: [], 8: []}
+    samples_per_s = {1: [], 8: []}
+    for epoch, k in enumerate((1, 8, 8, 1, 1, 8, 8, 1)):
+        tr = trainers[k]
+        tr.epoch = epoch // 2
+        tr.train_epoch()
+        rows = [json.loads(line) for line in
+                (tr.run_dir / "metrics.jsonl").read_text().splitlines()]
+        last = max(i for i, r in enumerate(rows) if "train/epoch" in r)
+        first = max([i for i, r in enumerate(rows[:last]) if "train/epoch" in r],
+                    default=-1) + 1
+        step_ms[k] += [r["train/step_time_s"] * 1e3 for r in rows[first:last]
+                       if "train/step_time_s" in r]
+        samples_per_s[k].append(rows[last]["train/samples_per_sec"])
+    launches = launch_counts()
+    del trainers, tr
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "trainer_pull_ahead", "order": [1, 8, 8, 1, 1, 8, 8, 1],
+          "step_p50_ms": {k: statistics.median(v) for k, v in step_ms.items()},
+          "step_ms": step_ms, "samples_per_s_per_epoch": samples_per_s,
+          "seconds": time.perf_counter() - t0, "launches": launches, **card})
+    return launches
+
+
 def serving_phase(server, mode, name, obs_list, p50):
     """What :func:`where_the_time_goes` needs for one served batch."""
     def stages():
@@ -1959,17 +2291,21 @@ def main() -> int:
     phases = [train_flagship(card, mode) for mode in LN_MODES]
     train_interleaved({phase["mode"]: phase["one_step"] for phase in phases}, card)
     f32_step_equivalence()
+    trained, cli_trainer, trainer_p50 = trainer_cli(card, phases[0]["where"]["p50_ms"])
+    pulled = trainer_pull_ahead(card)
     served, serve_phases = serve_flagship(card)
     deployed = deployment_phase(card)
     emit({"phase": "train_peak_memory", "max_memory_allocated_bytes": {
         phase["mode"] or "default": phase["where"]["max_memory_allocated_bytes"]
         for phase in phases}, **card})
     launches = collections.Counter()
-    for run in [phase["launches"] for phase in phases] + list(served.values()) + [deployed]:
+    for run in ([phase["launches"] for phase in phases] + [trained, pulled]
+                + list(served.values()) + [deployed]):
         launches.update(run)
     # the profiler from here on: after every host-clock measurement
     where_the_time_goes(phases + serve_phases)
-    del phases, serve_phases
+    trainer_profile(cli_trainer, card, trainer_p50)
+    del phases, serve_phases, cli_trainer
     torch.cuda.empty_cache()
     timings = {**time_kernels(fa, peaks), **time_train_kernels(fa, peaks),
                **time_ln_kernels(peaks)}

@@ -20,7 +20,9 @@ for name in names:
     importlib.import_module(name)
 for name in ("bifold_tpu_torch.ops._cuda", "bifold_tpu_torch.ops.layer_norm",
              "bifold_tpu_torch.serve", "bifold_tpu_torch.config",
-             "bifold_tpu_torch.utils.checkpoint"):
+             "bifold_tpu_torch.utils.checkpoint", "bifold_tpu_torch.trainer",
+             "bifold_tpu_torch.__main__", "bifold_tpu_torch.data.loader",
+             "bifold_tpu_torch.metrics"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None)
@@ -33,7 +35,7 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 35   # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 50   # every module was imported
 
 
 def _imported_roots(path: Path):

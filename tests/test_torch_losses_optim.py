@@ -152,8 +152,8 @@ def test_optimizer_matches_optax(optim_cfg, sched_cfg, clip):
 
 def test_optimizer_refuses_what_is_not_ported():
     p = [torch.zeros(2)]
-    with pytest.raises(NotImplementedError):
-        build_optimizer({"name": "adam", "lr": 1e-3, "accumulate_steps": 4}, p)
+    with pytest.raises(KeyError):
+        build_optimizer({"name": "adam", "lr": 1e-3}, p, {"name": "step_decay"})
     with pytest.raises(KeyError):
         build_optimizer({"name": "lamb", "lr": 1e-3}, p)
     with pytest.raises(TypeError):
