@@ -17,9 +17,11 @@
 // all masked, while dv still receives that row's uniform 1/nk mass, as the
 // XLA path gives. Query rows past nq and keys past nk carry no mass.
 //
-// Training runs it in every fusion layer (B=2 x 16 heads, n 2373, d 48, key
-// mask over the context frames) and every SigLIP vision layer (8 frames x
-// 12 heads, n 576, d 64, no mask).
+// Training runs it in every flagship fusion layer (B=2 x 16 heads, n 2373,
+// d 48, key mask over the context frames), every SigLIP vision layer (8
+// frames x 12 heads, n 576, d 64, no mask) and every rgb_clip fusion layer
+// (B=2 x 16 heads, n 275, d 32, no mask). Instanced at head dims 32, 48
+// and 64.
 //
 // Design. The TPU kernel walks the q blocks of one (b*h) row in sequence and
 // keeps full-row f32 dk/dv blocks resident in VMEM across them. On Hopper
@@ -67,8 +69,9 @@
 //     (exp2f); a masked score's p is exp2((-1e5 - lse) * log2 e), so the
 //     all-masked row keeps its exact 1/nk mass.
 //   - Both kernels are built for four blocks per SM (__launch_bounds__),
-//     so at most 128 registers. The dk/dv kernel then spills 28-52 bytes a
-//     thread; against the compiler's own registers (dk/dv 111 / 168, dq
+//     so at most 128 registers. The dk/dv kernel then spills 28-40 bytes a
+//     thread at d48 and d64 (none at d32, whose column loop is unrolled by
+//     two); against the compiler's own registers (dk/dv 111 / 168, dq
 //     96 / 128 at d 48 / d 64) the backward measured 8% faster at d 64 and
 //     5% slower at d 48, about even per train step, so one rule holds for
 //     both (PERF.md, PR 4; tools/flash_variants.py measures both). A
@@ -129,7 +132,7 @@ __global__ void __launch_bounds__(kMmaThreads, kBlocksPerSM) dkdv_mma(
   constexpr int S = D + 8;  // shared row, padded
   // query rows per ring stage: the block's K and V stay in shared memory
   // beside the ring, and both fit the 48 KB of static shared memory with
-  // 64-row stages at d 48 and 32-row stages at d 64
+  // 64-row stages at d 32 (31 KB) and d 48 (43 KB) and 32-row stages at d 64
   constexpr int kTile = D > 48 ? 32 : 64;
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   __shared__ __align__(128) bf16 kvs[2 * kOwn * S];  // K rows, then V rows
@@ -189,7 +192,10 @@ __global__ void __launch_bounds__(kMmaThreads, kBlocksPerSM) dkdv_mma(
     const float* lq = ls[j & 1];
     const float* dl = dls[j & 1];
     const int r0 = j * kTile;
-#pragma unroll
+    // fully unrolled, the d32 instance spilled 36 B at the 128-register
+    // cap; two columns at a time it holds 126 registers, no spill, 4% faster
+    // (tools/flash_variants.py bwd_d32_unroll2; PERF.md, PR 8)
+#pragma unroll(D == 32 ? 2 : kTile / 16)
     for (int c = 0; c < kTile / 16; ++c) {  // 16 query columns at a time
       float sc[2][4] = {};
       float dp[2][4] = {};
@@ -662,6 +668,9 @@ int bifold_flash_bwd(const void* q, const void* k, const void* v,
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],
                    strides[5], strides[6], strides[7], strides[8]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 32)
+    return launch<32>(q, k, v, mask, dout, lse, delta, dq, dk, dv, b, nq, nk,
+                      h, st, scale, dtype, s);
   if (d == 48)
     return launch<48>(q, k, v, mask, dout, lse, delta, dq, dk, dv, b, nq, nk,
                       h, st, scale, dtype, s);

@@ -1,16 +1,19 @@
-// Flash attention forward for Hopper (sm_90a), plain C ABI: two instances.
+// Flash attention forward for Hopper (sm_90a), plain C ABI: two entry
+// points, each instanced at head dims 32, 48 and 64.
 //
 // - `bifold_flash_fwd_infer` replaces the Pallas TPU kernel
 //   `_fwd_kernel_infer` with its loop `_online_softmax_loop`
 //   (bifold_tpu/ops/flash_attention.py:187-256): the lse-free forward that
 //   serving runs in every SigLIP vision layer (4 frames x 12 heads, n 576,
-//   d 64, no mask) and every fusion layer (16 heads, n 2373, d 48, key mask
-//   over the context frames).
+//   d 64, no mask), every flagship fusion layer (16 heads, n 2373, d 48,
+//   key mask over the context frames) and every rgb_clip fusion layer (16
+//   heads of 512, n 275 = 78 text + 197 image tokens, d 32, no mask).
 // - `bifold_flash_fwd_lse` replaces `_fwd_kernel` (:241-247): the same
 //   forward that also writes the f32 row logsumexp lse = m + log(max(l,
 //   1e-30)), (B, H, Nq) contiguous, which the backward (flash_bwd.cu)
 //   recomputes the probabilities from. Training runs it at the same shapes
-//   with B=2 (fusion) and B*(T+1)=8 frames (vision). An all-masked row has
+//   with B=2 (fusion, both families) and B*(T+1)=8 frames (vision). An
+//   all-masked row has
 //   m = -1e5 and l = nk, so its lse is -1e5 + log(nk).
 //
 // Semantics, held against `flash_attention_plain` /
@@ -55,6 +58,13 @@
 //   bf16 flags are off by default); the emulation in
 //   tests/test_torch_flash_attention.py holds this arithmetic within the
 //   bf16 tolerance of the plain version.
+//   d = 32 is the same template: QK^T takes two k-steps of m16n8k16, P.V
+//   four 8-wide n-tiles; its padded rows are 80 bytes, so the eight 16-byte
+//   rows of one ldmatrix start at offsets 0, 80, 160, ... = 0, 80, 32, 112,
+//   64, 16, 96, 48 mod 128: eight distinct bank groups, no conflict. At
+//   n 275 the last key tile holds 19 keys (the rest zero-filled and masked
+//   out), and one request's grid is 5 query tiles x 16 heads = 80 blocks,
+//   fewer than the 132 SMs.
 //   Left for a later design: wgmma on TMA-fed, swizzled tiles with a
 //   producer warp. d=48's 96-byte rows fit no swizzle atom unless padded
 //   or split, which is why this version stays on mma.sync.
@@ -397,6 +407,9 @@ int dispatch(const void* q, const void* k, const void* v, const int* mask,
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],
                    strides[5], strides[6], strides[7], strides[8]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 32)
+    return launch<32, kWithLse>(q, k, v, mask, o, lse, b, nq, nk, h, st,
+                                scale, dtype, s);
   if (d == 48)
     return launch<48, kWithLse>(q, k, v, mask, o, lse, b, nq, nk, h, st,
                                 scale, dtype, s);

@@ -191,7 +191,9 @@ def _core(spec: _CoreSpec, rgb, depth, mask, ctx_rgb, ctx_depth, ctx_mask,
 class Processor:
     """Train- and test-partition preprocessing. ``cfg`` is the ``processor``
     config node; ``autoprocessor_name`` selects SigLIP normalization and the
-    SigLIP tokenizer (``spm_asset``: a ``spiece.model`` path or bytes);
+    SigLIP tokenizer (``spm_asset``: a ``spiece.model`` path or bytes), its
+    absence the config's ``image_mean`` / ``image_std`` and the tokenizer of
+    ``cfg["text_encoder"]`` (CLIP's BPE for a CLIP model name);
     ``seed`` seeds the train partition's draws of calls without a generator.
     The JAX package's graph features are not ported."""
 
@@ -212,7 +214,8 @@ class Processor:
         self.process_context = max_context_length is not None
         self.autoprocessor_name = autoprocessor_name
         self.spm_asset = spm_asset
-        self.tokenize = build_tokenizer(autoprocessor_name, spm_asset=spm_asset)
+        self.tokenize = build_tokenizer(autoprocessor_name, spm_asset=spm_asset,
+                                        text_encoder=cfg.get("text_encoder"))
         self.seed = seed
         self._generators: Dict[torch.device, torch.Generator] = {}
         sa = dict(cfg.get("spatial_augmentations", {}))

@@ -1,54 +1,224 @@
-"""The SigLIP text path: fixed-length int32 ids, offline.
+"""The text paths: fixed-length int32 ids, offline.
 
-The port's own copy of the SigLIP parts of bifold_tpu/data/tokenizers.py
-(:220-345, :395-485): the sentencepiece tokenizer on the built-in unigram
-engine (:mod:`bifold_tpu_torch.data.spm`), the asset lookup, the generated
-fixture model for smokes, and the deterministic hashing fallback used when
-no ``spiece.model`` is available. The same asset gives the same ids as the
-JAX package.
+The port's own copy of bifold_tpu/data/tokenizers.py's SigLIP and CLIP
+parts (:48-210, :220-345, :374-485):
+
+- SigLIP: the sentencepiece tokenizer on the built-in unigram engine
+  (:mod:`bifold_tpu_torch.data.spm`), the asset lookup and the generated
+  fixture model for smokes;
+- CLIP: OpenAI CLIP's byte-pair tokenizer (77 tokens, lowercased,
+  ``<|startoftext|>`` / ``<|endoftext|>``, zero padding) on the merges file
+  the port carries itself (``data/assets/bpe_simple_vocab_16e6.txt.gz``, or
+  ``$BIFOLD_CLIP_BPE``);
+- the deterministic hashing fallback in either layout when an asset is
+  missing.
+
+The same asset gives the same ids as the JAX package. The JAX package
+splits CLIP words with the ``regex`` module's ``\\p{L}`` / ``\\p{N}`` classes
+when that module is installed; the port gives those ids without it
+(:func:`_clip_words`, from ``unicodedata`` categories), for every character
+the interpreter's Unicode database assigns.
 """
 
 from __future__ import annotations
 
+import gzip
 import hashlib
 import html
 import os
 import re
+import unicodedata
+from functools import lru_cache
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
-__all__ = ["HashTokenizer", "SpmSiglipTokenizer", "build_tokenizer",
-           "siglip_spm_path", "ensure_spm_fixture", "SIGLIP_CONTEXT_LENGTH"]
+__all__ = ["HashTokenizer", "SpmSiglipTokenizer", "ClipBPETokenizer",
+           "build_tokenizer", "siglip_spm_path", "clip_bpe_path",
+           "ensure_spm_fixture", "SIGLIP_CONTEXT_LENGTH", "CLIP_CONTEXT_LENGTH",
+           "CLIP_MODEL_NAMES"]
 
 SIGLIP_CONTEXT_LENGTH = 64
+CLIP_CONTEXT_LENGTH = 77
 _SIGLIP_VOCAB_SIZE = 32000
+_CLIP_VOCAB_SIZE = 49408
+# the CLIP model names the reference tokenizes with its vendored BPE
+CLIP_MODEL_NAMES = {"RN50", "RN101", "RN50x4", "RN50x16", "RN50x64",
+                    "ViT-B/32", "ViT-B/16", "ViT-L/14", "ViT-L/14@336px"}
 
 
 def _stable_hash(token: str) -> int:
     return int.from_bytes(hashlib.md5(token.encode("utf-8")).digest()[:8], "little")
 
 
+def _basic_clean(text: str) -> str:
+    return html.unescape(html.unescape(text)).strip()
+
+
+def _whitespace_clean(text: str) -> str:
+    return re.sub(r"\s+", " ", text).strip()
+
+
 class HashTokenizer:
-    """Deterministic word-level stand-in: lowercase, strip punctuation, map
-    each word to a stable hash bucket; SigLIP layout (eos 1, pad 1)."""
+    """Deterministic word-level stand-in: lowercase, map each word to a
+    stable hash bucket. SigLIP layout (the default): punctuation dropped,
+    eos 1, pad 1. CLIP layout (``sot`` given): punctuation characters are
+    words of their own, ``sot`` first, ``eot`` last, ``pad`` 0."""
 
     def __init__(self, vocab_size: int, context_length: int,
-                 eot: int = 1, pad: int = 1, reserved: int = 3):
+                 eot: int = 1, pad: int = 1, reserved: int = 3,
+                 sot: Optional[int] = None):
         self.vocab_size = vocab_size
         self.context_length = context_length
+        self.sot = sot
         self.eot = eot
         self.pad = pad
         self.reserved = reserved
 
     def __call__(self, text: str) -> np.ndarray:
-        text = re.sub(r"\s+", " ", html.unescape(html.unescape(text)).strip())
-        words = re.findall(r"[a-z0-9]+", text.strip().lower())
+        text = _whitespace_clean(_basic_clean(text)).lower()
+        pattern = r"[a-z0-9]+" if self.sot is None else r"[a-z0-9]+|[^\sa-z0-9]"
         span = self.vocab_size - self.reserved
-        ids = [self.reserved + _stable_hash(w) % span for w in words]
-        ids = ids[: self.context_length - 1] + [self.eot]
+        ids = [self.reserved + _stable_hash(w) % span
+               for w in re.findall(pattern, text)]
+        head = [] if self.sot is None else [self.sot]
+        ids = head + ids[: self.context_length - 1 - len(head)] + [self.eot]
         out = np.full((self.context_length,), self.pad, dtype=np.int32)
+        out[: len(ids)] = ids
+        return out
+
+
+@lru_cache()
+def _bytes_to_unicode() -> dict:
+    """GPT-2's byte <-> printable unicode table."""
+    bs = (list(range(ord("!"), ord("~") + 1))
+          + list(range(ord("\xa1"), ord("\xac") + 1))
+          + list(range(ord("\xae"), ord("\xff") + 1)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, [chr(c) for c in cs]))
+
+
+_SPECIAL = ("<|startoftext|>", "<|endoftext|>")
+_CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
+
+
+def _char_class(ch: str) -> str:
+    """"L" (a letter, ``\\p{L}``), "N" (a number, ``\\p{N}``), " " (white
+    space, ``\\s``) or "" (anything else)."""
+    if ch.isspace():
+        return " "
+    cat = unicodedata.category(ch)[0]
+    return cat if cat in "LN" else ""
+
+
+def _clip_words(text: str) -> list:
+    """``findall`` of CLIP's pre-tokenizer pattern,
+    ``<\\|startoftext\\|>|<\\|endoftext\\|>|'s|'t|'re|'ve|'m|'ll|'d|[\\p{L}]+|[\\p{N}]|[^\\s\\p{L}\\p{N}]+``,
+    on lowercased text, written out: at each position the first alternative
+    that matches is taken, and a position where none matches (white space)
+    is skipped."""
+    words, i, n = [], 0, len(text)
+    while i < n:
+        alt = next((a for a in _SPECIAL + _CONTRACTIONS if text.startswith(a, i)), None)
+        if alt is not None:
+            words.append(alt)
+            i += len(alt)
+            continue
+        cls = _char_class(text[i])
+        if cls == " ":
+            i += 1
+            continue
+        j = i + 1
+        if cls == "L":
+            while j < n and _char_class(text[j]) == "L":
+                j += 1
+        elif cls == "":
+            while j < n and _char_class(text[j]) == "":
+                j += 1
+        words.append(text[i:j])
+        i = j
+    return words
+
+
+def _get_pairs(word: tuple) -> set:
+    return set(zip(word[:-1], word[1:]))
+
+
+class ClipBPETokenizer:
+    """OpenAI CLIP's byte-pair tokenizer: clean, lowercase, split
+    (:func:`_clip_words`), byte-encode and merge each word by rank with a
+    word-final ``</w>``; ``<|startoftext|>`` ids ``<|endoftext|>``, cut to
+    ``context_length`` keeping the EOT, zero-padded."""
+
+    def __init__(self, bpe_path, context_length: int = CLIP_CONTEXT_LENGTH):
+        self.context_length = context_length
+        self.byte_encoder = _bytes_to_unicode()
+        merges_raw = gzip.open(bpe_path).read().decode("utf-8").split("\n")
+        merges = [tuple(m.split()) for m in merges_raw[1: 49152 - 256 - 2 + 1]]
+        vocab = list(self.byte_encoder.values())
+        vocab = vocab + [v + "</w>" for v in vocab]
+        vocab.extend("".join(m) for m in merges)
+        vocab.extend(_SPECIAL)
+        self.encoder = {tok: i for i, tok in enumerate(vocab)}
+        self.bpe_ranks = dict(zip(merges, range(len(merges))))
+        self.cache: dict = {}
+        self.sot = self.encoder["<|startoftext|>"]
+        self.eot = self.encoder["<|endoftext|>"]
+
+    def _bpe(self, token: str) -> str:
+        if token in self.cache:
+            return self.cache[token]
+        word = tuple(token[:-1]) + (token[-1] + "</w>",)
+        pairs = _get_pairs(word)
+        if not pairs:
+            return token + "</w>"
+        while True:
+            bigram = min(pairs, key=lambda p: self.bpe_ranks.get(p, float("inf")))
+            if bigram not in self.bpe_ranks:
+                break
+            first, second = bigram
+            merged, i = [], 0
+            while i < len(word):
+                try:
+                    j = word.index(first, i)
+                except ValueError:
+                    merged.extend(word[i:])
+                    break
+                merged.extend(word[i:j])
+                i = j
+                if i < len(word) - 1 and word[i] == first and word[i + 1] == second:
+                    merged.append(first + second)
+                    i += 2
+                else:
+                    merged.append(word[i])
+                    i += 1
+            word = tuple(merged)
+            if len(word) == 1:
+                break
+            pairs = _get_pairs(word)
+        out = " ".join(word)
+        self.cache[token] = out
+        return out
+
+    def encode(self, text: str) -> list:
+        ids = []
+        for token in _clip_words(_whitespace_clean(_basic_clean(text)).lower()):
+            token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
+            ids.extend(self.encoder[t] for t in self._bpe(token).split(" "))
+        return ids
+
+    def __call__(self, text: str) -> np.ndarray:
+        ids = [self.sot] + self.encode(text) + [self.eot]
+        if len(ids) > self.context_length:
+            ids = ids[: self.context_length - 1] + [self.eot]
+        out = np.zeros((self.context_length,), dtype=np.int32)
         out[: len(ids)] = ids
         return out
 
@@ -140,21 +310,47 @@ def ensure_spm_fixture() -> Optional[Path]:
     return path
 
 
-def build_tokenizer(autoprocessor_name: Optional[str], spm_asset=None):
-    """The SigLIP tokenizer for ``autoprocessor_name``: ``spm_asset`` (a
-    ``spiece.model`` path or its bytes) when given, else the resolved asset,
-    else a loud hashing fallback with the same layout."""
-    if not autoprocessor_name:
-        raise NotImplementedError(
-            "only the SigLIP (autoprocessor) text path is ported")
-    if spm_asset is None:
-        spm_asset = siglip_spm_path(autoprocessor_name)
-    if spm_asset is not None:
-        return SpmSiglipTokenizer(spm_asset)
+def clip_bpe_path() -> Optional[Path]:
+    """The CLIP BPE merges file: ``$BIFOLD_CLIP_BPE``, else the port's own
+    copy in ``data/assets``; None when neither exists."""
+    env = os.environ.get("BIFOLD_CLIP_BPE")
+    if env and Path(env).exists():
+        return Path(env)
+    vendored = Path(__file__).parent / "assets" / "bpe_simple_vocab_16e6.txt.gz"
+    return vendored if vendored.exists() else None
+
+
+def _warn_hash_fallback(missing: str) -> None:
     import warnings
     warnings.warn(
-        f"tokenizer falling back to deterministic hashing (no sentencepiece "
-        f"model for {autoprocessor_name!r}): fine for random-weight smokes, "
-        "wrong for pretrained checkpoints; set $BIFOLD_SIGLIP_SPM",
-        stacklevel=2)
-    return HashTokenizer(_SIGLIP_VOCAB_SIZE, SIGLIP_CONTEXT_LENGTH)
+        f"tokenizer falling back to deterministic hashing (no {missing}): fine "
+        "for random-weight smokes, wrong for pretrained checkpoints; set "
+        "$BIFOLD_SIGLIP_SPM or $BIFOLD_CLIP_BPE", stacklevel=3)
+
+
+def build_tokenizer(autoprocessor_name: Optional[str], spm_asset=None,
+                    text_encoder: Optional[str] = None):
+    """The tokenizer the JAX package picks: SigLIP's for an
+    ``autoprocessor_name`` (``spm_asset``, a ``spiece.model`` path or its
+    bytes, when given, else the resolved asset); else CLIP's BPE for a CLIP
+    model name (:data:`CLIP_MODEL_NAMES`) or no ``text_encoder``; either
+    falls back, loudly, to hashing in its layout when its asset is missing.
+    Any other ``text_encoder`` (a T5 or Hugging Face tokenizer) raises."""
+    if autoprocessor_name:
+        if spm_asset is None:
+            spm_asset = siglip_spm_path(autoprocessor_name)
+        if spm_asset is not None:
+            return SpmSiglipTokenizer(spm_asset)
+        _warn_hash_fallback(f"sentencepiece model for {autoprocessor_name!r}")
+        return HashTokenizer(_SIGLIP_VOCAB_SIZE, SIGLIP_CONTEXT_LENGTH)
+    if text_encoder is None or text_encoder in CLIP_MODEL_NAMES:
+        bpe = clip_bpe_path()
+        if bpe is not None:
+            return ClipBPETokenizer(bpe)
+        _warn_hash_fallback("CLIP BPE merges file")
+        return HashTokenizer(_CLIP_VOCAB_SIZE, CLIP_CONTEXT_LENGTH,
+                             sot=_CLIP_VOCAB_SIZE - 2, eot=_CLIP_VOCAB_SIZE - 1,
+                             pad=0)
+    raise NotImplementedError(
+        f"text_encoder {text_encoder!r}: only the SigLIP and CLIP text paths "
+        "are ported (the T5 branch is ROADMAP queue item 4)")

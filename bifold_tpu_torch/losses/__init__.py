@@ -48,11 +48,14 @@ def binary_cross_entropy(p, target, reduction: str = "mean"):
 
 
 def binary_cross_entropy_with_logits(x, target, reduction: str = "mean"):
-    """Fused sigmoid + BCE on logits: max(x, 0) - x t + log1p(exp(-|x|))."""
+    """Fused sigmoid + BCE on logits: max(x, 0) - x t + log1p(exp(-|x|)).
+    max(x, 0) is ``relu``, whose gradient at x = 0 is 0, as the JAX
+    package's ``jnp.maximum(x, 0.0)`` gives: a logit of exactly 0 (a UNet
+    pixel whose channels the last ReLU all zeroed, under a zero head bias)
+    then gets JAX's gradient, -t, not sigmoid(0) - t."""
     x = x.float()
     target = target.float()
-    loss = (torch.maximum(x, torch.zeros_like(x)) - x * target
-            + torch.log1p(torch.exp(-x.abs())))
+    loss = torch.relu(x) - x * target + torch.log1p(torch.exp(-x.abs()))
     return _reduce(loss, reduction)
 
 

@@ -1,12 +1,15 @@
 """Model construction, trainability and action decoding for the PyTorch port.
 
-Counterpart of bifold_tpu/models/__init__.py:67-124 and :153-203 for the two
-SigLIP families: :func:`build_model` takes the same config node (keys are
-constructor fields, unknown keys are an error) and builds the module on a
-device with a seeded init; :func:`trainable_mask` freezes the backbone towers
-but their LoRA adapters (via ``requires_grad``); :func:`precast_frozen` casts
-big frozen weights to the compute dtype once; :func:`decode_action` turns the
-heatmap dict into pixel arrays with mask snapping and bimanual gating.
+Counterpart of bifold_tpu/models/__init__.py:67-124 and :153-203 for the
+four shipped model families (``siglip``, ``siglip_sequential``,
+``rgb_clip``, ``text_unet``): :func:`build_model` takes the same config node
+(keys are constructor fields, unknown keys are an error) and builds the
+module on a device with a seeded init; :func:`trainable_mask` freezes the
+backbone towers (``siglip_model``, ``clip_encoder``) but their LoRA adapters
+(via ``requires_grad``); :func:`precast_frozen` casts big frozen weights to
+the compute dtype once; :func:`decode_action` turns the heatmap dict into
+pixel arrays with mask snapping and bimanual gating, at the family's
+``threshold``.
 """
 
 from __future__ import annotations
@@ -17,27 +20,47 @@ from typing import Dict, List
 import torch
 from torch import nn
 
-from bifold_tpu_torch.models.bifold_models import SigLip, SiglipSequential
-from bifold_tpu_torch.models.layers import LayerNorm
+from bifold_tpu_torch.models.backbones.clip_backbone import (ClipBackbone,
+                                                            ClipVisionTower)
+from bifold_tpu_torch.models.bifold_models import (RGBOnly, SigLip,
+                                                   SiglipSequential,
+                                                   TextConditionedUNet)
+from bifold_tpu_torch.models.layers import LayerNorm, _ClipAttention
 from bifold_tpu_torch.models.lora import LoRALinear
+from bifold_tpu_torch.models.norm import BatchNorm
 from bifold_tpu_torch.ops.heatmap import decode_heatmap, gate_bimanual
 
 __all__ = ["build_model", "init_weights", "decode_action", "resolve_device",
            "trainable_mask", "precast_frozen", "MODELS"]
 
-MODELS = {"siglip": SigLip, "siglip_sequential": SiglipSequential}
+MODELS = {"siglip": SigLip, "siglip_sequential": SiglipSequential,
+          "rgb_clip": RGBOnly, "text_unet": TextConditionedUNet}
 
-_FIELDS = {"image_size", "is_bimanual", "patch_size", "automodel_name", "dim",
-           "lora", "r", "lora_alpha", "depth", "heads", "mlp_ratio",
-           "threshold", "constrain_pick_mask", "legacy_query_mask",
-           "lora_dropout", "dropout", "emb_dropout"}
+# the constructor fields of each family (those of its JAX dataclass)
+_SIGLIP_FIELDS = {"image_size", "is_bimanual", "patch_size", "automodel_name",
+                  "dim", "lora", "r", "lora_alpha", "depth", "heads",
+                  "mlp_ratio", "threshold", "constrain_pick_mask",
+                  "legacy_query_mask", "lora_dropout", "dropout", "emb_dropout"}
+_FIELDS = {
+    "siglip": _SIGLIP_FIELDS,
+    "siglip_sequential": _SIGLIP_FIELDS | {"context_length"},
+    "rgb_clip": {"image_size", "is_bimanual", "patch_size", "text_encoder",
+                 "text_dropout", "rgb_dropout", "threshold", "depth", "heads",
+                 "mlp_ratio", "dropout", "constrain_pick_mask",
+                 "legacy_query_mask"},
+    "text_unet": {"image_size", "is_bimanual", "text_encoder", "features",
+                  "threshold", "constrain_pick_mask"},
+}
 # config keys of the JAX model the port runs at one value only (None: any
 # value is accepted and has no effect here, e.g. remat)
-_FIXED = {"remat": None, "moe_top_k": None, "moe_capacity_factor": None,
-          "moe_aux_weight": None, "target_modules": ("q_proj", "v_proj"),
-          "text_encoder": None, "pick_place_model": "pick_place_convdecoder",
-          "fusion_model": "concat_transformer", "moe_experts": 0,
-          "requires_graph": False}
+_HEAD_FIXED = {"remat": None, "pick_place_model": "pick_place_convdecoder",
+               "fusion_model": "concat_transformer", "requires_graph": False}
+_SIGLIP_FIXED = {**_HEAD_FIXED, "moe_top_k": None,
+                 "moe_capacity_factor": None, "moe_aux_weight": None,
+                 "target_modules": ("q_proj", "v_proj"), "text_encoder": None,
+                 "moe_experts": 0}
+_FIXED = {"siglip": _SIGLIP_FIXED, "siglip_sequential": _SIGLIP_FIXED,
+          "rgb_clip": _HEAD_FIXED, "text_unet": {"requires_graph": False}}
 
 
 def resolve_device(device) -> torch.device:
@@ -50,12 +73,22 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _lecun_normal(weight, fan_in, generator):
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded init with the JAX package's distributions: lecun-normal
-    (truncated) dense and conv kernels, zero biases, N(0, 0.02) embedding
-    tables, unit LayerNorm, peft's LoRA init (A uniform +-1/sqrt(fan_in),
-    B zero) and N(0, 1) learned tokens / context positions."""
+    (truncated) dense, conv and transposed-conv kernels (CLIP's fused
+    in-projection as its three q/k/v Dense kernels), zero biases, N(0, 0.02)
+    embedding tables, unit LayerNorm and BatchNorm (running mean 0, variance
+    1), peft's LoRA init (A uniform +-1/sqrt(fan_in), B zero), N(0, 1)
+    learned tokens and position embeddings of the heads, and CLIP's own:
+    ``class_embedding``, the vision ``positional_embedding`` and
+    ``text_projection`` N(0, width^-0.5), the text positions N(0, 0.01)."""
     adapters = set()
     for mod in model.modules():
         if isinstance(mod, LoRALinear):
@@ -66,19 +99,36 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 lin.weight.zero_()
             adapters.update(map(id, (*mod.lora_A.values(), *mod.lora_B.values())))
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d)) and id(mod) not in adapters:
-            fan_in = mod.weight[0].numel()
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std,
-                                  generator=generator)
+        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)) \
+                and id(mod) not in adapters:
+            # flax's fan in: kernel taps x input features (a transposed
+            # conv's input features lead torch's weight)
+            fan_in = (mod.weight[:, 0].numel() if isinstance(mod, nn.ConvTranspose2d)
+                      else mod.weight[0].numel())
+            _lecun_normal(mod.weight, fan_in, generator)
             if mod.bias is not None:
                 mod.bias.zero_()
+        elif isinstance(mod, _ClipAttention):
+            _lecun_normal(mod.in_proj_weight, mod.in_proj_weight.shape[1], generator)
+            mod.in_proj_bias.zero_()
         elif isinstance(mod, nn.Embedding):
             mod.weight.normal_(0.0, 0.02, generator=generator)
-        elif isinstance(mod, LayerNorm):
+        elif isinstance(mod, (LayerNorm, BatchNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
-    for name in ("image_token", "text_token", "context_pos_embedding"):
+            if isinstance(mod, BatchNorm):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+        elif isinstance(mod, ClipVisionTower):
+            std = mod.class_embedding.shape[0] ** -0.5
+            mod.class_embedding.normal_(0.0, std, generator=generator)
+            mod.positional_embedding.normal_(0.0, std, generator=generator)
+        elif isinstance(mod, ClipBackbone):
+            mod.positional_embedding.normal_(0.0, 0.01, generator=generator)
+            mod.text_projection.normal_(0.0, mod.text_projection.shape[0] ** -0.5,
+                                        generator=generator)
+    for name in ("image_token", "text_token", "context_pos_embedding",
+                 "rgb_pos_embedding", "text_pos_embedding"):
         p = getattr(model, name, None)
         if p is not None:
             p.normal_(0.0, 1.0, generator=generator)
@@ -90,9 +140,10 @@ _ALWAYS_TRAINABLE = ("lora_A", "lora_B")
 
 def trainable_mask(model: nn.Module, *, lora: bool = True) -> Dict[str, bool]:
     """Set ``requires_grad`` as the reference trains: parameters under a
-    backbone tower (``siglip_model``) are frozen, except the LoRA adapters'
-    ``lora_A`` / ``lora_B`` when ``lora``; everything else trains. Returns
-    ``{parameter name: trainable}``."""
+    backbone tower (``siglip_model``, ``clip_encoder``, ``text_encoder``)
+    are frozen, except the LoRA adapters' ``lora_A`` / ``lora_B`` when
+    ``lora``; everything else trains. Returns ``{parameter name:
+    trainable}``."""
     mask = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
@@ -128,17 +179,18 @@ def build_model(cfg: dict, *, dtype=torch.float32, device="cuda",
     """Model from its config node (``name`` + constructor fields), built on
     ``device`` with a seeded init, in eval mode; ``model.config`` keeps the
     node (a serving artifact records it). Config values the port does not
-    implement (MoE, graph conditioning, other heads or fusions) raise."""
+    implement (MoE, graph conditioning, other heads or fusions, a T5 text
+    encoder) raise."""
     node = dict(cfg)
     cfg = {k: (tuple(v) if isinstance(v, list) else v) for k, v in node.items()}
     name = cfg.pop("name")
     if name not in MODELS:
         raise KeyError(f"model {name!r} is not ported (have {sorted(MODELS)})")
-    fields = _FIELDS | ({"context_length"} if name == "siglip_sequential" else set())
-    unknown = set(cfg) - fields - set(_FIXED)
+    fields, fixed = _FIELDS[name], _FIXED[name]
+    unknown = set(cfg) - fields - set(fixed)
     if unknown:
         raise TypeError(f"{name} got unknown config keys: {sorted(unknown)}")
-    for key, want in _FIXED.items():
+    for key, want in fixed.items():
         if want is not None and key in cfg and cfg[key] != want:
             raise NotImplementedError(f"{key}={cfg[key]!r} is not ported "
                                       f"(the port runs {want!r})")

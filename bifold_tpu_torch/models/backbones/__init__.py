@@ -1,5 +1,11 @@
 """Backbone towers of the PyTorch port."""
 
+from bifold_tpu_torch.models.backbones.clip_backbone import (  # noqa: F401
+    CLIP_CONFIGS,
+    CLIP_TEXT_CONFIGS,
+    ClipBackbone,
+    ClipConfig,
+)
 from bifold_tpu_torch.models.backbones.siglip_backbone import (  # noqa: F401
     SIGLIP_BASE_CONFIGS,
     SiglipBackbone,

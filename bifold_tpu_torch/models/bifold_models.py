@@ -1,11 +1,23 @@
-"""The SigLIP model families: ``SigLip`` and ``SiglipSequential``.
+"""The model families: ``SigLip``, ``SiglipSequential``, ``RGBOnly`` and
+``TextConditionedUNet``.
 
-Counterparts of bifold_tpu/models/bifold_models.py:49-205. Each consumes the
+Counterparts of bifold_tpu/models/bifold_models.py:49-379. Each consumes the
 processor's sample dict and returns the heatmap dict
 (``{left_,right_,}pick/place_{logits,heatmap}``). Towers and fusion run in
 ``dtype``; heads in float32. ``lora_dropout`` (tower adapters) and
 ``dropout`` (fusion stack) act in ``train()`` mode only; ``emb_dropout`` is
 accepted and unused, as in the JAX model.
+
+``RGBOnly`` (``rgb_clip``): the frozen CLIP towers' token features, the
+image tokens projected to the text width, learned position embeddings and
+the shared pick/place head at that width. ``TextConditionedUNet``
+(``text_unet``): a depth UNet whose decoder blocks are FiLM-modulated by the
+frozen CLIP text tower's pooled EOT features (no gradient reaches the
+tower), with flax-semantics BatchNorm (:mod:`bifold_tpu_torch.models.norm`)
+and per-pixel heads in float32. Its convolutions run in channels-last
+memory; weights keep the reference's shapes (Conv2d (out, in, kh, kw),
+ConvTranspose2d (in, out, kh, kw) with torch's tap order, which
+``convert_text_unet_inverse`` gives).
 """
 
 from __future__ import annotations
@@ -13,14 +25,24 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+import dataclasses
+
+from torch.nn import functional as F
+
 from bifold_tpu_torch.models.backbones import (
+    CLIP_CONFIGS,
+    CLIP_TEXT_CONFIGS,
     SIGLIP_BASE_CONFIGS,
+    ClipBackbone,
     SiglipBackbone,
     SiglipConfig,
 )
-from bifold_tpu_torch.models.pickplace import PickPlaceConvDecoder
+from bifold_tpu_torch.models.dropout import Dropout
+from bifold_tpu_torch.models.layers import linear
+from bifold_tpu_torch.models.norm import BatchNorm
+from bifold_tpu_torch.models.pickplace import PickPlaceConvDecoder, head_names
 
-__all__ = ["SigLip", "SiglipSequential"]
+__all__ = ["SigLip", "SiglipSequential", "RGBOnly", "TextConditionedUNet"]
 
 
 class SigLip(nn.Module):
@@ -106,3 +128,175 @@ class SiglipSequential(SigLip):
              torch.ones((b, n), dtype=torch.int32, device=rgb.device)], dim=1)
         return self.pick_place(text, ctx_feats, image, modalities=[0, 1, 1],
                                attention_masks=attention_masks)
+
+
+class RGBOnly(nn.Module):
+    """Frozen CLIP token encoders + projection + pick/place head (JAX
+    bifold_models.py:208-279): image tokens (CLS + patches, after ln_post)
+    projected to the text width plus ``rgb_pos_embedding``; text tokens
+    after ln_final behind ``text_token``, plus ``text_pos_embedding``;
+    both through their dropouts, then the concat fusion at the text width."""
+
+    def __init__(self, image_size: int, is_bimanual: bool, patch_size: int = 16,
+                 text_encoder: str = "ViT-B/16", text_dropout: float = 0.0,
+                 rgb_dropout: float = 0.0, threshold: float = 0.5,
+                 depth: int = 8, heads: int = 16, mlp_ratio: int = 4,
+                 dropout: float = 0.0, constrain_pick_mask: bool = True,
+                 legacy_query_mask: bool = False, dtype=torch.float32):
+        super().__init__()
+        if text_encoder not in CLIP_CONFIGS:
+            raise ValueError(
+                f"rgb_clip text_encoder={text_encoder!r} is not a ViT CLIP "
+                f"model; supported: {sorted(CLIP_CONFIGS)} (the reference's "
+                "RGBOnly reads visual.ln_post, which the ResNet towers lack)")
+        self.image_size = image_size
+        self.is_bimanual = is_bimanual
+        self.threshold = threshold
+        self.constrain_pick_mask = constrain_pick_mask
+        self.dtype = dtype
+        self.num_patches = (image_size // patch_size) ** 2
+        cfg = dataclasses.replace(CLIP_CONFIGS[text_encoder], image_size=image_size)
+        self.clip_encoder = ClipBackbone(cfg, dtype)
+        dim = self.dim = cfg.text_width
+        self.project = nn.Linear(cfg.vision_width, dim)
+        self.rgb_pos_embedding = nn.Parameter(torch.zeros(1, self.num_patches + 1, dim))
+        self.text_token = nn.Parameter(torch.zeros(1, 1, dim))
+        self.text_pos_embedding = nn.Parameter(
+            torch.zeros(1, cfg.context_length + 1, dim))
+        self.rgb_dropout = Dropout(rgb_dropout)
+        self.text_dropout = Dropout(text_dropout)
+        self.pick_place = PickPlaceConvDecoder(
+            dim, is_bimanual, self.num_patches, heads, depth, mlp_ratio,
+            legacy_query_mask, dropout, dtype)
+
+    def forward(self, sample):
+        clip = self.clip_encoder
+        x_rgb = linear(clip.encode_image_with_embeddings(sample["rgb"]),
+                       self.project, self.dtype)
+        x_rgb = self.rgb_dropout(x_rgb + self.rgb_pos_embedding.to(x_rgb.dtype))
+        x_text = clip.encode_text_with_embeddings(sample["instruction"])
+        b, n_txt, _ = x_text.shape
+        x_text = torch.cat([self.text_token.to(x_text.dtype).expand(b, 1, self.dim),
+                            x_text], dim=1)
+        x_text = x_text + self.text_pos_embedding[:, : n_txt + 1].to(x_text.dtype)
+        return self.pick_place(self.text_dropout(x_text), x_rgb)
+
+
+class _FiLM(nn.Module):
+    """The FiLM layer of a decoder block (reference names ``film.conv``,
+    ``film.gamma``, ``film.beta``)."""
+
+    def __init__(self, cond_dim: int, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.gamma = nn.Linear(cond_dim, channels)
+        self.beta = nn.Linear(cond_dim, channels)
+
+
+def _conv(x, conv: nn.Conv2d, dtype):
+    """``conv(x)`` in ``dtype`` (flax ``nn.Conv(dtype=...)``)."""
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias,
+                    stride=conv.stride, padding=conv.padding)
+
+
+class _FiLMBlock(nn.Module):
+    """x2 transposed-conv upsample, [skip | upsampled] concat, conv-BN-ReLU,
+    conv-BN, then the FiLM conv times (1 + gamma(cond)) plus beta(cond), ReLU
+    (JAX bifold_models.py:282-310). gamma and beta are float32 Dense layers,
+    so the block's output is float32, as in JAX."""
+
+    def __init__(self, in_channels: int, out_channels: int, cond_dim: int,
+                 dtype=torch.float32):
+        super().__init__()
+        half = in_channels // 2
+        self.convt = nn.ConvTranspose2d(in_channels, half, 2, stride=2)
+        self.conv1 = nn.Conv2d(out_channels + half, out_channels, 3, padding=1)
+        self.bn1 = BatchNorm(out_channels, dtype=dtype)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.bn2 = BatchNorm(out_channels, dtype=dtype)
+        self.film = _FiLM(cond_dim, out_channels)
+        self.dtype = dtype
+
+    def forward(self, x1, x2, cond):
+        dt = self.dtype
+        x1 = F.conv_transpose2d(x1.to(dt), self.convt.weight.to(dt),
+                                self.convt.bias.to(dt), stride=2)
+        x = torch.cat([x2.to(dt), x1], dim=1)
+        x = torch.relu(self.bn1(_conv(x, self.conv1, dt)))
+        x = self.bn2(_conv(x, self.conv2, dt))
+        film = self.film
+        gamma = F.linear(cond.float(), film.gamma.weight.float(), film.gamma.bias.float())
+        beta = F.linear(cond.float(), film.beta.weight.float(), film.beta.bias.float())
+        x = _conv(x, film.conv, dt).float() * (1 + gamma[:, :, None, None]) \
+            + beta[:, :, None, None]
+        return torch.relu(x)
+
+
+class TextConditionedUNet(nn.Module):
+    """Depth UNet with FiLM decoder blocks conditioned on the frozen CLIP
+    text tower's EOT features (JAX bifold_models.py:312-379): ``encoder.<i>``
+    is [conv, BN, ReLU, conv, BN, ReLU] (bias-free convs) after a 2x2 max
+    pool for i > 0; ``decoder.<j>`` are the FiLM blocks up the skips; one
+    1x1 head per action (``<name>_decoder``) gives ``<name>_logits`` and
+    ``<name>_heatmap`` in float32 at the input resolution. Only CLIP text
+    towers are ported: another ``text_encoder`` (the T5 branch) raises."""
+
+    def __init__(self, image_size: int, is_bimanual: bool,
+                 text_encoder: str = "RN50",
+                 features=(64, 128, 256, 512, 1024), threshold: float = 0.5,
+                 constrain_pick_mask: bool = True, dtype=torch.float32):
+        super().__init__()
+        cfg = CLIP_CONFIGS.get(text_encoder) or CLIP_TEXT_CONFIGS.get(text_encoder)
+        if cfg is None:
+            raise NotImplementedError(
+                f"text_unet text_encoder={text_encoder!r}: only the CLIP text "
+                f"towers ({sorted(CLIP_CONFIGS) + sorted(CLIP_TEXT_CONFIGS)}) "
+                "are ported; the T5 branch is ROADMAP queue item 4")
+        self.image_size = image_size
+        self.is_bimanual = is_bimanual
+        self.threshold = threshold
+        self.constrain_pick_mask = constrain_pick_mask
+        self.dtype = dtype
+        self.clip_encoder = ClipBackbone(cfg, dtype, vision=False)
+        feats = list(features)
+        self.encoder = nn.ModuleList()
+        for i, f in enumerate(feats):
+            c_in = 1 if i == 0 else feats[i - 1]
+            self.encoder.append(nn.Sequential(
+                nn.Conv2d(c_in, f, 3, padding=1, bias=False), BatchNorm(f, dtype=dtype),
+                nn.ReLU(), nn.Conv2d(f, f, 3, padding=1, bias=False),
+                BatchNorm(f, dtype=dtype), nn.ReLU()))
+        self.decoder = nn.ModuleList(
+            _FiLMBlock(feats[i + 1], feats[i], cfg.text_width, dtype)
+            for i in range(len(feats) - 2, -1, -1))
+        self.names = head_names(is_bimanual)
+        for name in self.names:
+            setattr(self, f"{name}_decoder", nn.Conv2d(feats[0], 1, 1))
+
+    def forward(self, sample):
+        ids = sample["instruction"]
+        with torch.no_grad():     # the reference encodes the text under no_grad
+            cond = self.clip_encoder.encode_text_with_embeddings(ids)
+            cond = cond[torch.arange(ids.shape[0], device=ids.device),
+                        ids.argmax(dim=-1)]
+        x = sample["depth"].to(self.dtype).contiguous(memory_format=torch.channels_last)
+        skips = []
+        for i, block in enumerate(self.encoder):
+            if i:
+                x = F.max_pool2d(x, 2, 2)
+            conv0, bn0, _, conv1, bn1, _ = block
+            x = torch.relu(bn0(_conv(x, conv0, self.dtype)))
+            x = torch.relu(bn1(_conv(x, conv1, self.dtype)))
+            if i < len(self.encoder) - 1:
+                skips.append(x)
+        for block, skip in zip(self.decoder, reversed(skips)):
+            x = block(x, skip, cond)
+        x = x.float().permute(0, 2, 3, 1)                     # (B, H, W, C)
+        out = {}
+        for name in self.names:
+            head = getattr(self, f"{name}_decoder")
+            logits = F.linear(x, head.weight[:, :, 0, 0].float(), head.bias.float())[..., 0]
+            out[f"{name}_logits"] = logits
+            out[f"{name}_heatmap"] = torch.sigmoid(logits)
+        return out

@@ -1,25 +1,38 @@
-"""JAX params tree <-> the reference's torch state dict, numpy only.
+"""JAX variables <-> the reference's torch state dict, numpy only.
 
 The port's own copies of ``convert_bifold`` (bifold_tpu/models/convert.py
-:442, with ``convert_siglip`` :83 and its helpers ``_linear``, ``_ln``,
-``_wrap_lora``, ``_stack_blocks``, ``_max_index``) and
-``convert_bifold_inverse`` (:551-737), for the SigLIP families this port
-serves. The keys of the state dict are the names the port's modules carry,
-so ``model.load_state_dict(convert_bifold_inverse(params), strict=True)``
-loads a JAX-trained or JAX-initialised model into the port, and
+:442, with ``convert_siglip`` :83, ``_convert_clip_openai`` :140 and their
+helpers ``_linear``, ``_ln``, ``_wrap_lora``, ``_stack_blocks``,
+``_max_index``), ``convert_bifold_inverse`` (:551-737),
+``convert_text_unet`` (:340) and ``convert_text_unet_inverse`` (:740-798),
+for the four model families this port serves. The keys of the state dict
+are the names the port's modules carry, so
+``model.load_state_dict(convert_bifold_inverse(params), strict=True)`` loads
+a JAX-trained or JAX-initialised model into the port, and
 ``convert_bifold(model.state_dict())`` gives the params tree a JAX
 checkpoint holds:
 
 - HF SigLIP towers under ``siglip_model.model.`` when the params carry LoRA
   (peft ``base_layer`` / ``lora_A.<adapter>`` / ``lora_B.<adapter>``), else
   under ``siglip_model.``;
-- ``text_token``, ``image_token``, ``context_pos_embedding``;
+- OpenAI CLIP towers under ``clip_encoder.`` (``visual.*``, the text tower
+  at the top level; q, k and v fused into ``attn.in_proj_*``), and
+  ``project``;
+- ``text_token``, ``image_token``, ``context_pos_embedding``,
+  ``rgb_pos_embedding``, ``text_pos_embedding``;
 - the fusion stack as ``pick_place.fusion.transformer_encoder.layers.i.{0,1}``;
 - the conv decoder heads at ``decoder_net.{0,2,4,6,8}``.
 
-The inverse also takes ``torch.bfloat16`` leaves (a JAX checkpoint's
+``text_unet`` carries BatchNorm statistics besides its params:
+``convert_text_unet`` / ``convert_text_unet_inverse`` move (params,
+batch_stats) and the state dict's ``running_mean`` / ``running_var``
+together. :func:`to_jax_variables` and :func:`from_jax_variables` take the
+family's name and look its converter up, with JAX's ``extra_vars`` layout (``{"batch_stats":
+...}``, empty for the other families).
+
+The inverses also take ``torch.bfloat16`` leaves (a JAX checkpoint's
 precast frozen towers, as :mod:`bifold_tpu_torch.utils.checkpoint` reads
-them): it moves them with the same transposes and indexing, as tensors.
+them): they move them with the same transposes and indexing, as tensors.
 """
 
 from __future__ import annotations
@@ -30,7 +43,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["convert_bifold", "convert_siglip", "convert_bifold_inverse"]
+__all__ = ["convert_bifold", "convert_siglip", "convert_bifold_inverse",
+           "convert_text_unet", "convert_text_unet_inverse",
+           "to_jax_variables", "from_jax_variables"]
 
 
 def _np(t) -> np.ndarray:
@@ -138,16 +153,74 @@ def convert_siglip(sd: Dict, *, layers: int = 12, lora: bool = False,
     return out
 
 
+def _clip_blocks(sd: Dict, prefix: str, n: int, scan_layers: bool) -> Dict:
+    """OpenAI residual blocks ``<prefix>.resblocks.<i>`` -> the JAX
+    Transformer subtree, the fused in-projection split into q, k, v."""
+    blocks = []
+    for i in range(n):
+        p = f"{prefix}.resblocks.{i}"
+        w = _np(sd[f"{p}.attn.in_proj_weight"])            # (3D, D)
+        b = _np(sd[f"{p}.attn.in_proj_bias"])
+        d = w.shape[0] // 3
+        attn = {proj: {"kernel": w[j * d:(j + 1) * d].T, "bias": b[j * d:(j + 1) * d]}
+                for j, proj in enumerate(("q_proj", "k_proj", "v_proj"))}
+        attn["out_proj"] = _linear(sd, f"{p}.attn.out_proj")
+        blocks.append({"norm1": _ln(sd, f"{p}.ln_1"), "norm2": _ln(sd, f"{p}.ln_2"),
+                       "attn": attn,
+                       "mlp": {"fc1": _linear(sd, f"{p}.mlp.c_fc"),
+                               "fc2": _linear(sd, f"{p}.mlp.c_proj")}})
+    return _stack_blocks(blocks, scan_layers)
+
+
+def _convert_clip_text(sd: Dict, scan_layers: bool) -> Dict:
+    """The text tower's keys of an OpenAI-named CLIP state dict -> the
+    ``text`` subtree."""
+    layers = _max_index([k for k in sd if k.startswith("transformer.")],
+                        r"resblocks\.")
+    txt = {"token_embedding": {"embedding": _np(sd["token_embedding.weight"])},
+           "positional_embedding": _np(sd["positional_embedding"]),
+           "ln_final": _ln(sd, "ln_final"),
+           "transformer": _clip_blocks(sd, "transformer", layers, scan_layers)}
+    if "text_projection" in sd:
+        txt["text_projection"] = _np(sd["text_projection"])
+    return txt
+
+
+def _convert_clip_openai(sd: Dict, scan_layers: bool = True) -> Dict:
+    """OpenAI-named CLIP state dict (the keys under ``clip_encoder.``) ->
+    the ``clip_encoder`` subtree; without ``visual.`` keys, text only."""
+    out: Dict[str, Any] = {"text": _convert_clip_text(sd, scan_layers)}
+    if "visual.conv1.weight" in sd:
+        layers = _max_index([k for k in sd if k.startswith("visual.")],
+                            r"resblocks\.")
+        out["visual"] = {
+            "conv1": {"kernel": _np(sd["visual.conv1.weight"]).transpose(2, 3, 1, 0)},
+            "class_embedding": _np(sd["visual.class_embedding"]),
+            "positional_embedding": _np(sd["visual.positional_embedding"]),
+            "ln_pre": _ln(sd, "visual.ln_pre"),
+            "ln_post": _ln(sd, "visual.ln_post"),
+            "transformer": _clip_blocks(sd, "visual.transformer", layers,
+                                        scan_layers)}
+    return out
+
+
+def _clip_subdict(sd: Dict) -> Dict:
+    return {k.removeprefix("clip_encoder."): v for k, v in sd.items()
+            if k.startswith("clip_encoder.")}
+
+
 def convert_bifold(sd: Dict, *, scan_layers: bool = True) -> Dict:
-    """Full SigLip / SiglipSequential state dict (the reference's names,
-    which are the port's) -> the JAX params tree: the optionally
-    peft-LoRA-wrapped SigLIP towers, the learned modality tokens and
-    context positions, the fusion transformer and the ConvDecoder heads.
-    Layer counts, LoRA and its rank, and the heads are read from the keys.
-    The other families' keys (``clip_encoder.``, ``project.``) raise."""
-    if any(k.startswith(("clip_encoder.", "project.")) for k in sd):
+    """Full SigLip / SiglipSequential / RGBOnly state dict (the reference's
+    names, which are the port's) -> the JAX params tree: the optionally
+    peft-LoRA-wrapped SigLIP towers or the CLIP towers with ``project``,
+    the learned modality tokens and position embeddings, the fusion
+    transformer and the ConvDecoder heads. Layer counts, LoRA and its rank,
+    and the heads are read from the keys. ``text_unet``'s keys raise (its
+    BatchNorm statistics need :func:`convert_text_unet`)."""
+    if any(k.startswith("encoder.") for k in sd):
         raise NotImplementedError(
-            "the PyTorch port converts the SigLIP families only")
+            "a text_unet state dict carries BatchNorm statistics; use "
+            "convert_text_unet(sd) -> (params, batch_stats)")
     out: Dict[str, Any] = {}
 
     # SigLIP towers (strip the peft LoraModel wrapper if present)
@@ -170,7 +243,12 @@ def convert_bifold(sd: Dict, *, scan_layers: bool = True) -> Dict:
             tower_sd, layers=layers, lora=lora, lora_rank=rank,
             scan_layers=scan_layers, lora_values=(lora_a, lora_b))
 
-    for name in ("text_token", "image_token", "context_pos_embedding"):
+    clip_sd = _clip_subdict(sd)
+    if clip_sd:
+        out["clip_encoder"] = _convert_clip_openai(clip_sd, scan_layers)
+    if "project.weight" in sd:
+        out["project"] = _linear(sd, "project")
+    for name in _TOKENS:
         if name in sd:
             out[name] = _np(sd[name])
 
@@ -222,9 +300,27 @@ def convert_bifold(sd: Dict, *, scan_layers: bool = True) -> Dict:
     return out
 
 
+_TOKENS = ("text_token", "image_token", "context_pos_embedding",
+           "rgb_pos_embedding", "text_pos_embedding")
+
+
 def _arr(x):
     """A leaf as an array: torch tensors (bfloat16 leaves) stay tensors."""
     return x if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _perm(x, axes):
+    """``x`` with its axes permuted, numpy array or tensor."""
+    x = _arr(x)
+    return x.permute(*axes) if isinstance(x, torch.Tensor) else x.transpose(axes)
+
+
+def _cat(parts):
+    """Concatenate along axis 0: tensors if any part is one."""
+    parts = [_arr(p) for p in parts]
+    if any(isinstance(p, torch.Tensor) for p in parts):
+        return torch.cat([torch.as_tensor(p) for p in parts])
+    return np.concatenate(parts, axis=0)
 
 
 def _index_tree(tree, i):
@@ -265,23 +361,71 @@ def _inv_ln(out: Dict, prefix: str, ln: Dict) -> None:
 _ADAPTER = "siglip_adapter"  # the reference's peft adapter name
 
 
+def _inv_clip_blocks(out: Dict, prefix: str, enc: Dict) -> None:
+    """The JAX Transformer subtree -> OpenAI residual blocks, q/k/v
+    re-concatenated into the fused in-projection."""
+    for i, blk in enumerate(_unstack_blocks(enc)):
+        p = f"{prefix}.resblocks.{i}"
+        _inv_ln(out, f"{p}.ln_1", blk["norm1"])
+        _inv_ln(out, f"{p}.ln_2", blk["norm2"])
+        a = blk["attn"]
+        qkv = ("q_proj", "k_proj", "v_proj")
+        out[f"{p}.attn.in_proj_weight"] = _cat([_arr(a[pr]["kernel"]).T for pr in qkv])
+        out[f"{p}.attn.in_proj_bias"] = _cat([a[pr]["bias"] for pr in qkv])
+        _inv_linear(out, f"{p}.attn.out_proj", a["out_proj"])
+        _inv_linear(out, f"{p}.mlp.c_fc", blk["mlp"]["fc1"])
+        _inv_linear(out, f"{p}.mlp.c_proj", blk["mlp"]["fc2"])
+
+
+def _inv_clip(out: Dict, root: str, tree: Dict) -> None:
+    """``clip_encoder`` subtree -> OpenAI names under ``root`` (the vision
+    tower only when the tree has one)."""
+    txt = tree["text"]
+    out[root + "token_embedding.weight"] = _arr(txt["token_embedding"]["embedding"])
+    out[root + "positional_embedding"] = _arr(txt["positional_embedding"])
+    _inv_ln(out, root + "ln_final", txt["ln_final"])
+    if "text_projection" in txt:
+        out[root + "text_projection"] = _arr(txt["text_projection"])
+    _inv_clip_blocks(out, root + "transformer", txt["transformer"])
+    vis = tree.get("visual")
+    if vis is not None:
+        out[root + "visual.conv1.weight"] = _perm(vis["conv1"]["kernel"], (3, 2, 0, 1))
+        out[root + "visual.class_embedding"] = _arr(vis["class_embedding"])
+        out[root + "visual.positional_embedding"] = _arr(vis["positional_embedding"])
+        _inv_ln(out, root + "visual.ln_pre", vis["ln_pre"])
+        _inv_ln(out, root + "visual.ln_post", vis["ln_post"])
+        _inv_clip_blocks(out, root + "visual.transformer", vis["transformer"])
+
+
 def convert_bifold_inverse(params: Dict) -> Dict[str, Any]:
-    """SigLip / SiglipSequential params tree -> reference state-dict names."""
+    """SigLip / SiglipSequential / RGBOnly params tree -> reference
+    state-dict names. ``text_unet``'s params raise (use
+    :func:`convert_text_unet_inverse` with its BatchNorm statistics)."""
     params = dict(params)
-    if "clip_encoder" in params or any(k.startswith("enc0_") for k in params):
+    if any(k.startswith("enc0_") for k in params):
         raise NotImplementedError(
-            "the PyTorch port serves the SigLIP families only")
+            "text_unet params carry BatchNorm statistics; use "
+            "convert_text_unet_inverse(params, batch_stats)")
     out: Dict[str, Any] = {}
-    sig = params["siglip_model"]
+    if "clip_encoder" in params:
+        _inv_clip(out, "clip_encoder.", params["clip_encoder"])
+    if "project" in params:
+        _inv_linear(out, "project", params["project"])
+    if "siglip_model" in params:
+        _inv_siglip(out, params["siglip_model"])
+    _inv_head(out, params)
+    return out
+
+
+def _inv_siglip(out: Dict, sig: Dict) -> None:
     vm, tm = sig["vision_model"], sig["text_model"]
     lora = any("base" in blk["attn"][p]
                for blk in _unstack_blocks(vm["encoder"])
                for p in ("q_proj", "v_proj"))
     root = "siglip_model.model." if lora else "siglip_model."
 
-    pk = _arr(vm["patch_embedding"]["kernel"])  # (H, W, in, out)
     out[root + "vision_model.embeddings.patch_embedding.weight"] = \
-        pk.permute(3, 2, 0, 1) if isinstance(pk, torch.Tensor) else pk.transpose(3, 2, 0, 1)
+        _perm(vm["patch_embedding"]["kernel"], (3, 2, 0, 1))   # (H, W, in, out)
     out[root + "vision_model.embeddings.patch_embedding.bias"] = \
         _arr(vm["patch_embedding"]["bias"])
     out[root + "vision_model.embeddings.position_embedding.weight"] = \
@@ -310,11 +454,16 @@ def convert_bifold_inverse(params: Dict) -> Dict[str, Any]:
             _inv_linear(out, f"{p}.mlp.fc1", blk["mlp"]["fc1"])
             _inv_linear(out, f"{p}.mlp.fc2", blk["mlp"]["fc2"])
 
-    for name in ("text_token", "image_token", "context_pos_embedding"):
+
+def _inv_head(out: Dict, params: Dict) -> None:
+    """The learned tokens and position embeddings, the fusion stack and the
+    conv decoder heads."""
+    for name in _TOKENS:
         if name in params:
             out[name] = _arr(params[name])
-
-    pp = params["pick_place"]
+    pp = params.get("pick_place")
+    if pp is None:
+        return
     fusion = pp["fusion"]
     out["pick_place.fusion.token_type_embeddings.weight"] = \
         _arr(fusion["token_type_embeddings"]["embedding"])
@@ -343,4 +492,162 @@ def convert_bifold_inverse(params: Dict) -> Dict[str, Any]:
                 _arr(conv["kernel"]).T[:, :, None, None]
             out[f"pick_place.{head}.decoder_net.{slot}.bias"] = \
                 _arr(conv["bias"])
+
+
+# ---------------------------------------------------------------------------
+# text_unet: params and BatchNorm statistics
+# ---------------------------------------------------------------------------
+
+_UNET_HEADS = ("pick_decoder", "place_decoder", "left_pick_decoder",
+               "right_pick_decoder", "left_place_decoder", "right_place_decoder")
+
+
+def _conv2d(sd: Dict, prefix: str) -> Dict[str, np.ndarray]:
+    """torch Conv2d (out, in, kh, kw) -> flax HWIO kernel (and bias)."""
+    out = {"kernel": _np(sd[f"{prefix}.weight"]).transpose(2, 3, 1, 0)}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = _np(sd[f"{prefix}.bias"])
     return out
+
+
+def _bn(sd: Dict, prefix: str):
+    return ({"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])},
+            {"mean": _np(sd[f"{prefix}.running_mean"]),
+             "var": _np(sd[f"{prefix}.running_var"])})
+
+
+def convert_text_unet(sd: Dict, *, scan_layers: bool = True):
+    """TextConditionedUNet state dict -> (params, batch_stats) of the JAX
+    ``text_unet``: the CLIP text tower, the double-conv encoder blocks, the
+    FiLM decoder blocks (ConvTranspose taps flipped into flax's
+    forward-conv order) and the 1x1 heads; BatchNorm running statistics go
+    to ``batch_stats``."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    clip_sd = _clip_subdict(sd)
+    if clip_sd:
+        params["clip_encoder"] = _convert_clip_openai(clip_sd, scan_layers)
+    for i in range(_max_index(sd, r"^encoder\.")):
+        for j, (conv_slot, bn_slot) in enumerate(((0, 1), (3, 4))):
+            params[f"enc{i}_conv{j}"] = _conv2d(sd, f"encoder.{i}.{conv_slot}")
+            params[f"enc{i}_bn{j}"], stats[f"enc{i}_bn{j}"] = \
+                _bn(sd, f"encoder.{i}.{bn_slot}")
+    for i in range(_max_index(sd, r"^decoder\.")):
+        p = f"decoder.{i}"
+        w = _np(sd[f"{p}.convt.weight"]).transpose(2, 3, 0, 1)[::-1, ::-1]
+        blk = {"convt": {"kernel": np.ascontiguousarray(w),
+                         "bias": _np(sd[f"{p}.convt.bias"])},
+               "conv1": _conv2d(sd, f"{p}.conv1"), "conv2": _conv2d(sd, f"{p}.conv2"),
+               "film_conv": _conv2d(sd, f"{p}.film.conv"),
+               "film_gamma": _linear(sd, f"{p}.film.gamma"),
+               "film_beta": _linear(sd, f"{p}.film.beta")}
+        bst = {}
+        for bn in ("bn1", "bn2"):
+            blk[bn], bst[bn] = _bn(sd, f"{p}.{bn}")
+        params[f"dec{i}"], stats[f"dec{i}"] = blk, bst
+    for head in _UNET_HEADS:
+        if f"{head}.weight" in sd:
+            params[head] = {"kernel": _np(sd[f"{head}.weight"])[:, :, 0, 0].T,
+                            "bias": _np(sd[f"{head}.bias"])}
+    return params, stats
+
+
+def convert_text_unet_inverse(params: Dict, batch_stats: Dict) -> Dict[str, Any]:
+    """The JAX ``text_unet``'s (params, batch_stats) -> the port's state dict
+    (the reference's names, ``running_mean`` / ``running_var`` included,
+    ConvTranspose taps re-flipped to torch's order)."""
+    if "text_encoder" in params:
+        raise NotImplementedError("the T5 text branch of text_unet is not ported")
+    out: Dict[str, Any] = {}
+    if "clip_encoder" in params:
+        _inv_clip(out, "clip_encoder.", params["clip_encoder"])
+
+    def inv_conv(prefix: str, conv: Dict) -> None:
+        out[prefix + ".weight"] = _perm(conv["kernel"], (3, 2, 0, 1))
+        if "bias" in conv:
+            out[prefix + ".bias"] = _arr(conv["bias"])
+
+    def inv_bn(prefix: str, bn: Dict, stats: Dict) -> None:
+        _inv_ln(out, prefix, bn)
+        out[prefix + ".running_mean"] = _arr(stats["mean"])
+        out[prefix + ".running_var"] = _arr(stats["var"])
+
+    i = 0
+    while f"enc{i}_conv0" in params:
+        for j, (conv_slot, bn_slot) in enumerate(((0, 1), (3, 4))):
+            inv_conv(f"encoder.{i}.{conv_slot}", params[f"enc{i}_conv{j}"])
+            inv_bn(f"encoder.{i}.{bn_slot}", params[f"enc{i}_bn{j}"],
+                   batch_stats[f"enc{i}_bn{j}"])
+        i += 1
+    i = 0
+    while f"dec{i}" in params:
+        blk, bst, p = params[f"dec{i}"], batch_stats[f"dec{i}"], f"decoder.{i}"
+        k = _arr(blk["convt"]["kernel"])                 # (kh, kw, in, out)
+        if isinstance(k, torch.Tensor):
+            out[f"{p}.convt.weight"] = torch.flip(k, (0, 1)).permute(2, 3, 0, 1).contiguous()
+        else:
+            out[f"{p}.convt.weight"] = np.ascontiguousarray(
+                k[::-1, ::-1].transpose(2, 3, 0, 1))
+        out[f"{p}.convt.bias"] = _arr(blk["convt"]["bias"])
+        inv_conv(f"{p}.conv1", blk["conv1"])
+        inv_bn(f"{p}.bn1", blk["bn1"], bst["bn1"])
+        inv_conv(f"{p}.conv2", blk["conv2"])
+        inv_bn(f"{p}.bn2", blk["bn2"], bst["bn2"])
+        inv_conv(f"{p}.film.conv", blk["film_conv"])
+        _inv_linear(out, f"{p}.film.gamma", blk["film_gamma"])
+        _inv_linear(out, f"{p}.film.beta", blk["film_beta"])
+        i += 1
+    for head in _UNET_HEADS:
+        if head in params:
+            out[f"{head}.weight"] = _arr(params[head]["kernel"]).T[:, :, None, None]
+            out[f"{head}.bias"] = _arr(params[head]["bias"])
+    return out
+
+
+def _bifold_to_jax(sd: Dict):
+    return convert_bifold(sd), {}
+
+
+def _bifold_from_jax(params: Dict, extra_vars: Dict) -> Dict[str, Any]:
+    if extra_vars:
+        raise NotImplementedError(f"extra_vars {sorted(extra_vars)}: this family "
+                                  "carries none")
+    return convert_bifold_inverse(params)
+
+
+def _unet_to_jax(sd: Dict):
+    params, stats = convert_text_unet(sd)
+    return params, {"batch_stats": stats}
+
+
+def _unet_from_jax(params: Dict, extra_vars: Dict) -> Dict[str, Any]:
+    if "batch_stats" not in extra_vars:
+        raise ValueError("text_unet params without batch_stats")
+    return convert_text_unet_inverse(params, extra_vars["batch_stats"])
+
+
+# model family (``cfg["model"]["name"]``) -> (to JAX, from JAX)
+_JAX_CONVERTERS = {"siglip": (_bifold_to_jax, _bifold_from_jax),
+                   "siglip_sequential": (_bifold_to_jax, _bifold_from_jax),
+                   "rgb_clip": (_bifold_to_jax, _bifold_from_jax),
+                   "text_unet": (_unet_to_jax, _unet_from_jax)}
+
+
+def _converters(family: str):
+    if family not in _JAX_CONVERTERS:
+        raise KeyError(f"no converter for model {family!r} (have "
+                       f"{sorted(_JAX_CONVERTERS)})")
+    return _JAX_CONVERTERS[family]
+
+
+def to_jax_variables(family: str, sd: Dict):
+    """A state dict of the model family ``family`` (``cfg["model"]["name"]``)
+    -> (params, extra_vars) as the JAX Trainer keeps them: ``extra_vars`` is
+    ``{"batch_stats": ...}`` for ``text_unet``, else empty."""
+    return _converters(family)[0](sd)
+
+
+def from_jax_variables(family: str, params: Dict,
+                       extra_vars: Dict | None = None) -> Dict[str, Any]:
+    """The inverse of :func:`to_jax_variables`."""
+    return _converters(family)[1](params, extra_vars or {})

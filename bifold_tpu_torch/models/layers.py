@@ -30,7 +30,13 @@ state dict loads with ``strict=True``:
 - the fusion stack uses the reference transformer's names: each layer is
   ``[PreNorm(Attention), PreNorm(FeedForward)]`` (``0.norm``,
   ``0.fn.to_qkv``, ``0.fn.to_out.0``, ``1.norm``, ``1.fn.net.0``,
-  ``1.fn.net.3``).
+  ``1.fn.net.3``);
+- the CLIP towers use OpenAI CLIP's residual-block names
+  (:class:`ClipResidualBlock` under ``resblocks``: ``ln_1``,
+  ``attn.in_proj_weight`` / ``attn.in_proj_bias`` with q, k and v fused,
+  ``attn.out_proj``, ``ln_2``, ``mlp.c_fc``, ``mlp.c_proj``), the names
+  bifold_tpu/models/convert.py:578-594 emits, with QuickGELU
+  (:func:`quick_gelu`) and, in the text tower, causal attention.
 """
 
 from __future__ import annotations
@@ -46,9 +52,9 @@ from bifold_tpu_torch.models.lora import LORA_TARGETS, LoRALinear
 from bifold_tpu_torch.ops import layer_norm as ln_ops
 from bifold_tpu_torch.ops.attention import dot_product_attention
 
-__all__ = ["LayerNorm", "gelu_tanh", "gelu_exact", "GELU", "linear",
-           "MultiHeadAttention", "FeedForward", "TransformerBlock",
-           "FusionBlock", "Transformer"]
+__all__ = ["LayerNorm", "gelu_tanh", "gelu_exact", "quick_gelu", "GELU",
+           "linear", "MultiHeadAttention", "FeedForward", "TransformerBlock",
+           "FusionBlock", "Transformer", "ClipResidualBlock", "ClipTransformer"]
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -177,6 +183,31 @@ class _GeluExactFn(torch.autograd.Function):
         cdf = 0.5 * (1.0 + torch.erf(xf / math.sqrt(2.0)))
         pdf = torch.exp(-0.5 * xf * xf) * (1.0 / math.sqrt(2.0 * math.pi))
         return (dy.float() * (cdf + xf * pdf)).to(x.dtype)
+
+
+class _QuickGeluFn(torch.autograd.Function):
+    """CLIP's QuickGELU, x * sigmoid(1.702 x), with JAX's custom VJP
+    (bifold_tpu/models/backbones/clip_backbone.py:32-48): computed in
+    float32, saves only x and recomputes the sigmoid in the backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        xf = x.float()
+        return (xf * torch.sigmoid(1.702 * xf)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        xf = x.float()
+        s = torch.sigmoid(1.702 * xf)
+        return (dy.float() * (s + 1.702 * xf * s * (1 - s))).to(x.dtype)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(1.702 x) in float32, cast back; its backward keeps only
+    x."""
+    return _QuickGeluFn.apply(x)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -374,12 +405,98 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(blocks)
 
     def forward(self, x, key_mask=None, *, legacy_query_mask=None):
-        if ln_ops.ln_mode() == "fused":
-            pending = torch.zeros_like(x)
-            for block in self.layers:
-                x, pending = block(x, key_mask, pending=pending,
-                                   legacy_query_mask=legacy_query_mask)
-            return x + pending
-        for block in self.layers:
-            x = block(x, key_mask, legacy_query_mask=legacy_query_mask)
-        return x
+        return run_blocks(self.layers, x, key_mask, legacy_query_mask)
+
+
+def run_blocks(blocks, x, key_mask=None, legacy_query_mask=None):
+    """x through a stack of pre-norm blocks; under ``BIFOLD_LN_KERNEL=fused``
+    through their ``pending`` wiring, from (x, zeros), ending in s +
+    pending."""
+    if ln_ops.ln_mode() == "fused":
+        pending = torch.zeros_like(x)
+        for block in blocks:
+            x, pending = block(x, key_mask, pending=pending,
+                               legacy_query_mask=legacy_query_mask)
+        return x + pending
+    for block in blocks:
+        x = block(x, key_mask, legacy_query_mask=legacy_query_mask)
+    return x
+
+
+class _ClipAttention(nn.Module):
+    """OpenAI CLIP's ``nn.MultiheadAttention`` parameters (``in_proj_weight``
+    (3D, D) and ``in_proj_bias`` (3D,) with q, k, v stacked, ``out_proj``)
+    computed as the JAX package's separate q/k/v Dense layers are: each
+    projection in ``dtype``, then :func:`dot_product_attention` (causal in
+    the text tower)."""
+
+    def __init__(self, dim, heads, causal, dtype):
+        super().__init__()
+        self.heads = heads
+        self.causal = causal
+        self.dtype = dtype
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
+        self.out_proj = nn.Linear(dim, dim)
+
+    def forward(self, x, key_mask=None, *, legacy_query_mask=None):
+        b, n, dim = x.shape
+        qkv = F.linear(x.to(self.dtype), self.in_proj_weight.to(self.dtype),
+                       self.in_proj_bias.to(self.dtype))
+        shape = (b, n, self.heads, dim // self.heads)
+        q, k, v = (t.reshape(shape) for t in qkv.chunk(3, dim=-1))
+        out = dot_product_attention(q, k, v, key_mask, causal=self.causal,
+                                    legacy_query_mask=legacy_query_mask)
+        return linear(out.reshape(b, n, dim), self.out_proj, self.dtype)
+
+
+class _ClipMLP(nn.Module):
+    def __init__(self, dim, hidden_dim, dtype):
+        super().__init__()
+        self.c_fc = nn.Linear(dim, hidden_dim)
+        self.c_proj = nn.Linear(hidden_dim, dim)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return linear(quick_gelu(linear(x, self.c_fc, self.dtype)),
+                      self.c_proj, self.dtype)
+
+
+class ClipResidualBlock(nn.Module):
+    """OpenAI CLIP's ``ResidualAttentionBlock`` (``ln_1``, ``attn``,
+    ``ln_2``, ``mlp.c_fc`` / ``mlp.c_proj``): the pre-norm block of
+    :class:`TransformerBlock` with QuickGELU, LayerNorm eps 1e-5 and the
+    same ``pending`` wiring (bifold_tpu/models/layers.py:372-440 as the
+    CLIP towers configure it)."""
+
+    def __init__(self, dim, heads, mlp_dim, causal=False, dtype=torch.float32):
+        super().__init__()
+        self.ln_1 = LayerNorm(dim, 1e-5, dtype)
+        self.attn = _ClipAttention(dim, heads, causal, dtype)
+        self.ln_2 = LayerNorm(dim, 1e-5, dtype)
+        self.mlp = _ClipMLP(dim, mlp_dim, dtype)
+
+    def forward(self, x, key_mask=None, *, pending=None,
+                legacy_query_mask=None):
+        if pending is None:
+            x = x + self.attn(self.ln_1(x), key_mask,
+                              legacy_query_mask=legacy_query_mask)
+            return x + self.mlp(self.ln_2(x))
+        s1, n1 = self.ln_1(x, residual=pending)
+        a = self.attn(n1, key_mask, legacy_query_mask=legacy_query_mask)
+        s2, n2 = self.ln_2(s1, residual=a)
+        return s2, self.mlp(n2)
+
+
+class ClipTransformer(nn.Module):
+    """``depth`` :class:`ClipResidualBlock` under ``resblocks`` (CLIP's
+    ``Transformer``), run as :class:`Transformer` runs its stack."""
+
+    def __init__(self, dim, depth, heads, causal=False, dtype=torch.float32):
+        super().__init__()
+        self.resblocks = nn.ModuleList(
+            ClipResidualBlock(dim, heads, 4 * dim, causal, dtype)
+            for _ in range(depth))
+
+    def forward(self, x, key_mask=None):
+        return run_blocks(self.resblocks, x, key_mask)

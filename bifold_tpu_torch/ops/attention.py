@@ -19,10 +19,11 @@ Backends:
   ``_flash_with_vjp`` runs its primal on ``_fwd_infer_cp`` and its VJP
   forward on ``_fwd_cp``;
 - ``"auto"``: the kernel for a CUDA tensor when the call is non-causal,
-  asks for no weights, has no legacy query mask, equal q/k lengths,
-  N >= 256, a head dim and dtype the kernel was built for; the math path
-  otherwise. That is a choice by shape, as in JAX — on the card a call the
-  kernel takes never falls back.
+  asks for no weights, has no legacy query mask, equal q/k lengths and
+  N >= 256; the math path otherwise. That is JAX's choice, by shape alone:
+  such a call with a head dim or dtype the kernels have no instance for
+  raises (:data:`~bifold_tpu_torch.ops.flash_attention.KERNEL_HEAD_DIMS`)
+  rather than taking the math path, so a missing instance never hides.
 
 ``BIFOLD_ATTN_BACKEND`` overrides ``backend`` for the calls the kernel
 supports, as in the JAX package.
@@ -35,7 +36,6 @@ import os
 import torch
 
 from bifold_tpu_torch.ops.flash_attention import (
-    KERNEL_HEAD_DIMS,
     flash_attention,
     flash_attention_train,
 )
@@ -83,9 +83,7 @@ def dot_product_attention(q, k, v, key_mask=None, *, legacy_query_mask=None,
                 "'math' or 'auto' for these calls")
         use_flash = True
     elif backend == "auto" and not unsupported:
-        use_flash = (q.is_cuda and q.shape[1] >= _FLASH_MIN_TOKENS
-                     and q.shape[-1] in KERNEL_HEAD_DIMS
-                     and q.dtype in (torch.float32, torch.bfloat16))
+        use_flash = q.is_cuda and q.shape[1] >= _FLASH_MIN_TOKENS
 
     if use_flash:
         mask = None if key_mask is None else key_mask.to(torch.int32).contiguous()

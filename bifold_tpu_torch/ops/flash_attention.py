@@ -24,7 +24,10 @@ CUDA kernels against the plain versions on the card.
 
 bfloat16 inputs run on the tensor cores (``mma.sync``, f32 accumulation;
 P and dS rounded to bf16 before their products), float32 inputs on the
-FP32 CUDA cores (the precision reference; no TF32). On the card q, k and v
+FP32 CUDA cores (the precision reference; no TF32). Both are instanced at
+head dims 32 (rgb_clip's fusion stack), 48 (the flagship's fusion stack)
+and 64 (the SigLIP vision tower), :data:`KERNEL_HEAD_DIMS`; another head
+dim raises on the card. On the card q, k and v
 must start on 16 bytes and have (batch, token, head) strides that are
 multiples of 8 elements, as the fused ``to_qkv`` views do; anything else
 raises.
@@ -51,7 +54,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
            "ptxas_report", "SOURCES", "LAUNCHES", "KERNEL_HEAD_DIMS"]
 
 _NEG = -100000.0  # the XLA backend's fill value
-KERNEL_HEAD_DIMS = (48, 64)
+KERNEL_HEAD_DIMS = (32, 48, 64)
 
 # launches of the CUDA kernels, keyed "<kernel>_d<head dim>"
 LAUNCHES: collections.Counter = collections.Counter()
@@ -180,7 +183,7 @@ def flash_attention(q, k, v, key_mask=None, *, scale=None):
     """Attention over (B, N, H, D) -> (B, N, H, D), forward only, no lse.
 
     On the CPU this is :func:`flash_attention_plain`. On the card it launches
-    the inference kernel (head dim 48 or 64, float32 or bfloat16, head dim
+    the inference kernel (head dim 32, 48 or 64, float32 or bfloat16, head dim
     contiguous, ``key_mask`` a contiguous int32 (B, nk) tensor or None) on the
     current stream, and raises on anything else. Its output carries no
     gradient: differentiable calls go through :func:`flash_attention_train`."""

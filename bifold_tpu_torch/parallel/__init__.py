@@ -15,6 +15,12 @@ are device tensors, read by the caller when it needs them: ``loss``,
 ``grad_norm`` and ``grad_norm_trainable`` (the same value here: frozen
 parameters carry no gradient), and the loss's per-head terms.
 
+BatchNorm running statistics (``text_unet``) move in the train-mode
+forward, in place, on every step, whatever the optimizer does with its
+gradients (JAX merges the mutated ``batch_stats`` unconditionally). A step
+that raises before its optimizer update (an interrupt during the forward or
+backward) puts them back, so that they never run ahead of the weights.
+
 ``eval_step(batch) -> output``: the model in ``eval()`` mode under
 ``torch.inference_mode()`` (no dropout, no autograd graph, so attention
 takes the inference kernel), its previous mode restored afterwards.
@@ -73,16 +79,23 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
     """The train step over ``optimizer.params`` (the trainable parameters)."""
     params = optimizer.params
     device = params[0].device
+    buffers = list(model.buffers())
 
     def step(state: TrainState, batch: Dict[str, Any]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=state.key))
         model.train()
         set_dropout_generator(model, torch.Generator(device).manual_seed(seed))
+        before = [b.clone() for b in buffers]
         try:
             out = model(batch)
             loss, inter = loss_fn(out, batch)
             grads = list(torch.autograd.grad(loss, params))
+        except BaseException:
+            with torch.no_grad():
+                for b, saved in zip(buffers, before):
+                    b.copy_(saved)
+            raise
         finally:
             set_dropout_generator(model, None)
         gnorm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))

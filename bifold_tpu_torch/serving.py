@@ -123,20 +123,28 @@ def _spm_asset_bytes(processor) -> Optional[bytes]:
 QUANT_TAG = "__int8_q__"
 # The JAX package keeps float every leaf whose param path has a segment that
 # _QUANT_EXCLUDE matches (bifold_tpu/serving.py:117): the token and
-# positional tables and the learned modality tokens, which are gathered or
-# added, never a matmul operand. In the port's names those are exactly
-# these; HF's "embeddings." segment must not exclude the patch embedding, a
-# conv matmul that stays quantized.
+# positional tables and the learned modality tokens and position
+# embeddings, which are gathered or added, never a matmul operand. In the
+# port's names those are exactly these (SigLIP's HF tables, CLIP's
+# token_embedding and positional_embedding, the heads' tokens and position
+# embeddings); HF's "embeddings." segment must not exclude the patch
+# embedding, a conv matmul that stays quantized, and CLIP's
+# text_projection and class_embedding are no such table.
 _QUANT_EXCLUDE = re.compile(
     r"(^|\.)(token_embedding|position_embedding|token_type_embeddings)\.weight$"
-    r"|^(text_token|image_token|context_pos_embedding)$")
-_STACK = re.compile(r"^(.*\.layers)\.(\d+)\.")
+    r"|(^|\.)positional_embedding$"
+    r"|^(text_token|image_token|context_pos_embedding|rgb_pos_embedding"
+    r"|text_pos_embedding)$")
+# the stacks JAX keeps as one leaf per parameter with a leading depth axis:
+# HF and fusion "layers", CLIP "resblocks"
+_STACK = re.compile(r"^(.*\.(?:layers|resblocks))\.(\d+)\.")
 
 
 def _stack_depths(names) -> Dict[str, int]:
-    """{stack prefix: depth} of the ``....layers.<i>.`` stacks, which the
-    JAX package stores as one leaf per parameter with a leading depth axis
-    (its nn.scan layout, used when depth > 1)."""
+    """{stack prefix: depth} of the ``....layers.<i>.`` and
+    ``....resblocks.<i>.`` stacks, which the JAX package stores as one leaf
+    per parameter with a leading depth axis (its nn.scan layout, used when
+    depth > 1)."""
     layers: Dict[str, set] = {}
     for name in names:
         m = _STACK.match(name)
@@ -145,16 +153,26 @@ def _stack_depths(names) -> Dict[str, int]:
     return {prefix: len(ids) for prefix, ids in layers.items()}
 
 
-def _reduce_dims(w: torch.Tensor):
+def _reduce_dims(name: str, w: torch.Tensor):
     """The dims one int8 scale covers: a Linear weight (out, in) reduces
-    over ``in`` (JAX: axis 0 of (in, out), or 1 of (depth, in, out)); a conv
-    weight (out, in, kh, kw) over ``in`` and ``kw`` (JAX: axes 1-2 of (kh,
-    kw, in, out)), so one scale per output channel and kernel row."""
+    over ``in`` (JAX: axis 0 of (in, out), or 1 of (depth, in, out)), CLIP's
+    ``text_projection``, kept (in, out) as in JAX, over dim 0; a conv weight
+    (out, in, kh, kw) over ``in`` and ``kw`` (JAX: axes 1-2 of (kh, kw, in,
+    out)), a transposed conv's (in, out, kh, kw) over ``in`` and ``kw``
+    alike (JAX's taps are flipped, which moves no value between scales), so
+    one scale per output channel and kernel row."""
     if w.dim() == 2:
-        return (1,)
+        return (0,) if name.endswith("text_projection") else (1,)
     if w.dim() == 4:
-        return (1, 3)
+        return (0, 3) if name.endswith("convt.weight") else (1, 3)
     raise NotImplementedError(f"int8 scales for a {w.dim()}-d weight")
+
+
+def _jax_leaf_size(name: str, w: torch.Tensor, depth: int) -> int:
+    """Elements of the JAX leaf ``w`` maps to: times the depth of its stack,
+    and a third of CLIP's fused in-projection (JAX keeps q, k, v apart)."""
+    size = w.numel() * (depth if depth > 1 else 1)
+    return size // 3 if ".attn.in_proj_" in name else size
 
 
 # XLA compiles the JAX package's absmax / 127.0 as absmax times the f32
@@ -187,7 +205,7 @@ def quantize_weights(weights: Dict[str, torch.Tensor], min_size: int = 2 ** 16):
     for name, w in weights.items():
         m = _STACK.match(name)
         depth = depths[m.group(1)] if m else 1
-        size = w.numel() * (depth if depth > 1 else 1)
+        size = _jax_leaf_size(name, w, depth)
         if (_QUANT_EXCLUDE.search(name) or size < min_size
                 or w.dtype not in (torch.float32, torch.bfloat16)
                 or w.dim() + (depth > 1) < 2):
@@ -197,7 +215,7 @@ def quantize_weights(weights: Dict[str, torch.Tensor], min_size: int = 2 ** 16):
                 f"{name}: the JAX package quantizes its stacked leaf across "
                 f"layers at quantize_min_size={min_size}; the port does not")
         else:
-            q, scale = _quantize_leaf(w, _reduce_dims(w))
+            q, scale = _quantize_leaf(w, _reduce_dims(name, w))
             out[name] = {QUANT_TAG: q, "scale": scale}
     return out
 
@@ -340,26 +358,21 @@ class ServingModel:
                         quantize: Optional[str] = None,
                         quantize_min_size: int = 2 ** 16,
                         device="cuda") -> "ServingModel":
-        """Serve a checkpoint of the JAX trainer (bifold_tpu/serving.py:358):
-        the model from ``cfg["model"]``, its params converted by
-        ``convert_bifold_inverse`` and loaded with ``strict=True``, and the
+        """Serve a checkpoint of the JAX trainer (bifold_tpu/serving.py:358)
+        or the port's: the model from ``cfg["model"]``, its params (and
+        ``text_unet``'s ``extra_vars["batch_stats"]``) converted by
+        ``from_jax_variables`` and loaded with ``strict=True``, and the
         test-partition Processor from ``cfg["processor"]`` with the
         checkpoint's sibling ``spiece.model`` when there is one. The model
         computes in ``cfg["precision"]["compute_dtype"]``, float32 when the
         config names none, as the JAX trainer reads it (trainer.py:98; the
         JAX package's from_checkpoint builds float32 whatever the config
-        says). Reads the file without JAX; ``extra_vars`` (the UNet
-        family's BatchNorm statistics) belong to no family the port has and
-        raise."""
-        from bifold_tpu_torch.models.convert import convert_bifold_inverse
+        says). Reads the file without JAX."""
+        from bifold_tpu_torch.models.convert import from_jax_variables
         from bifold_tpu_torch.utils.checkpoint import load_checkpoint
 
         mcfg = dict(cfg["model"])
         payload = load_checkpoint(checkpoint_path)
-        if payload.get("extra_vars"):
-            raise NotImplementedError(
-                f"checkpoint carries extra_vars {sorted(payload['extra_vars'])}: "
-                "no model family of the PyTorch port has such state")
         dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[
             dict(cfg.get("precision") or {}).get("compute_dtype", "float32")]
         model = build_model(mcfg, dtype=dtype, device=device)
@@ -368,7 +381,9 @@ class ServingModel:
                               max_context_length=mcfg.get("context_length"),
                               autoprocessor_name=mcfg.get("automodel_name"),
                               spm_asset=sibling if sibling.exists() else None)
-        return cls(model, convert_bifold_inverse(payload["params"]), processor,
+        state = from_jax_variables(mcfg["name"], payload["params"],
+                                   payload.get("extra_vars"))
+        return cls(model, state, processor,
                    threshold=threshold, depth_wire_dtype=depth_wire_dtype,
                    quantize=quantize, quantize_min_size=quantize_min_size,
                    device=device)
@@ -497,9 +512,10 @@ class ServingModel:
         one) at ``batch`` pooled rows per call (bifold_tpu/serving.py:536):
         the port's own format, read by :meth:`load_exported` with
         ``torch.load(weights_only=True)``. It holds the served weights
-        (bf16-precast, or int8 and scales), the model config and compute
-        dtype, the wire schema and depth-wire flag, the action fields and
-        threshold, the processor config, ``max_context_length``,
+        (bf16-precast, or int8 and scales), the BatchNorm buffers, the model
+        config (which names the family) and compute dtype, the wire schema
+        and depth-wire flag, the action fields and threshold, the processor
+        config, ``max_context_length``,
         ``autoprocessor_name`` and the embedded sentencepiece model, the
         pool size, and a ``format`` field naming it. The model must come
         from ``build_model`` (its config is recorded)."""
@@ -521,6 +537,8 @@ class ServingModel:
             "model_config": dict(config),
             "compute_dtype": str(self.model.dtype).removeprefix("torch."),
             "weights": {k: host(v) for k, v in _served_weights(self.model).items()},
+            # BatchNorm running statistics (text_unet), float32
+            "buffers": {k: v.cpu() for k, v in self.model.named_buffers()},
             "quantize": self.quantize,
             "threshold": self.threshold,
             "schema": schema,
@@ -570,6 +588,14 @@ class ExportedServingModel:
         dtype = getattr(torch, p["compute_dtype"])
         model = build_model(p["model_config"], dtype=dtype, device=device)
         _install(model, p["weights"], dtype)
+        buffers = dict(model.named_buffers())
+        saved = p.get("buffers", {})      # artifacts before text_unet have none
+        if set(saved) != set(buffers):
+            raise ValueError(f"{path}: the artifact's buffers {sorted(saved)[:3]} "
+                             "do not match the model's")
+        with torch.no_grad():
+            for name, value in saved.items():
+                buffers[name].copy_(value)
         self.processor = Processor(
             p["processor_cfg"], partition="test",
             max_context_length=p["max_context_length"],

@@ -32,11 +32,18 @@ How the port differs:
 - ``profile_steps`` records the first steps with ``torch.profiler`` into
   ``run_dir/profile``.
 
+The four shipped model families train (``siglip``,
+``siglip_sequential``, ``rgb_clip``, ``text_unet``). ``text_unet``'s
+BatchNorm running statistics are model buffers that move in every
+train-mode forward; checkpoints carry them as JAX's ``extra_vars =
+{"batch_stats": ...}`` (:func:`~bifold_tpu_torch.models.convert.to_jax_variables`),
+so either package's Trainer resumes the other's file.
+
 Not ported, and refused with the ROADMAP queue item that holds them:
 ``precision.remat: true`` (item 3), ``visualize_model_inputs`` and
-``visualize_predictions`` (item 6), model families other than ``siglip``
-and ``siglip_sequential`` (item 4), meshes of more than one device (item
-5). With ``simulator: softgym`` the final eval says that the closed loop is
+``visualize_predictions`` (item 6), the options of item 4 that no shipped
+config selects (a T5 ``text_encoder``, the transformer decoder,
+cross-attention fusion, MoE), meshes of more than one device (item 5). With ``simulator: softgym`` the final eval says that the closed loop is
 not ported (item 6) and takes pixel metrics, as the JAX Trainer does when
 its evaluator cannot be imported.
 """
@@ -64,7 +71,7 @@ from bifold_tpu_torch.metrics import Metrics
 from bifold_tpu_torch.models import (MODELS, build_model, decode_action,
                                      precast_frozen, resolve_device,
                                      trainable_mask)
-from bifold_tpu_torch.models.convert import convert_bifold, convert_bifold_inverse
+from bifold_tpu_torch.models.convert import from_jax_variables, to_jax_variables
 from bifold_tpu_torch.models.dropout import set_dropout_generator
 from bifold_tpu_torch.optim import build_optimizer
 from bifold_tpu_torch.utils.checkpoint import (WRITER, AsyncCheckpointer,
@@ -146,6 +153,7 @@ class Trainer:
         self.run_dir = Path(run_dir if run_dir is not None else cfg["run_dir"])
         self.run_dir.mkdir(parents=True, exist_ok=True)
         self._refuse_unported(cfg)
+        self._family = dict(cfg["model"])["name"]
         save_config(cfg, self.run_dir / "config.yaml")
         if device is None:
             device = "cpu" if cfg.get("use_cpu") else "cuda"
@@ -192,9 +200,8 @@ class Trainer:
     def _refuse_unported(cfg) -> None:
         name = dict(cfg["model"]).get("name")
         if name not in MODELS:
-            raise NotImplementedError(
-                f"model {name!r} is not ported (have {sorted(MODELS)}); the other "
-                "model families are ROADMAP queue item 4")
+            raise NotImplementedError(f"model {name!r} is not ported (have "
+                                      f"{sorted(MODELS)})")
         precision = dict(cfg.get("precision", {}))
         if precision.get("remat"):
             raise NotImplementedError("precision.remat: true is not ported "
@@ -251,11 +258,18 @@ class Trainer:
                 procs[f"torch:{name}"] = obj
         return procs
 
+    def jax_variables(self):
+        """(params, extra_vars): the model's weights as the JAX package's
+        params tree (float32 numpy leaves; bfloat16 weights as their exact
+        float32 upcast) and its BatchNorm statistics as JAX's
+        ``{"batch_stats": ...}`` (empty for the families without)."""
+        return to_jax_variables(
+            self._family, {k: v.float() if v.dtype == torch.bfloat16 else v
+                           for k, v in self.model.state_dict().items()})
+
     def params_tree(self) -> Dict[str, Any]:
-        """The model's weights as the JAX package's params tree (float32
-        numpy leaves; bfloat16 weights as their exact float32 upcast)."""
-        return convert_bifold({k: v.float() if v.dtype == torch.bfloat16 else v
-                               for k, v in self.model.state_dict().items()})
+        """The params half of :meth:`jax_variables`."""
+        return self.jax_variables()[0]
 
     def save_model(self, name: str) -> None:
         # async_checkpoint=true moves the pickle and the write off the loop
@@ -268,11 +282,12 @@ class Trainer:
             if self._async_ckpt is not None:
                 self._async_ckpt.wait()
             saver = save_checkpoint
+        params, extra_vars = self.jax_variables()
         saver(
             self.ckpt_dir / f"{name}.ckpt",
-            params=self.params_tree(),
+            params=params,
             opt_state=self.optimizer.state_dict() if self.optimizer else None,
-            extra_vars={}, epoch=self.epoch, step=self.global_step,
+            extra_vars=extra_vars, epoch=self.epoch, step=self.global_step,
             best_eval=self.metrics.best_eval, step_in_epoch=self._step_in_epoch,
             loop_key=None if self._loop_key is None else self._loop_key.get_state(),
             jax_key=self.key.get_state(),
@@ -283,22 +298,19 @@ class Trainer:
 
     def load_model(self, prefer: str = "last", path: Optional[Path] = None) -> bool:
         """Restore the newest ``prefer`` (else last, else best) checkpoint of
-        this run: weights (re-applying ``precast_frozen``), optimizer state,
-        counters, the root and step generators and the Processors'
-        generators. Reads both the port's files and the JAX package's (of
-        which only the weights, the epoch counters and the Adam moments
-        carry over)."""
+        this run: weights and BatchNorm statistics (re-applying
+        ``precast_frozen``), optimizer state, counters, the root and step
+        generators and the Processors' generators. Reads both the port's
+        files and the JAX package's (of which only the weights, the
+        statistics, the epoch counters and the Adam moments carry over)."""
         if self._async_ckpt is not None:
             self._async_ckpt.wait()     # the file we read must be complete
         path = path or latest_checkpoint(self.ckpt_dir, prefer=prefer)
         if path is None:
             return False
         payload = load_checkpoint(path)
-        if payload.get("extra_vars"):
-            raise NotImplementedError(
-                f"checkpoint carries extra_vars {sorted(payload['extra_vars'])}: "
-                "no model family of the port has such state")
-        weights = convert_bifold_inverse(payload["params"])
+        weights = from_jax_variables(self._family, payload["params"],
+                                     payload.get("extra_vars"))
         self.model.load_state_dict(
             {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
              for k, v in weights.items()}, strict=True)
@@ -343,7 +355,9 @@ class Trainer:
         names = set(self.optimizer.names)
         out = {"count": int(np.asarray(count))}
         for key, tree in (("mu", mu), ("nu", nu)):
-            moments = convert_bifold_inverse(_fill(tree, payload["params"]))
+            moments = from_jax_variables(self._family,
+                                         _fill(tree, payload["params"]),
+                                         payload.get("extra_vars"))
             out[key] = {n: v for n, v in moments.items() if n in names}
         return out
 

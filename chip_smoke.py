@@ -10,13 +10,16 @@ one JSON object per line:
    reports, the registers, shared memory and spill bytes of every kernel
    instance (flash and LayerNorm);
 2. each CUDA kernel against its plain PyTorch version on the card, at the
-   main paths' shapes, on all-masked rows with a ragged n and at the mma
-   tile edges (n = 17, n = 65, B*H = 96 at n = 300, the fused-qkv views at
-   both head dims), in bf16 and in f32 (TF32 off), with the tolerance it is
+   main paths' shapes (the flash kernels at head dims 48 and 64 for the
+   flagship, 32 for rgb_clip's fusion: 1 and 8 x 275 x 16 x 32 served, 2 x
+   275 x 16 x 32 trained), on all-masked rows with a ragged n and at the
+   mma tile edges (n = 17, n = 65, B*H = 96 at n = 300, the fused-qkv views,
+   at every head dim), in bf16 and in f32 (TF32 off), with the tolerance it is
    held to: the inference forward, the forward with lse (out and lse) and
    the backward (dq, dk, dv; dq and dk exactly 0 on all-masked rows; two
    calls bitwise equal); q/k/v views that break the 16-byte row rule
-   raise in the wrappers and the C entry points and compute nothing; the
+   raise in the wrappers and the C entry points and compute nothing (at
+   d 32 and d 48); the
    four LayerNorm kernels (out, s, mean, rstd; dx, dscale, dbias) at
    C = 128, 256, 768 and 1024 (1-4 chunks per lane) times R = 1, 2, 5,
    300 and the train step's fusion and vision rows, and at 40000 x 768,
@@ -26,7 +29,8 @@ one JSON object per line:
    across two calls, and backward calls of four shapes queued back to
    back on two streams, each equal to its plain version; then gradients through
    ``dot_product_attention`` (the autograd Function over the kernels) against
-   autograd through the plain forward;
+   autograd through the plain forward; and ``dot_product_attention("auto")``
+   routing by shape (an uninstanced head dim raises);
 3. kernel timings: each flash kernel, its plain version and
    ``scaled_dot_product_attention`` as a yardstick (every SDPA backend that
    runs the inputs, pinned and timed; a row takes the fastest and names
@@ -78,12 +82,24 @@ one JSON object per line:
    without JAX, batch-1 and batch-8 artifacts and the HTTP daemon, each
    bitwise against the live server with exact launches per request in
    every LayerNorm mode; weight bytes, artifact load times, the daemon's
-   coalescing and its p50 beside in-process; then peak train memory per
+   coalescing and its p50 beside in-process;
+8. the two CLIP families at their composed configs (:func:`serve_family`,
+   :func:`trainer_cli_families`): ``rgb_clip`` and ``text_unet`` served
+   (bimanual, bf16, seeded weights; 11 requests and a pool of 8 in each
+   LayerNorm mode with exact launches: 8 ``fwd_infer_d32`` per rgb_clip
+   request, none for text_unet, whose 25 text-tower norms take ``ln_fwd``
+   under ``pallas``), the f32 kernel forward against the math path, int8
+   decisions as on the CPU, a text_unet checkpoint with BatchNorm
+   statistics served bitwise as the live model; each family trained
+   through ``main`` (8 steps, eval, best/last; exact launches per step and
+   eval batch; text_unet's statistics moved) and text_unet interrupted and
+   resumed bitwise; p50s and samples/s; then peak train memory per
    LayerNorm mode;
-8. the ``kernels`` line (ten kernel instances; each row names its design,
-   the LayerNorm rows with the ptxas numbers of their bf16 C = 768
-   instance), then the card line, then the result line ``{"ok": true,
-   "device": {...}}``.
+9. the script's seconds, the ``kernels`` line (thirteen kernel instances:
+   the flash kernels at three head dims with their ptxas numbers, the
+   LayerNorm rows with those of their bf16 C = 768 instance; each row
+   names its design), then the card line, then the result line
+   ``{"ok": true, "device": {...}}``.
 
 Each path's launch counts are reset just before it and read just after.
 Every torch.profiler session (the ``where_the_time_goes`` windows and the
@@ -224,13 +240,13 @@ def within(out, ref, dtype):
 
 
 def edge_cases():
-    """(label, b, n, h, d, fused, masking) of the tile edges, at both head
-    dims: n = 17 (one partial 16-row mma tile of a 64-row block) and n = 65
+    """(label, b, n, h, d, fused, masking) of the tile edges, at every head
+    dim: n = 17 (one partial 16-row mma tile of a 64-row block) and n = 65
     (one row past a full block), each with an all-masked batch row; B*H =
     96 at n = 300 with all-masked rows; the fused-qkv strided views at
-    d 64 (the fusion cases take them at d 48)."""
+    d 64 (the fusion cases take them at d 48 and d 32)."""
     cases = []
-    for d in (48, 64):
+    for d in HEAD_DIMS:
         cases += [("n=17, all-masked rows", 2, 17, 3, d, True, "rows"),
                   ("n=65, all-masked rows", 2, 65, 3, d, False, "rows"),
                   ("B*H=96, n=300, all-masked rows", 8, 300, 12, d, d == 64,
@@ -242,12 +258,14 @@ def check_kernels(fa):
     """Phase 2: the inference kernel against its plain version. Returns the
     largest bf16 error per kernel name."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = {"flash_fwd_infer_d48": 0.0, "flash_fwd_infer_d64": 0.0}
+    worst = {f"flash_fwd_infer_d{d}": 0.0 for d in HEAD_DIMS}
     cases = [("fusion, 1 context frame masked", 1, 2373, 16, 48, True, 1),
              ("fusion, 2 context frames masked", 1, 2373, 16, 48, True, 2),
              ("vision", 4, 576, 12, 64, False, None),
-             ("ragged n=300, all-masked rows", 2, 300, 3, 48, False, "rows"),
-             ("ragged n=300, all-masked rows", 2, 300, 3, 64, False, "rows")]
+             ("rgb_clip fusion, batch 1", 1, 275, 16, 32, True, None),
+             ("rgb_clip fusion, pool of 8", 8, 275, 16, 32, True, None)]
+    cases += [("ragged n=300, all-masked rows", 2, 300, 3, d, False, "rows")
+              for d in HEAD_DIMS]
     cases += edge_cases()
     for dtype in (torch.bfloat16, torch.float32):
         for label, b, n, h, d, fused, masking in cases:
@@ -266,19 +284,27 @@ def check_kernels(fa):
     return worst
 
 
-TRAIN_SHAPES = {48: (2, 2373, 16, True), 64: (8, 576, 12, False)}
+# the flash kernels' instances: the flagship's fusion (48) and SigLIP
+# vision (64) stacks, rgb_clip's fusion stack (32)
+HEAD_DIMS = (32, 48, 64)
+# the train steps' shapes: (B, N, H, fused qkv views)
+TRAIN_SHAPES = {48: (2, 2373, 16, True), 64: (8, 576, 12, False),
+                32: (2, 275, 16, True)}
 
 
 def train_cases():
     """(label, b, n, h, d, fused, masking) of the training kernels' checks:
-    the train step's shapes, and the ragged n=300 case with all-masked rows
-    at both head dims."""
+    the train steps' shapes, and the ragged n=300 case with all-masked rows
+    at every head dim (every other one also feeds check_function_grads)."""
     b48, n48, h48, _ = TRAIN_SHAPES[48]
     b64, n64, h64, _ = TRAIN_SHAPES[64]
+    b32, n32, h32, _ = TRAIN_SHAPES[32]
     return [("fusion, 1 context frame masked", b48, n48, h48, 48, True, 1),
             ("vision", b64, n64, h64, 64, False, None),
             ("ragged n=300, all-masked rows", 2, 300, 3, 48, False, "rows"),
-            ("ragged n=300, all-masked rows", 2, 300, 3, 64, False, "rows")]
+            ("ragged n=300, all-masked rows", 2, 300, 3, 64, False, "rows"),
+            ("rgb_clip fusion", b32, n32, h32, 32, True, None),
+            ("ragged n=300, all-masked rows", 2, 300, 3, 32, False, "rows")]
 
 
 def train_check_cases():
@@ -347,15 +373,16 @@ def check_train_kernels(fa):
     return worst
 
 
-def check_alignment(fa):
-    """q, k or v views that break the bf16 kernels' 16-byte row rule raise
+def check_alignment(fa, d=48):
+    """At head dim ``d``: q, k or v views that break the bf16 kernels'
+    16-byte row rule raise
     and compute nothing: one starting 2 bytes past a 16-byte boundary, one
     whose token stride (h*d + 4) is not a multiple of 8 elements. The
     wrappers raise before any launch; the C entry points, called directly,
     return cudaErrorMisalignedAddress and leave their outputs untouched."""
     from bifold_tpu_torch.ops._cuda import launch
 
-    b, n, h, d = 2, 300, 2, 48
+    b, n, h = 2, 300, 2
     gen = torch.Generator(device="cuda").manual_seed(7)
 
     def randn(*shape):
@@ -401,7 +428,8 @@ def check_alignment(fa):
         if not all(bool(t.isnan().all()) for t in sentinel):
             raise AssertionError(f"a refused call wrote its output: {label}")
     launched = launched_since(before)
-    emit({"phase": "alignment_refused", "cases": list(bad), "launches": launched})
+    emit({"phase": "alignment_refused", "head_dim": d, "cases": list(bad),
+          "launches": launched})
     if launched:
         raise AssertionError(f"refused calls counted launches: {launched}")
 
@@ -438,6 +466,37 @@ def check_function_grads(fa):
             raise AssertionError(f"gradients through the kernels: {label}")
         out.append(errs)
     return out
+
+
+def check_auto_route(fa):
+    """``dot_product_attention("auto")`` on the card chooses by shape, as
+    JAX does: N >= 256 launches the kernel at every instanced head dim; an
+    uninstanced head dim (16) raises instead of taking the math path; N <
+    256 takes the math path and launches nothing."""
+    from bifold_tpu_torch.ops.attention import dot_product_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    got = {}
+    for d in HEAD_DIMS:
+        q, k, v = attention_inputs(gen, 1, 275, 4, d, torch.bfloat16, True)
+        before = launch_counts()
+        dot_product_attention(q, k, v)
+        got[d] = launched_since(before)
+    q, k, v = attention_inputs(gen, 1, 275, 4, 16, torch.bfloat16, True)
+    try:
+        dot_product_attention(q, k, v)
+        refused = False
+    except ValueError:
+        refused = True
+    q, k, v = attention_inputs(gen, 1, 197, 4, 16, torch.bfloat16, False)
+    before = launch_counts()
+    dot_product_attention(q, k, v)
+    short = launched_since(before)
+    emit({"phase": "auto_route", "launches_by_head_dim": got,
+          "uninstanced_head_dim_raises": refused, "n197_launches": short})
+    if (got != {d: {f"fwd_infer_d{d}": 1} for d in HEAD_DIMS} or not refused
+            or short):
+        raise AssertionError("dot_product_attention('auto') routed otherwise")
 
 
 def queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -477,14 +536,15 @@ def both_times(fn) -> dict:
 
 def time_kernels(fa, peaks):
     """The kernel, its plain version and SDPA (its fastest backend) at the
-    main path's shapes in bf16 (fusion: all 3 context frames present; vision:
-    4 frames), by device time and by CUDA events (:func:`both_times`)."""
+    main paths' shapes in bf16 (the flagship's fusion: all 3 context frames
+    present; its vision: 4 frames; rgb_clip's fusion, one request), by
+    device time and by CUDA events (:func:`both_times`)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
-    for d, (b, n, h, fused) in {48: (1, 2373, 16, True),
-                                64: (4, 576, 12, False)}.items():
+    for d, (b, n, h, fused) in {48: (1, 2373, 16, True), 64: (4, 576, 12, False),
+                                32: (1, 275, 16, True)}.items():
         q, k, v = attention_inputs(gen, b, n, h, d, torch.bfloat16, fused)
-        mask = fusion_mask(b, n, 0) if fused else None
+        mask = fusion_mask(b, n, 0) if d == 48 else None
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa_mask = None if mask is None else (mask != 0)[:, None, None, :]
         library = sdpa_times(qt, kt, vt, sdpa_mask)
@@ -549,12 +609,12 @@ def time_train_kernels(fa, peaks):
     bf16, at the train step's shapes (fusion B=2 with all 3 context frames
     present; vision 8 frames), by device time and by CUDA events
     (:func:`both_times`; the backward's device time includes delta's torch
-    ops)."""
+    ops); rgb_clip's fusion at its train step's shape, unmasked."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = {}
     for d, (b, n, h, fused) in TRAIN_SHAPES.items():
         q, k, v = attention_inputs(gen, b, n, h, d, torch.bfloat16, fused)
-        mask = fusion_mask(b, n, 0) if fused else None
+        mask = fusion_mask(b, n, 0) if d == 48 else None
         do = torch.randn(b, n, h, d, device="cuda", generator=gen).to(torch.bfloat16)
         out, lse = fa.flash_attention_fwd(q, k, v, mask)
         qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
@@ -1100,29 +1160,49 @@ def ln_mode(mode: str):
             os.environ["BIFOLD_LN_KERNEL"] = old
 
 
-def ln_launches(model, mode, train):
-    """The LayerNorm kernel launches of one forward (and, ``train``, its
-    backward) of ``model`` under ``BIFOLD_LN_KERNEL=mode``, counted from the
-    model: under "pallas" every norm takes ``ln_fwd`` / ``ln_bwd``; under
-    "fused" the stacks' norms take the fused kernels."""
-    from bifold_tpu_torch.models.layers import LayerNorm, Transformer
+def kernel_norms(model):
+    """(norms inside a pre-norm stack, other norms) of ``model``'s
+    LayerNorms whose width is a multiple of 128, those the kernel modes
+    send to the kernels."""
+    from bifold_tpu_torch.models.layers import ClipTransformer, LayerNorm, Transformer
 
-    in_stacks = {id(m) for t in model.modules() if isinstance(t, Transformer)
+    in_stacks = {id(m) for t in model.modules()
+                 if isinstance(t, (Transformer, ClipTransformer))
                  for m in t.modules() if isinstance(m, LayerNorm)}
     norms = [m for m in model.modules()
              if isinstance(m, LayerNorm) and m.weight.numel() % 128 == 0]
     stacked = sum(id(m) in in_stacks for m in norms)
-    if (stacked, len(norms) - stacked) != FLAGSHIP_NORMS:
-        raise AssertionError(f"{stacked} + {len(norms) - stacked} LayerNorms, "
-                             f"want {FLAGSHIP_NORMS}")
-    other = len(norms) - stacked
+    return stacked, len(norms) - stacked
+
+
+def norm_launches(model, mode):
+    """The LayerNorm kernel launches of one forward of ``model`` under
+    ``BIFOLD_LN_KERNEL=mode``: under "pallas" every kernel norm takes
+    ``ln_fwd``; under "fused" those inside a stack (fusion or tower) take
+    ``fused_ln_fwd`` and the others ``ln_fwd``."""
+    stacked, other = kernel_norms(model)
     if mode == "pallas":
-        fwd, bwd = {"ln_fwd": len(norms)}, {"ln_bwd": len(norms) - FROZEN_STACKS}
+        return {"ln_fwd": stacked + other}
+    if mode == "fused":
+        return {k: n for k, n in (("fused_ln_fwd", stacked), ("ln_fwd", other)) if n}
+    return {}
+
+
+def ln_launches(model, mode, train):
+    """The LayerNorm kernel launches of one forward (and, ``train``, its
+    backward) of the flagship ``model`` under ``BIFOLD_LN_KERNEL=mode``,
+    counted from the model (:func:`norm_launches`); the backward skips the
+    first norm of either frozen tower."""
+    stacked, other = kernel_norms(model)
+    if (stacked, other) != FLAGSHIP_NORMS:
+        raise AssertionError(f"{stacked} + {other} LayerNorms, want {FLAGSHIP_NORMS}")
+    fwd = norm_launches(model, mode)
+    if mode == "pallas":
+        bwd = {"ln_bwd": stacked + other - FROZEN_STACKS}
     elif mode == "fused":
-        fwd = {"fused_ln_fwd": stacked, "ln_fwd": other}
         bwd = {"fused_ln_bwd": stacked - FROZEN_STACKS, "ln_bwd": other}
     else:
-        fwd, bwd = {}, {}
+        bwd = {}
     return {**fwd, **bwd} if train else fwd
 
 
@@ -2122,6 +2202,297 @@ def trainer_pull_ahead(card):
     return launches
 
 
+# the two CLIP families, composed from the port's conf as the CLI composes
+# them: bimanual data at the dataset's 384 px (rgb_clip resizes to its 224)
+FAMILIES = ("rgb_clip", "text_unet")
+FAMILY_DATA = ("train_dataset=synthetic", "train_dataset.image_size=384",
+               "train_dataset.is_bimanual=true", "test_dataset=null")
+# flash launches of one forward: rgb_clip's 8 fusion layers at head dim 32
+# (its CLIP towers take the math path, as in JAX: 197 vision tokens < 256,
+# the text tower causal); text_unet's only attention is its causal text tower
+FAMILY_INFER = {"rgb_clip": {"fwd_infer_d32": 8}, "text_unet": {}}
+FAMILY_STEP = {"rgb_clip": {"fwd_lse_d32": 8, "bwd_d32": 8}, "text_unet": {}}
+INT8_MIN_SIZE = 2 ** 16                  # the serving default
+# the tables JAX's int8 rule keeps float (bifold_tpu/serving.py:117)
+FAMILY_TABLES = ("clip_encoder.visual.positional_embedding",
+                 "clip_encoder.positional_embedding",
+                 "clip_encoder.token_embedding.weight", "rgb_pos_embedding",
+                 "text_pos_embedding")
+
+
+def family_config(family, *extra):
+    from bifold_tpu_torch.config import compose
+
+    return compose([f"model={family}", *FAMILY_DATA, *extra])
+
+
+@torch.no_grad()
+def seeded_stats(model, seed=11):
+    """Non-trivial BatchNorm running statistics (means N(0, 0.1), variances
+    in [0.5, 1.5]), the same for every model of one configuration."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, buf in model.named_buffers():
+        if name.endswith("running_mean"):
+            buf.copy_(0.1 * torch.randn(buf.shape, generator=gen))
+        elif name.endswith("running_var"):
+            buf.copy_(0.5 + torch.rand(buf.shape, generator=gen))
+
+
+def serve_family(card, family, device="cuda"):
+    """One CLIP family served as a user serves it: the composed
+    ``model=<family>`` config (bimanual, bf16, seeded weights; text_unet
+    with non-trivial BatchNorm statistics) behind ``ServingModel`` at a
+    720 px camera. In each ``BIFOLD_LN_KERNEL`` mode, 11 ``predict``
+    requests and one ``predict_batch`` of 8, each with exactly
+    :data:`FAMILY_INFER` flash launches and the LayerNorm launches its
+    modules give (text_unet under "pallas": its text tower's 25); an f32
+    model's kernel forward against the math path (heatmaps within 1e-4,
+    the same actions); int8 serving, its decisions those of
+    ``quantize_weights`` on the CPU, the tables kept float, its actions
+    reported; for text_unet a checkpoint of the live weights and statistics
+    written by the port's ``save_checkpoint`` in JAX's format served by
+    ``from_checkpoint`` bitwise as the live server serves. The batch-1 and
+    pool-8 p50s (default mode), and the phases for
+    :func:`where_the_time_goes`. ``device="cpu"`` is a rehearsal at a tiny
+    size, the launch checks stubbed by the caller."""
+    import tempfile
+
+    from bifold_tpu_torch.data.processor import Processor
+    from bifold_tpu_torch.models import build_model
+    from bifold_tpu_torch.models.convert import to_jax_variables
+    from bifold_tpu_torch.serving import ServingModel, _served_weights, quantize_weights
+    from bifold_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    cfg = family_config(family)
+    mcfg = dict(cfg["model"])
+    size = int(mcfg["image_size"])
+
+    def make(dtype):
+        model = build_model(mcfg, dtype=dtype, device=device, seed=0)
+        seeded_stats(model)
+        return model
+
+    model = make(torch.bfloat16)
+    proc = Processor(dict(cfg["processor"]), partition="test")
+    live = ServingModel(model, None, proc, device=device)
+    live.warmup(CAMERA)
+    live.warmup(CAMERA, pool=8)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(31)
+
+    def frame():
+        obs = observation(rng, 0)
+        del obs["context"]
+        return obs
+
+    requests = [(frame(), INSTRUCTIONS[i % 5]) for i in range(11)]
+    pool = [dict(frame(), instruction=INSTRUCTIONS[i % 5]) for i in range(8)]
+    want = {mode: {**FAMILY_INFER[family], **norm_launches(live.model, mode)}
+            for mode in LN_MODES}
+    if family == "text_unet" and want["pallas"] != {"ln_fwd": 25}:
+        raise AssertionError(f"text_unet's text tower: {want['pallas']}, want 25 ln_fwd")
+    clear_launch_counts()                # the family's served run starts here
+    ref = {}
+    for mode in LN_MODES:
+        for i, (obs, text) in enumerate(requests):
+            out = counted(lambda: live.predict(**obs, instruction=text,
+                                               return_raw_output=True),
+                          mode, want[mode], f"{family} request {i}")
+            check_action(*out, 1, size)
+            ref.setdefault(mode, out)
+        out = counted(lambda: live.predict_batch(pool, pad_to=8, return_raw_output=True),
+                      mode, want[mode], f"{family} pool")
+        check_action(*out, 8, size)
+    launches = launch_counts()           # ... and ends here
+    emit({"phase": f"serve_{family}", "requests_per_mode": len(requests), "pool": 8,
+          "launches_per_request": want, "launches": launches, "setup_s": setup_s,
+          "parameters": sum(p.numel() for p in model.parameters())})
+
+    # the f32 kernel forward against the math path
+    obs, text = requests[0]
+    f32 = ServingModel(make(torch.float32), None, proc, device=device)
+    k_action, k_raw = f32.predict(**obs, instruction=text, return_raw_output=True)
+    m_action, m_raw = math_forward(f32, obs, text)
+    hm_diff = max(float(np.abs(k_raw[k] - m_raw[k]).max())
+                  for k in k_raw if k.endswith("_heatmap"))
+    same = all(np.array_equal(getattr(k_action, f), getattr(m_action, f))
+               for f in ACTION_FIELDS)
+    emit({"phase": f"serve_{family}_kernel_vs_math", "dtype": "float32",
+          "max_heatmap_diff": hm_diff, "tol": 1e-4, "actions_identical": same,
+          "decoded_apart": decoded_apart(k_action, m_action, k_raw)})
+    if not (same and hm_diff <= 1e-4):
+        raise AssertionError(f"{family}: f32 kernel and math forwards disagree")
+    del f32
+
+    # int8: the CPU's decisions, tables float, actions reported
+    int8 = ServingModel(model, None, proc, device=device, quantize="int8",
+                        quantize_min_size=INT8_MIN_SIZE)
+    on_card = sorted(k for k, v in _served_weights(int8.model).items() if isinstance(v, dict))
+    on_cpu = sorted(k for k, v in quantize_weights(
+        {n: p.detach().float().cpu() for n, p in model.named_parameters()},
+        min_size=INT8_MIN_SIZE).items() if isinstance(v, dict))
+    kept = [t for t in FAMILY_TABLES if t in dict(model.named_parameters())]
+    q_action, q_raw = int8.predict(**obs, instruction=text, return_raw_output=True)
+    check_action(q_action, q_raw, 1, size)
+    emit({"phase": f"serve_{family}_int8", "quantized_tensors": len(on_card),
+          "decisions_as_on_the_cpu": on_card == on_cpu, "tables_kept_float": kept,
+          "actions": {f: getattr(q_action, f).tolist() for f in ACTION_FIELDS},
+          "bf16_actions": {f: getattr(ref[""][0], f).tolist() for f in ACTION_FIELDS}})
+    if on_card != on_cpu or not on_card or set(kept) & set(on_card):
+        raise AssertionError(f"{family}: int8 decisions differ from the CPU's or "
+                             "quantize a table")
+    del int8
+
+    if family == "text_unet":
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "last.ckpt"
+            params, extra = to_jax_variables(family, {k: v.float() for k, v in
+                                                      model.state_dict().items()})
+            save_checkpoint(path, params=params, extra_vars=extra,
+                            metadata={"model": mcfg})
+            from_ckpt = ServingModel.from_checkpoint(path, cfg, device=device)
+            same = {mode: same_output(counted(
+                lambda: from_ckpt.predict(**obs, instruction=text, return_raw_output=True),
+                mode, want[mode], "text_unet checkpoint"), ref[mode])
+                for mode in LN_MODES}
+            emit({"phase": "serve_text_unet_checkpoint",
+                  "batch_stats_tensors": len(nested_leaves(extra)),
+                  "bytes": path.stat().st_size, "bitwise_vs_live": same})
+            if not all(same.values()):
+                raise AssertionError("text_unet: the checkpoint serves other outputs")
+            del from_ckpt
+
+    times = {"batch1": [], "pool8": []}
+    for _ in range(11):
+        for name, call in (("batch1", lambda: live.predict(**obs, instruction=text)),
+                           ("pool8", lambda: live.predict_batch(pool, pad_to=8))):
+            t = time.perf_counter()
+            call()
+            times[name].append((time.perf_counter() - t) * 1e3)
+    lat = {name: statistics.median(v) for name, v in times.items()}
+    emit({"phase": f"serve_{family}_latency", "p50_ms_batch1": lat["batch1"],
+          "p50_ms_pool8": lat["pool8"], "requests_each": 11, "ln_mode": "default",
+          "seconds": time.perf_counter() - t0, **card})
+    phases = [serving_phase(live, "", f"{family} {name}", obs_list, lat[name])
+              for name, obs_list in (("batch1", [dict(obs, instruction=text)]),
+                                     ("pool8", pool))]
+    return launches, phases
+
+
+def nested_leaves(tree):
+    """The leaves of a nested dict."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in nested_leaves(v)]
+    return [tree]
+
+
+FAMILY_CLI = ("train_dataset.n_samples=16", "batch_size=2", "test_batch_size=2",
+              "epochs=1", "eval_epochs=1", "simulator=null", "log_every=1")
+
+
+def trainer_cli_families(card, device="cuda"):
+    """``main`` of ``bifold_tpu_torch.__main__`` with ``model=rgb_clip``,
+    then ``model=text_unet``: synthetic bimanual data at 384 px, 16
+    samples, batch 2, one epoch of 8 steps, pixel eval, ``best`` and
+    ``last``. Gates: exit 0, exactly :data:`FAMILY_STEP` launches per step
+    and :data:`FAMILY_INFER` per eval batch, finite metrics, text_unet's
+    running statistics moved; then text_unet 5 steps straight against a
+    run interrupted at its third step and resumed: every weight and
+    statistic bitwise equal. Reports each family's step p50 and samples/s.
+    ``device="cpu"``: a rehearsal at a tiny size."""
+    import shutil
+    import tempfile
+
+    from bifold_tpu_torch.config import Config, load_yaml
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bifold_families_"))
+    cpu = ["use_cpu=true"] if device == "cpu" else []
+    launches, ok = collections.Counter(), True
+    for family in FAMILIES:
+        record = {}
+        overrides = [f"model={family}", *FAMILY_DATA, *FAMILY_CLI,
+                     f"run_dir={tmp / family}", *cpu]
+        clear_launch_counts()            # the family's Trainer run starts here
+        code, run_dir, seconds = run_cli(overrides, record)
+        trainer = record.pop("trainers")[0]
+        run_launches = launch_counts()   # ... and ends here
+        launches.update(run_launches)
+        evals = load_yaml(run_dir / "eval_synthetic.yaml")
+        logged = [json.loads(line) for line in
+                  (run_dir / "metrics.jsonl").read_text().splitlines()]
+        step_s = [r["train/step_time_s"] for r in logged if "train/step_time_s" in r]
+        sps = [r["train/samples_per_sec"] for r in logged if "train/samples_per_sec" in r]
+        bad_steps = [d for d in record.get("steps", []) if d != FAMILY_STEP[family]]
+        bad_evals = [d for d in record.get("evals", []) if d != FAMILY_INFER[family]]
+        finite = evals.get("kp_mse") is not None and all(
+            v is None or np.isfinite(v) for v in evals.values())
+        moved = None
+        if family == "text_unet":
+            moved = all(bool(b.abs().max() > 0) for n, b in trainer.model.named_buffers()
+                        if n.endswith("running_mean"))
+        line = {"phase": f"trainer_cli_{family}", "exit_code": code, "seconds": seconds,
+                "steps": len(record.get("steps", [])),
+                "launches_per_step": FAMILY_STEP[family],
+                "steps_with_other_launches": bad_steps,
+                "eval_batches": len(record.get("evals", [])),
+                "eval_batches_with_other_launches": bad_evals, "eval": evals,
+                "running_stats_moved": moved,
+                "trainer_step_p50_ms": statistics.median(step_s) * 1e3 if step_s else None,
+                "trainer_samples_per_s": sps, "launches": run_launches, **card}
+        emit(line)
+        ok &= (code == 0 and not bad_steps and not bad_evals and finite
+               and line["steps"] == 8 and line["eval_batches"] > 0 and moved is not False)
+        del trainer
+
+    # text_unet: 5 steps straight, and interrupted at the 3rd + resumed
+    def unet_trainer(name, record):
+        cfg = family_config("text_unet", "train_dataset.n_samples=10", "batch_size=2",
+                            "epochs=1", "eval_epochs=0", "simulator=null",
+                            f"run_dir={tmp / name}", *cpu)
+        return observed_trainer(record)(Config(cfg), run_dir=tmp / name)
+
+    straight, broken, resumed = {}, {}, {}
+    ta = unet_trainer("a", straight)
+    ta.prepare_train()
+    ta.train()
+    tb = unet_trainer("b", broken)
+    tb.prepare_train()
+    real_step, calls = tb._train_step, [0]
+
+    def interrupted(state, batch):
+        calls[0] += 1
+        if calls[0] == 3:
+            raise KeyboardInterrupt
+        return real_step(state, batch)
+
+    tb._train_step = interrupted
+    try:
+        tb.train()
+        raise AssertionError("the interrupted run did not stop")
+    except KeyboardInterrupt:
+        pass
+    tc = unet_trainer("b", resumed)
+    tc.prepare_train()
+    start = (tc.epoch, tc._resume_step_in_epoch)
+    tc.train()
+    a_state = ta.model.state_dict()
+    bitwise = {kind: all(torch.equal(v, a_state[k]) for k, v in tc.model.state_dict().items()
+                         if k.endswith(("running_mean", "running_var")) == (kind == "stats"))
+               for kind in ("weights", "stats")}
+    emit({"phase": "trainer_cli_text_unet_resume", "interrupted_resume_start": list(start),
+          "steps": [len(straight.get("steps", [])), len(broken.get("steps", [])),
+                    len(resumed.get("steps", []))],
+          "bitwise": bitwise, "seconds": time.perf_counter() - t0})
+    ok &= start == (0, 2) and all(bitwise.values())
+    del ta, tb, tc, straight["trainers"], broken["trainers"], resumed["trainers"]
+    shutil.rmtree(tmp, ignore_errors=True)
+    if not ok:
+        raise AssertionError("trainer_cli_families failed (see its lines)")
+    return dict(launches)
+
+
 def serving_phase(server, mode, name, obs_list, p50):
     """What :func:`where_the_time_goes` needs for one served batch."""
     def stages():
@@ -2260,6 +2631,7 @@ def ptxas_rows(fa) -> dict:
 
 
 def main() -> int:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this smoke needs a "
               "CUDA card", file=sys.stderr)
@@ -2284,8 +2656,10 @@ def main() -> int:
 
     peaks = card_peaks(name)
     worst = {**check_kernels(fa), **check_train_kernels(fa), **check_ln_kernels()}
-    check_alignment(fa)
+    for d in (32, 48):
+        check_alignment(fa, d)
     check_function_grads(fa)
+    check_auto_route(fa)
     # every main-path run, each with its counts reset just before it: the
     # train step and the served path, in each LayerNorm mode
     phases = [train_flagship(card, mode) for mode in LN_MODES]
@@ -2295,12 +2669,18 @@ def main() -> int:
     pulled = trainer_pull_ahead(card)
     served, serve_phases = serve_flagship(card)
     deployed = deployment_phase(card)
+    family_runs = []
+    for family in FAMILIES:
+        family_launches, family_phases = serve_family(card, family)
+        family_runs.append(family_launches)
+        serve_phases += family_phases
+    family_runs.append(trainer_cli_families(card))
     emit({"phase": "train_peak_memory", "max_memory_allocated_bytes": {
         phase["mode"] or "default": phase["where"]["max_memory_allocated_bytes"]
         for phase in phases}, **card})
     launches = collections.Counter()
     for run in ([phase["launches"] for phase in phases] + [trained, pulled]
-                + list(served.values()) + [deployed]):
+                + list(served.values()) + [deployed] + family_runs):
         launches.update(run)
     # the profiler from here on: after every host-clock measurement
     where_the_time_goes(phases + serve_phases)
@@ -2317,7 +2697,8 @@ def main() -> int:
                "flash_bwd": ("flash_bwd.cu", 360, "training: train step")}
     kernels = []
     for kernel, (src, line, where) in sources.items():
-        for d, stack in ((48, "fusion"), (64, "vision")):
+        for d, stack in ((48, "flagship fusion"), (64, "flagship vision"),
+                         (32, "rgb_clip fusion")):
             key = f"{kernel}_d{d}"
             count = launches.get(key.replace("flash_", ""), 0)
             if count == 0:
@@ -2332,6 +2713,8 @@ def main() -> int:
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "library_backend": row["library_backend"],
                 "design": "mma.sync bf16",
+                "ptxas_bf16": {k: v for k, v in ptxas.items()
+                               if k.startswith(key + " ") or k == key},
                 "shape": row["shape"], "where": f"{where}, {stack}"})
     for kernel in LN_KERNELS:
         if launches.get(kernel, 0) == 0:
@@ -2348,6 +2731,7 @@ def main() -> int:
             "design": LN_DESIGN[kernel.replace("fused_", "")],
             "ptxas_bf16_c768": ptxas.get(f"{kernel} S3"),
             "shape": row["shape"], "where": LN_WHERE[kernel]})
+    emit({"phase": "script", "seconds": time.perf_counter() - started, **card})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -35,6 +35,11 @@ OVERRIDE_SETS = [
     ["train_dataset=synthetic", "train_dataset.image_size=384",
      "train_dataset.is_bimanual=true", "train_dataset.max_context_length=3",
      "model=siglip_sequential", "use_wandb=true", "log_every=1"],
+    # the CLIP families, as chip_smoke.py composes them
+    ["model=rgb_clip", "train_dataset=synthetic", "train_dataset.image_size=384",
+     "train_dataset.is_bimanual=true", "test_dataset=null"],
+    ["model=text_unet", "train_dataset=synthetic", "train_dataset.image_size=384",
+     "train_dataset.is_bimanual=true", "model.features=[8,16,32]"],
 ]
 
 

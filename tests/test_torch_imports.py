@@ -2,6 +2,7 @@
 not ``chip_smoke.py`` may import JAX, flax or the JAX package."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -22,8 +23,11 @@ for name in ("bifold_tpu_torch.ops._cuda", "bifold_tpu_torch.ops.layer_norm",
              "bifold_tpu_torch.serve", "bifold_tpu_torch.config",
              "bifold_tpu_torch.utils.checkpoint", "bifold_tpu_torch.trainer",
              "bifold_tpu_torch.__main__", "bifold_tpu_torch.data.loader",
-             "bifold_tpu_torch.metrics"):
+             "bifold_tpu_torch.metrics", "bifold_tpu_torch.models.norm",
+             "bifold_tpu_torch.models.backbones.clip_backbone"):
     assert name in names, name
+from bifold_tpu_torch.data.tokenizers import clip_bpe_path
+assert clip_bpe_path().parent.parent.parent.name == "bifold_tpu_torch", clip_bpe_path()
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None)
 assert not leaked, leaked
@@ -32,7 +36,8 @@ print(len(names))
 
 
 def test_port_imports_without_jax():
-    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
+    env = {k: v for k, v in os.environ.items() if k != "BIFOLD_CLIP_BPE"}
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 50   # every module was imported
@@ -53,3 +58,19 @@ def test_port_sources_name_no_jax_import():
     for path in files:
         bad = set(_imported_roots(path)) & set(BLOCKED)
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_clip_bpe_asset_is_the_ports_own(monkeypatch):
+    """The port reads its own copy of the CLIP merges file (package data),
+    byte-equal to the JAX package's, never the JAX package's file."""
+    from bifold_tpu_torch.data.tokenizers import clip_bpe_path
+
+    monkeypatch.delenv("BIFOLD_CLIP_BPE", raising=False)
+    path = clip_bpe_path()
+    assert path == ROOT / "bifold_tpu_torch/data/assets/bpe_simple_vocab_16e6.txt.gz"
+    assert path.read_bytes() == (ROOT / "bifold_tpu/data/assets"
+                                 / path.name).read_bytes()
+    assert '"data/assets/*.gz"]' in (ROOT / "pyproject.toml").read_text().split(
+        "bifold_tpu_torch = ")[1].splitlines()[0]
+    monkeypatch.setenv("BIFOLD_CLIP_BPE", str(path))
+    assert clip_bpe_path() == path

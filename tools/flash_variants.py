@@ -49,11 +49,21 @@ VARIANTS = {
     # no minimum of blocks per SM: the compiler's own register count
     "uncapped": [("flash_fwd", CAP, "__launch_bounds__(kMmaThreads)"),
                  ("flash_bwd", CAP, "__launch_bounds__(kMmaThreads)")],
+    # the d32 dk/dv kernel: 32-row query stages (as d64 has), its column
+    # loop fully unrolled (as before PR 8's choice of two), or three blocks
+    # per SM
+    "bwd_d32_tile32": [("flash_bwd", "constexpr int kTile = D > 48 ? 32 : 64;",
+                        "constexpr int kTile = D == 48 ? 64 : 32;")],
+    "bwd_d32_unroll4": [("flash_bwd", "#pragma unroll(D == 32 ? 2 : kTile / 16)",
+                         "#pragma unroll")],
+    "bwd_d32_cap3": [("flash_bwd", CAP + " dkdv_mma(",
+                      "__launch_bounds__(kMmaThreads, D == 32 ? 3 : kBlocksPerSM) dkdv_mma(")],
 }
-# (b, n, h, d, fused qkv views, fusion mask)
+# (b, n, h, d, fused qkv views); the flagship's fusion (d48) has its mask
 FWD_SHAPES = {"serve_d48": (1, 2373, 16, 48, True), "serve_d64": (4, 576, 12, 64, False),
-              "train_d48": (2, 2373, 16, 48, True), "train_d64": (8, 576, 12, 64, False)}
-BWD_SHAPES = {"train_d48": FWD_SHAPES["train_d48"], "train_d64": FWD_SHAPES["train_d64"]}
+              "train_d48": (2, 2373, 16, 48, True), "train_d64": (8, 576, 12, 64, False),
+              "serve_d32": (1, 275, 16, 32, True), "train_d32": (2, 275, 16, 32, True)}
+BWD_SHAPES = {k: FWD_SHAPES[k] for k in ("train_d48", "train_d64", "train_d32")}
 
 
 class _Report:
@@ -122,7 +132,7 @@ def _calls(gen):
     calls = {}
     for shape, (b, n, h, d, fused) in FWD_SHAPES.items():
         q, k, v = chip_smoke.attention_inputs(gen, b, n, h, d, torch.bfloat16, fused)
-        mask = chip_smoke.fusion_mask(b, n, 0) if fused else None
+        mask = chip_smoke.fusion_mask(b, n, 0) if d == 48 else None
         fn = fa.flash_attention_fwd if shape.startswith("train") else fa.flash_attention
         calls[("fwd", shape)] = ((lambda fn=fn, a=(q, k, v, mask): fn(*a)), "flash_fwd")
         if shape in BWD_SHAPES:
