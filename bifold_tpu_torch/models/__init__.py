@@ -25,7 +25,10 @@ from bifold_tpu_torch.models.backbones.clip_backbone import (ClipBackbone,
 from bifold_tpu_torch.models.bifold_models import (RGBOnly, SigLip,
                                                    SiglipSequential,
                                                    TextConditionedUNet)
-from bifold_tpu_torch.models.layers import LayerNorm, _ClipAttention
+from bifold_tpu_torch.models.fusion import (ConcatTransformer,
+                                            MultiHeadDotProductAttention)
+from bifold_tpu_torch.models.layers import (LayerNorm, MoEFeedForward,
+                                            _ClipAttention)
 from bifold_tpu_torch.models.lora import LoRALinear
 from bifold_tpu_torch.models.norm import BatchNorm
 from bifold_tpu_torch.ops.heatmap import decode_heatmap, gate_bimanual
@@ -40,27 +43,28 @@ MODELS = {"siglip": SigLip, "siglip_sequential": SiglipSequential,
 _SIGLIP_FIELDS = {"image_size", "is_bimanual", "patch_size", "automodel_name",
                   "dim", "lora", "r", "lora_alpha", "depth", "heads",
                   "mlp_ratio", "threshold", "constrain_pick_mask",
-                  "legacy_query_mask", "lora_dropout", "dropout", "emb_dropout"}
+                  "legacy_query_mask", "lora_dropout", "dropout", "emb_dropout",
+                  "pick_place_model", "fusion_model", "moe_experts",
+                  "moe_top_k", "moe_capacity_factor", "moe_aux_weight", "remat"}
 _FIELDS = {
     "siglip": _SIGLIP_FIELDS,
     "siglip_sequential": _SIGLIP_FIELDS | {"context_length"},
     "rgb_clip": {"image_size", "is_bimanual", "patch_size", "text_encoder",
                  "text_dropout", "rgb_dropout", "threshold", "depth", "heads",
                  "mlp_ratio", "dropout", "constrain_pick_mask",
-                 "legacy_query_mask"},
+                 "legacy_query_mask", "remat"},
     "text_unet": {"image_size", "is_bimanual", "text_encoder", "features",
                   "threshold", "constrain_pick_mask"},
 }
 # config keys of the JAX model the port runs at one value only (None: any
-# value is accepted and has no effect here, e.g. remat)
-_HEAD_FIXED = {"remat": None, "pick_place_model": "pick_place_convdecoder",
-               "fusion_model": "concat_transformer", "requires_graph": False}
-_SIGLIP_FIXED = {**_HEAD_FIXED, "moe_top_k": None,
-                 "moe_capacity_factor": None, "moe_aux_weight": None,
-                 "target_modules": ("q_proj", "v_proj"), "text_encoder": None,
-                 "moe_experts": 0}
+# value is accepted and has no effect here)
+_SIGLIP_FIXED = {"requires_graph": False, "target_modules": ("q_proj", "v_proj"),
+                 "text_encoder": None}
 _FIXED = {"siglip": _SIGLIP_FIXED, "siglip_sequential": _SIGLIP_FIXED,
-          "rgb_clip": _HEAD_FIXED, "text_unet": {"requires_graph": False}}
+          "rgb_clip": {"pick_place_model": "pick_place_convdecoder",
+                       "fusion_model": "concat_transformer",
+                       "requires_graph": False},
+          "text_unet": {"requires_graph": False}}
 
 
 def resolve_device(device) -> torch.device:
@@ -86,7 +90,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     in-projection as its three q/k/v Dense kernels), zero biases, N(0, 0.02)
     embedding tables, unit LayerNorm and BatchNorm (running mean 0, variance
     1), peft's LoRA init (A uniform +-1/sqrt(fan_in), B zero), N(0, 1)
-    learned tokens and position embeddings of the heads, and CLIP's own:
+    learned tokens, registers and position embeddings of the heads,
+    N(0, 0.02) MoE router and expert weights (zero expert biases),
+    lecun-normal cross-attention kernels (fan in D for query/key/value,
+    H x Dh for out), and CLIP's own:
     ``class_embedding``, the vision ``positional_embedding`` and
     ``text_projection`` N(0, width^-0.5), the text positions N(0, 0.01)."""
     adapters = set()
@@ -127,6 +134,19 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             mod.positional_embedding.normal_(0.0, 0.01, generator=generator)
             mod.text_projection.normal_(0.0, mod.text_projection.shape[0] ** -0.5,
                                         generator=generator)
+        elif isinstance(mod, MoEFeedForward):
+            for w in (mod.router, mod.w1, mod.w2):
+                w.normal_(0.0, 0.02, generator=generator)
+            mod.b1.zero_()
+            mod.b2.zero_()
+        elif isinstance(mod, MultiHeadDotProductAttention):
+            for dense in (mod.query, mod.key, mod.value):
+                _lecun_normal(dense.kernel, dense.kernel.shape[0], generator)
+                dense.bias.zero_()
+            _lecun_normal(mod.out.kernel, mod.out.kernel[:, :, 0].numel(), generator)
+            mod.out.bias.zero_()
+        elif isinstance(mod, ConcatTransformer) and mod.num_registers:
+            mod.registers.normal_(0.0, 1.0, generator=generator)
     for name in ("image_token", "text_token", "context_pos_embedding",
                  "rgb_pos_embedding", "text_pos_embedding"):
         p = getattr(model, name, None)
@@ -175,14 +195,18 @@ def precast_frozen(model: nn.Module, compute_dtype, *,
 
 
 def build_model(cfg: dict, *, dtype=torch.float32, device="cuda",
-                seed: int = 0) -> nn.Module:
+                seed: int = 0, remat: bool | None = None) -> nn.Module:
     """Model from its config node (``name`` + constructor fields), built on
     ``device`` with a seeded init, in eval mode; ``model.config`` keeps the
-    node (a serving artifact records it). Config values the port does not
-    implement (MoE, graph conditioning, other heads or fusions, a T5 text
-    encoder) raise."""
+    node (a serving artifact records it). ``remat`` (the Trainer's
+    ``precision.remat``) overrides the node's for the families that have
+    it and is dropped for the others, as the JAX package's overrides are.
+    Config values the port does not implement (graph conditioning, another
+    head or fusion for rgb_clip, a T5 text encoder) raise."""
     node = dict(cfg)
     cfg = {k: (tuple(v) if isinstance(v, list) else v) for k, v in node.items()}
+    if remat is not None and "remat" in _FIELDS.get(cfg.get("name"), ()):
+        cfg["remat"] = bool(remat)
     name = cfg.pop("name")
     if name not in MODELS:
         raise KeyError(f"model {name!r} is not ported (have {sorted(MODELS)})")

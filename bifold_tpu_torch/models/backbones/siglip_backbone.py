@@ -9,7 +9,8 @@ Counterpart of bifold_tpu/models/backbones/siglip_backbone.py:33-166:
 
 With LoRA the towers sit under ``model`` (peft's ``LoraModel`` wrapping), so
 state-dict keys read ``siglip_model.model.vision_model...`` as in the
-reference.
+reference. ``remat`` recomputes each encoder block in the backward (JAX's
+``remat``, bifold_tpu/models/backbones/siglip_backbone.py:58-81).
 """
 
 from __future__ import annotations
@@ -48,11 +49,13 @@ SIGLIP_BASE_CONFIGS = {
 }
 
 
-def _encoder(cfg: SiglipConfig, lora_rank, lora_alpha, lora_dropout, dtype):
+def _encoder(cfg: SiglipConfig, lora_rank, lora_alpha, lora_dropout, dtype,
+             remat):
     return Transformer(cfg.hidden_size, cfg.layers, cfg.heads, cfg.mlp_dim,
                        dim_head=cfg.hidden_size // cfg.heads, fused_qkv=False,
                        lora_rank=lora_rank, lora_alpha=lora_alpha,
-                       lora_dropout=lora_dropout, ln_eps=1e-6, dtype=dtype)
+                       lora_dropout=lora_dropout, ln_eps=1e-6, dtype=dtype,
+                       remat=remat)
 
 
 class _VisionEmbeddings(nn.Module):
@@ -65,10 +68,11 @@ class _VisionEmbeddings(nn.Module):
 
 class SiglipVisionTower(nn.Module):
     def __init__(self, cfg: SiglipConfig, lora_rank=0, lora_alpha=1.0,
-                 lora_dropout=0.0, dtype=torch.float32):
+                 lora_dropout=0.0, dtype=torch.float32, remat=False):
         super().__init__()
         self.embeddings = _VisionEmbeddings(cfg)
-        self.encoder = _encoder(cfg, lora_rank, lora_alpha, lora_dropout, dtype)
+        self.encoder = _encoder(cfg, lora_rank, lora_alpha, lora_dropout, dtype,
+                                remat)
         self.post_layernorm = LayerNorm(cfg.hidden_size, 1e-6, dtype)
         self.dtype = dtype
 
@@ -92,10 +96,11 @@ class _TextEmbeddings(nn.Module):
 
 class SiglipTextTower(nn.Module):
     def __init__(self, cfg: SiglipConfig, lora_rank=0, lora_alpha=1.0,
-                 lora_dropout=0.0, dtype=torch.float32):
+                 lora_dropout=0.0, dtype=torch.float32, remat=False):
         super().__init__()
         self.embeddings = _TextEmbeddings(cfg)
-        self.encoder = _encoder(cfg, lora_rank, lora_alpha, lora_dropout, dtype)
+        self.encoder = _encoder(cfg, lora_rank, lora_alpha, lora_dropout, dtype,
+                                remat)
         self.final_layer_norm = LayerNorm(cfg.hidden_size, 1e-6, dtype)
         self.dtype = dtype
 
@@ -112,10 +117,12 @@ class SiglipBackbone(nn.Module):
     """Both towers, under ``model`` when LoRA wraps them (peft naming)."""
 
     def __init__(self, cfg: SiglipConfig, lora_rank=0, lora_alpha=1.0,
-                 dtype=torch.float32, lora_dropout=0.0):
+                 dtype=torch.float32, lora_dropout=0.0, remat=False):
         super().__init__()
-        vision = SiglipVisionTower(cfg, lora_rank, lora_alpha, lora_dropout, dtype)
-        text = SiglipTextTower(cfg, lora_rank, lora_alpha, lora_dropout, dtype)
+        vision = SiglipVisionTower(cfg, lora_rank, lora_alpha, lora_dropout,
+                                   dtype, remat)
+        text = SiglipTextTower(cfg, lora_rank, lora_alpha, lora_dropout, dtype,
+                               remat)
         holder = self
         if lora_rank > 0:
             self.model = nn.Module()

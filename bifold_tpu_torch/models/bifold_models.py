@@ -40,13 +40,22 @@ from bifold_tpu_torch.models.backbones import (
 from bifold_tpu_torch.models.dropout import Dropout
 from bifold_tpu_torch.models.layers import linear
 from bifold_tpu_torch.models.norm import BatchNorm
-from bifold_tpu_torch.models.pickplace import PickPlaceConvDecoder, head_names
+from bifold_tpu_torch.models.pickplace import (PICK_PLACE, PickPlaceConvDecoder,
+                                               head_names)
 
 __all__ = ["SigLip", "SiglipSequential", "RGBOnly", "TextConditionedUNet"]
 
 
 class SigLip(nn.Module):
-    """SigLIP dual encoder + learned modality tokens + pick/place head."""
+    """SigLIP dual encoder + learned modality tokens + pick/place head.
+
+    ``pick_place_model`` and ``fusion_model`` name the head and its fusion
+    (bifold_tpu/models/bifold_models.py:34-46, :107-117); ``moe_experts`` >
+    0 makes the concat fusion's FFNs Mixtures of Experts, and in ``train()``
+    mode the output then carries ``moe_losses``, the (layers,) float32
+    load-balance losses of every MoE layer, which the train step weighs in
+    with ``moe_aux_weight`` (JAX sows them into ``moe_losses``). ``remat``
+    recomputes every tower and fusion block in the backward."""
 
     def __init__(self, image_size: int, is_bimanual: bool, patch_size: int = 16,
                  automodel_name: str = "google/siglip-base-patch16-224",
@@ -56,8 +65,15 @@ class SigLip(nn.Module):
                  constrain_pick_mask: bool = True,
                  legacy_query_mask: bool = False, lora_dropout: float = 0.01,
                  dropout: float = 0.0, emb_dropout: float = 0.0,
+                 pick_place_model: str = "pick_place_convdecoder",
+                 fusion_model: str = "concat_transformer", moe_experts: int = 0,
+                 moe_top_k: int = 1, moe_capacity_factor: float = 1.25,
+                 moe_aux_weight: float = 0.01, remat: bool = False,
                  dtype=torch.float32):
         super().__init__()
+        if pick_place_model not in PICK_PLACE:
+            raise ValueError(f"unknown pick_place_model {pick_place_model!r} "
+                             f"(have {sorted(PICK_PLACE)})")
         self.image_size = image_size
         self.is_bimanual = is_bimanual
         self.dim = dim
@@ -71,23 +87,40 @@ class SigLip(nn.Module):
                            mlp_dim=base.mlp_dim, vocab_size=base.vocab_size,
                            max_text_len=base.max_text_len)
         self.siglip_model = SiglipBackbone(cfg, r if lora else 0, lora_alpha,
-                                           dtype, lora_dropout=lora_dropout)
+                                           dtype, lora_dropout=lora_dropout,
+                                           remat=remat)
         self.image_token = nn.Parameter(torch.zeros(1, 1, dim))
         self.text_token = nn.Parameter(torch.zeros(1, 1, dim))
-        self.pick_place = PickPlaceConvDecoder(
-            dim, is_bimanual, self.num_patches, heads, depth, mlp_ratio,
-            legacy_query_mask, dropout, dtype)
+        self.moe_experts = moe_experts
+        self.moe_aux_weight = moe_aux_weight
+        fusion_kwargs = dict(heads=heads, depth=depth, dropout=dropout,
+                             mlp_ratio=mlp_ratio, moe_experts=moe_experts,
+                             moe_top_k=moe_top_k,
+                             moe_capacity_factor=moe_capacity_factor,
+                             legacy_query_mask=legacy_query_mask, remat=remat)
+        self.pick_place = PICK_PLACE[pick_place_model](
+            dim, is_bimanual, self.num_patches, patch_size, fusion_model,
+            fusion_kwargs, dtype=dtype)
 
     def _with_token(self, feats, token):
         b = feats.shape[0]
         return torch.cat([token.to(feats.dtype).expand(b, 1, self.dim), feats],
                          dim=1)
 
+    def _head(self, *inputs, **kwargs):
+        """The pick/place head's output, with ``moe_losses`` in train mode
+        when the fusion has MoE layers."""
+        aux = []
+        out = self.pick_place(*inputs, aux=aux, **kwargs)
+        if aux and self.training:
+            out["moe_losses"] = torch.stack([a.float() for a in aux])
+        return out
+
     def forward(self, sample):
         text = self.siglip_model.encode_text(sample["instruction"])
         image = self.siglip_model.encode_image(sample["rgb"])
-        return self.pick_place(self._with_token(text, self.text_token),
-                               self._with_token(image, self.image_token))
+        return self._head(self._with_token(text, self.text_token),
+                          self._with_token(image, self.image_token))
 
 
 class SiglipSequential(SigLip):
@@ -126,8 +159,8 @@ class SiglipSequential(SigLip):
         attention_masks = torch.cat(
             [ones, ctx_mask.repeat_interleave(n, dim=1),
              torch.ones((b, n), dtype=torch.int32, device=rgb.device)], dim=1)
-        return self.pick_place(text, ctx_feats, image, modalities=[0, 1, 1],
-                               attention_masks=attention_masks)
+        return self._head(text, ctx_feats, image, modalities=[0, 1, 1],
+                          attention_masks=attention_masks)
 
 
 class RGBOnly(nn.Module):
@@ -135,14 +168,17 @@ class RGBOnly(nn.Module):
     bifold_models.py:208-279): image tokens (CLS + patches, after ln_post)
     projected to the text width plus ``rgb_pos_embedding``; text tokens
     after ln_final behind ``text_token``, plus ``text_pos_embedding``;
-    both through their dropouts, then the concat fusion at the text width."""
+    both through their dropouts, then the concat fusion at the text width
+    (its blocks recomputed in the backward under ``remat``, as JAX's
+    bifold_models.py:277 has it; the CLIP towers never are)."""
 
     def __init__(self, image_size: int, is_bimanual: bool, patch_size: int = 16,
                  text_encoder: str = "ViT-B/16", text_dropout: float = 0.0,
                  rgb_dropout: float = 0.0, threshold: float = 0.5,
                  depth: int = 8, heads: int = 16, mlp_ratio: int = 4,
                  dropout: float = 0.0, constrain_pick_mask: bool = True,
-                 legacy_query_mask: bool = False, dtype=torch.float32):
+                 legacy_query_mask: bool = False, remat: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         if text_encoder not in CLIP_CONFIGS:
             raise ValueError(
@@ -166,8 +202,11 @@ class RGBOnly(nn.Module):
         self.rgb_dropout = Dropout(rgb_dropout)
         self.text_dropout = Dropout(text_dropout)
         self.pick_place = PickPlaceConvDecoder(
-            dim, is_bimanual, self.num_patches, heads, depth, mlp_ratio,
-            legacy_query_mask, dropout, dtype)
+            dim, is_bimanual, self.num_patches, patch_size,
+            fusion_kwargs=dict(heads=heads, depth=depth, mlp_ratio=mlp_ratio,
+                               legacy_query_mask=legacy_query_mask,
+                               dropout=dropout, remat=remat),
+            dtype=dtype)
 
     def forward(self, sample):
         clip = self.clip_encoder

@@ -23,6 +23,16 @@ checkpoint holds:
 - the fusion stack as ``pick_place.fusion.transformer_encoder.layers.i.{0,1}``;
 - the conv decoder heads at ``decoder_net.{0,2,4,6,8}``.
 
+The head, fusion and FFN variants the reference's converter names nothing
+for (the JAX package's raises for MoE) follow the JAX parameter paths:
+``pick_place.{pick,place,pick_place}_fusion`` beside ``pick_place.fusion``;
+``<fusion>.registers``; an MoE FFN at ``...layers.i.1.fn.{router,w1,b1,w2,b2}``
+and cross-attention at ``<fusion>.cross_attention.{query,key,value,out}
+.{kernel,bias}``, both in JAX's shapes; the transformer decoders at
+``pick_place.{pick,place}_decoder`` and ``pick_place.mask_head`` as
+``decoder_embed``, ``blocks.layers.i`` (the HF block names),
+``decoder_norm``, ``decoder_pred``.
+
 ``text_unet`` carries BatchNorm statistics besides its params:
 ``convert_text_unet`` / ``convert_text_unet_inverse`` move (params,
 batch_stats) and the state dict's ``running_mean`` / ``running_var``
@@ -252,52 +262,93 @@ def convert_bifold(sd: Dict, *, scan_layers: bool = True) -> Dict:
         if name in sd:
             out[name] = _np(sd[name])
 
-    # fusion: token-type embeddings + pre-norm transformer
     pp: Dict[str, Any] = {}
-    if "pick_place.fusion.token_type_embeddings.weight" in sd:
-        fusion: Dict[str, Any] = {
-            "token_type_embeddings": {
-                "embedding": _np(sd["pick_place.fusion.token_type_embeddings.weight"])}
-        }
-        depth = _max_index(sd, r"pick_place\.fusion\.transformer_encoder\.layers\.")
-        blocks = []
-        for i in range(depth):
-            p = f"pick_place.fusion.transformer_encoder.layers.{i}"
-            # reference layer = [PreNorm(Attention), PreNorm(FeedForward)];
-            # to_out is Sequential(Linear, Dropout)
-            blocks.append({
-                "norm1": _ln(sd, f"{p}.0.norm"),
-                "attn": {
-                    "to_qkv": {"kernel": _np(sd[f"{p}.0.fn.to_qkv.weight"]).T},
-                    "out_proj": _linear(sd, f"{p}.0.fn.to_out.0"),
-                },
-                "norm2": _ln(sd, f"{p}.1.norm"),
-                "mlp": {"fc1": _linear(sd, f"{p}.1.fn.net.0"),
-                        "fc2": _linear(sd, f"{p}.1.fn.net.3")},
-            })
-        fusion["transformer_encoder"] = _stack_blocks(blocks, scan_layers)
-        if "pick_place.fusion.registers" in sd:
-            fusion["registers"] = _np(sd["pick_place.fusion.registers"])
-        pp["fusion"] = fusion
-
-    # ConvDecoder heads: 1x1 convs at Sequential slots 0, 2, 4, 6, 8
-    heads = ("pick_decoder", "place_decoder", "left_pick_decoder",
-             "right_pick_decoder", "left_place_decoder", "right_place_decoder",
-             "mask_head")
-    for head in heads:
-        if f"pick_place.{head}.decoder_net.0.weight" not in sd:
-            continue
-        dec = {}
-        for j, slot in enumerate((0, 2, 4, 6, 8)):
-            w = _np(sd[f"pick_place.{head}.decoder_net.{slot}.weight"])
-            dec[f"conv{j}"] = {
-                "kernel": w[:, :, 0, 0].T,  # (out, in, 1, 1) -> (in, out)
-                "bias": _np(sd[f"pick_place.{head}.decoder_net.{slot}.bias"]),
-            }
-        pp[head] = dec
+    for name in _FUSIONS:
+        if f"pick_place.{name}.token_type_embeddings.weight" in sd:
+            pp[name] = _fusion_tree(sd, f"pick_place.{name}", scan_layers)
+    for head in _HEADS:
+        p = f"pick_place.{head}"
+        if f"{p}.decoder_net.0.weight" in sd:
+            pp[head] = _conv_decoder_tree(sd, p)
+        elif f"{p}.decoder_embed.weight" in sd:
+            pp[head] = _trans_decoder_tree(sd, p, scan_layers)
     if pp:
         out["pick_place"] = pp
     return out
+
+
+# the fusions of the heads (pick_place_convdecoder's one, the transformer
+# decoder's two and its optional place-on-pick conditioning) and the decoders
+_FUSIONS = ("fusion", "pick_fusion", "place_fusion", "pick_place_fusion")
+_HEADS = ("pick_decoder", "place_decoder", "left_pick_decoder",
+          "right_pick_decoder", "left_place_decoder", "right_place_decoder",
+          "mask_head")
+_MOE = ("router", "w1", "b1", "w2", "b2")
+_CROSS = ("query", "key", "value", "out")
+
+
+def _fusion_tree(sd: Dict, prefix: str, scan_layers: bool) -> Dict:
+    """A fusion's keys under ``prefix`` -> its JAX subtree: the token-type
+    embeddings, then the cross-attention's DenseGeneral kernels (kept in
+    their layout) or the concat stack (reference layer = [PreNorm(Attention),
+    PreNorm(FeedForward)], to_out = Sequential(Linear, Dropout); an MoE FFN
+    at ``1.fn.{router,w1,b1,w2,b2}``) and its registers."""
+    fusion: Dict[str, Any] = {"token_type_embeddings": {
+        "embedding": _np(sd[f"{prefix}.token_type_embeddings.weight"])}}
+    if f"{prefix}.cross_attention.query.kernel" in sd:
+        fusion["cross_attention"] = {
+            proj: {leaf: _np(sd[f"{prefix}.cross_attention.{proj}.{leaf}"])
+                   for leaf in ("kernel", "bias")} for proj in _CROSS}
+        return fusion
+    stack = f"{prefix}.transformer_encoder.layers"
+    blocks = []
+    for i in range(_max_index(sd, re.escape(stack) + r"\.")):
+        p = f"{stack}.{i}"
+        if f"{p}.1.fn.router" in sd:
+            mlp = {k: _np(sd[f"{p}.1.fn.{k}"]) for k in _MOE}
+        else:
+            mlp = {"fc1": _linear(sd, f"{p}.1.fn.net.0"),
+                   "fc2": _linear(sd, f"{p}.1.fn.net.3")}
+        blocks.append({
+            "norm1": _ln(sd, f"{p}.0.norm"),
+            "attn": {"to_qkv": {"kernel": _np(sd[f"{p}.0.fn.to_qkv.weight"]).T},
+                     "out_proj": _linear(sd, f"{p}.0.fn.to_out.0")},
+            "norm2": _ln(sd, f"{p}.1.norm"),
+            "mlp": mlp})
+    fusion["transformer_encoder"] = _stack_blocks(blocks, scan_layers)
+    if f"{prefix}.registers" in sd:
+        fusion["registers"] = _np(sd[f"{prefix}.registers"])
+    return fusion
+
+
+def _conv_decoder_tree(sd: Dict, prefix: str) -> Dict:
+    """ConvDecoder head: 1x1 convs at Sequential slots 0, 2, 4, 6, 8."""
+    dec = {}
+    for j, slot in enumerate((0, 2, 4, 6, 8)):
+        w = _np(sd[f"{prefix}.decoder_net.{slot}.weight"])
+        dec[f"conv{j}"] = {"kernel": w[:, :, 0, 0].T,  # (out, in, 1, 1) -> (in, out)
+                           "bias": _np(sd[f"{prefix}.decoder_net.{slot}.bias"])}
+    return dec
+
+
+def _trans_decoder_tree(sd: Dict, prefix: str, scan_layers: bool) -> Dict:
+    """TransformerDecoder head: ``decoder_embed``, the blocks (separate
+    biased q/k/v, the JAX Transformer's ``blocks`` subtree), ``decoder_norm``
+    and ``decoder_pred``."""
+    stack = f"{prefix}.blocks.layers"
+    blocks = []
+    for i in range(_max_index(sd, re.escape(stack) + r"\.")):
+        p = f"{stack}.{i}"
+        blocks.append({
+            "norm1": _ln(sd, f"{p}.layer_norm1"), "norm2": _ln(sd, f"{p}.layer_norm2"),
+            "attn": {proj: _linear(sd, f"{p}.self_attn.{proj}")
+                     for proj in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "mlp": {"fc1": _linear(sd, f"{p}.mlp.fc1"),
+                    "fc2": _linear(sd, f"{p}.mlp.fc2")}})
+    return {"decoder_embed": _linear(sd, f"{prefix}.decoder_embed"),
+            "blocks": _stack_blocks(blocks, scan_layers),
+            "decoder_norm": _ln(sd, f"{prefix}.decoder_norm"),
+            "decoder_pred": _linear(sd, f"{prefix}.decoder_pred")}
 
 
 _TOKENS = ("text_token", "image_token", "context_pos_embedding",
@@ -456,35 +507,22 @@ def _inv_siglip(out: Dict, sig: Dict) -> None:
 
 
 def _inv_head(out: Dict, params: Dict) -> None:
-    """The learned tokens and position embeddings, the fusion stack and the
-    conv decoder heads."""
+    """The learned tokens and position embeddings, the fusions and the
+    decoder heads."""
     for name in _TOKENS:
         if name in params:
             out[name] = _arr(params[name])
     pp = params.get("pick_place")
     if pp is None:
         return
-    fusion = pp["fusion"]
-    out["pick_place.fusion.token_type_embeddings.weight"] = \
-        _arr(fusion["token_type_embeddings"]["embedding"])
-    if "registers" in fusion:
-        raise NotImplementedError("fusion registers are not ported")
-    for i, blk in enumerate(_unstack_blocks(fusion["transformer_encoder"])):
-        if "fc1" not in blk.get("mlp", {}):
-            raise NotImplementedError("MoE fusion FFNs have no reference-format "
-                                      "equivalent")
-        p = f"pick_place.fusion.transformer_encoder.layers.{i}"
-        _inv_ln(out, f"{p}.0.norm", blk["norm1"])
-        out[f"{p}.0.fn.to_qkv.weight"] = \
-            _arr(blk["attn"]["to_qkv"]["kernel"]).T
-        _inv_linear(out, f"{p}.0.fn.to_out.0", blk["attn"]["out_proj"])
-        _inv_ln(out, f"{p}.1.norm", blk["norm2"])
-        _inv_linear(out, f"{p}.1.fn.net.0", blk["mlp"]["fc1"])
-        _inv_linear(out, f"{p}.1.fn.net.3", blk["mlp"]["fc2"])
-    for head in ("pick_decoder", "place_decoder", "left_pick_decoder",
-                 "right_pick_decoder", "left_place_decoder",
-                 "right_place_decoder"):
+    for name in _FUSIONS:
+        if name in pp:
+            _inv_fusion(out, f"pick_place.{name}", pp[name])
+    for head in _HEADS:
         if head not in pp:
+            continue
+        if "decoder_embed" in pp[head]:
+            _inv_trans_decoder(out, f"pick_place.{head}", pp[head])
             continue
         for j, slot in enumerate((0, 2, 4, 6, 8)):
             conv = pp[head][f"conv{j}"]
@@ -492,6 +530,46 @@ def _inv_head(out: Dict, params: Dict) -> None:
                 _arr(conv["kernel"]).T[:, :, None, None]
             out[f"pick_place.{head}.decoder_net.{slot}.bias"] = \
                 _arr(conv["bias"])
+
+
+def _inv_fusion(out: Dict, prefix: str, fusion: Dict) -> None:
+    out[f"{prefix}.token_type_embeddings.weight"] = \
+        _arr(fusion["token_type_embeddings"]["embedding"])
+    if "cross_attention" in fusion:
+        for proj in _CROSS:
+            for leaf in ("kernel", "bias"):
+                out[f"{prefix}.cross_attention.{proj}.{leaf}"] = \
+                    _arr(fusion["cross_attention"][proj][leaf])
+        return
+    if "registers" in fusion:
+        out[f"{prefix}.registers"] = _arr(fusion["registers"])
+    for i, blk in enumerate(_unstack_blocks(fusion["transformer_encoder"])):
+        p = f"{prefix}.transformer_encoder.layers.{i}"
+        _inv_ln(out, f"{p}.0.norm", blk["norm1"])
+        out[f"{p}.0.fn.to_qkv.weight"] = \
+            _arr(blk["attn"]["to_qkv"]["kernel"]).T
+        _inv_linear(out, f"{p}.0.fn.to_out.0", blk["attn"]["out_proj"])
+        _inv_ln(out, f"{p}.1.norm", blk["norm2"])
+        if "router" in blk["mlp"]:
+            for k in _MOE:
+                out[f"{p}.1.fn.{k}"] = _arr(blk["mlp"][k])
+        else:
+            _inv_linear(out, f"{p}.1.fn.net.0", blk["mlp"]["fc1"])
+            _inv_linear(out, f"{p}.1.fn.net.3", blk["mlp"]["fc2"])
+
+
+def _inv_trans_decoder(out: Dict, prefix: str, dec: Dict) -> None:
+    _inv_linear(out, f"{prefix}.decoder_embed", dec["decoder_embed"])
+    for i, blk in enumerate(_unstack_blocks(dec["blocks"])):
+        p = f"{prefix}.blocks.layers.{i}"
+        _inv_ln(out, f"{p}.layer_norm1", blk["norm1"])
+        _inv_ln(out, f"{p}.layer_norm2", blk["norm2"])
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _inv_linear(out, f"{p}.self_attn.{proj}", blk["attn"][proj])
+        _inv_linear(out, f"{p}.mlp.fc1", blk["mlp"]["fc1"])
+        _inv_linear(out, f"{p}.mlp.fc2", blk["mlp"]["fc2"])
+    _inv_ln(out, f"{prefix}.decoder_norm", dec["decoder_norm"])
+    _inv_linear(out, f"{prefix}.decoder_pred", dec["decoder_pred"])
 
 
 # ---------------------------------------------------------------------------

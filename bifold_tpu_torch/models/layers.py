@@ -1,8 +1,9 @@
 """Shared building blocks: LayerNorm, GELUs, attention, MLP, transformer.
 
-Counterparts of bifold_tpu/models/layers.py:53-161, 164-211, 214-305 and
-372-439/511+. Parameters are float32 (or pre-cast: frozen ones by
-``precast_frozen``, all big ones by the serving path); every layer computes
+Counterparts of bifold_tpu/models/layers.py:53-161, 164-211, 214-439,
+511+ and 780-799 (``get_2d_sincos_pos_embed``). Parameters are float32
+(or pre-cast: frozen ones by ``precast_frozen``, all big ones by the
+serving path); every layer computes
 in its ``dtype`` by casting weights at use, as flax does, with LayerNorm
 statistics and GELUs in float32. Dropout sits where the JAX package puts it
 (:class:`~bifold_tpu_torch.models.dropout.Dropout`, train mode only): the
@@ -19,6 +20,12 @@ with one add left at the end of the stack. Unset, the same Function runs
 the kernels' plain versions and nothing else changes. Every LayerNorm Function and both GELUs save what JAX's custom
 VJPs save: the norm's input (or s), the f32 row stats and scale; the GELU's
 input.
+
+A fusion block's FFN may be a Mixture of Experts (:class:`MoEFeedForward`,
+bifold_tpu/models/layers.py:308-400): the stack then hands each layer's
+load-balance loss back through ``forward(..., aux=list)``, where JAX sows
+it. ``remat`` (bifold_tpu/models/layers.py:473-504) recomputes each block
+in the backward (:func:`run_blocks`), replaying its dropout draws.
 
 Module names follow the reference torch checkpoints so that a converted
 state dict loads with ``strict=True``:
@@ -41,20 +48,25 @@ state dict loads with ``strict=True``:
 
 from __future__ import annotations
 
+import contextlib
 import math
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from bifold_tpu_torch.models.dropout import Dropout
 from bifold_tpu_torch.models.lora import LORA_TARGETS, LoRALinear
 from bifold_tpu_torch.ops import layer_norm as ln_ops
 from bifold_tpu_torch.ops.attention import dot_product_attention
+from bifold_tpu_torch.ops.moe import moe_ffn
 
 __all__ = ["LayerNorm", "gelu_tanh", "gelu_exact", "quick_gelu", "GELU",
-           "linear", "MultiHeadAttention", "FeedForward", "TransformerBlock",
-           "FusionBlock", "Transformer", "ClipResidualBlock", "ClipTransformer"]
+           "linear", "MultiHeadAttention", "FeedForward", "MoEFeedForward",
+           "TransformerBlock", "FusionBlock", "Transformer", "run_blocks",
+           "ClipResidualBlock", "ClipTransformer", "get_2d_sincos_pos_embed"]
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -282,18 +294,52 @@ class MultiHeadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """The towers' MLP: Linear -> gelu-tanh -> Linear, HF names ``fc1`` /
-    ``fc2``."""
+    """The towers' MLP: Linear -> ``activation`` (gelu-tanh, the SigLIP
+    towers'; exact gelu in the transformer decoder) -> Linear, HF names
+    ``fc1`` / ``fc2``."""
 
-    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32):
+    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32,
+                 activation=gelu_tanh):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
         self.dtype = dtype
+        self.activation = activation
 
     def forward(self, x):
-        return linear(gelu_tanh(linear(x, self.fc1, self.dtype)), self.fc2,
+        return linear(self.activation(linear(x, self.fc1, self.dtype)), self.fc2,
                       self.dtype)
+
+
+class MoEFeedForward(nn.Module):
+    """The Mixture-of-Experts FFN of a fusion block
+    (bifold_tpu/models/layers.py:308-369): parameters ``router`` (D, E),
+    ``w1`` (E, D, H), ``b1`` (E, H), ``w2`` (E, H, D), ``b2`` (E, D) in
+    JAX's shapes, :func:`~bifold_tpu_torch.ops.moe.moe_ffn` over the input
+    in ``dtype`` (its expert math in float32), then ``dropout``. Returns
+    (out, aux): aux is the layer's Switch load-balance loss, which JAX sows
+    into ``moe_losses``."""
+
+    def __init__(self, dim: int, hidden_dim: int, num_experts: int,
+                 top_k: int = 1, capacity_factor: float = 1.25,
+                 dropout: float = 0.0, dtype=torch.float32):
+        super().__init__()
+        e = num_experts
+        self.router = nn.Parameter(torch.zeros(dim, e))
+        self.w1 = nn.Parameter(torch.zeros(e, dim, hidden_dim))
+        self.b1 = nn.Parameter(torch.zeros(e, hidden_dim))
+        self.w2 = nn.Parameter(torch.zeros(e, hidden_dim, dim))
+        self.b2 = nn.Parameter(torch.zeros(e, dim))
+        self.top_k = top_k
+        self.capacity_factor = capacity_factor
+        self.dropout = Dropout(dropout)
+        self.dtype = dtype
+
+    def forward(self, x):
+        params = {k: getattr(self, k) for k in ("router", "w1", "b1", "w2", "b2")}
+        out, aux = moe_ffn(x.to(self.dtype), params, top_k=self.top_k,
+                           capacity_factor=self.capacity_factor, return_aux=True)
+        return self.dropout(out), aux
 
 
 class TransformerBlock(nn.Module):
@@ -305,14 +351,14 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, dim, heads, mlp_dim, dim_head=None, lora_rank=0,
                  lora_alpha=1.0, lora_dropout=0.0, ln_eps=1e-6,
-                 dtype=torch.float32):
+                 dtype=torch.float32, activation=gelu_tanh):
         super().__init__()
         self.layer_norm1 = LayerNorm(dim, ln_eps, dtype)
         self.self_attn = MultiHeadAttention(
             dim, heads, dim_head, fused_qkv=False, lora_rank=lora_rank,
             lora_alpha=lora_alpha, lora_dropout=lora_dropout, dtype=dtype)
         self.layer_norm2 = LayerNorm(dim, ln_eps, dtype)
-        self.mlp = FeedForward(dim, mlp_dim, dtype)
+        self.mlp = FeedForward(dim, mlp_dim, dtype, activation)
 
     def forward(self, x, key_mask=None, *, pending=None,
                 legacy_query_mask=None):
@@ -335,7 +381,8 @@ class _PreNorm(nn.Module):
 
 class _SequentialFeedForward(nn.Module):
     """The reference fusion MLP: ``net`` = Linear, GELU, Dropout, Linear,
-    Dropout (parameters at net.0 and net.3), evaluated in ``dtype``."""
+    Dropout (parameters at net.0 and net.3), evaluated in ``dtype``.
+    Returns (out, None), as :class:`MoEFeedForward` returns (out, aux)."""
 
     def __init__(self, dim, hidden_dim, dropout, dtype):
         super().__init__()
@@ -347,23 +394,30 @@ class _SequentialFeedForward(nn.Module):
     def forward(self, x):
         net = self.net
         h = net[2](net[1](linear(x, net[0], self.dtype)))
-        return net[4](linear(h, net[3], self.dtype))
+        return net[4](linear(h, net[3], self.dtype)), None
 
 
 class FusionBlock(nn.ModuleList):
     """The same pre-norm block with the reference fusion transformer's names
     (``[PreNorm(Attention), PreNorm(FeedForward)]``), exact GELU, and the
-    same ``pending`` wiring."""
+    same ``pending`` wiring. With ``moe_experts`` > 0 the FFN is a
+    :class:`MoEFeedForward` (parameters at ``1.fn.{router,w1,b1,w2,b2}``).
+    Returns (the block's output, the MoE aux loss or None)."""
 
     def __init__(self, dim, heads, mlp_dim, dim_head=None, ln_eps=1e-5,
-                 dropout=0.0, dtype=torch.float32):
+                 dropout=0.0, dtype=torch.float32, moe_experts=0, moe_top_k=1,
+                 moe_capacity_factor=1.25):
+        if moe_experts > 0:
+            ffn = MoEFeedForward(dim, mlp_dim, moe_experts, moe_top_k,
+                                 moe_capacity_factor, dropout, dtype)
+        else:
+            ffn = _SequentialFeedForward(dim, mlp_dim, dropout, dtype)
         super().__init__([
             _PreNorm(dim, MultiHeadAttention(dim, heads, dim_head,
                                              fused_qkv=True, dropout=dropout,
                                              dtype=dtype),
                      ln_eps, dtype),
-            _PreNorm(dim, _SequentialFeedForward(dim, mlp_dim, dropout, dtype),
-                     ln_eps, dtype),
+            _PreNorm(dim, ffn, ln_eps, dtype),
         ])
 
     def forward(self, x, key_mask=None, *, pending=None,
@@ -372,55 +426,123 @@ class FusionBlock(nn.ModuleList):
         if pending is None:
             x = x + attn.fn(attn.norm(x), key_mask,
                             legacy_query_mask=legacy_query_mask)
-            return x + ff.fn(ff.norm(x))
+            h, aux = ff.fn(ff.norm(x))
+            return x + h, aux
         s1, n1 = attn.norm(x, residual=pending)
         a = attn.fn(n1, key_mask, legacy_query_mask=legacy_query_mask)
         s2, n2 = ff.norm(s1, residual=a)
-        return s2, ff.fn(n2)
+        h, aux = ff.fn(n2)
+        return (s2, h), aux
 
 
 class Transformer(nn.Module):
     """Stack of ``depth`` pre-norm blocks under ``layers``: HF-named
-    :class:`TransformerBlock` (gelu-tanh) for the towers, :class:`FusionBlock`
-    (exact gelu) for the fusion stack (``fused_qkv``, with ``dropout``);
-    the towers take ``lora_dropout`` on their adapters. Under
-    ``BIFOLD_LN_KERNEL=fused`` the stack carries (x, zeros) through the
-    blocks' ``pending`` wiring and returns s + pending, as
-    bifold_tpu/models/layers.py:687-693 and 747-750 do; the state dict is
-    the same either way."""
+    :class:`TransformerBlock` (gelu-tanh for the towers, ``activation``
+    otherwise) or :class:`FusionBlock` (exact gelu) for the fusion stack
+    (``fused_qkv``, with ``dropout`` and the MoE options); the towers take
+    ``lora_dropout`` on their adapters. Under ``BIFOLD_LN_KERNEL=fused`` the
+    stack carries (x, zeros) through the blocks' ``pending`` wiring and
+    returns s + pending, as bifold_tpu/models/layers.py:687-693 and 747-750
+    do; the state dict is the same either way. ``remat`` recomputes each
+    block in the backward (:func:`run_blocks`). ``forward(..., aux=list)``
+    appends each MoE block's load-balance loss to the list."""
 
     def __init__(self, dim, depth, heads, mlp_dim, dim_head=None,
                  fused_qkv=True, lora_rank=0, lora_alpha=1.0, lora_dropout=0.0,
-                 dropout=0.0, ln_eps=1e-6, dtype=torch.float32):
+                 dropout=0.0, ln_eps=1e-6, dtype=torch.float32, remat=False,
+                 moe_experts=0, moe_top_k=1, moe_capacity_factor=1.25,
+                 activation=gelu_tanh):
         super().__init__()
         if fused_qkv:
             blocks = [FusionBlock(dim, heads, mlp_dim, dim_head, ln_eps,
-                                  dropout, dtype)
+                                  dropout, dtype, moe_experts, moe_top_k,
+                                  moe_capacity_factor)
                       for _ in range(depth)]
         else:
             blocks = [TransformerBlock(dim, heads, mlp_dim, dim_head,
                                        lora_rank, lora_alpha, lora_dropout,
-                                       ln_eps, dtype)
+                                       ln_eps, dtype, activation)
                       for _ in range(depth)]
         self.layers = nn.ModuleList(blocks)
+        self.remat = remat
 
-    def forward(self, x, key_mask=None, *, legacy_query_mask=None):
-        return run_blocks(self.layers, x, key_mask, legacy_query_mask)
+    def forward(self, x, key_mask=None, *, legacy_query_mask=None, aux=None):
+        return run_blocks(self.layers, x, key_mask, legacy_query_mask,
+                          remat=self.remat, aux=aux)
 
 
-def run_blocks(blocks, x, key_mask=None, legacy_query_mask=None):
+def _dropout_generators(module: nn.Module):
+    """The distinct generators the dropouts of ``module`` draw from."""
+    gens = {}
+    for mod in module.modules():
+        if isinstance(mod, Dropout) and mod.generator is not None:
+            gens[id(mod.generator)] = mod.generator
+    return list(gens.values())
+
+
+def _replay_dropout(gens):
+    """``context_fn`` for :func:`torch.utils.checkpoint.checkpoint`: the
+    forward records the generators' states, and the recompute in the
+    backward draws from those states (so it draws the forward's masks) and
+    leaves the generators as it found them. torch's own RNG-state
+    preservation covers only its default generators, and the port's
+    dropouts never draw from those."""
+    states = []
+
+    @contextlib.contextmanager
+    def forward():
+        states[:] = [g.get_state() for g in gens]
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        now = [g.get_state() for g in gens]
+        for g, state in zip(gens, states):
+            g.set_state(state)
+        try:
+            yield
+        finally:
+            for g, state in zip(gens, now):
+                g.set_state(state)
+
+    return forward(), recompute()
+
+
+def _call_block(block, carry, key_mask, legacy_query_mask, remat):
+    """One block on ``carry`` (x, or (x, pending) under the fused wiring)
+    -> (carry, MoE aux or None); under ``remat`` (and autograd) inside
+    :func:`torch.utils.checkpoint.checkpoint`, the block's dropout draws
+    replayed in the recompute."""
+    def run(*carry):
+        pending = carry[1] if len(carry) == 2 else None
+        out = block(carry[0], key_mask, pending=pending,
+                    legacy_query_mask=legacy_query_mask)
+        return out if isinstance(block, FusionBlock) else (out, None)
+
+    carry = carry if isinstance(carry, tuple) else (carry,)
+    if remat and torch.is_grad_enabled():
+        gens = _dropout_generators(block)
+        return checkpoint(run, *carry, use_reentrant=False,
+                          context_fn=lambda: _replay_dropout(gens))
+    return run(*carry)
+
+
+def run_blocks(blocks, x, key_mask=None, legacy_query_mask=None, *,
+               remat=False, aux=None):
     """x through a stack of pre-norm blocks; under ``BIFOLD_LN_KERNEL=fused``
     through their ``pending`` wiring, from (x, zeros), ending in s +
-    pending."""
-    if ln_ops.ln_mode() == "fused":
-        pending = torch.zeros_like(x)
-        for block in blocks:
-            x, pending = block(x, key_mask, pending=pending,
-                               legacy_query_mask=legacy_query_mask)
-        return x + pending
+    pending. ``remat``: each block recomputed in the backward instead of
+    keeping its activations (JAX's ``nn.remat`` per block,
+    bifold_tpu/models/layers.py:473-504). MoE blocks' load-balance losses
+    are appended to ``aux`` (a list) in block order."""
+    fused = ln_ops.ln_mode() == "fused"
+    carry = (x, torch.zeros_like(x)) if fused else x
     for block in blocks:
-        x = block(x, key_mask, legacy_query_mask=legacy_query_mask)
-    return x
+        carry, loss = _call_block(block, carry, key_mask, legacy_query_mask,
+                                  remat)
+        if loss is not None and aux is not None:
+            aux.append(loss)
+    return carry[0] + carry[1] if fused else carry
 
 
 class _ClipAttention(nn.Module):
@@ -500,3 +622,28 @@ class ClipTransformer(nn.Module):
 
     def forward(self, x, key_mask=None):
         return run_blocks(self.resblocks, x, key_mask)
+
+
+def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int,
+                            cls_token: bool = False) -> np.ndarray:
+    """Frozen 2-D sin-cos position embedding (MAE's; the JAX package's
+    bifold_tpu/models/layers.py:780-799): (P[+1], D) float32 numpy, the
+    first half of the channels for the w coordinate, the second for h, a
+    zero row first with ``cls_token``."""
+    if embed_dim % 2:
+        raise ValueError(f"embed_dim {embed_dim} must be even")
+
+    def one_dim(dim, pos):
+        omega = np.arange(dim // 2, dtype=np.float64) / (dim / 2.0)
+        omega = 1.0 / 10000 ** omega
+        out = np.einsum("m,d->md", pos.reshape(-1), omega)
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+    grid_h = np.arange(grid_size, dtype=np.float32)
+    grid_w = np.arange(grid_size, dtype=np.float32)
+    grid = np.stack(np.meshgrid(grid_w, grid_h), axis=0)     # w first
+    emb = np.concatenate([one_dim(embed_dim // 2, grid[0]),
+                          one_dim(embed_dim // 2, grid[1])], axis=1)
+    if cls_token:
+        emb = np.concatenate([np.zeros((1, embed_dim)), emb], axis=0)
+    return emb.astype(np.float32)

@@ -17,8 +17,10 @@ Counterpart of bifold_tpu/ops/flash_attention.py. Layout is the JAX one,
 Each wrapper takes its plain version (``*_plain``, the same math in eager
 torch) for a tensor on the CPU; a CUDA tensor launches the kernel or raises
 — there is no fallback. Each launch adds one to :data:`LAUNCHES` under
-``"<kernel>_d<head dim>"``: ``fwd_infer``, ``fwd_lse`` and ``bwd`` (one
-backward call enqueues its dk/dv and dq kernels together). The CPU tests
+``"<kernel>_d<head dim>"`` for a bfloat16 instance and
+``"<kernel>_d<head dim>_f32"`` for a float32 one: ``fwd_infer``,
+``fwd_lse`` and ``bwd`` (one backward call enqueues its dk/dv and dq
+kernels together). The CPU tests
 hold the plain versions against the JAX kernels; ``chip_smoke.py`` holds the
 CUDA kernels against the plain versions on the card.
 
@@ -56,8 +58,13 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
 _NEG = -100000.0  # the XLA backend's fill value
 KERNEL_HEAD_DIMS = (32, 48, 64)
 
-# launches of the CUDA kernels, keyed "<kernel>_d<head dim>"
+# launches of the CUDA kernels, keyed "<kernel>_d<head dim>" (bfloat16) or
+# "<kernel>_d<head dim>_f32"
 LAUNCHES: collections.Counter = collections.Counter()
+
+
+def _count(name: str, dtype: torch.dtype) -> None:
+    LAUNCHES[name + ("_f32" if dtype == torch.float32 else "")] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +226,7 @@ def _forward_on_card(q, k, v, key_mask, scale, *, with_lse):
     launch("flash_fwd", f"bifold_flash_{kernel}", q.device, *ptrs, b, nq,
            k.shape[1], h, d, _strides(q, k, v), float(scale),
            DTYPE_CODES[q.dtype])
-    LAUNCHES[f"{kernel}_d{d}"] += 1
+    _count(f"{kernel}_d{d}", q.dtype)
     return out, lse
 
 
@@ -255,7 +262,7 @@ def flash_attention_bwd(q, k, v, key_mask, out, lse, do, *, scale=None):
            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
            dv.data_ptr(), b, nq, k.shape[1], h, d, _strides(q, k, v),
            float(scale), DTYPE_CODES[q.dtype])
-    LAUNCHES[f"bwd_d{d}"] += 1
+    _count(f"bwd_d{d}", q.dtype)
     return dq, dk, dv
 
 

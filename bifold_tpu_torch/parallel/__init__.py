@@ -13,7 +13,11 @@ parameters only (the optimizer's, ``requires_grad``; frozen towers get no
 gradient and no dW work), and the optimizer updates them in place. Metrics
 are device tensors, read by the caller when it needs them: ``loss``,
 ``grad_norm`` and ``grad_norm_trainable`` (the same value here: frozen
-parameters carry no gradient), and the loss's per-head terms.
+parameters carry no gradient), and the loss's per-head terms. A model with
+MoE layers hands back their load-balance losses as ``moe_losses`` in its
+train-mode output; with ``moe_aux_weight`` their mean, times the weight, is
+added to the loss and reported as ``moe_load_balance``
+(bifold_tpu/parallel/__init__.py:383-392).
 
 BatchNorm running statistics (``text_unet``) move in the train-mode
 forward, in place, on every step, whatever the optimizer does with its
@@ -75,7 +79,8 @@ class TrainState:
 
 
 def make_train_step(model: nn.Module, loss_fn: Callable,
-                    optimizer: Optimizer) -> Callable:
+                    optimizer: Optimizer, *,
+                    moe_aux_weight: float = 0.0) -> Callable:
     """The train step over ``optimizer.params`` (the trainable parameters)."""
     params = optimizer.params
     device = params[0].device
@@ -88,8 +93,13 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
         set_dropout_generator(model, torch.Generator(device).manual_seed(seed))
         before = [b.clone() for b in buffers]
         try:
-            out = model(batch)
+            out = dict(model(batch))
+            moe_losses = out.pop("moe_losses", None)
             loss, inter = loss_fn(out, batch)
+            if moe_aux_weight and moe_losses is not None:
+                aux = moe_losses.float().mean()
+                loss = loss + moe_aux_weight * aux
+                inter = {**inter, "moe_load_balance": aux}
             grads = list(torch.autograd.grad(loss, params))
         except BaseException:
             with torch.no_grad():

@@ -153,14 +153,31 @@ def _stack_depths(names) -> Dict[str, int]:
     return {prefix: len(ids) for prefix, ids in layers.items()}
 
 
-def _reduce_dims(name: str, w: torch.Tensor):
-    """The dims one int8 scale covers: a Linear weight (out, in) reduces
+# parameters the port keeps in the JAX package's own layout: the MoE FFNs'
+# router and expert weights, the cross-attention's DenseGeneral kernels and
+# biases, the fusion registers
+_JAX_LAYOUT = re.compile(r"\.(router|w1|b1|w2|b2|registers)$"
+                         r"|\.cross_attention\.(query|key|value|out)\.(kernel|bias)$")
+
+
+def _reduce_dims(name: str, w: torch.Tensor, depth: int = 1):
+    """The dims one int8 scale covers. A parameter in JAX's layout
+    (:data:`_JAX_LAYOUT`) reduces over JAX's axes for its leaf (axis 0 of a
+    2-d leaf, axes 1 .. ndim-2 of a deeper one,
+    bifold_tpu/serving.py:165-166), the leaf's depth axis dropped when it is
+    a stack's: a stacked (E, D, H) expert weight over E and D, a stacked
+    router (D, E) over D. Otherwise: a Linear weight (out, in) reduces
     over ``in`` (JAX: axis 0 of (in, out), or 1 of (depth, in, out)), CLIP's
     ``text_projection``, kept (in, out) as in JAX, over dim 0; a conv weight
     (out, in, kh, kw) over ``in`` and ``kw`` (JAX: axes 1-2 of (kh, kw, in,
     out)), a transposed conv's (in, out, kh, kw) over ``in`` and ``kw``
     alike (JAX's taps are flipped, which moves no value between scales), so
     one scale per output channel and kernel row."""
+    if _JAX_LAYOUT.search(name):
+        stacked = int(depth > 1)
+        ndim = w.dim() + stacked
+        axes = (0,) if ndim == 2 else range(1, ndim - 1)
+        return tuple(a - stacked for a in axes)
     if w.dim() == 2:
         return (0,) if name.endswith("text_projection") else (1,)
     if w.dim() == 4:
@@ -215,7 +232,7 @@ def quantize_weights(weights: Dict[str, torch.Tensor], min_size: int = 2 ** 16):
                 f"{name}: the JAX package quantizes its stacked leaf across "
                 f"layers at quantize_min_size={min_size}; the port does not")
         else:
-            q, scale = _quantize_leaf(w, _reduce_dims(name, w))
+            q, scale = _quantize_leaf(w, _reduce_dims(name, w, depth))
             out[name] = {QUANT_TAG: q, "scale": scale}
     return out
 

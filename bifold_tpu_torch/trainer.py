@@ -33,17 +33,21 @@ How the port differs:
   ``run_dir/profile``.
 
 The four shipped model families train (``siglip``,
-``siglip_sequential``, ``rgb_clip``, ``text_unet``). ``text_unet``'s
+``siglip_sequential``, ``rgb_clip``, ``text_unet``), the SigLIP families
+with every head, fusion and FFN option of the JAX package
+(``pick_place_transdecoder``, ``crossattention``, ``moe_experts``; the MoE
+load-balance loss weighted in by ``model.moe_aux_weight`` and logged as
+``moe_load_balance``, as the JAX Trainer does), and ``precision.remat``
+recomputes the blocks in the backward. ``text_unet``'s
 BatchNorm running statistics are model buffers that move in every
 train-mode forward; checkpoints carry them as JAX's ``extra_vars =
 {"batch_stats": ...}`` (:func:`~bifold_tpu_torch.models.convert.to_jax_variables`),
 so either package's Trainer resumes the other's file.
 
 Not ported, and refused with the ROADMAP queue item that holds them:
-``precision.remat: true`` (item 3), ``visualize_model_inputs`` and
-``visualize_predictions`` (item 6), the options of item 4 that no shipped
-config selects (a T5 ``text_encoder``, the transformer decoder,
-cross-attention fusion, MoE), meshes of more than one device (item 5). With ``simulator: softgym`` the final eval says that the closed loop is
+``visualize_model_inputs`` and ``visualize_predictions`` (item 6), a T5
+``text_encoder`` and graph conditioning (item 4), meshes of more than one
+device (item 5). With ``simulator: softgym`` the final eval says that the closed loop is
 not ported (item 6) and takes pixel metrics, as the JAX Trainer does when
 its evaluator cannot be imported.
 """
@@ -169,7 +173,8 @@ class Trainer:
         precision = dict(cfg.get("precision", {}))
         self.dtype = _DTYPES[precision.get("compute_dtype", "float32")]
         self.model = build_model(cfg["model"], dtype=self.dtype, device=self.device,
-                                 seed=_draw_seed(self.key))
+                                 seed=_draw_seed(self.key),
+                                 remat=bool(precision.get("remat", False)))
         (self.train_dataloader, self.test_dataloader,
          self.processor) = get_dataloaders(cfg, device=self.device)
 
@@ -203,9 +208,6 @@ class Trainer:
             raise NotImplementedError(f"model {name!r} is not ported (have "
                                       f"{sorted(MODELS)})")
         precision = dict(cfg.get("precision", {}))
-        if precision.get("remat"):
-            raise NotImplementedError("precision.remat: true is not ported "
-                                      "(ROADMAP queue item 3)")
         if precision.get("param_dtype", "float32") != "float32":
             raise NotImplementedError(
                 f"precision.param_dtype {precision['param_dtype']!r}: the port keeps "
@@ -231,8 +233,10 @@ class Trainer:
         self.optimizer = build_optimizer(
             dict(cfg["optim"]), [p for _, p in named], sched_cfg, max_iters=max_iters,
             gradient_clip=cfg.get("gradient_clip"), names=[n for n, _ in named])
-        self._train_step = parallel.make_train_step(self.model, self.loss_fn,
-                                                    self.optimizer)
+        moe_aux = (float(getattr(self.model, "moe_aux_weight", 0.0))
+                   if int(getattr(self.model, "moe_experts", 0) or 0) else 0.0)
+        self._train_step = parallel.make_train_step(
+            self.model, self.loss_fn, self.optimizer, moe_aux_weight=moe_aux)
         self._pull_ahead = max(1, int(cfg.get("steps_per_dispatch") or 1))
         self.load_model(prefer="last")
 

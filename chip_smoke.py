@@ -23,11 +23,16 @@ one JSON object per line:
    four LayerNorm kernels (out, s, mean, rstd; dx, dscale, dbias) at
    C = 128, 256, 768 and 1024 (1-4 chunks per lane) times R = 1, 2, 5,
    300 and the train step's fusion and vision rows, and at 40000 x 768,
-   with constant rows (the f32 dx within 1e-5 x max(1, |plain|) on every
-   row, and both versions' distance from the float64 dx printed on the
-   constant rows); the backward's dx, dscale and dbias bitwise equal
+   with constant rows (the f32 dx within 1e-5 x max(1, |plain|) off them,
+   and on every row no further from the float64 dx than the plain version
+   plus 1e-5 and its own rounding bound; both versions' distance from the
+   float64 dx printed on the constant rows); the backward's dx, dscale and dbias bitwise equal
    across two calls, and backward calls of four shapes queued back to
-   back on two streams, each equal to its plain version; then gradients through
+   back on two streams, each equal to its plain version; the f32 head-dim-32
+   instances at the transformer decoder's shape (1, 2 and 8 x 577 x 16 x
+   32, no mask, q/k/v as three Linear outputs reshaped without a copy) and
+   the four LayerNorm kernels at its rows (C = 512, 577 x 1, 2, 8), in bf16
+   and f32; then gradients through
    ``dot_product_attention`` (the autograd Function over the kernels) against
    autograd through the plain forward; and ``dot_product_attention("auto")``
    routing by shape (an uninstanced head dim raises);
@@ -37,7 +42,10 @@ one JSON object per line:
    it; the backward's library time is forward+backward minus forward) by
    CUDA events around calls queued behind a sleep kernel (also the
    kernel's profiler device time and back-to-back events), with the bound
-   max(FLOP / bf16 peak, bytes / HBM rate); each LayerNorm kernel, its
+   max(FLOP / bf16 peak, bytes / HBM rate), and every f32 instance (the f32
+   flagship's fusion and vision shapes, the decoder's 577 tokens) beside
+   f32 SDPA with max(FLOP / f32 CUDA-core peak, bytes / HBM rate); each
+   LayerNorm kernel, its
    plain version and ``F.layer_norm`` / ``native_layer_norm_backward`` by
    queued events, profiler device time and back-to-back events, with the
    bound max(bytes / HBM rate, FLOP / f32 CUDA-core peak); the profiler's
@@ -95,11 +103,28 @@ one JSON object per line:
    eval batch; text_unet's statistics moved) and text_unet interrupted and
    resumed bitwise; p50s and samples/s; then peak train memory per
    LayerNorm mode;
-9. the script's seconds, the ``kernels`` line (thirteen kernel instances:
-   the flash kernels at three head dims with their ptxas numbers, the
-   LayerNorm rows with those of their bf16 C = 768 instance; each row
-   names its design), then the card line, then the result line
-   ``{"ok": true, "device": {...}}``.
+9. the SigLIP variants of the flagship (:func:`variant_phase`):
+   ``pick_place_transdecoder``, ``crossattention`` and 8-expert MoE, each
+   at full width and depth, served in each LayerNorm mode (5 requests and
+   a pool of 8, exact launches: 16 d48 + 12 d64 + 4 f32 d32 per
+   transdecoder request, 12 d64 for cross-attention, the flagship's 20
+   for MoE), the f32 kernel forward against the math path, int8,
+   JAX-format checkpoint and artifact bitwise against the live server
+   (transdecoder and MoE), trained through ``main`` (4 steps, eval, exact
+   launches per step and eval batch, finite losses and MoE load-balance
+   terms, peak memory; the transformer decoder again under ``pallas``, so
+   its f32 512-wide LayerNorms train on the kernels: 90 ``ln_fwd`` + 88
+   ``ln_bwd`` per step); then one f32 flagship step with and without
+   ``remat`` at dropout 0.1 (:func:`remat_phase`: loss and gradient norm
+   within 1e-6, exact f32 launches per step, peak memory of each);
+10. the script's seconds, the ``kernels`` line (twenty kernel instances:
+   the flash kernels at three head dims in bf16, and in f32 those a main
+   path launches (the decoder's d32, remat_phase's d48 and d64 forward
+   with lse and backward), with their ptxas numbers; the LayerNorm rows
+   with those of their bf16 C = 768 instance and their largest f32 error
+   at the decoder's C = 512 rows; each row names its design; its launches
+   are the sum of the main paths' own counts), then the card line, then
+   the result line ``{"ok": true, "device": {...}}``.
 
 Each path's launch counts are reset just before it and read just after.
 Every torch.profiler session (the ``where_the_time_goes`` windows and the
@@ -114,6 +139,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import json
 import os
 import re
@@ -256,9 +282,10 @@ def edge_cases():
 
 def check_kernels(fa):
     """Phase 2: the inference kernel against its plain version. Returns the
-    largest bf16 error per kernel name."""
+    largest error per kernel name (``<name>_f32`` for the f32 instances)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = {f"flash_fwd_infer_d{d}": 0.0 for d in HEAD_DIMS}
+    worst = {f"flash_fwd_infer_d{d}{suffix}": 0.0 for d in HEAD_DIMS
+             for suffix in ("", "_f32")}
     cases = [("fusion, 1 context frame masked", 1, 2373, 16, 48, True, 1),
              ("fusion, 2 context frames masked", 1, 2373, 16, 48, True, 2),
              ("vision", 4, 576, 12, 64, False, None),
@@ -279,8 +306,8 @@ def check_kernels(fa):
                   "max_abs_err": err, "tol": tol, "ok": ok})
             if not ok:
                 raise AssertionError(f"flash kernel disagrees with plain: {label}")
-            if dtype == torch.bfloat16:
-                worst[f"flash_fwd_infer_d{d}"] = max(worst[f"flash_fwd_infer_d{d}"], err)
+            name = f"flash_fwd_infer_d{d}" + ("" if dtype == torch.bfloat16 else "_f32")
+            worst[name] = max(worst[name], err)
     return worst
 
 
@@ -324,7 +351,8 @@ def check_train_kernels(fa):
     """The forward-with-lse and backward kernels against their plain
     versions, in bf16 and in f32; dq and dk exactly 0 on all-masked rows;
     dq, dk and dv bitwise equal across two backward calls on the same
-    inputs. Returns the largest bf16 error per kernel name."""
+    inputs. Returns the largest error per kernel name (``<name>_f32`` for
+    the f32 instances)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -361,9 +389,8 @@ def check_train_kernels(fa):
                 if not ok:
                     raise AssertionError(f"{kernel}_d{d} {what} disagrees with "
                                          f"plain: {label}, {dtype}")
-                if dtype == torch.bfloat16:
-                    name = f"{kernel}_d{d}"
-                    worst[name] = max(worst.get(name, 0.0), err)
+                name = f"{kernel}_d{d}" + ("" if dtype == torch.bfloat16 else "_f32")
+                worst[name] = max(worst.get(name, 0.0), err)
             if zero_rows:
                 emit({"phase": "all_masked_rows", "kernel": f"flash_bwd_d{d}",
                       "dtype": str(dtype), "max_abs": zero_rows})
@@ -453,7 +480,8 @@ def check_function_grads(fa):
         before = dict(fa.LAUNCHES)
         got = torch.autograd.grad(dot_product_attention(*leaves, mask), leaves, do)
         launched = {key: fa.LAUNCHES[key] - before.get(key, 0)
-                    for key in (f"fwd_lse_d{d}", f"bwd_d{d}", f"fwd_infer_d{d}")}
+                    for key in (f"fwd_lse_d{d}_f32", f"bwd_d{d}_f32",
+                                f"fwd_infer_d{d}_f32")}
         ref = torch.autograd.grad(fa.flash_attention_plain(*leaves, mask), leaves, do)
         errs = {g: float((x - r).abs().max()) for g, x, r in zip("qkv", got, ref)}
         tol = {"q": F32_TOL, "k": F32_TOL,
@@ -462,7 +490,7 @@ def check_function_grads(fa):
               "shape": [b, n, h, d], "max_abs_err": errs, "tol": tol,
               "launches": launched})
         if any(errs[g] > tol[g] for g in tol) or launched != {
-                f"fwd_lse_d{d}": 1, f"bwd_d{d}": 1, f"fwd_infer_d{d}": 0}:
+                f"fwd_lse_d{d}_f32": 1, f"bwd_d{d}_f32": 1, f"fwd_infer_d{d}_f32": 0}:
             raise AssertionError(f"gradients through the kernels: {label}")
         out.append(errs)
     return out
@@ -497,6 +525,74 @@ def check_auto_route(fa):
     if (got != {d: {f"fwd_infer_d{d}": 1} for d in HEAD_DIMS} or not refused
             or short):
         raise AssertionError("dot_product_attention('auto') routed otherwise")
+
+
+# the transformer decoder's attention (pick_place_transdecoder): f32, 577
+# tokens (a cls slot and 24 x 24 patches), 16 heads of 32, no key mask: a
+# request, a train batch, a pool
+DECODER_BATCHES = {"request": 1, "train batch": 2, "pool": 8}
+DECODER_TOKENS, DECODER_HEADS, DECODER_WIDTH = 577, 16, 512
+
+
+def decoder_qkv(gen, b):
+    """q, k, v as the decoder's blocks hand them over: the outputs of three
+    biased f32 Linear layers (fused_qkv=False) on one (B, 577, 512) input,
+    each reshaped to (B, 577, 16, 32) without a copy."""
+    x = torch.randn(b, DECODER_TOKENS, DECODER_WIDTH, device="cuda", generator=gen)
+    out = []
+    for _ in range(3):
+        w = torch.randn(DECODER_WIDTH, DECODER_WIDTH, device="cuda",
+                        generator=gen) * DECODER_WIDTH ** -0.5
+        bias = 0.1 * torch.randn(DECODER_WIDTH, device="cuda", generator=gen)
+        y = torch.nn.functional.linear(x, w, bias)
+        view = y.reshape(b, DECODER_TOKENS, DECODER_HEADS, DECODER_WIDTH // DECODER_HEADS)
+        if view.data_ptr() != y.data_ptr():
+            raise AssertionError("the decoder's q/k/v reshape copied")
+        out.append(view)
+    return out
+
+
+def check_decoder_flash(fa):
+    """The f32 head-dim-32 instances at the transformer decoder's shape,
+    before any model phase: the inference forward, the forward with lse
+    (out and lse) and the backward (dq, dk, dv; two calls bitwise equal)
+    against their plain versions on q/k/v as :func:`decoder_qkv` makes
+    them, which the wrappers take as they are (no copy on the main path).
+    Returns the largest error per kernel name (``_f32``)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    worst = {}
+    for label, b in DECODER_BATCHES.items():
+        q, k, v = decoder_qkv(gen, b)
+        do = torch.randn(q.shape, device="cuda", generator=gen)
+        out = fa.flash_attention(q, k, v)
+        out_l, lse = fa.flash_attention_fwd(q, k, v)
+        grads = fa.flash_attention_bwd(q, k, v, None, out_l, lse, do)
+        again = fa.flash_attention_bwd(q, k, v, None, out_l, lse, do)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(x, y) for x, y in zip(grads, again))
+        p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v)
+        p_grads = fa.flash_attention_bwd_plain(q, k, v, None, out_l, lse, do)
+        results = [("flash_fwd_infer", "out", *within(out, p_out, torch.float32)),
+                   ("flash_fwd_lse", "out", *within(out_l, p_out, torch.float32)),
+                   ("flash_fwd_lse", "lse", *within_lse(lse, p_lse))]
+        results += [("flash_bwd", g, *within(x, ref, torch.float32))
+                    for g, x, ref in zip(("dq", "dk", "dv"), grads, p_grads)]
+        for kernel, what, err, tol, ok in results:
+            emit({"phase": "kernel_vs_plain", "kernel": f"{kernel}_d32",
+                  "output": what, "case": f"transformer decoder, {label}",
+                  "shape": list(q.shape), "dtype": "torch.float32",
+                  "qkv_strides": list(q.stride()), "max_abs_err": err, "tol": tol,
+                  "ok": ok})
+            if not ok:
+                raise AssertionError(f"{kernel}_d32 f32 {what} disagrees with plain: "
+                                     f"decoder {label}")
+            worst[f"{kernel}_d32_f32"] = max(worst.get(f"{kernel}_d32_f32", 0.0), err)
+        emit({"phase": "flash_bwd_deterministic", "kernel": "flash_bwd_d32",
+              "case": f"transformer decoder, {label}", "dtype": "torch.float32",
+              "bitwise_equal": repeat})
+        if not repeat:
+            raise AssertionError(f"flash_bwd_d32 f32: two calls differ: decoder {label}")
+    return worst
 
 
 def queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -534,39 +630,55 @@ def both_times(fn) -> dict:
     return {"ms": queued_ms(fn), "profiler_ms": device_ms(fn), "event_ms": time_ms(fn)}
 
 
-def time_kernels(fa, peaks):
+# the shapes each instance is timed at, from the main paths: (B, N, H,
+# fused qkv views); in bf16 the flagship's fusion (all 3 context frames
+# present) and vision, rgb_clip's fusion; in f32 the same flagship stacks
+# (the f32 model's) and the transformer decoder
+INFER_TIMING = {torch.bfloat16: {48: (1, 2373, 16, True), 64: (4, 576, 12, False),
+                                 32: (1, 275, 16, True)},
+                torch.float32: {48: (1, 2373, 16, True), 64: (4, 576, 12, False),
+                                32: (1, DECODER_TOKENS, DECODER_HEADS, False)}}
+
+
+def timing_key(name, dtype):
+    return name + ("" if dtype == torch.bfloat16 else "_f32")
+
+
+def time_kernels(fa, peaks, dtype=torch.bfloat16):
     """The kernel, its plain version and SDPA (its fastest backend) at the
-    main paths' shapes in bf16 (the flagship's fusion: all 3 context frames
-    present; its vision: 4 frames; rgb_clip's fusion, one request), by
-    device time and by CUDA events (:func:`both_times`)."""
+    main paths' shapes (:data:`INFER_TIMING`), by device time and by CUDA
+    events (:func:`both_times`); the f32 rows' bound takes the f32
+    CUDA-core rate (the f32 instances use no tensor cores)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
-    for d, (b, n, h, fused) in {48: (1, 2373, 16, True), 64: (4, 576, 12, False),
-                                32: (1, 275, 16, True)}.items():
-        q, k, v = attention_inputs(gen, b, n, h, d, torch.bfloat16, fused)
+    for d, (b, n, h, fused) in INFER_TIMING[dtype].items():
+        q, k, v = attention_inputs(gen, b, n, h, d, dtype, fused)
         mask = fusion_mask(b, n, 0) if d == 48 else None
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa_mask = None if mask is None else (mask != 0)[:, None, None, :]
         library = sdpa_times(qt, kt, vt, sdpa_mask)
         backend = min(library, key=lambda name: library[name][0])
         valid = n if mask is None else int(mask.sum()) // b
+        size = q.element_size()
         fwd_bound = bound(4.0 * b * h * n * valid * d,
-                          4.0 * b * n * h * d * 2 + (0 if mask is None else 4 * b * n),
-                          peaks)
+                          size * 4.0 * b * n * h * d + (0 if mask is None else 4 * b * n),
+                          peaks, dtype)
         kernel = both_times(lambda: fa.flash_attention(q, k, v, mask))
         plain = queued_ms(lambda: fa.flash_attention_plain(q, k, v, mask))
-        rows[f"flash_fwd_infer_d{d}"] = {
+        rows[timing_key(f"flash_fwd_infer_d{d}", dtype)] = {
             **kernel, "plain_ms": plain,
             "library_ms": library[backend][0], "library_backend": backend,
             "library_by_backend": library,
             "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-            "shape": [b, n, h, d]}
+            "shape": [b, n, h, d], "dtype": str(dtype)}
     return rows
 
 
-def bound(flops, nbytes, peaks):
-    """max(operations / dense bf16 peak, bytes / memory rate), in ms."""
-    ops_ms, bytes_ms = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
+def bound(flops, nbytes, peaks, dtype=torch.bfloat16):
+    """max(operations / peak, bytes / memory rate), in ms: the dense bf16
+    tensor-core peak for bf16, the f32 CUDA-core peak for f32."""
+    peak = peaks[0] if dtype == torch.bfloat16 else peaks[2]
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / peaks[1] * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
@@ -602,20 +714,26 @@ def sdpa_times(qt, kt, vt, sdpa_mask, dot=None):
     return times
 
 
-def time_train_kernels(fa, peaks):
+TRAIN_TIMING = {torch.bfloat16: TRAIN_SHAPES,
+                torch.float32: {48: TRAIN_SHAPES[48], 64: TRAIN_SHAPES[64],
+                                32: (2, DECODER_TOKENS, DECODER_HEADS, False)}}
+
+
+def time_train_kernels(fa, peaks, dtype=torch.bfloat16):
     """The forward-with-lse and backward kernels, their plain versions and
     SDPA (forward with grad, and forward + backward: the backward's library
-    time is the difference; each row takes the backend fastest at its part),
-    bf16, at the train step's shapes (fusion B=2 with all 3 context frames
-    present; vision 8 frames), by device time and by CUDA events
-    (:func:`both_times`; the backward's device time includes delta's torch
-    ops); rgb_clip's fusion at its train step's shape, unmasked."""
+    time is the difference; each row takes the backend fastest at its part)
+    at the train steps' shapes (:data:`TRAIN_TIMING`: the flagship's fusion
+    B=2 with all 3 context frames present and vision 8 frames; rgb_clip's
+    fusion in bf16, the transformer decoder's train batch in f32, unmasked),
+    by device time and by CUDA events (:func:`both_times`; the backward's
+    device time includes delta's torch ops)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = {}
-    for d, (b, n, h, fused) in TRAIN_SHAPES.items():
-        q, k, v = attention_inputs(gen, b, n, h, d, torch.bfloat16, fused)
+    for d, (b, n, h, fused) in TRAIN_TIMING[dtype].items():
+        q, k, v = attention_inputs(gen, b, n, h, d, dtype, fused)
         mask = fusion_mask(b, n, 0) if d == 48 else None
-        do = torch.randn(b, n, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+        do = torch.randn(b, n, h, d, device="cuda", generator=gen).to(dtype)
         out, lse = fa.flash_attention_fwd(q, k, v, mask)
         qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
         sdpa_mask = None if mask is None else (mask != 0)[:, None, None, :]
@@ -623,30 +741,30 @@ def time_train_kernels(fa, peaks):
         lib_fwd = min(library, key=lambda name: library[name][0])
         lib_bwd = min(library, key=lambda name: library[name][1] - library[name][0])
         kept = n if mask is None else int(mask.sum()) // b
-        act = b * n * h * d * 2                   # one bf16 (B, N, H, D) tensor
+        act = b * n * h * d * q.element_size()    # one (B, N, H, D) tensor
         mask_bytes = 0 if mask is None else 4 * b * n
         lse_bytes = 4 * b * h * n
         fwd_bound = bound(4.0 * b * h * n * kept * d,
-                          4 * act + mask_bytes + lse_bytes, peaks)
+                          4 * act + mask_bytes + lse_bytes, peaks, dtype)
         bwd_bound = bound(10.0 * b * h * n * kept * d,
-                          8 * act + mask_bytes + lse_bytes, peaks)
+                          8 * act + mask_bytes + lse_bytes, peaks, dtype)
         fwd = both_times(lambda: fa.flash_attention_fwd(q, k, v, mask))
         fwd_plain = queued_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, mask))
         bwd = both_times(lambda: fa.flash_attention_bwd(q, k, v, mask, out, lse, do))
         bwd_plain = queued_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, mask, out, lse, do))
-        rows[f"flash_fwd_lse_d{d}"] = {
+        rows[timing_key(f"flash_fwd_lse_d{d}", dtype)] = {
             **fwd, "plain_ms": fwd_plain,
             "library_ms": library[lib_fwd][0], "library_backend": lib_fwd,
             "library_by_backend": library,
             "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-            "shape": [b, n, h, d]}
-        rows[f"flash_bwd_d{d}"] = {
+            "shape": [b, n, h, d], "dtype": str(dtype)}
+        rows[timing_key(f"flash_bwd_d{d}", dtype)] = {
             **bwd, "plain_ms": bwd_plain,
             "library_ms": library[lib_bwd][1] - library[lib_bwd][0],
             "library_backend": lib_bwd,
             "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
-            "shape": [b, n, h, d]}
+            "shape": [b, n, h, d], "dtype": str(dtype)}
     return rows
 
 
@@ -688,20 +806,30 @@ def ln_inputs(gen, shape, dtype):
     return (*rows, randn(c) * 0.1 + 1.0, randn(c) * 0.1)
 
 
-def ln_close(out, ref, what, dtype, exact=None, against_plain=True):
+def ln_close(out, ref, what, dtype, exact=None, against_plain=True, rows=None):
     """(max |err| from the plain version, tolerance text, ok, within the
     plain version's bound everywhere) of one LayerNorm output. The bound is
     tol x max(1, |plain|): tol is LN_PARAM_TOL for dscale and dbias, 2^-7
-    for bf16 rows and LN_F32_TOL for f32 rows; s is bitwise, mean and rstd
-    within LN_STAT_RTOL x |plain|. It holds on every row, the constant ones
-    included, where rstd = 1/sqrt(eps) (up to 1000) turns the last ulps of
-    the row means into 1e-5 of dx: the kernel sums them with compensation.
+    for bf16 rows and LN_F32_TOL for f32 rows; s is bitwise, rstd within
+    LN_STAT_RTOL x |plain|, and the mean within LN_STAT_RTOL x |plain| +
+    2 C u mean|row| (u = 2^-24; ``rows``, the rows it is the mean of): each
+    version's f32 row sum, in whatever order it adds, is within (C - 1) u
+    sum|row| of the exact sum (Higham), so the two means are within 2 C u
+    mean|row| of each other, which a purely relative bound misses on a row
+    whose mean cancels to near 0. A mean that leaves out or doubles one
+    element is off by about mean|row| / C: 2^23 / C^2 times that term,
+    8 times or more for C <= 1024. rstd keeps the relative bound: its sum
+    is of squares.
     ``exact`` (the backward's float64 result on the same inputs,
     :func:`ln_exact`) adds two checks beside it: dscale and dbias within
     LN_PARAM_TOL x max(1, |float64|) of it, and an f32 dx no further from
     it than the plain version is, plus LN_F32_TOL x max(1, |plain|), plus
     the rounding bound of the kernel's two f32 row sums times rstd
-    (``exact["sum_bound"]``).
+    (``exact["sum_bound"]``). That float64 check alone holds an f32 dx on
+    the constant rows: there rstd = 1/sqrt(eps) (up to 1000) multiplies
+    the last ulps of the plain version's own row means (the kernel sums
+    them with compensation), so the two versions may be more than 1e-5
+    apart while the kernel is the nearer to float64.
     ``against_plain`` False leaves the bound out of ``ok`` (dscale and dbias
     over many rows, :func:`ln_against_plain`). The fourth value reports the
     bound on every element whether or not it is required."""
@@ -709,7 +837,13 @@ def ln_close(out, ref, what, dtype, exact=None, against_plain=True):
     if what == "s":
         ok = bool(torch.equal(out, ref))
         return float(err.max()), "bitwise", ok, ok
-    if what in ("mean", "rstd"):
+    if what == "mean":
+        c = rows.shape[-1]
+        cancel = 2 * c * 2.0 ** -24 * rows.float().abs().mean(-1)
+        ok = bool((err <= LN_STAT_RTOL * ref.abs() + cancel.reshape(ref.shape)).all())
+        return (float(err.max()), f"{LN_STAT_RTOL} * |plain| + 2 C 2^-24 mean|row|",
+                ok, ok)
+    if what == "rstd":
         ok = bool((err <= LN_STAT_RTOL * ref.abs()).all())
         return float(err.max()), f"{LN_STAT_RTOL} * |plain|", ok, ok
     if what in ("dscale", "dbias"):
@@ -718,7 +852,13 @@ def ln_close(out, ref, what, dtype, exact=None, against_plain=True):
         tol = 2.0 ** -7 if dtype == torch.bfloat16 else LN_F32_TOL
     name = "2^-7" if tol == 2.0 ** -7 else str(tol)
     plain_allowed = tol * ref.double().abs().clamp_min(1)
-    checks = [(f"{name} * max(1, |plain|)", err.double(), plain_allowed, against_plain)]
+    if exact is not None and what == "dx" and dtype == torch.float32:
+        checks = [(f"{name} * max(1, |plain|) off the constant rows",
+                   err.double().masked_fill(exact["constant"], 0.0), plain_allowed,
+                   against_plain)]
+    else:
+        checks = [(f"{name} * max(1, |plain|)", err.double(), plain_allowed,
+                   against_plain)]
     if exact is not None and what in ("dscale", "dbias"):
         checks.append((f"{name} * max(1, |float64 sum|) from it",
                        (out.double() - exact[what]).abs(),
@@ -801,12 +941,17 @@ LN_WIDTHS = (128, 256, 768, 1024)          # 1-4 chunks of 8 columns per lane
 LN_ROWS = (1, 2, 5, 300, 4608, 4746)
 LN_MANY_ROWS = (40000, 768)                 # every backward warp walks many
                                             # rows and its staging ring wraps
+# the transformer decoder's blocks: f32 rows of 512 (a cls slot and 24 x 24
+# patches per image), eps 1e-6: a request, a train batch, a pool
+LN_DECODER = {"decoder request": (1, 577, 512), "decoder train batch": (2, 577, 512),
+              "decoder pool": (8, 577, 512)}
 
 
 def ln_cases():
     """(label, shape, eps) of the LayerNorm checks: every width of
     :data:`LN_WIDTHS` at every row count of :data:`LN_ROWS`, the train
-    step's two shapes as they come (labelled as in :data:`LN_SHAPES`), and
+    step's two shapes as they come (labelled as in :data:`LN_SHAPES`), the
+    transformer decoder's (:data:`LN_DECODER`, C = 512) and
     :data:`LN_MANY_ROWS`."""
     train = {shape[0] * shape[1]: (name, shape, eps)
              for name, (shape, eps) in LN_SHAPES.items()}
@@ -817,6 +962,7 @@ def ln_cases():
                 cases.append(train[r])
             else:
                 cases.append((f"R={r} C={c}", (r, c), 1e-5 if r % 2 else 1e-6))
+    cases += [(label, shape, 1e-6) for label, shape in LN_DECODER.items()]
     return cases + [("many rows", LN_MANY_ROWS, 1e-5)]
 
 
@@ -861,7 +1007,8 @@ def check_ln_kernels():
     constant rows (:func:`constant_row_errors`).
     Both backward kernels bitwise equal (dx, dscale, dbias) across two
     calls; then :func:`check_ln_back_to_back`. Returns the largest bf16
-    error per kernel at the train shapes."""
+    error per kernel at the train shapes, and (``<kernel>_decoder_f32``)
+    the largest f32 error at the transformer decoder's rows."""
     from bifold_tpu_torch.ops import layer_norm as ln
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -870,6 +1017,8 @@ def check_ln_kernels():
         for label, shape, eps in ln_cases():
             x, delta, dy, ds_out, scale, bias = ln_inputs(gen, shape, dtype)
             again, exact, results = ln_results(ln, x, delta, dy, ds_out, scale, bias, eps)
+            # the rows each forward's mean is taken over: x, and the plain s
+            mean_rows = {"ln_fwd": x, "fused_ln_fwd": results["fused_ln_fwd"][0][2]}
             torch.cuda.synchronize()
             first = [t for k in ("ln_bwd", "fused_ln_bwd") for _, t, _ in results[k]]
             deterministic = all(torch.equal(a, b) for a, b in zip(again, first))
@@ -878,7 +1027,8 @@ def check_ln_kernels():
                 for what, got, ref in outputs:
                     err, tol, ok, plain_ok = ln_close(got, ref, what, dtype,
                                                       exact.get(kernel),
-                                                      ln_against_plain(label, what))
+                                                      ln_against_plain(label, what),
+                                                      mean_rows.get(kernel))
                     errs.setdefault(kernel, {})[what] = err
                     tols[what if ok else f"{kernel} {what}"] = tol
                     if not ok:
@@ -887,6 +1037,9 @@ def check_ln_kernels():
                         missed.append(f"{kernel} {what}")
                     if dtype == torch.bfloat16 and label in LN_SHAPES:
                         worst[kernel] = max(worst[kernel], err)
+                    if dtype == torch.float32 and label in LN_DECODER:
+                        name = f"{kernel}_decoder_f32"
+                        worst[name] = max(worst.get(name, 0.0), err)
             emit({"phase": "ln_kernels_vs_plain", "case": label, "shape": list(shape),
                   "dtype": str(dtype), "max_abs_err": errs, "tol": tols,
                   "ok": not failed, "plain_bound_missed_where_exempt": missed,
@@ -1069,6 +1222,12 @@ LABELS = ("left_pick", "left_place", "right_pick", "right_place")
 PER_STEP = {"fwd_lse_d48": 8, "fwd_lse_d64": 12, "bwd_d48": 8, "bwd_d64": 12}
 
 
+def f32_keys(counts: dict) -> dict:
+    """Flash launch counts with each key renamed to its float32
+    instance's (``LAUNCHES`` keys f32 launches ``<kernel>_d<d>_f32``)."""
+    return {f"{k}_f32": n for k, n in counts.items()}
+
+
 def raw_train_batch(proc, seed, batch=TRAIN_BATCH):
     """A collated raw batch as bench.py builds it: uint8 frames at 384 px,
     3 context frames, one label point per arm and action, tokenized
@@ -1188,14 +1347,15 @@ def norm_launches(model, mode):
     return {}
 
 
-def ln_launches(model, mode, train):
+def ln_launches(model, mode, train, norms=FLAGSHIP_NORMS):
     """The LayerNorm kernel launches of one forward (and, ``train``, its
-    backward) of the flagship ``model`` under ``BIFOLD_LN_KERNEL=mode``,
-    counted from the model (:func:`norm_launches`); the backward skips the
-    first norm of either frozen tower."""
+    backward) of the flagship ``model`` (or a variant with ``norms``
+    kernel norms) under ``BIFOLD_LN_KERNEL=mode``, counted from the model
+    (:func:`norm_launches`); the backward skips the first norm of either
+    frozen tower."""
     stacked, other = kernel_norms(model)
-    if (stacked, other) != FLAGSHIP_NORMS:
-        raise AssertionError(f"{stacked} + {other} LayerNorms, want {FLAGSHIP_NORMS}")
+    if (stacked, other) != norms:
+        raise AssertionError(f"{stacked} + {other} LayerNorms, want {norms}")
     fwd = norm_launches(model, mode)
     if mode == "pallas":
         bwd = {"ln_bwd": stacked + other - FROZEN_STACKS}
@@ -1401,12 +1561,12 @@ def f32_step_equivalence():
     raw = raw_train_batch(proc, 99)
     draws = proc.draw(proc._spec(raw), TRAIN_BATCH, raw["rgb"].shape[1:3], "cuda")
     sgd = {"name": "sgd", "lr": 1e-3}
-    want = {"kernels": PER_STEP, "math": {}, "ln_fused": None}
+    want = {"kernels": f32_keys(PER_STEP), "math": {}, "ln_fused": None}
     results = {}
     for path in want:
         model, mask, step, state = trainer(torch.float32, sgd, precast=False)
         if path == "ln_fused":
-            want[path] = {**PER_STEP, **ln_launches(model, "fused", train=True)}
+            want[path] = {**f32_keys(PER_STEP), **ln_launches(model, "fused", train=True)}
         sample = proc.process_batch(raw, "cuda", draws=draws)
         before = launch_counts()
         if path == "math":
@@ -1635,7 +1795,7 @@ def counted(call, mode, want, label):
     return out
 
 
-def write_jax_checkpoint(path, params) -> None:
+def write_jax_checkpoint(path, params, model_cfg=FLAGSHIP) -> None:
     """A checkpoint in the JAX trainer's format (the pickled payload of
     bifold_tpu/utils/checkpoint.py:_build_payload) holding ``params``, a
     params tree of numpy arrays, and nothing to resume from."""
@@ -1646,7 +1806,7 @@ def write_jax_checkpoint(path, params) -> None:
                "step": 0, "step_in_epoch": 0, "best_eval": None,
                "np_rng_state": np.random.get_state(), "py_rng_state": random.getstate(),
                "host_rng_states": {}, "jax_key": None, "loop_key": None,
-               "metadata": {"model": FLAGSHIP}}
+               "metadata": {"model": model_cfg}}
     with open(path, "wb") as f:
         pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
 
@@ -2493,6 +2653,352 @@ def trainer_cli_families(card, device="cuda"):
     return dict(launches)
 
 
+# the SigLIP head, fusion and FFN variants of the flagship, each a model
+# option of bifold_tpu_torch/conf/model/siglip_sequential.yaml
+VARIANTS = {
+    "transdecoder": {"pick_place_model": "pick_place_transdecoder"},
+    "crossattention": {"fusion_model": "crossattention"},
+    "moe": {"moe_experts": 8, "moe_top_k": 1, "moe_capacity_factor": 1.25,
+            "moe_aux_weight": 0.01},
+}
+# flash launches of one served forward (any batch): two depth-8 fusions
+# (d48) and two depth-2 f32 decoders at 577 tokens (d32) for the
+# transformer decoder; cross-attention's query and key lengths differ, so
+# its fusion takes the math path (as in JAX) and only the vision tower
+# (d64) launches; MoE changes the FFNs only
+VARIANT_INFER = {"transdecoder": {"fwd_infer_d48": 16, "fwd_infer_d64": 12,
+                                  "fwd_infer_d32_f32": 4},
+                 "crossattention": {"fwd_infer_d64": 12},
+                 "moe": {"fwd_infer_d48": 8, "fwd_infer_d64": 12}}
+VARIANT_STEP = {name: {f"{kind}_{key.split('_', 2)[2]}": n
+                       for key, n in infer.items() for kind in ("fwd_lse", "bwd")}
+                for name, infer in VARIANT_INFER.items()}
+# the variants whose deployment paths (int8, checkpoint, artifact) run here
+VARIANT_DEPLOY = ("transdecoder", "moe")
+VARIANT_CLI = ("train_dataset=synthetic", "train_dataset.image_size=384",
+               "train_dataset.is_bimanual=true", "train_dataset.max_context_length=3",
+               "train_dataset.n_samples=8", "test_dataset=null",
+               "model=siglip_sequential", "batch_size=2", "test_batch_size=2",
+               "epochs=1", "eval_epochs=1", "simulator=null", "log_every=1")
+
+
+def variant_config(variant):
+    return {**FLAGSHIP, **VARIANTS[variant]}
+
+
+def variant_phase(card, variant, device="cuda"):
+    """One variant of the flagship (:data:`VARIANTS`) at full width and
+    depth (384 px, bimanual, 3 context frames, bf16, seeded weights), as a
+    user serves and trains it:
+
+    - served behind ``ServingModel`` at a 720 px camera in each
+      ``BIFOLD_LN_KERNEL`` mode: 5 ``predict`` requests (1-3 context
+      frames) and one ``predict_batch`` of 8, each with exactly
+      :data:`VARIANT_INFER` flash launches and the LayerNorm launches its
+      modules give, finite actions of the right shape; an f32 model's
+      kernel forward against the math path (the same actions, heatmaps
+      within 1e-3, as the flagship's); batch-1 and pool-8 p50s;
+    - for :data:`VARIANT_DEPLOY`: int8 serving (the CPU's decisions; in
+      each mode bitwise a server holding the dequantized weights as bf16),
+      the live weights as a JAX trainer checkpoint and as a batch-1 export
+      artifact, each served bitwise as the live server serves, in each
+      mode;
+    - trained through ``main`` (:func:`variant_trainer`), the transformer
+      decoder also under ``BIFOLD_LN_KERNEL=pallas``
+      (:data:`VARIANT_TRAIN_MODES`), with exact launches per step and
+      eval batch, and the default run's peak memory.
+
+    Returns (the launches of its runs, its serving phases for
+    :func:`where_the_time_goes`, its train peak bytes). ``device="cpu"``
+    is a rehearsal at a tiny size, the launch checks stubbed by the
+    caller."""
+    import tempfile
+
+    from bifold_tpu_torch.data.processor import Processor
+    from bifold_tpu_torch.data.spm import fixture_model_bytes
+    from bifold_tpu_torch.models import build_model
+    from bifold_tpu_torch.models.convert import convert_bifold
+    from bifold_tpu_torch.serving import (ServingModel, _install, _served_weights,
+                                          dequantize_weights, quantize_weights)
+
+    t0 = time.perf_counter()
+    mcfg = variant_config(variant)
+    size = int(mcfg["image_size"])
+    model = build_model(mcfg, dtype=torch.bfloat16, device=device, seed=0)
+    proc = Processor(PROCESSOR, max_context_length=3,
+                     autoprocessor_name=mcfg["automodel_name"],
+                     spm_asset=fixture_model_bytes())
+    live = ServingModel(model, None, proc, device=device)
+    live.warmup(CAMERA)
+    live.warmup(CAMERA, pool=8)
+    rng = np.random.default_rng(41)
+    requests = [dict(observation(rng, n_ctx=1 + i % 3), instruction=INSTRUCTIONS[i])
+                for i in range(5)]
+    pool = [dict(observation(rng, n_ctx=1 + i % 3), instruction=INSTRUCTIONS[i % 5])
+            for i in range(8)]
+    want = {mode: {**VARIANT_INFER[variant], **norm_launches(live.model, mode)}
+            for mode in LN_MODES}
+    obs = requests[0]
+    launches = collections.Counter()
+    clear_launch_counts()                # the variant's served run starts here
+
+    def one(server, mode, label):
+        return counted(lambda: server.predict(**obs, return_raw_output=True), mode,
+                       want[mode], f"{variant} {label}")
+
+    ref = {}
+    for mode in LN_MODES:
+        for i, request in enumerate(requests):
+            out = counted(lambda: live.predict(**request, return_raw_output=True),
+                          mode, want[mode], f"{variant} request {i}")
+            check_action(*out, 1, size)
+            ref.setdefault(mode, out)
+        out = counted(lambda: live.predict_batch(pool, pad_to=8, return_raw_output=True),
+                      mode, want[mode], f"{variant} pool")
+        check_action(*out, 8, size)
+    launches.update(launch_counts())     # ... and ends here
+    emit({"phase": f"variant_{variant}_serve", "config": VARIANTS[variant],
+          "requests_per_mode": len(requests), "pool": 8,
+          "launches_per_request": want, "launches": launch_counts(),
+          "parameters": sum(p.numel() for p in model.parameters()),
+          "setup_s": time.perf_counter() - t0})
+
+    # the f32 kernel forward against the math path
+    f32 = ServingModel(build_model(mcfg, dtype=torch.float32, device=device, seed=0),
+                       None, proc, device=device)
+    text = obs["instruction"]
+    frame = {k: v for k, v in obs.items() if k != "instruction"}
+    k_action, k_raw = f32.predict(**obs, return_raw_output=True)
+    m_action, m_raw = math_forward(f32, frame, text)
+    hm_diff = max(float(np.abs(k_raw[k] - m_raw[k]).max())
+                  for k in k_raw if k.endswith("_heatmap"))
+    same = all(np.array_equal(getattr(k_action, f), getattr(m_action, f))
+               for f in ACTION_FIELDS)
+    emit({"phase": f"variant_{variant}_kernel_vs_math", "dtype": "float32",
+          "max_heatmap_diff": hm_diff, "tol": 1e-3, "actions_identical": same,
+          "decoded_apart": decoded_apart(k_action, m_action, k_raw)})
+    if not (same and hm_diff < 1e-3):
+        raise AssertionError(f"{variant}: f32 kernel and math forwards disagree")
+    del f32
+
+    if variant in VARIANT_DEPLOY:
+        clear_launch_counts()            # the deployment paths' run starts here
+        results = {}
+        int8 = ServingModel(model, None, proc, device=device, quantize="int8")
+        served = _served_weights(int8.model)
+        on_card = sorted(k for k, v in served.items() if isinstance(v, dict))
+        on_cpu = sorted(k for k, v in quantize_weights(
+            {n: p.detach().float().cpu() for n, p in model.named_parameters()}).items()
+            if isinstance(v, dict))
+        plain_model = build_model(mcfg, dtype=torch.bfloat16, device=device, seed=0)
+        _install(plain_model, dequantize_weights(served, torch.bfloat16), torch.bfloat16)
+        dequantized = ServingModel._served(plain_model, proc, None, "float32", None)
+        results["int8"] = {mode: same_output(one(int8, mode, "int8"),
+                                             one(dequantized, mode, "dequantized"))
+                           for mode in LN_MODES}
+        new = [k for k in on_card if ".fn.w" in k or "_decoder." in k]
+        emit({"phase": f"variant_{variant}_int8", "quantized_tensors": len(on_card),
+              "variant_tensors_quantized": new[:6] + (["..."] if len(new) > 6 else []),
+              "decisions_as_on_the_cpu": on_card == on_cpu,
+              "bitwise_vs_dequantized_bf16": results["int8"]})
+        if on_card != on_cpu or not new:
+            raise AssertionError(f"{variant}: int8 decisions differ from the CPU's")
+        del int8, dequantized, plain_model, served
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            write_jax_checkpoint(tmp / "last.ckpt", convert_bifold(
+                {k: v.float() for k, v in model.state_dict().items()}), mcfg)
+            (tmp / "spiece.model").write_bytes(fixture_model_bytes())
+            from_ckpt = ServingModel.from_checkpoint(
+                tmp / "last.ckpt", {"model": mcfg, "processor": PROCESSOR,
+                                    "precision": {"compute_dtype": "bfloat16"}},
+                device=device)
+            results["checkpoint"] = {mode: same_output(one(from_ckpt, mode, "checkpoint"),
+                                                       ref[mode]) for mode in LN_MODES}
+            del from_ckpt
+            path = live.export(tmp / "serve_b1.pt", **obs, batch=1)
+            art = ServingModel.load_exported(path, device=device)
+            results["artifact_b1"] = {mode: same_output(one(art, mode, "artifact"),
+                                                        ref[mode]) for mode in LN_MODES}
+            del art
+        launches.update(launch_counts())     # ... and ends here
+        emit({"phase": f"variant_{variant}_deployment", "bitwise": results})
+        failed = [f"{k} {m}" for k, by_mode in results.items()
+                  for m, ok in by_mode.items() if not ok]
+        if failed:
+            raise AssertionError(f"{variant}: deployment paths differ from live: {failed}")
+
+    times = {"batch1": [], "pool8": []}
+    for _ in range(11):
+        for name, call in (("batch1", lambda: live.predict(**obs)),
+                           ("pool8", lambda: live.predict_batch(pool, pad_to=8))):
+            t = time.perf_counter()
+            call()
+            times[name].append((time.perf_counter() - t) * 1e3)
+    lat = {name: statistics.median(v) for name, v in times.items()}
+    emit({"phase": f"variant_{variant}_latency", "p50_ms_batch1": lat["batch1"],
+          "p50_ms_pool8": lat["pool8"], "requests_each": 11, "ln_mode": "default",
+          **card})
+    phases = [serving_phase(live, "", f"{variant} {name}", obs_list, lat[name])
+              for name, obs_list in (("batch1", [obs]), ("pool8", pool))]
+
+    # trained through the entry point
+    lines = [variant_trainer(card, variant, mode, model, device)
+             for mode in VARIANT_TRAIN_MODES.get(variant, ("",))]
+    emit({"phase": f"variant_{variant}", "seconds": time.perf_counter() - t0})
+    for line in lines:
+        launches.update(line["launches"])
+    return dict(launches), phases, lines[0]["peak_train_memory_bytes"]
+
+
+# the transformer decoder's f32 512-wide LayerNorms train through the
+# LayerNorm kernels too: 88 in stacks (towers, two fusions, two decoders)
+# and 2 others (decoder_norm, flax's own LayerNorm in JAX, is a plain
+# torch.nn.LayerNorm's parameters under the plain forward and never takes them)
+VARIANT_TRAIN_MODES = {"transdecoder": ("", "pallas")}
+VARIANT_NORMS = {"transdecoder": (88, 2)}
+
+
+def variant_trainer(card, variant, mode, model, device="cuda"):
+    """``main`` of ``bifold_tpu_torch.__main__`` on the variant under
+    ``BIFOLD_LN_KERNEL=mode`` (synthetic data, 8 samples, batch 2: 4
+    steps, pixel eval, best/last), with exactly :data:`VARIANT_STEP`
+    launches per step (and the mode's LayerNorm launches, counted from
+    ``model``) and :data:`VARIANT_INFER` per eval batch, finite losses
+    (and, for MoE, the logged load-balance term); returns its line, with
+    the run's peak memory."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix=f"bifold_{variant}_"))
+    overrides = [*VARIANT_CLI,
+                 *(f"model.{k}={v}" for k, v in VARIANTS[variant].items()),
+                 f"run_dir={tmp}", *(["use_cpu=true"] if device == "cpu" else [])]
+    per_step, per_eval = dict(VARIANT_STEP[variant]), dict(VARIANT_INFER[variant])
+    if mode:
+        per_step.update(ln_launches(model, mode, True, VARIANT_NORMS[variant]))
+        per_eval.update(norm_launches(model, mode))
+    record = {}
+    if device == "cuda":
+        gc.collect()                     # the dropped models' cycles, first
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    with ln_mode(mode):
+        clear_launch_counts()            # the variant's Trainer run starts here
+        code, run_dir, seconds = run_cli(overrides, record)
+        run_launches = launch_counts()   # ... and ends here
+    peak = (torch.cuda.max_memory_allocated() - base) if device == "cuda" else None
+    record.pop("trainers")
+    logged = [json.loads(line) for line in
+              (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train/loss"] for r in logged if "train/loss" in r]
+    balance = [r["train/moe_load_balance"] for r in logged
+               if "train/moe_load_balance" in r]
+    step_s = [r["train/step_time_s"] for r in logged if "train/step_time_s" in r]
+    bad_steps = [d for d in record.get("steps", []) if d != per_step]
+    bad_evals = [d for d in record.get("evals", []) if d != per_eval]
+    line = {"phase": f"variant_{variant}_trainer_cli", "ln_mode": mode or "default",
+            "exit_code": code, "seconds": seconds, "steps": len(record.get("steps", [])),
+            "launches_per_step": per_step, "steps_with_other_launches": bad_steps,
+            "eval_batches": len(record.get("evals", [])),
+            "eval_batches_with_other_launches": bad_evals, "losses": losses,
+            "moe_load_balance": balance,
+            "trainer_step_p50_ms": statistics.median(step_s) * 1e3 if step_s else None,
+            "peak_train_memory_bytes": peak, "launches": run_launches, **card}
+    emit(line)
+    shutil.rmtree(tmp, ignore_errors=True)
+    ok = (code == 0 and not bad_steps and not bad_evals and line["steps"] == 4
+          and line["eval_batches"] > 0 and len(losses) == 4
+          and all(np.isfinite(losses))
+          and (variant != "moe" or (len(balance) == 4 and all(np.isfinite(balance)))))
+    if not ok:
+        raise AssertionError(f"{variant}: the Trainer run failed (see its line)")
+    return line
+
+
+REMAT_RTOL = 1e-6
+
+
+def remat_phase(card, device="cuda"):
+    """One f32 flagship train step (SGD, dropout 0.1 in the fusion and the
+    config's LoRA dropout) with ``remat`` (every tower and fusion block
+    recomputed in the backward, its dropout draws replayed) and without,
+    from the same weights, batch and draws: loss and trainable-gradient
+    norm within 1e-6 relative; the peak memory of each step above the
+    model and optimizer, and the seconds of that first step and of two
+    more (the same batch, on the updated weights). Each of the two runs
+    is a main path of the f32 flash instances at d48 and d64: its counts
+    are reset just before its three steps and read just after, and each
+    step launches exactly :data:`PER_STEP` at f32, with every forward
+    with lse launched twice under ``remat`` (each block's forward runs
+    again in the backward). Returns (the two runs' lines, their launches)."""
+    from bifold_tpu_torch.data.processor import Processor
+    from bifold_tpu_torch.data.spm import fixture_model_bytes
+    from bifold_tpu_torch.losses import build_loss
+    from bifold_tpu_torch.models import build_model, trainable_mask
+    from bifold_tpu_torch.optim import build_optimizer
+    from bifold_tpu_torch.parallel import TrainState, make_train_step
+
+    proc = Processor(TRAIN_PROCESSOR, partition="train", max_context_length=3,
+                     autoprocessor_name=FLAGSHIP["automodel_name"],
+                     spm_asset=fixture_model_bytes(), seed=0)
+    raw = raw_train_batch(proc, 77)
+    draws = proc.draw(proc._spec(raw), TRAIN_BATCH, raw["rgb"].shape[1:3], device)
+    cfg = {**FLAGSHIP, "dropout": 0.1}
+    results, launches = {}, collections.Counter()
+    for remat in (False, True):
+        want = f32_keys({k: n * (2 if remat and k.startswith("fwd") else 1)
+                         for k, n in PER_STEP.items()})
+        model = build_model(cfg, dtype=torch.float32, device=device, seed=0,
+                            remat=remat)
+        trainable_mask(model, lora=True)
+        params = [p for p in model.parameters() if p.requires_grad]
+        opt = build_optimizer({"name": "sgd", "lr": 1e-3}, params, None, max_iters=10,
+                              gradient_clip=1.0)
+        step = make_train_step(model, build_loss(dict(LOSS)), opt)
+        state = TrainState.create(opt, seed=0)
+        sample = proc.process_batch(raw, device, draws=draws)
+        if device == "cuda":
+            gc.collect()                 # the other model's cycles, first
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        seconds, steps = [], []
+        clear_launch_counts()            # this run's steps start here
+        for i in range(3):
+            before = launch_counts()
+            t = time.perf_counter()
+            state, metrics = step(state, sample)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+            steps.append(launched_since(before))
+            if i == 0:
+                first = {"loss": float(metrics["loss"]),
+                         "grad_norm_trainable": float(metrics["grad_norm_trainable"]),
+                         "peak_memory_bytes": (torch.cuda.max_memory_allocated() - base
+                                               if device == "cuda" else None)}
+        launches.update(launch_counts())     # ... and end here
+        results["remat" if remat else "plain"] = {
+            **first, "launches_per_step": want, "launches": launch_counts(),
+            "steps_with_other_launches": [d for d in steps if d != want],
+            "step_seconds": seconds}
+        del model, step, opt, params, sample, state, metrics
+    plain, remat = results["plain"], results["remat"]
+    rel = {k: abs(remat[k] - plain[k]) / abs(plain[k])
+           for k in ("loss", "grad_norm_trainable")}
+    emit({"phase": "remat_train_step", "dtype": "float32", "dropout": 0.1,
+          **results, "rel_diff": rel, "tol": REMAT_RTOL, **card})
+    if any(v > REMAT_RTOL for v in rel.values()):
+        raise AssertionError(f"remat changes the f32 step: {rel}")
+    if device == "cuda" and (plain["steps_with_other_launches"]
+                             or remat["steps_with_other_launches"]):
+        raise AssertionError("remat_phase: a step launched other kernels (see its line)")
+    return results, dict(launches)
+
+
 def serving_phase(server, mode, name, obs_list, p50):
     """What :func:`where_the_time_goes` needs for one served batch."""
     def stages():
@@ -2604,6 +3110,14 @@ def _ptxas_key(symbol: str):
     return None
 
 
+def ptxas_of(ptxas, name, dtype):
+    """The :func:`ptxas_rows` entries of one kernel instance (the backward
+    has two kernels, ``(dkdv)`` and ``(dq)``)."""
+    suffix = "" if dtype == torch.bfloat16 else "_f32"
+    return {k: v for k, v in ptxas.items()
+            if k == name + suffix or (k.startswith(name + " (") and k.endswith(")" + suffix))}
+
+
 def ptxas_rows(fa) -> dict:
     """Registers, static shared memory (ptxas leaves out 0; the LayerNorm
     backward's is dynamic, sized by C) and spill bytes of every kernel
@@ -2656,12 +3170,16 @@ def main() -> int:
 
     peaks = card_peaks(name)
     worst = {**check_kernels(fa), **check_train_kernels(fa), **check_ln_kernels()}
+    for key, err in check_decoder_flash(fa).items():
+        worst[key] = max(worst.get(key, 0.0), err)
     for d in (32, 48):
         check_alignment(fa, d)
     check_function_grads(fa)
     check_auto_route(fa)
-    # every main-path run, each with its counts reset just before it: the
-    # train step and the served path, in each LayerNorm mode
+    # every main-path run, each with its counts reset just before it and
+    # read just after: the train step and the served path, in each
+    # LayerNorm mode, the Trainer, deployment, the families, the variants
+    # and remat; the checks between them are not counted
     phases = [train_flagship(card, mode) for mode in LN_MODES]
     train_interleaved({phase["mode"]: phase["one_step"] for phase in phases}, card)
     f32_step_equivalence()
@@ -2675,12 +3193,21 @@ def main() -> int:
         family_runs.append(family_launches)
         serve_phases += family_phases
     family_runs.append(trainer_cli_families(card))
+    variant_peaks = {}
+    for variant in VARIANTS:
+        variant_launches, variant_phases, variant_peaks[variant] = variant_phase(
+            card, variant)
+        family_runs.append(variant_launches)
+        serve_phases += variant_phases
+    remat, remat_launches = remat_phase(card)
     emit({"phase": "train_peak_memory", "max_memory_allocated_bytes": {
         phase["mode"] or "default": phase["where"]["max_memory_allocated_bytes"]
-        for phase in phases}, **card})
+        for phase in phases}, "variants_trainer_cli_bytes": variant_peaks,
+        "remat_f32_step_bytes": {k: v["peak_memory_bytes"] for k, v in remat.items()},
+        **card})
     launches = collections.Counter()
     for run in ([phase["launches"] for phase in phases] + [trained, pulled]
-                + list(served.values()) + [deployed] + family_runs):
+                + list(served.values()) + [deployed] + family_runs + [remat_launches]):
         launches.update(run)
     # the profiler from here on: after every host-clock measurement
     where_the_time_goes(phases + serve_phases)
@@ -2688,6 +3215,8 @@ def main() -> int:
     del phases, serve_phases, cli_trainer
     torch.cuda.empty_cache()
     timings = {**time_kernels(fa, peaks), **time_train_kernels(fa, peaks),
+               **time_kernels(fa, peaks, torch.float32),
+               **time_train_kernels(fa, peaks, torch.float32),
                **time_ln_kernels(peaks)}
     for kernel, row in timings.items():
         emit({"phase": "kernel_timing", "kernel": kernel, **row})
@@ -2695,27 +3224,40 @@ def main() -> int:
     sources = {"flash_fwd_infer": ("flash_fwd.cu", 250, "serving: predict"),
                "flash_fwd_lse": ("flash_fwd.cu", 241, "training: train step"),
                "flash_bwd": ("flash_bwd.cu", 360, "training: train step")}
+    stacks = {torch.bfloat16: {48: "flagship fusion", 64: "flagship vision",
+                               32: "rgb_clip fusion"},
+              torch.float32: {48: "f32 flagship fusion (remat_phase)",
+                              64: "f32 flagship vision (remat_phase)",
+                              32: "transformer decoder (pick_place_transdecoder)"}}
+    # the f32 instances that a main path launches: the transformer
+    # decoder's, served and trained, and the f32 flagship's in
+    # remat_phase, trained only (the f32 inference forwards at d48 and d64
+    # run in checks alone; they are timed, not listed here)
+    f32_on_path = {"flash_fwd_infer": (32,), "flash_fwd_lse": (48, 64, 32),
+                   "flash_bwd": (48, 64, 32)}
     kernels = []
-    for kernel, (src, line, where) in sources.items():
-        for d, stack in ((48, "flagship fusion"), (64, "flagship vision"),
-                         (32, "rgb_clip fusion")):
-            key = f"{kernel}_d{d}"
-            count = launches.get(key.replace("flash_", ""), 0)
-            if count == 0:
-                raise AssertionError(f"{key} never ran on its main path")
-            row = timings[key]
-            kernels.append({
-                "name": key, "route": "cuda",
-                "source": f"bifold_tpu_torch/csrc/{src}",
-                "replaces": f"bifold_tpu/ops/flash_attention.py:{line}",
-                "launches": count, "max_abs_err": worst[key], "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                "library_backend": row["library_backend"],
-                "design": "mma.sync bf16",
-                "ptxas_bf16": {k: v for k, v in ptxas.items()
-                               if k.startswith(key + " ") or k == key},
-                "shape": row["shape"], "where": f"{where}, {stack}"})
+    for dtype, design in ((torch.bfloat16, "mma.sync bf16"),
+                          (torch.float32, "FMA f32 on the CUDA cores, no TF32")):
+        for kernel, (src, line, where) in sources.items():
+            for d, stack in stacks[dtype].items():
+                if dtype == torch.float32 and d not in f32_on_path[kernel]:
+                    continue
+                key = timing_key(f"{kernel}_d{d}", dtype)
+                count = launches.get(key.removeprefix("flash_"), 0)
+                if count == 0:
+                    raise AssertionError(f"{key} never ran on its main path")
+                row = timings[key]
+                kernels.append({
+                    "name": key, "route": "cuda",
+                    "source": f"bifold_tpu_torch/csrc/{src}",
+                    "replaces": f"bifold_tpu/ops/flash_attention.py:{line}",
+                    "launches": count, "max_abs_err": worst[key], "ms": row["ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                    "library_backend": row["library_backend"], "design": design,
+                    "ptxas": ptxas_of(ptxas, f"{kernel}_d{d}", dtype),
+                    "shape": row["shape"], "dtype": str(dtype),
+                    "where": f"{where}, {stack}"})
     for kernel in LN_KERNELS:
         if launches.get(kernel, 0) == 0:
             raise AssertionError(f"{kernel} never ran on its main path")
@@ -2729,6 +3271,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "library_call": row["library_call"],
             "design": LN_DESIGN[kernel.replace("fused_", "")],
+            "max_abs_err_f32_c512": worst[f"{kernel}_decoder_f32"],
             "ptxas_bf16_c768": ptxas.get(f"{kernel} S3"),
             "shape": row["shape"], "where": LN_WHERE[kernel]})
     emit({"phase": "script", "seconds": time.perf_counter() - started, **card})

@@ -275,7 +275,8 @@ def test_card_wrappers_pass_what_the_signatures_take(monkeypatch):
                         "bifold_flash_fwd_infer", "bifold_flash_bwd"]
     assert dict(tln.LAUNCHES) == dict.fromkeys(
         ("ln_fwd", "fused_ln_fwd", "ln_bwd", "fused_ln_bwd"), 1)
-    assert dict(fa.LAUNCHES) == {"fwd_lse_d48": 1, "fwd_infer_d48": 1, "bwd_d48": 1}
+    assert dict(fa.LAUNCHES) == {"fwd_lse_d48_f32": 1, "fwd_infer_d48_f32": 1,
+                                 "bwd_d48_f32": 1}
     assert blocks == [3, 3]                  # 10 rows, a warp each, 4 per block
     assert list(tln._RESIDENT.values()) == [(132, 4, 4)] * 2
     with pytest.raises(ValueError, match="multiple of 128"):

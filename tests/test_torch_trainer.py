@@ -268,7 +268,9 @@ def test_main_on_the_cpu_writes_the_run_dir(tmp_path):
 
 
 @pytest.mark.parametrize("extra, error", [
-    (["precision.remat=true"], NotImplementedError),
+    # precision.remat trains now (tests/test_torch_remat.py); graph
+    # conditioning is not ported
+    (["model.requires_graph=true"], NotImplementedError),
     (["visualize_model_inputs=true"], NotImplementedError),
     (["visualize_predictions=true"], NotImplementedError),
     # text_unet trains now; its T5 text branch is not ported (TINY's SigLIP
