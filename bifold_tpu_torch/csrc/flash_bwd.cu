@@ -85,11 +85,30 @@
 //   producer warp. d=48's 96-byte rows fit no swizzle atom unless padded
 //   or split, which is why this version stays on mma.sync.
 //
-// f32: `dkdv_kernel` and `dq_kernel` keep the first design on the FP32 CUDA
-// cores (each row owned by two threads, one half of the head dim each,
-// d-long FMA loops). They are the card's precision reference (the f32
-// gradient and train-step checks hold them at 1e-4), which bf16 operands
-// cannot meet; they are chosen by dtype, not as a fallback. No TF32.
+// f32: `dkdv_tf32` and `dq_tf32`, the same route (a) with every product
+// 3xTF32 on the tensor cores (mma.sync m16n8k8 tf32; mma_tf32.cuh). They
+// are the card's precision reference (the f32 gradient and train-step
+// checks hold them at 1e-4), which bf16 or a single TF32 pass cannot meet;
+// they are chosen by dtype, not as a fallback. Deterministic as the bf16
+// kernels are (no atomics; two calls bitwise equal).
+//   - 4 warps x 16 rows; the block's own 64 rows of two operands (K and V,
+//     or Q and dO) stay in shared memory and their A fragments are split
+//     into TF32 hi and lo at each use; the streamed operands (Q, dO, lse,
+//     delta; K, V, mask) come by cp.async into a 2-stage ring of 32 rows.
+//     Rows are padded f32 (D + 4 floats), so every fragment load, along a
+//     row or down the rows with k permuted, is conflict-free.
+//   - All 32 columns of a stage at once: S^T and dP^T (or S and dP) are 4
+//     accumulator tiles each, and P^T / dS^T (dS) leave them as the A
+//     operands of the next products with k permuted (acc_as_a), split like
+//     any other operand.
+//   - 69.9 / 53.5 / 37.1 KB of dynamic shared memory at d 64 / 48 / 32 (set
+//     with cudaFuncAttributeMaxDynamicSharedMemorySize before each launch);
+//     three blocks per SM (__launch_bounds__), 168 + 147..166 registers,
+//     the d64 dk/dv kernel spilling 40 bytes. Measured against that
+//     (tools/flash_variants.py, PERF.md §6): two blocks per SM (255
+//     registers) 2.5-22% slower, 16-row stages 4-11% slower, 64-row
+//     stages 10-13% slower, splitting each stage once into hi and lo rows
+//     in shared memory up to 14% slower.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -97,6 +116,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -399,207 +419,264 @@ __global__ void __launch_bounds__(kMmaThreads, kBlocksPerSM) dq_mma(
 }
 
 // ---------------------------------------------------------------------------
-// f32: FP32 CUDA cores
+// f32: tensor cores, 3xTF32
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 64;              // rows a block owns, two threads each
-constexpr int kThreads = 2 * kRows;
-constexpr int kTile = 64;              // rows per streamed shared-memory tile
+constexpr int kTileF32 = 32;        // streamed rows per ring stage
+constexpr int kBlocksPerSMF32 = 3;  // caps registers at 168 a thread
 
-// Shared-memory row of head dim D: first half at 0, second half at kOff.
+// dynamic shared memory of either f32 kernel: the block's own 64 rows of
+// two operands, a 2-stage ring of 32 rows of two operands, and 2 x 32
+// 4-byte entries of each of two vectors (lse and delta, or the key mask);
+// 69.9 / 53.5 / 37.1 KB at D = 64 / 48 / 32
 template <int D>
-struct Row {
-  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
-  static constexpr int kHalf = D / 2;
-  static constexpr int kPad = (kHalf % 32 == 0) ? 4 : 0;  // bank shift
-  static constexpr int kOff = kHalf + kPad;
-  static constexpr int kLen = D + kPad;
-};
-
-// rows x D elements from global (row stride in elements, head dim
-// contiguous) into shared rows
-template <int D>
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      int64_t row_stride, int rows) {
-  using R = Row<D>;
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D;
-    const int c = i - r * D;
-    dst[r * R::kLen + (c < R::kHalf ? c : c + R::kPad)] =
-        src[(int64_t)r * row_stride + c];
-  }
-}
-
-// this thread's half of one head-dim row, from global into registers
-template <int H>
-__device__ __forceinline__ void load_half(float* dst, const float* src,
-                                          bool on) {
-#pragma unroll
-  for (int c = 0; c < H; ++c) dst[c] = on ? src[c] : 0.f;
-}
-
-template <int H>
-__device__ __forceinline__ void store_half(float* dst, const float* src) {
-#pragma unroll
-  for (int c = 0; c < H; ++c) dst[c] = src[c];
-}
-
-// full dot product of a row split over the thread pair (t, t ^ 1): the
-// partial over this thread's half (registers . shared), summed by a shuffle
-template <int H>
-__device__ __forceinline__ float pair_dot(const float* reg, const float* sm) {
-  float a = 0.f, b = 0.f;
-#pragma unroll
-  for (int c = 0; c < H; c += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(sm + c);
-    a = fmaf(reg[c], x.x, a);
-    b = fmaf(reg[c + 1], x.y, b);
-    a = fmaf(reg[c + 2], x.z, a);
-    b = fmaf(reg[c + 3], x.w, b);
-  }
-  a += b;
-  return a + __shfl_xor_sync(0xffffffffu, a, 1);
-}
-
-// acc += w * shared row half
-template <int H>
-__device__ __forceinline__ void axpy(float* acc, float w, const float* sm) {
-#pragma unroll
-  for (int c = 0; c < H; c += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(sm + c);
-    acc[c] = fmaf(w, x.x, acc[c]);
-    acc[c + 1] = fmaf(w, x.y, acc[c + 1]);
-    acc[c + 2] = fmaf(w, x.z, acc[c + 2]);
-    acc[c + 3] = fmaf(w, x.w, acc[c + 3]);
-  }
+constexpr int bwd_smem_f32() {
+  return (2 * kOwn * (D + 4) + 2 * 2 * kTileF32 * (D + 4) + 2 * 2 * kTileF32) *
+         4;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) dkdv_kernel(
+__global__ void __launch_bounds__(kMmaThreads, kBlocksPerSMF32) dkdv_tf32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ mask,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk,
     float* __restrict__ dv, int nq, int nk, int h, Strides st, float scale) {
-  using R = Row<D>;
-  constexpr int H = R::kHalf;
-  __shared__ __align__(16) float qs[kTile * R::kLen];
-  __shared__ __align__(16) float dos[kTile * R::kLen];
-  __shared__ float lses[kTile];
-  __shared__ float deltas[kTile];
+  using namespace bifold;
+  constexpr int S = D + 4;  // shared row, padded
+  constexpr int kT = kTileF32;
+  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
+  extern __shared__ __align__(128) float smem[];
+  float* kvs = smem;                  // the block's K rows, then V rows
+  float* ring = kvs + 2 * kOwn * S;   // 2 stages: Q rows, then dO rows
+  float* ls = ring + 2 * 2 * kT * S;  // 2 stages of lse
+  float* dls = ls + 2 * kT;           // 2 stages of delta
 
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tq = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / h;
   const int head = bh - b * h;
-  const int half = threadIdx.x & 1;
-  const int key = blockIdx.x * kRows + (threadIdx.x >> 1);
-  const bool active = key < nk;   // both threads of a pair agree
-  const bool kept =
-      !active || mask == nullptr || mask[(int64_t)b * nk + key] != 0;
-
-  float kr[H], vr[H], dkr[H], dvr[H];
-  load_half<H>(kr, k + b * st.k_b + (int64_t)key * st.k_n + head * st.k_h
-                       + half * H, active);
-  load_half<H>(vr, v + b * st.v_b + (int64_t)key * st.v_n + head * st.v_h
-                       + half * H, active);
-#pragma unroll
-  for (int c = 0; c < H; ++c) dkr[c] = dvr[c] = 0.f;
-
+  const int key0 = blockIdx.x * kOwn;
   const float* qb = q + b * st.q_b + head * st.q_h;
-  const int64_t o_n = (int64_t)h * D;               // dO row stride
+  const int64_t o_n = (int64_t)h * D;  // dO row stride
   const float* ob = dout + ((int64_t)b * nq * h + head) * D;
   const float* lb = lse + (int64_t)bh * nq;
   const float* db = delta + (int64_t)bh * nq;
-  const int off = half * R::kOff;
+  const int tiles = (nq + kT - 1) / kT;
 
-  for (int q0 = 0; q0 < nq; q0 += kTile) {
-    const int tile = min(kTile, nq - q0);
-    __syncthreads();  // every pair is done with the previous tile
-    stage<D>(qs, qb + (int64_t)q0 * st.q_n, st.q_n, tile);
-    stage<D>(dos, ob + (int64_t)q0 * o_n, o_n, tile);
-    for (int i = threadIdx.x; i < tile; i += kThreads) {
-      lses[i] = lb[q0 + i];
-      deltas[i] = db[q0 + i];
-    }
+  auto load_tile = [&](int stage, int r0) {
+    float* qs = ring + stage * 2 * kT * S;
+    load_rows_f32<D, kT, kMmaThreads>(qs, qb, st.q_n, r0, nq);
+    load_rows_f32<D, kT, kMmaThreads>(qs + kT * S, ob, o_n, r0, nq);
+    load_vec<kT>(ls + stage * kT, lb, r0, nq);
+    load_vec<kT>(dls + stage * kT, db, r0, nq);
+  };
+
+  load_rows_f32<D, kOwn, kMmaThreads>(kvs, k + b * st.k_b + head * st.k_h,
+                                      st.k_n, key0, nk);
+  load_rows_f32<D, kOwn, kMmaThreads>(kvs + kOwn * S,
+                                      v + b * st.v_b + head * st.v_h, st.v_n,
+                                      key0, nk);
+  load_tile(0, 0);
+  cp_async_commit();  // K, V and tile 0
+  if (tiles > 1) load_tile(1, kT);
+  cp_async_commit();
+
+  // this lane's keys: rows g and g + 8 of the warp's 16
+  bool valid[2], kept[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + warp * 16 + (lane >> 2) + 8 * r;
+    valid[r] = key < nk;
+    kept[r] = valid[r] && (mask == nullptr || mask[(int64_t)b * nk + key] != 0);
+  }
+  const float scale_log2 = scale * kLog2e;
+  const float* kw = kvs + warp * 16 * S;  // this warp's 16 K rows
+  const float* vw = kw + kOwn * S;        // ... and V rows
+  float dka[D / 8][4] = {};
+  float dva[D / 8][4] = {};
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<1>();  // tile j has landed (tile j + 1 may be in flight)
     __syncthreads();
-    // every thread runs the loop (the shuffles need the whole warp);
-    // a pair past nk computes on zeros and stores nothing
-    for (int i = 0; i < tile; ++i) {
-      const float* qi = qs + i * R::kLen + off;
-      const float* oi = dos + i * R::kLen + off;
-      const float qk = pair_dot<H>(kr, qi);   // shuffles: never skipped
-      const float dp = pair_dot<H>(vr, oi);
-      const float s = kept ? qk * scale : kMaskFill;
-      const float p = active ? __expf(s - lses[i]) : 0.f;
-      const float ds = kept ? p * (dp - deltas[i]) * scale : 0.f;
-      axpy<H>(dvr, p, oi);
-      axpy<H>(dkr, ds, qi);
+    const float* qs = ring + (j & 1) * 2 * kT * S;
+    const float* os = qs + kT * S;
+    const float* lq = ls + (j & 1) * kT;
+    const float* dl = dls + (j & 1) * kT;
+    const int r0 = j * kT;
+    // S^T = K.Q^T and dP^T = V.dO^T over the stage's 32 query columns
+    float sc[kT / 8][4] = {};
+    float dp[kT / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      FragA a;
+      load_a<S>(a, kw, kk, lane);
+#pragma unroll
+      for (int n = 0; n < kT / 8; ++n) mma_rows<S>(sc[n], a, qs, n * 8, kk, lane);
+      load_a<S>(a, vw, kk, lane);
+#pragma unroll
+      for (int n = 0; n < kT / 8; ++n) mma_rows<S>(dp[n], a, os, n * 8, kk, lane);
     }
+#pragma unroll
+    for (int n = 0; n < kT / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * tq + (e & 1);
+        const int r = e >> 1;
+        const float x = kept[r]
+                            ? fmaf(sc[n][e], scale_log2, -lq[col] * kLog2e)
+                            : (kMaskFill - lq[col]) * kLog2e;
+        const float p = valid[r] && r0 + col < nq ? exp2f(x) : 0.f;
+        dp[n][e] = kept[r] ? p * (dp[n][e] - dl[col]) * scale : 0.f;
+        sc[n][e] = p;
+      }
+    }
+    // dV += P^T.dO and dK += dS^T.Q, 8 query rows a k-step; P^T and dS^T
+    // are split from the accumulators
+#pragma unroll
+    for (int n = 0; n < kT / 8; ++n) {
+      FragA pa, sa;
+      acc_as_a(pa, sc[n]);
+      acc_as_a(sa, dp[n]);
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        mma_cols<S>(dva[dn], pa, os, n * 8, dn * 8, lane);
+        mma_cols<S>(dka[dn], sa, qs, n * 8, dn * 8, lane);
+      }
+    }
+    __syncthreads();  // every warp is done with stage j & 1
+    if (j + 2 < tiles) load_tile(j & 1, (j + 2) * kT);
+    cp_async_commit();
   }
 
-  if (active) {
-    const int64_t at = (((int64_t)b * nk + key) * h + head) * D + half * H;
-    store_half<H>(dk + at, dkr);
-    store_half<H>(dv + at, dvr);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!valid[r]) continue;
+    const int key = key0 + warp * 16 + (lane >> 2) + 8 * r;
+    const int64_t at = (((int64_t)b * nk + key) * h + head) * D + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(dk + at + n * 8) =
+          make_float2(dka[n][2 * r], dka[n][2 * r + 1]);
+      *reinterpret_cast<float2*>(dv + at + n * 8) =
+          make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
+    }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) dq_kernel(
+__global__ void __launch_bounds__(kMmaThreads, kBlocksPerSMF32) dq_tf32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ mask,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq, int nq, int nk,
     int h, Strides st, float scale) {
-  using R = Row<D>;
-  constexpr int H = R::kHalf;
-  __shared__ __align__(16) float ks[kTile * R::kLen];
-  __shared__ __align__(16) float vs[kTile * R::kLen];
-  __shared__ int ms[kTile];
+  using namespace bifold;
+  constexpr int S = D + 4;  // shared row, padded
+  constexpr int kT = kTileF32;
+  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
+  extern __shared__ __align__(128) float smem[];
+  float* qo = smem;                  // the block's Q rows, then dO rows
+  float* ring = qo + 2 * kOwn * S;   // 2 stages: K rows, then V rows
+  int* ms = reinterpret_cast<int*>(ring + 2 * 2 * kT * S);  // 2 stages of mask
 
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tq = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / h;
   const int head = bh - b * h;
-  const int half = threadIdx.x & 1;
-  const int row = blockIdx.x * kRows + (threadIdx.x >> 1);
-  const bool active = row < nq;   // both threads of a pair agree
-
-  float qr[H], dor[H], dqr[H];
-  load_half<H>(qr, q + b * st.q_b + (int64_t)row * st.q_n + head * st.q_h
-                       + half * H, active);
-  load_half<H>(dor, dout + (((int64_t)b * nq + row) * h + head) * D
-                        + half * H, active);
-#pragma unroll
-  for (int c = 0; c < H; ++c) dqr[c] = 0.f;
-  const float l = active ? lse[(int64_t)bh * nq + row] : 0.f;
-  const float dl = active ? delta[(int64_t)bh * nq + row] : 0.f;
-
+  const int q0 = blockIdx.x * kOwn;
   const float* kb = k + b * st.k_b + head * st.k_h;
   const float* vb = v + b * st.v_b + head * st.v_h;
   const int* mb = mask == nullptr ? nullptr : mask + (int64_t)b * nk;
-  const int off = half * R::kOff;
+  const int tiles = (nk + kT - 1) / kT;
 
-  for (int k0 = 0; k0 < nk; k0 += kTile) {
-    const int tile = min(kTile, nk - k0);
-    __syncthreads();  // every pair is done with the previous tile
-    stage<D>(ks, kb + (int64_t)k0 * st.k_n, st.k_n, tile);
-    stage<D>(vs, vb + (int64_t)k0 * st.v_n, st.v_n, tile);
-    for (int i = threadIdx.x; i < tile; i += kThreads)
-      ms[i] = mb == nullptr ? 1 : mb[k0 + i];
+  load_rows_f32<D, kOwn, kMmaThreads>(qo, q + b * st.q_b + head * st.q_h,
+                                      st.q_n, q0, nq);
+  load_rows_f32<D, kOwn, kMmaThreads>(
+      qo + kOwn * S, dout + ((int64_t)b * nq * h + head) * D, (int64_t)h * D,
+      q0, nq);
+  load_key_tile_f32<D, kT, kMmaThreads>(ring, ms, kb, vb, mb, st.k_n, st.v_n,
+                                        0, nk);
+  cp_async_commit();  // Q, dO and key tile 0
+  if (tiles > 1)
+    load_key_tile_f32<D, kT, kMmaThreads>(ring + 2 * kT * S, ms + kT, kb, vb,
+                                          mb, st.k_n, st.v_n, kT, nk);
+  cp_async_commit();
+
+  // this lane's query rows: g and g + 8 of the warp's 16
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;
+    lse2[r] = row < nq ? lse[(int64_t)bh * nq + row] * kLog2e : 0.f;
+    dl[r] = row < nq ? delta[(int64_t)bh * nq + row] : 0.f;
+  }
+  const float scale_log2 = scale * kLog2e;
+  const float* qw = qo + warp * 16 * S;  // this warp's 16 Q rows
+  const float* ow = qw + kOwn * S;       // ... and dO rows
+  float dqa[D / 8][4] = {};
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<1>();  // tile j has landed (tile j + 1 may be in flight)
     __syncthreads();
-    for (int j = 0; j < tile; ++j) {
-      if (ms[j] == 0) continue;   // ds = 0: the same for the whole block
-      const float* kj = ks + j * R::kLen + off;
-      const float s = pair_dot<H>(qr, kj) * scale;
-      const float dp = pair_dot<H>(dor, vs + j * R::kLen + off);
-      const float ds = active ? __expf(s - l) * (dp - dl) * scale : 0.f;
-      axpy<H>(dqr, ds, kj);
+    const float* ks = ring + (j & 1) * 2 * kT * S;
+    const float* vs = ks + kT * S;
+    const int* mk = ms + (j & 1) * kT;
+    // S = Q.K^T and dP = dO.V^T over the stage's 32 keys
+    float sc[kT / 8][4] = {};
+    float dp[kT / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      FragA a;
+      load_a<S>(a, qw, kk, lane);
+#pragma unroll
+      for (int n = 0; n < kT / 8; ++n) mma_rows<S>(sc[n], a, ks, n * 8, kk, lane);
+      load_a<S>(a, ow, kk, lane);
+#pragma unroll
+      for (int n = 0; n < kT / 8; ++n) mma_rows<S>(dp[n], a, vs, n * 8, kk, lane);
     }
+#pragma unroll
+    for (int n = 0; n < kT / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * tq + (e & 1);
+        const int r = e >> 1;
+        // masked keys and keys past nk: ds = 0, p is not needed
+        dp[n][e] = mk[col] != 0
+                       ? exp2f(fmaf(sc[n][e], scale_log2, -lse2[r])) *
+                             (dp[n][e] - dl[r]) * scale
+                       : 0.f;
+      }
+    }
+    // dQ += dS.K, 8 keys a k-step; dS is split from the accumulators
+#pragma unroll
+    for (int n = 0; n < kT / 8; ++n) {
+      FragA sa;
+      acc_as_a(sa, dp[n]);
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn)
+        mma_cols<S>(dqa[dn], sa, ks, n * 8, dn * 8, lane);
+    }
+    __syncthreads();  // every warp is done with stage j & 1
+    if (j + 2 < tiles)
+      load_key_tile_f32<D, kT, kMmaThreads>(ring + (j & 1) * 2 * kT * S,
+                                            ms + (j & 1) * kT, kb, vb, mb,
+                                            st.k_n, st.v_n, (j + 2) * kT, nk);
+    cp_async_commit();
   }
 
-  if (active)
-    store_half<H>(dq + (((int64_t)b * nq + row) * h + head) * D + half * H,
-                  dqr);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;
+    if (row >= nq) continue;
+    float* out = dq + (((int64_t)b * nq + row) * h + head) * D + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(out + n * 8) =
+          make_float2(dqa[n][2 * r], dqa[n][2 * r + 1]);
+  }
 }
 
 // the dk/dv kernel, then the dq kernel, on one stream
@@ -631,15 +708,23 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   const T* op = static_cast<const T*>(dout);
-  dkdv_kernel<D><<<dim3((nk + kRows - 1) / kRows, b * h), kThreads, 0,
-                   stream>>>(qp, kp, vp, mask, op, lse, delta,
-                             static_cast<T*>(dk), static_cast<T*>(dv), nq, nk,
-                             h, st, scale);
-  cudaError_t err = cudaGetLastError();
+  // above the 48 KB of static shared memory at D = 48 and 64
+  constexpr int smem = bwd_smem_f32<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv_tf32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dq_kernel<D><<<dim3((nq + kRows - 1) / kRows, b * h), kThreads, 0,
+  err = cudaFuncSetAttribute(
+      dq_tf32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dkdv_tf32<D><<<dim3((nk + kOwn - 1) / kOwn, b * h), kMmaThreads, smem,
                  stream>>>(qp, kp, vp, mask, op, lse, delta,
-                           static_cast<T*>(dq), nq, nk, h, st, scale);
+                           static_cast<T*>(dk), static_cast<T*>(dv), nq, nk,
+                           h, st, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dq_tf32<D><<<dim3((nq + kOwn - 1) / kOwn, b * h), kMmaThreads, smem,
+               stream>>>(qp, kp, vp, mask, op, lse, delta,
+                         static_cast<T*>(dq), nq, nk, h, st, scale);
   return cudaGetLastError();
 }
 
@@ -649,11 +734,11 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout, dq, dk, dv alike).
 // strides: element strides of q, k, v over (batch, token, head), nine
-// values; the head dim is contiguous. bfloat16 needs 16-byte-aligned q, k, v
-// and strides that are multiples of 8 (cudaErrorMisalignedAddress
-// otherwise). dout is (B, Nq, H, D) contiguous, lse and delta float32
-// (B, H, Nq) contiguous, mask int32 (B, nk) contiguous or null. dq, dk, dv
-// are written contiguous in the JAX layout. Launches the dk/dv kernel, then
+// values; the head dim is contiguous. q, k, v must be 16-byte aligned with
+// strides that are multiples of 16 bytes (8 bfloat16 or 4 float32 elements;
+// cudaErrorMisalignedAddress otherwise). dout is (B, Nq, H, D) contiguous,
+// lse and delta float32 (B, H, Nq) contiguous, mask int32 (B, nk)
+// contiguous or null. dq, dk, dv are written contiguous in the JAX layout. Launches the dk/dv kernel, then
 // the dq kernel, on `stream`; returns a cudaError_t.
 int bifold_flash_bwd(const void* q, const void* k, const void* v,
                      const int* mask, const void* dout, const float* lse,
@@ -663,7 +748,7 @@ int bifold_flash_bwd(const void* q, const void* k, const void* v,
   if (b <= 0 || nq <= 0 || nk <= 0 || h <= 0 || b * h > 65535 ||
       lse == nullptr || delta == nullptr || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
-  if (dtype == 1 && !bifold::aligned_rows(q, k, v, strides))
+  if (!bifold::aligned_rows(q, k, v, strides, dtype == 1 ? 8 : 4))
     return cudaErrorMisalignedAddress;
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],
                    strides[5], strides[6], strides[7], strides[8]};

@@ -69,11 +69,34 @@
 //   producer warp. d=48's 96-byte rows fit no swizzle atom unless padded
 //   or split, which is why this version stays on mma.sync.
 //
-// f32: `flash_fwd_kernel` keeps the first design on the FP32 CUDA cores
-// (FMA, one query row per thread, K/V tiles converted in shared memory).
-// It is the card's precision reference (the f32 gradient, train-step and
-// action checks hold it at 1e-4), which bf16 operands cannot meet; it is
-// chosen by dtype, not as a fallback. No TF32.
+// f32: `flash_fwd_tf32`, the same structure with every product 3xTF32 on
+// the tensor cores (mma.sync m16n8k8 tf32; mma_tf32.cuh). The f32
+// instances are the card's precision reference (the f32 gradient,
+// train-step and action checks hold them at 1e-4), which bf16 or a single
+// TF32 pass (about three decimal digits) cannot meet; 3xTF32 keeps f32's
+// accuracy at 3 x FLOP / 495 TFLOP/s against FMA's FLOP / 67 TFLOP/s. The
+// path is chosen by dtype, not as a fallback.
+//   - A block of 4 warps owns 64 query rows, 16 per warp. Q is split into
+//     TF32 hi and lo once and held as A fragments for the whole key loop.
+//   - K/V come in 32-key tiles by 16-byte cp.async into a 2-stage ring of
+//     padded f32 rows (D + 4 floats: every fragment load conflict-free,
+//     mma_tf32.cuh); each B value is split as it is loaded. Splitting each
+//     tile once into hi and lo rows in shared memory instead (two loads a
+//     value, an extra pass and barrier, 69.9 KB at d64) measured 10-23%
+//     slower (PERF.md §6).
+//   - The online softmax runs in f32 in log2 units, as the bf16 kernel's;
+//     P leaves the accumulators as the A operand of P.V with k permuted
+//     (acc_as_a) and is split into hi and lo like any other operand, never
+//     rounded further.
+//   - Three blocks per SM (__launch_bounds__): 127 / 158 / 168 registers at
+//     d 32 / 48 / 64, the d64 instances spilling 24 bytes; two blocks per
+//     SM (190 registers, no spill) were 0.6% faster at the d64 train shape,
+//     8% faster at the d64 serving shape (which no main path runs in f32)
+//     and up to 2% slower at d48 (tools/flash_variants.py f32_blocks2).
+//   Rounding points beyond the plain version's: the TF32 splits and the
+//   dropped lo.lo products (below 2^-21 of each product); the emulation in
+//   tests/test_torch_flash_attention.py holds this arithmetic within 1e-5
+//   of the plain version.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -81,6 +104,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -260,117 +284,151 @@ __global__ void __launch_bounds__(kMmaThreads, kBlocksPerSM) flash_fwd_mma(
 }
 
 // ---------------------------------------------------------------------------
-// f32: FP32 CUDA cores
+// f32: tensor cores, 3xTF32
 // ---------------------------------------------------------------------------
 
-constexpr int kBlockQ = 64;   // query rows per block, one per thread
-constexpr int kBlockK = 64;   // keys per shared-memory tile
-constexpr int kChunk = 16;    // keys per online-softmax update
+constexpr int kKeysF32 = 32;        // keys per ring stage
+constexpr int kBlocksPerSMF32 = 3;  // caps registers at 168 a thread
 
 template <int D, bool kWithLse>
-__global__ void __launch_bounds__(kBlockQ) flash_fwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const int* __restrict__ mask,
-    float* __restrict__ o, float* __restrict__ lse, int nq, int nk, int h,
-    Strides st, float scale) {
-  static_assert(D % 4 == 0, "head dim must be a multiple of 4");
-  __shared__ __align__(16) float ks[kBlockK][D];
-  __shared__ __align__(16) float vs[kBlockK][D];
-  __shared__ int ms[kBlockK];
+__global__ void __launch_bounds__(kMmaThreads, kBlocksPerSMF32)
+    flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const int* __restrict__ mask,
+                   float* __restrict__ o, float* __restrict__ lse, int nq,
+                   int nk, int h, Strides st, float scale_log2) {
+  using namespace bifold;
+  constexpr int S = D + 4;  // shared row, padded
+  constexpr int kK = kKeysF32;
+  constexpr float kFill2 = kMaskFill * kLog2e;
+  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
+  static_assert(kMmaRows <= 2 * kK, "the Q tile borrows one ring stage");
+  // ring stage: K rows, then V rows; the Q tile is staged in stage 1 first
+  __shared__ __align__(128) float kv[2][2 * kK * S];
+  __shared__ int ms[2][kK];
 
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tq = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / h;
   const int head = bh - b * h;
-  const int row = blockIdx.x * kBlockQ + threadIdx.x;
-  const bool active = row < nq;
-
-  float qr[D];
-  float acc[D];
-  if (active) {
-    const float* qp = q + b * st.q_b + (int64_t)row * st.q_n + head * st.q_h;
-#pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = qp[d] * scale;
-  } else {
-#pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = 0.f;
-  }
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  float m = -INFINITY;
-  float l = 0.f;
-
+  const int q0 = blockIdx.x * kMmaRows;
   const float* kb = k + b * st.k_b + head * st.k_h;
   const float* vb = v + b * st.v_b + head * st.v_h;
   const int* mb = mask == nullptr ? nullptr : mask + (int64_t)b * nk;
+  const int tiles = (nk + kK - 1) / kK;
 
-  for (int k0 = 0; k0 < nk; k0 += kBlockK) {
-    const int tile = min(kBlockK, nk - k0);
-    __syncthreads();  // every row is done with the previous tile
-    for (int i = threadIdx.x; i < tile * D; i += kBlockQ) {
-      const int r = i / D;
-      const int c = i - r * D;
-      ks[r][c] = kb[(int64_t)(k0 + r) * st.k_n + c];
-      vs[r][c] = vb[(int64_t)(k0 + r) * st.v_n + c];
-    }
-    for (int i = threadIdx.x; i < tile; i += kBlockQ)
-      ms[i] = mb == nullptr ? 1 : mb[k0 + i];
+  load_rows_f32<D, kMmaRows, kMmaThreads>(
+      kv[1], q + b * st.q_b + head * st.q_h, st.q_n, q0, nq);
+  cp_async_commit();
+  load_key_tile_f32<D, kK, kMmaThreads>(kv[0], ms[0], kb, vb, mb, st.k_n,
+                                        st.v_n, 0, nk);
+  cp_async_commit();
+  cp_async_wait<1>();  // the Q tile has landed
+  __syncthreads();
+  FragA qa[D / 8];     // Q split once, held for the whole key loop
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    load_a<S>(qa[kk], kv[1] + warp * 16 * S, kk, lane);
+  __syncthreads();  // every warp holds its Q fragments: stage 1 is free
+  if (tiles > 1)
+    load_key_tile_f32<D, kK, kMmaThreads>(kv[1], ms[1], kb, vb, mb, st.k_n,
+                                          st.v_n, kK, nk);
+  cp_async_commit();
+
+  float acc[D / 8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY};  // running max, log2 units
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sum
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<1>();  // tile j has landed (tile j + 1 may be in flight)
     __syncthreads();
-    if (!active) continue;
+    const float* ks = kv[j & 1];
+    const float* vs = ks + kK * S;
+    const int* mk = ms[j & 1];
+    const int k0 = j * kK;
 
-    for (int c0 = 0; c0 < tile; c0 += kChunk) {
-      float s[kChunk];
-      float cmax = -INFINITY;
+    float s[kK / 8][4] = {};
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const int kk = c0 + j;
-        if (kk < tile) {
-          float dot = 0.f;
+    for (int kk = 0; kk < D / 8; ++kk) {
 #pragma unroll
-          for (int d = 0; d < D; d += 4) {
-            const float4 kv = *reinterpret_cast<const float4*>(&ks[kk][d]);
-            dot = fmaf(qr[d], kv.x, dot);
-            dot = fmaf(qr[d + 1], kv.y, dot);
-            dot = fmaf(qr[d + 2], kv.z, dot);
-            dot = fmaf(qr[d + 3], kv.w, dot);
-          }
-          s[j] = ms[kk] == 0 ? kMaskFill : dot;
-        } else {
-          s[j] = -INFINITY;  // past the tile: exactly zero mass below
-        }
-        cmax = fmaxf(cmax, s[j]);
-      }
-      // cmax is finite: key c0 < tile always exists
-      const float m_new = fmaxf(m, cmax);
-      const float alpha = __expf(m - m_new);  // m == -inf on the first chunk -> 0
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        if (c0 + j < tile) {
-          const float p = __expf(s[j] - m_new);
-          l += p;
-#pragma unroll
-          for (int d = 0; d < D; d += 4) {
-            const float4 vv =
-                *reinterpret_cast<const float4*>(&vs[c0 + j][d]);
-            acc[d] = fmaf(p, vv.x, acc[d]);
-            acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
-            acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
-            acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
-          }
-        }
-      }
-      m = m_new;
+      for (int n = 0; n < kK / 8; ++n)
+        mma_rows<S>(s[n], qa[kk], ks, n * 8, kk, lane);
     }
+
+    // scale after the product, mask, online softmax (rows g and g + 8)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < kK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * tq + (e & 1);
+        const float x = k0 + col >= nk   ? -INFINITY
+                        : mk[col] == 0 ? kFill2
+                                       : s[n][e] * scale_log2;
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // finite: key k0 < nk exists; exp2(-inf) = 0 on the first tile
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int n = 0; n < kK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - m[e >> 1]);
+        s[n][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+
+    // O += P.V, P split into TF32 hi and lo straight from the accumulators
+#pragma unroll
+    for (int kk = 0; kk < kK / 8; ++kk) {
+      FragA pa;
+      acc_as_a(pa, s[kk]);
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn)
+        mma_cols<S>(acc[dn], pa, vs, kk * 8, dn * 8, lane);
+    }
+    __syncthreads();  // every warp is done with stage j & 1
+    if (j + 2 < tiles)
+      load_key_tile_f32<D, kK, kMmaThreads>(kv[j & 1], ms[j & 1], kb, vb, mb,
+                                            st.k_n, st.v_n, (j + 2) * kK, nk);
+    cp_async_commit();
   }
 
-  if (active) {
-    const float l_safe = fmaxf(l, 1e-30f);
-    float* op = o + (((int64_t)b * nq + row) * h + head) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = acc[d] / l_safe;
-    if (kWithLse) lse[(int64_t)bh * nq + row] = m + logf(l_safe);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;
+    if (row >= nq) continue;
+    const float l_safe = fmaxf(l[r], 1e-30f);
+    float* op = o + (((int64_t)b * nq + row) * h + head) * D + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(op + n * 8) =
+          make_float2(acc[n][2 * r] / l_safe, acc[n][2 * r + 1] / l_safe);
+    if (kWithLse && tq == 0)
+      lse[(int64_t)bh * nq + row] = m[r] * kLn2 + logf(l_safe);
   }
 }
 
@@ -386,11 +444,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
         static_cast<const bf16*>(v), mask, static_cast<bf16*>(o), lse, nq, nk,
         h, st, scale * kLog2e);
   } else {
-    const dim3 grid((nq + kBlockQ - 1) / kBlockQ, b * h);
-    flash_fwd_kernel<D, kWithLse><<<grid, kBlockQ, 0, stream>>>(
+    const dim3 grid((nq + kMmaRows - 1) / kMmaRows, b * h);
+    flash_fwd_tf32<D, kWithLse><<<grid, kMmaThreads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), mask, static_cast<float*>(o), lse, nq,
-        nk, h, st, scale);
+        nk, h, st, scale * kLog2e);
   }
   return cudaGetLastError();
 }
@@ -402,7 +460,7 @@ int dispatch(const void* q, const void* k, const void* v, const int* mask,
   if (b <= 0 || nq <= 0 || nk <= 0 || h <= 0 || b * h > 65535 ||
       (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
-  if (dtype == 1 && !bifold::aligned_rows(q, k, v, strides))
+  if (!bifold::aligned_rows(q, k, v, strides, dtype == 1 ? 8 : 4))
     return cudaErrorMisalignedAddress;
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],
                    strides[5], strides[6], strides[7], strides[8]};
@@ -424,10 +482,11 @@ int dispatch(const void* q, const void* k, const void* v, const int* mask,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. strides: element strides of q, k, v over
-// (batch, token, head), nine values; the head dim is contiguous. bfloat16
-// needs 16-byte-aligned q, k, v and strides that are multiples of 8
-// (cudaErrorMisalignedAddress otherwise). mask is int32 (B, nk) contiguous,
-// or null for no mask. Returns a cudaError_t.
+// (batch, token, head), nine values; the head dim is contiguous. q, k, v
+// must be 16-byte aligned with strides that are multiples of 16 bytes (8
+// bfloat16 or 4 float32 elements; cudaErrorMisalignedAddress otherwise).
+// mask is int32 (B, nk) contiguous, or null for no mask. Returns a
+// cudaError_t.
 int bifold_flash_fwd_infer(const void* q, const void* k, const void* v,
                            const int* mask, void* o, int b, int nq, int nk,
                            int h, int d, const int64_t* strides, float scale,

@@ -153,14 +153,15 @@ __device__ __forceinline__ void load_key_tile(bf16* kv, int* ms,
 }
 
 // the 16-byte cp.async rows need 16-byte-aligned q, k, v and (batch, token,
-// head) strides, nine of them, that are multiples of 8 bf16 elements
+// head) strides, nine of them, that are multiples of `elems`, the elements
+// in 16 bytes (8 bf16, 4 f32)
 inline bool aligned_rows(const void* q, const void* k, const void* v,
-                         const int64_t* strides) {
+                         const int64_t* strides, int elems) {
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16 != 0)
     return false;
   for (int i = 0; i < 9; ++i)
-    if (strides[i] % 8 != 0) return false;
+    if (strides[i] % elems != 0) return false;
   return true;
 }
 

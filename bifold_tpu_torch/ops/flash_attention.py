@@ -24,15 +24,18 @@ kernels together). The CPU tests
 hold the plain versions against the JAX kernels; ``chip_smoke.py`` holds the
 CUDA kernels against the plain versions on the card.
 
-bfloat16 inputs run on the tensor cores (``mma.sync``, f32 accumulation;
-P and dS rounded to bf16 before their products), float32 inputs on the
-FP32 CUDA cores (the precision reference; no TF32). Both are instanced at
-head dims 32 (rgb_clip's fusion stack), 48 (the flagship's fusion stack)
-and 64 (the SigLIP vision tower), :data:`KERNEL_HEAD_DIMS`; another head
-dim raises on the card. On the card q, k and v
-must start on 16 bytes and have (batch, token, head) strides that are
-multiples of 8 elements, as the fused ``to_qkv`` views do; anything else
-raises.
+Both dtypes run on the tensor cores with ``mma.sync`` and f32
+accumulation: bfloat16 inputs as bf16 operands (P and dS rounded to bf16
+before their products), float32 inputs as 3xTF32 (each operand split into
+TF32 hi and lo, a.b = hi.hi + hi.lo + lo.hi: f32's accuracy, the precision
+reference; never a single TF32 pass). Both are instanced at
+head dims 32 (rgb_clip's fusion stack and the transformer decoder), 48 (the
+flagship's fusion stack) and 64 (the SigLIP vision tower),
+:data:`KERNEL_HEAD_DIMS`; another head dim raises on the card. On the card
+q, k and v must start on 16 bytes and have (batch, token, head) strides
+that are multiples of 8 elements, as the fused ``to_qkv`` views do
+(the kernels' 16-byte ``cp.async`` rows need 8 bf16 or 4 f32 elements;
+their C entry points refuse less); anything else raises.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into ``_build/`` at
 first use (plain C ABIs loaded through ``ctypes``), never at import, by
@@ -154,7 +157,8 @@ def _check_cuda_inputs(q, k, v, key_mask):
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s head dim is not "
                              "contiguous")
-        # the kernels copy rows by 16-byte cp.async
+        # the kernels copy rows by 16-byte cp.async (8 bf16 or 4 f32
+        # elements); both dtypes are held to 8
         if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
             raise ValueError(f"flash_attention: {name} must start on 16 "
                              "bytes and have (batch, token, head) strides "

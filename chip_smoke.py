@@ -19,7 +19,7 @@ one JSON object per line:
    the backward (dq, dk, dv; dq and dk exactly 0 on all-masked rows; two
    calls bitwise equal); q/k/v views that break the 16-byte row rule
    raise in the wrappers and the C entry points and compute nothing (at
-   d 32 and d 48); the
+   d 32 and d 48, bf16 and f32); the
    four LayerNorm kernels (out, s, mean, rstd; dx, dscale, dbias) at
    C = 128, 256, 768 and 1024 (1-4 chunks per lane) times R = 1, 2, 5,
    300 and the train step's fusion and vision rows, and at 40000 x 768,
@@ -44,7 +44,10 @@ one JSON object per line:
    kernel's profiler device time and back-to-back events), with the bound
    max(FLOP / bf16 peak, bytes / HBM rate), and every f32 instance (the f32
    flagship's fusion and vision shapes, the decoder's 577 tokens) beside
-   f32 SDPA with max(FLOP / f32 CUDA-core peak, bytes / HBM rate); each
+   f32 SDPA (with the names of the CUDA kernels it launched, from the
+   profiler) and both f32 bounds, max(FLOP / f32 CUDA-core peak, bytes /
+   HBM rate) and max(3 x FLOP / TF32 tensor-core peak, bytes / HBM rate),
+   the smaller being the bound (the f32 kernels run 3xTF32); each
    LayerNorm kernel, its
    plain version and ``F.layer_norm`` / ``native_layer_norm_backward`` by
    queued events, profiler device time and back-to-back events, with the
@@ -116,11 +119,14 @@ one JSON object per line:
    its f32 512-wide LayerNorms train on the kernels: 90 ``ln_fwd`` + 88
    ``ln_bwd`` per step); then one f32 flagship step with and without
    ``remat`` at dropout 0.1 (:func:`remat_phase`: loss and gradient norm
-   within 1e-6, exact f32 launches per step, peak memory of each);
+   within 1e-6, exact f32 launches per step, peak memory of each, the
+   warm steps' p50 and, from the profiler after both, device busy time
+   and idle share);
 10. the script's seconds, the ``kernels`` line (twenty kernel instances:
    the flash kernels at three head dims in bf16, and in f32 those a main
    path launches (the decoder's d32, remat_phase's d48 and d64 forward
-   with lse and backward), with their ptxas numbers; the LayerNorm rows
+   with lse and backward), with their ptxas numbers (f32 rows: both
+   bounds, FMA and 3xTF32, and the library's kernel names); the LayerNorm rows
    with those of their bf16 C = 768 instance and their largest f32 error
    at the decoder's C = 512 rows; each row names its design; its launches
    are the sum of the main paths' own counts), then the card line, then
@@ -171,10 +177,12 @@ INSTRUCTIONS = ("fold the left sleeve to the center",
                 "fold the towel in half from bottom to top",
                 "fold the right sleeve in", "fold the tshirt in half",
                 "flatten the cloth")
-# dense bf16 tensor-core rate, memory rate and f32 CUDA-core rate (NVIDIA
-# data sheets)
-_PEAKS = {"PCIe": (756e12, 2.0e12, 51e12), "NVL": (835e12, 3.9e12, 60e12),
-          "H200": (989e12, 4.8e12, 67e12), "H100": (989e12, 3.35e12, 67e12)}
+# dense bf16 tensor-core rate, memory rate, f32 CUDA-core rate and dense
+# TF32 tensor-core rate (NVIDIA data sheets)
+_PEAKS = {"PCIe": (756e12, 2.0e12, 51e12, 378e12),
+          "NVL": (835e12, 3.9e12, 60e12, 417e12),
+          "H200": (989e12, 4.8e12, 67e12, 495e12),
+          "H100": (989e12, 3.35e12, 67e12, 495e12)}
 F32_TOL = 1e-4
 
 
@@ -400,24 +408,30 @@ def check_train_kernels(fa):
     return worst
 
 
-def check_alignment(fa, d=48):
-    """At head dim ``d``: q, k or v views that break the bf16 kernels'
-    16-byte row rule raise
-    and compute nothing: one starting 2 bytes past a 16-byte boundary, one
-    whose token stride (h*d + 4) is not a multiple of 8 elements. The
-    wrappers raise before any launch; the C entry points, called directly,
-    return cudaErrorMisalignedAddress and leave their outputs untouched."""
-    from bifold_tpu_torch.ops._cuda import launch
+# views that break the kernels' 16-byte row rule, per dtype: one starting
+# one element past a 16-byte boundary, and one whose token stride is not a
+# multiple of 16 bytes (h*d + 4 bf16 elements, h*d + 2 f32 elements)
+MISALIGNED = {torch.bfloat16: ("2 bytes past 16", 4), torch.float32: ("4 bytes past 16", 2)}
+
+
+def check_alignment(fa, d=48, dtype=torch.bfloat16):
+    """At head dim ``d`` in ``dtype``: q, k or v views that break the
+    kernels' 16-byte row rule (:data:`MISALIGNED`) raise and compute
+    nothing. The wrappers raise before any launch; the C entry points,
+    called directly, return cudaErrorMisalignedAddress and leave their
+    outputs untouched."""
+    from bifold_tpu_torch.ops._cuda import DTYPE_CODES, launch
 
     b, n, h = 2, 300, 2
     gen = torch.Generator(device="cuda").manual_seed(7)
 
     def randn(*shape):
-        return torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
 
+    past, extra = MISALIGNED[dtype]
     good = randn(b, n, h, d)
-    bad = {"2 bytes past 16": randn(b * n * h * d + 8)[1:1 + b * n * h * d].view(b, n, h, d),
-           "token stride h*d+4": randn(b, n, h * d + 4)[..., :h * d].view(b, n, h, d)}
+    bad = {past: randn(b * n * h * d + 8)[1:1 + b * n * h * d].view(b, n, h, d),
+           f"token stride h*d+{extra}": randn(b, n, h * d + extra)[..., :h * d].view(b, n, h, d)}
     lse = torch.zeros(b, h, n, device="cuda")
     before = launch_counts()
     for label, view in bad.items():
@@ -430,9 +444,9 @@ def check_alignment(fa, d=48):
                 call()
             except ValueError:
                 continue
-            raise AssertionError(f"{name} took a misaligned view: {label}")
+            raise AssertionError(f"{name} took a misaligned view: {label}, {dtype}")
         sentinel = [torch.full((b, n, h, d), float("nan"), device="cuda",
-                               dtype=torch.bfloat16) for _ in range(3)]
+                               dtype=dtype) for _ in range(3)]
         strides = fa._strides(view, good, good)
         c_calls = {
             "bifold_flash_fwd_infer": ("flash_fwd", [view.data_ptr(), good.data_ptr(),
@@ -445,18 +459,18 @@ def check_alignment(fa, d=48):
         for fn_name, (source, ptrs) in c_calls.items():
             try:
                 launch(source, fn_name, good.device, *ptrs, b, n, n, h, d, strides,
-                       d ** -0.5, 1)
+                       d ** -0.5, DTYPE_CODES[dtype])
             except RuntimeError as err:
                 if "misaligned" not in str(err):
                     raise
             else:
-                raise AssertionError(f"{fn_name} took a misaligned view: {label}")
+                raise AssertionError(f"{fn_name} took a misaligned view: {label}, {dtype}")
         torch.cuda.synchronize()
         if not all(bool(t.isnan().all()) for t in sentinel):
-            raise AssertionError(f"a refused call wrote its output: {label}")
+            raise AssertionError(f"a refused call wrote its output: {label}, {dtype}")
     launched = launched_since(before)
-    emit({"phase": "alignment_refused", "head_dim": d, "cases": list(bad),
-          "launches": launched})
+    emit({"phase": "alignment_refused", "head_dim": d, "dtype": str(dtype),
+          "cases": list(bad), "launches": launched})
     if launched:
         raise AssertionError(f"refused calls counted launches: {launched}")
 
@@ -647,8 +661,8 @@ def timing_key(name, dtype):
 def time_kernels(fa, peaks, dtype=torch.bfloat16):
     """The kernel, its plain version and SDPA (its fastest backend) at the
     main paths' shapes (:data:`INFER_TIMING`), by device time and by CUDA
-    events (:func:`both_times`); the f32 rows' bound takes the f32
-    CUDA-core rate (the f32 instances use no tensor cores)."""
+    events (:func:`both_times`); the f32 rows carry both f32 bounds
+    (:func:`bound`)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
     for d, (b, n, h, fused) in INFER_TIMING[dtype].items():
@@ -669,21 +683,86 @@ def time_kernels(fa, peaks, dtype=torch.bfloat16):
             **kernel, "plain_ms": plain,
             "library_ms": library[backend][0], "library_backend": backend,
             "library_by_backend": library,
-            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], **fwd_bound[2],
             "shape": [b, n, h, d], "dtype": str(dtype)}
     return rows
 
 
 def bound(flops, nbytes, peaks, dtype=torch.bfloat16):
-    """max(operations / peak, bytes / memory rate), in ms: the dense bf16
-    tensor-core peak for bf16, the f32 CUDA-core peak for f32."""
-    peak = peaks[0] if dtype == torch.bfloat16 else peaks[2]
-    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / peaks[1] * 1e3
-    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+    """(ms, "operations" or "bytes", the f32 bounds by name): max(operations
+    / peak, bytes / memory rate), in ms. bf16: the dense bf16 tensor-core
+    peak. f32 work reaches f32 accuracy two ways, each named in the third
+    item: FMA on the CUDA cores (``bound_fma_ms``: FLOP / the f32 peak) and
+    3xTF32 on the tensor cores (``bound_3xtf32_ms``: 3 x FLOP / the dense
+    TF32 peak, the f32 kernels' design); the least time is the smaller."""
+    bytes_ms = nbytes / peaks[1] * 1e3
+    named = {}
+    if dtype == torch.bfloat16:
+        ops_ms = flops / peaks[0] * 1e3
+    else:
+        named = {"bound_fma_ms": max(flops / peaks[2] * 1e3, bytes_ms),
+                 "bound_3xtf32_ms": max(3 * flops / peaks[3] * 1e3, bytes_ms)}
+        ops_ms = min(flops / peaks[2], 3 * flops / peaks[3]) * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", named
 
 
 SDPA_BACKENDS = ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION",
                  "MATH")
+
+
+def sdpa_call(qt, kt, vt, sdpa_mask, dot=None):
+    """One SDPA forward, or with the output cotangent ``dot`` forward and
+    backward, on (B, H, N, D) inputs."""
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=sdpa_mask)
+    return out if dot is None else torch.autograd.grad(out, (qt, kt, vt), dot)
+
+
+def library_kernels(backend, call, iters: int = 20):
+    """The CUDA kernels ``call`` launches under the SDPA ``backend``, by
+    name, from the profiler over ``iters`` calls (late in a process it
+    records only some of a window's kernels; run after every host-clock
+    measurement): it shows how the library computes f32 attention (a
+    CUTLASS kernel on the tensor cores, or f32 GEMMs on the CUDA cores)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    with sdpa_kernel(getattr(SDPBackend, backend)):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+    return sorted({e.key[:160] for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def f32_library_kernels():
+    """{f32 timing row: {SDPA backend: CUDA kernel names}} at the shapes
+    :func:`time_kernels` and :func:`time_train_kernels` time the f32 rows
+    at (forward, or forward and backward for a backward row), for every
+    backend that runs them."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    names = {}
+    for kinds, shapes in ((("flash_fwd_infer",), INFER_TIMING),
+                          (("flash_fwd_lse", "flash_bwd"), TRAIN_TIMING)):
+        for d, (b, n, h, fused) in shapes[torch.float32].items():
+            q, k, v = attention_inputs(gen, b, n, h, d, torch.float32, fused)
+            mask = fusion_mask(b, n, 0) if d == 48 else None
+            qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+            sdpa_mask = None if mask is None else (mask != 0)[:, None, None, :]
+            dot = torch.randn(qt.shape, device="cuda", generator=gen)
+            for kind in kinds:
+                grad = None if kind.startswith("flash_fwd") else dot
+                row = names.setdefault(timing_key(f"{kind}_d{d}", torch.float32), {})
+                for backend in SDPA_BACKENDS:
+                    try:                 # a backend refuses what it lacks
+                        row[backend] = library_kernels(
+                            backend, lambda: sdpa_call(qt, kt, vt, sdpa_mask, grad))
+                    except RuntimeError:
+                        continue
+    return names
 
 
 def sdpa_times(qt, kt, vt, sdpa_mask, dot=None):
@@ -695,11 +774,10 @@ def sdpa_times(qt, kt, vt, sdpa_mask, dot=None):
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     def forward():
-        return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=sdpa_mask)
+        return sdpa_call(qt, kt, vt, sdpa_mask)
 
     def both():
-        return torch.autograd.grad(forward(), (qt, kt, vt), dot)
+        return sdpa_call(qt, kt, vt, sdpa_mask, dot)
 
     times = {}
     for name in SDPA_BACKENDS:
@@ -757,13 +835,13 @@ def time_train_kernels(fa, peaks, dtype=torch.bfloat16):
             **fwd, "plain_ms": fwd_plain,
             "library_ms": library[lib_fwd][0], "library_backend": lib_fwd,
             "library_by_backend": library,
-            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], **fwd_bound[2],
             "shape": [b, n, h, d], "dtype": str(dtype)}
         rows[timing_key(f"flash_bwd_d{d}", dtype)] = {
             **bwd, "plain_ms": bwd_plain,
             "library_ms": library[lib_bwd][1] - library[lib_bwd][0],
             "library_backend": lib_bwd,
-            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], **bwd_bound[2],
             "shape": [b, n, h, d], "dtype": str(dtype)}
     return rows
 
@@ -2927,7 +3005,9 @@ def remat_phase(card, device="cuda"):
     from the same weights, batch and draws: loss and trainable-gradient
     norm within 1e-6 relative; the peak memory of each step above the
     model and optimizer, and the seconds of that first step and of two
-    more (the same batch, on the updated weights). Each of the two runs
+    more (the same batch, on the updated weights), their p50 after the
+    first, and (after both runs' host clocks) the device busy time and
+    idle share of a warm step from the profiler. Each of the two runs
     is a main path of the f32 flash instances at d48 and d64: its counts
     are reset just before its three steps and read just after, and each
     step launches exactly :data:`PER_STEP` at f32, with every forward
@@ -2946,7 +3026,7 @@ def remat_phase(card, device="cuda"):
     raw = raw_train_batch(proc, 77)
     draws = proc.draw(proc._spec(raw), TRAIN_BATCH, raw["rgb"].shape[1:3], device)
     cfg = {**FLAGSHIP, "dropout": 0.1}
-    results, launches = {}, collections.Counter()
+    results, launches, runs = {}, collections.Counter(), {}
     for remat in (False, True):
         want = f32_keys({k: n * (2 if remat and k.startswith("fwd") else 1)
                          for k, n in PER_STEP.items()})
@@ -2981,11 +3061,20 @@ def remat_phase(card, device="cuda"):
                          "peak_memory_bytes": (torch.cuda.max_memory_allocated() - base
                                                if device == "cuda" else None)}
         launches.update(launch_counts())     # ... and end here
-        results["remat" if remat else "plain"] = {
+        name = "remat" if remat else "plain"
+        results[name] = {
             **first, "launches_per_step": want, "launches": launch_counts(),
             "steps_with_other_launches": [d for d in steps if d != want],
-            "step_seconds": seconds}
-        del model, step, opt, params, sample, state, metrics
+            "step_seconds": seconds,
+            "warm_p50_ms": statistics.median(seconds[1:]) * 1e3}
+        runs[name] = (step, state, sample)
+        del model, opt, params, metrics
+    if device == "cuda":                 # the profiler, after both host clocks
+        for name, (step, state, sample) in runs.items():
+            results[name].update(device_profile(
+                lambda step=step, state=state, sample=sample: step(state, sample),
+                results[name]["warm_p50_ms"]))
+    del runs, step, state, sample
     plain, remat = results["plain"], results["remat"]
     rel = {k: abs(remat[k] - plain[k]) / abs(plain[k])
            for k in ("loss", "grad_norm_trainable")}
@@ -3084,8 +3173,8 @@ def device_profile(call, wall_ms: float, iters: int = 3):
 # the kernel templates in the nvcc symbol names: flash (template, head dim,
 # lse flag of the forward); LayerNorm (template, row type, chunks per lane,
 # fused flag)
-_FLASH_SYMBOL = re.compile(r"(flash_fwd_mma|flash_fwd_kernel|dkdv_mma|dq_mma|"
-                           r"dkdv_kernel|dq_kernel)ILi(\d+)E(?:Lb([01])E)?")
+_FLASH_SYMBOL = re.compile(r"(flash_fwd_mma|flash_fwd_tf32|dkdv_mma|dq_mma|"
+                           r"dkdv_tf32|dq_tf32)ILi(\d+)E(?:Lb([01])E)?")
 _LN_SYMBOL = re.compile(r"(ln_fwd|ln_bwd)_kernelI(13__nv_bfloat16|f)Li(\d)ELb([01])E")
 
 
@@ -3101,7 +3190,7 @@ def _ptxas_key(symbol: str):
             key = f"flash_fwd_{'lse' if with_lse == '1' else 'infer'}_d{d}"
         else:
             key = f"flash_bwd_d{d} ({kernel.split('_')[0]})"
-        return key + ("_f32" if kernel.endswith("_kernel") else "")
+        return key + ("_f32" if kernel.endswith("_tf32") else "")
     found = _LN_SYMBOL.search(symbol)
     if found:
         kernel, dtype, slots, fused = found.groups()
@@ -3172,8 +3261,9 @@ def main() -> int:
     worst = {**check_kernels(fa), **check_train_kernels(fa), **check_ln_kernels()}
     for key, err in check_decoder_flash(fa).items():
         worst[key] = max(worst.get(key, 0.0), err)
-    for d in (32, 48):
-        check_alignment(fa, d)
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (32, 48):
+            check_alignment(fa, d, dtype)
     check_function_grads(fa)
     check_auto_route(fa)
     # every main-path run, each with its counts reset just before it and
@@ -3212,6 +3302,7 @@ def main() -> int:
     # the profiler from here on: after every host-clock measurement
     where_the_time_goes(phases + serve_phases)
     trainer_profile(cli_trainer, card, trainer_p50)
+    library_names = f32_library_kernels()
     del phases, serve_phases, cli_trainer
     torch.cuda.empty_cache()
     timings = {**time_kernels(fa, peaks), **time_train_kernels(fa, peaks),
@@ -3219,6 +3310,8 @@ def main() -> int:
                **time_train_kernels(fa, peaks, torch.float32),
                **time_ln_kernels(peaks)}
     for kernel, row in timings.items():
+        if kernel in library_names:
+            row["library_kernels"] = library_names[kernel].get(row["library_backend"])
         emit({"phase": "kernel_timing", "kernel": kernel, **row})
 
     sources = {"flash_fwd_infer": ("flash_fwd.cu", 250, "serving: predict"),
@@ -3237,7 +3330,7 @@ def main() -> int:
                    "flash_bwd": (48, 64, 32)}
     kernels = []
     for dtype, design in ((torch.bfloat16, "mma.sync bf16"),
-                          (torch.float32, "FMA f32 on the CUDA cores, no TF32")):
+                          (torch.float32, "3xTF32 mma.sync m16n8k8, cp.async ring")):
         for kernel, (src, line, where) in sources.items():
             for d, stack in stacks[dtype].items():
                 if dtype == torch.float32 and d not in f32_on_path[kernel]:
@@ -3255,6 +3348,8 @@ def main() -> int:
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                     "library_backend": row["library_backend"], "design": design,
+                    **{k: row[k] for k in ("bound_fma_ms", "bound_3xtf32_ms",
+                                           "library_kernels") if k in row},
                     "ptxas": ptxas_of(ptxas, f"{kernel}_d{d}", dtype),
                     "shape": row["shape"], "dtype": str(dtype),
                     "where": f"{where}, {stack}"})

@@ -26,6 +26,7 @@ the CPU, with the tiny SiglipSequential of ``test_torch_serving.py``
 import http.client
 import io
 import json
+import os
 import pickle
 import subprocess
 import sys
@@ -50,6 +51,7 @@ from bifold_tpu.serving import _QUANT_TAG as JAX_QUANT_TAG
 from bifold_tpu.serving import ServingModel as JaxServingModel
 from bifold_tpu.serving import dequantize_weights as jax_dequantize
 from bifold_tpu.serving import quantize_weights as jax_quantize
+from bifold_tpu.utils import checkpoint as jax_checkpoint_module
 from bifold_tpu.utils.checkpoint import save_checkpoint
 from bifold_tpu_torch.data.processor import Processor
 from bifold_tpu_torch.models import build_model
@@ -270,7 +272,21 @@ def jax_checkpoint(tiny, tmp_path_factory):
     return root, path, cfg
 
 
-def test_from_checkpoint_without_jax_matches_jax(jax_checkpoint, tmp_path):
+def restore_spm_env(monkeypatch):
+    """JAX's ``load_checkpoint`` (under its ``from_checkpoint`` too) points
+    ``$BIFOLD_SIGLIP_SPM`` at a checkpoint's sibling ``spiece.model`` for the
+    rest of the process and marks the value its own. Have ``monkeypatch`` put
+    the variable and the mark back when the test ends, so that the tests after
+    it in the process tokenize as they would alone."""
+    old = os.environ.get("BIFOLD_SIGLIP_SPM")
+    monkeypatch.setenv("BIFOLD_SIGLIP_SPM", old or "")   # records the old state
+    if old is None:
+        monkeypatch.delenv("BIFOLD_SIGLIP_SPM")
+    monkeypatch.setattr(jax_checkpoint_module, "_SPM_ENV_OWNED",
+                        jax_checkpoint_module._SPM_ENV_OWNED)
+
+
+def test_from_checkpoint_without_jax_matches_jax(jax_checkpoint, tmp_path, monkeypatch):
     _, path, cfg = jax_checkpoint
     rng = np.random.default_rng(14)
     observations = [dict(_observation(rng, n), instruction=t)
@@ -282,6 +298,7 @@ def test_from_checkpoint_without_jax_matches_jax(jax_checkpoint, tmp_path):
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     got = dict(np.load(out))
+    restore_spm_env(monkeypatch)
     jserver = JaxServingModel.from_checkpoint(str(path), cfg)
     for i, obs in enumerate(observations):
         action, raw = jserver.predict(**obs, return_raw_output=True)

@@ -302,3 +302,96 @@ def test_bf16_rounding_points_within_chip_tolerance(d, masking):
     assert ((lse - p_lse).abs() <= NORMAL_TOL * p_lse.abs().clamp_min(1)).all()
     if masking == "all-masked rows":
         assert all(torch.count_nonzero(g[1]) == 0 for g in grads[:2])
+
+
+# ---------------------------------------------------------------------------
+# The f32 kernels' rounding points (3xTF32), emulated
+# ---------------------------------------------------------------------------
+
+CHIP_F32_TOL = 1e-4           # chip_smoke.py:F32_TOL, absolute
+
+
+def _tf32(x):
+    """x rounded to TF32 as the kernels' ``cvt.rna.tf32.f32`` rounds it (to
+    nearest, ties away from zero, on finite values), low 13 bits cleared."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _einsum_3xtf32(eq, a, b):
+    """An f32 product as the kernels take it on the tensor cores: each
+    operand split into hi = tf32(x) and lo = tf32(x - hi), then lo.hi +
+    hi.lo + hi.hi summed in f32; lo.lo is dropped."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
+def _f32_kernels_emulated(q, k, v, mask, do):
+    """The arithmetic of the f32 kernels (csrc/flash_fwd.cu ``flash_fwd_tf32``,
+    csrc/flash_bwd.cu ``dkdv_tf32`` and ``dq_tf32``) in plain torch: every
+    product 3xTF32 (:func:`_einsum_3xtf32`), P and dS split like any other
+    operand, the scale applied to q.k^T after the product, masked scores
+    -1e5, l and lse from the f32 P, ds 0 on masked keys, delta = rowsum(dO *
+    out) in f32 as the wrapper computes it. Returns (out, lse, dq, dk, dv)."""
+    scale = q.shape[-1] ** -0.5
+    dead = None if mask is None else (mask == 0)[:, None, None, :]
+    s = _einsum_3xtf32("bqhd,bkhd->bhqk", q, k) * scale
+    if dead is not None:
+        s = s.masked_fill(dead, -1e5)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)
+    out = _einsum_3xtf32("bhqk,bkhd->bqhd", p, v) / l.permute(0, 2, 1)[..., None]
+    lse = m[..., 0] + torch.log(l)
+    p = torch.exp(s - lse[..., None])
+    dp = _einsum_3xtf32("bqhd,bkhd->bhqk", do, v)
+    delta = (do * out).sum(dim=-1).transpose(1, 2)
+    ds = p * (dp - delta[..., None]) * scale
+    if dead is not None:
+        ds = ds.masked_fill(dead, 0.0)
+    dq = _einsum_3xtf32("bhqk,bkhd->bqhd", ds, k)
+    dk = _einsum_3xtf32("bhqk,bqhd->bkhd", ds, q)
+    dv = _einsum_3xtf32("bhqk,bqhd->bkhd", p, do)
+    return out, lse, dq, dk, dv
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    x = torch.tensor([1 + 2 ** -11, 1 + 2 ** -10 + 2 ** -11, -(1 + 2 ** -11),
+                      1 + 2 ** -11 - 2 ** -23, 3.0])
+    np.testing.assert_array_equal(
+        _tf32(x).numpy(), np.float32([1 + 2 ** -10, 1 + 2 ** -9, -(1 + 2 ** -10), 1, 3]))
+
+
+@pytest.mark.parametrize("d", [32, 48, 64])
+@pytest.mark.parametrize("masking", ["unmasked", "fusion-like"])
+def test_3xtf32_rounding_points_within_f32_tolerance(d, masking):
+    """The f32 kernels' 3xTF32 products keep out, dq, dk and dv within a
+    tenth of chip_smoke.py's f32 tolerance (1e-5 absolute) of the plain
+    versions, lse within 1e-5 * max(1, |plain|), and all five within this
+    file's tolerances of the JAX package's Pallas kernels in interpret mode
+    (``_fwd_kernel`` for out and lse, the vjp through ``_dqkv_kernel`` for
+    the gradients). n = 300 unmasked, or n = 209 with a fusion-like mask."""
+    if masking == "unmasked":
+        q, k, v, _ = _inputs(90 + d, d=d)
+        mask = None
+    else:
+        mask = _fusion_like_mask(2)
+        q, k, v, _ = _inputs(100 + d, n=mask.shape[1], d=d)
+    do = np.random.default_rng(110 + d).normal(size=q.shape).astype(np.float32)
+    tq, tk, tv, tdo = (_t(x) for x in (q, k, v, do))
+    tm = None if mask is None else _t(mask)
+    out, lse, *grads = _f32_kernels_emulated(tq, tk, tv, tm, tdo)
+    p_out, p_lse = fa.flash_attention_fwd_plain(tq, tk, tv, tm)
+    p_grads = fa.flash_attention_bwd_plain(tq, tk, tv, tm, p_out, p_lse, tdo)
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), [out, *grads], [p_out, *p_grads]):
+        assert float((got - ref).abs().max()) <= CHIP_F32_TOL / 10, name
+    assert ((lse - p_lse).abs() <= CHIP_F32_TOL / 10 * p_lse.abs().clamp_min(1)).all()
+    jmask = None if mask is None else jnp.asarray(mask)
+    ref_out, ref_lse = jax_fwd_with_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                        jmask, d ** -0.5, None, 512, True)
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, jmask, interpret=True),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    _check(out.numpy(), ref_out, np.ones((2, k.shape[1]), np.int32) if mask is None else mask)
+    _lse_check(lse.numpy(), ref_lse)
+    _check_grads([g.numpy() for g in grads], vjp(jnp.asarray(do)), tol_v=NORMAL_TOL)

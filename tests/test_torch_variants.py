@@ -62,7 +62,7 @@ from bifold_tpu_torch.data.processor import Processor
 from bifold_tpu_torch.serve import RemotePolicy, make_httpd
 from bifold_tpu_torch.serving import QUANT_TAG, ServingModel
 from bifold_tpu_torch.utils.checkpoint import save_checkpoint
-from test_torch_deployment import _equal, _post
+from test_torch_deployment import _equal, _post, restore_spm_env
 from test_torch_rgb_clip import check_int8_decisions
 from test_torch_serving import PROC_CFG, _observation
 from test_torch_training import CFG as BASE, HEADS, LOSS, SGD, _batch
@@ -210,7 +210,8 @@ def test_converters_roundtrip(variant):
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
-def test_checkpoints_both_ways(variant, tmp_path):
+def test_checkpoints_both_ways(variant, tmp_path, monkeypatch):
+    restore_spm_env(monkeypatch)
     model, params, batch = _setup(variant)
     cfg = {"model": _cfg(variant), "processor": dict(PROC_CFG)}
     # a JAX trainer checkpoint, served by the port as by JAX

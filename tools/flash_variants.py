@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Variants of the port's bf16 flash kernels against the sources as they
-are, on one CUDA card:
+"""Variants of the port's flash kernels against the sources as they are,
+on one CUDA card:
 
     python3 tools/flash_variants.py [name ...] [--file SOURCE=PATH ...]
+                                    [--dtype bfloat16|float32]
 
 A named variant is a textual change to ``bifold_tpu_torch/csrc/flash_fwd.cu``
 or ``flash_bwd.cu`` (:data:`VARIANTS`: the block size, a register cap
@@ -13,11 +14,12 @@ with ``nvcc -Xptxas -v`` into the git-ignored
 ``bifold_tpu_torch/_build/variants/``, prints its registers, shared memory
 and spills, checks that its outputs are bitwise equal to the sources' own,
 and times the inference and lse forwards at the serving and training shapes
-and the backward at the training shapes (bf16, device time per call from
-CUDA events around calls queued behind a sleep kernel,
-``chip_smoke.queued_ms``), the two builds in turns (base, variant, variant,
-base). One JSON line per variant and shape, then the card's name and power
-limit.
+and the backward at the training shapes (``--dtype``: the bf16 instances,
+or the f32 ones at the f32 flagship's and the transformer decoder's
+shapes; device time per call from CUDA events around calls queued behind
+a sleep kernel, ``chip_smoke.queued_ms``), the two builds in turns (base,
+variant, variant, base). One JSON line per variant and shape, then the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -58,12 +60,27 @@ VARIANTS = {
                          "#pragma unroll")],
     "bwd_d32_cap3": [("flash_bwd", CAP + " dkdv_mma(",
                       "__launch_bounds__(kMmaThreads, D == 32 ? 3 : kBlocksPerSM) dkdv_mma(")],
+    # the f32 (3xTF32) kernels: two or four blocks per SM in place of three
+    # (a register cap of 255 or 128 in place of 168), forward and backward;
+    # the backward's streamed stages at 16 or 64 rows in place of 32
+    "f32_blocks2": [(src, "constexpr int kBlocksPerSMF32 = 3;",
+                     "constexpr int kBlocksPerSMF32 = 2;") for src in ("flash_fwd", "flash_bwd")],
+    "f32_blocks4": [(src, "constexpr int kBlocksPerSMF32 = 3;",
+                     "constexpr int kBlocksPerSMF32 = 4;") for src in ("flash_fwd", "flash_bwd")],
+    "f32_bwd_tile16": [("flash_bwd", "constexpr int kTileF32 = 32;",
+                        "constexpr int kTileF32 = 16;")],
+    "f32_bwd_tile64": [("flash_bwd", "constexpr int kTileF32 = 32;",
+                        "constexpr int kTileF32 = 64;")],
 }
 # (b, n, h, d, fused qkv views); the flagship's fusion (d48) has its mask
 FWD_SHAPES = {"serve_d48": (1, 2373, 16, 48, True), "serve_d64": (4, 576, 12, 64, False),
               "train_d48": (2, 2373, 16, 48, True), "train_d64": (8, 576, 12, 64, False),
               "serve_d32": (1, 275, 16, 32, True), "train_d32": (2, 275, 16, 32, True)}
-BWD_SHAPES = {k: FWD_SHAPES[k] for k in ("train_d48", "train_d64", "train_d32")}
+# f32: the f32 flagship's stacks and the transformer decoder (577 tokens,
+# 16 heads of 32, three Linear outputs: no fused views, no mask)
+FWD_SHAPES_F32 = {**{k: v for k, v in FWD_SHAPES.items() if not k.endswith("d32")},
+                  "serve_d32": (1, 577, 16, 32, False), "train_d32": (2, 577, 16, 32, False)}
+BWD_SHAPES = ("train_d48", "train_d64", "train_d32")
 
 
 class _Report:
@@ -127,16 +144,18 @@ def build_variant(name: str):
             chip_smoke.ptxas_rows(_Report({s: r for s, _, r in built})))
 
 
-def _calls(gen):
-    """{(kind, shape): (call, sources it launches)} at the main paths' shapes."""
+def _calls(gen, dtype):
+    """{(kind, shape): (call, sources it launches)} at the main paths'
+    shapes in ``dtype``."""
     calls = {}
-    for shape, (b, n, h, d, fused) in FWD_SHAPES.items():
-        q, k, v = chip_smoke.attention_inputs(gen, b, n, h, d, torch.bfloat16, fused)
+    shapes = FWD_SHAPES if dtype == torch.bfloat16 else FWD_SHAPES_F32
+    for shape, (b, n, h, d, fused) in shapes.items():
+        q, k, v = chip_smoke.attention_inputs(gen, b, n, h, d, dtype, fused)
         mask = chip_smoke.fusion_mask(b, n, 0) if d == 48 else None
         fn = fa.flash_attention_fwd if shape.startswith("train") else fa.flash_attention
         calls[("fwd", shape)] = ((lambda fn=fn, a=(q, k, v, mask): fn(*a)), "flash_fwd")
         if shape in BWD_SHAPES:
-            do = torch.randn(b, n, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+            do = torch.randn(b, n, h, d, device="cuda", generator=gen).to(dtype)
             out, lse = fa.flash_attention_fwd(q, k, v, mask)
             calls[("bwd", shape)] = (
                 (lambda a=(q, k, v, mask, out, lse, do): fa.flash_attention_bwd(*a)),
@@ -144,7 +163,7 @@ def _calls(gen):
     return calls
 
 
-def main(names) -> int:
+def main(names, dtype=torch.bfloat16) -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
@@ -153,7 +172,7 @@ def main(names) -> int:
     for name in names:
         variants[name], ptxas = build_variant(name)
         print(json.dumps({"variant": name, "ptxas": ptxas}), flush=True)
-    calls = _calls(torch.Generator(device="cuda").manual_seed(0))
+    calls = _calls(torch.Generator(device="cuda").manual_seed(0), dtype)
     for (kind, shape), (call, source) in calls.items():
         ref = call()
         for name, libs in variants.items():
@@ -171,6 +190,7 @@ def main(names) -> int:
                 times[who].append(chip_smoke.queued_ms(call))
             _cuda._libs[source] = base[source]
             print(json.dumps({"variant": name, "kernel": kind, "shape": shape,
+                              "dtype": str(dtype),
                               "ms": {k: statistics.median(v) for k, v in times.items()},
                               "all_ms": times, "bitwise_equal": True}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -185,5 +205,8 @@ if __name__ == "__main__":
                         "(default: all, unless --file)")
     parser.add_argument("--file", action="append", default=[], metavar="SOURCE=PATH",
                         help="a whole other version of csrc/SOURCE.cu")
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                        help="the instances to time (default bfloat16)")
     args = parser.parse_args()
-    sys.exit(main([*(args.names or ([] if args.file else VARIANTS)), *args.file]))
+    sys.exit(main([*(args.names or ([] if args.file else VARIANTS)), *args.file],
+                  getattr(torch, args.dtype)))
