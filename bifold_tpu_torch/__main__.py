@@ -8,8 +8,15 @@ train and evaluate (``eval_only=true``: evaluate only). An override string
 longer than a file name may be (255 bytes) names the run dir by its first
 200 bytes and a hash of the whole (:func:`run_dir_name`); the JAX CLI fails
 on such a run dir. It trains on the CUDA card, which must be present,
-unless the config asks for the CPU (``use_cpu=true``). The ``advise`` subcommand of the JAX package (mesh
-layouts over many devices) is ROADMAP queue item 5 and raises.
+unless the config asks for the CPU (``use_cpu=true``).
+
+Launched by ``python -m torch.distributed.run --nproc_per_node N -m
+bifold_tpu_torch ...`` (torchrun's environment), it joins the process
+group first (``parallel.distributed_init``: NCCL on ``cuda:LOCAL_RANK``,
+gloo under ``use_cpu=true``), trains data-parallel over the ranks (the
+``mesh`` node's ``dcn x dp``) and leaves the group at the end. The
+``advise`` subcommand of the JAX package (mesh layouts over many devices)
+is ROADMAP queue item 5 and raises.
 """
 
 from __future__ import annotations
@@ -18,6 +25,9 @@ import hashlib
 import sys
 from pathlib import Path
 
+import torch.distributed as dist
+
+from bifold_tpu_torch import parallel
 from bifold_tpu_torch.config import Config, compose
 from bifold_tpu_torch.trainer import Trainer
 
@@ -63,17 +73,23 @@ def main(argv: list[str] | None = None) -> int:
               "processor, loss, optim, scheduler")
         return 0
     cfg = compose(overrides)
-    dirname = override_dirname(overrides)
-    run_dir = Path(cfg["run_dir"]) / run_dir_name(dirname)
-    trainer = Trainer(Config(cfg), run_dir=run_dir, run_name=dirname)
-    if not cfg["eval_only"]:
-        trainer.prepare_train()
-        trainer.train()
-        if trainer.preempted:
-            # the checkpoint is written; skip the final eval and exit promptly
-            return 0
-    trainer.eval()
-    return 0
+    joined = not dist.is_initialized() and parallel.distributed_init(
+        device="cpu" if cfg.get("use_cpu") else None)
+    try:
+        dirname = override_dirname(overrides)
+        run_dir = Path(cfg["run_dir"]) / run_dir_name(dirname)
+        trainer = Trainer(Config(cfg), run_dir=run_dir, run_name=dirname)
+        if not cfg["eval_only"]:
+            trainer.prepare_train()
+            trainer.train()
+            if trainer.preempted:
+                # the checkpoint is written; skip the final eval and exit promptly
+                return 0
+        trainer.eval()
+        return 0
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

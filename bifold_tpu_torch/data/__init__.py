@@ -7,7 +7,8 @@ built), :func:`build_dataset` and :func:`get_dataloaders` (:60: train
 shuffled with ``drop_last``, test in order; a null ``test_dataset.name``
 falls back to the train dataset's config in the test partition; the test
 set's Processor returned for reuse). The loaders process batches on the
-trainer's device.
+trainer's device; under data parallelism each builds this process's slice
+of every global batch.
 """
 
 from __future__ import annotations
@@ -59,9 +60,10 @@ def build_dataset(dataset_cfg, processor_cfg, partition: str,
                autoprocessor_name=autoprocessor_name, seed=seed)
 
 
-def get_dataloaders(cfg, device="cpu"):
+def get_dataloaders(cfg, device="cpu", process_id: int = 0, process_count: int = 1):
     """(train loader or None under ``eval_only``, test loader, the test
-    set's Processor), both loaders processing on ``device``."""
+    set's Processor), both loaders processing on ``device`` and building
+    slice ``process_id`` of ``process_count`` of each global batch."""
     automodel = dict(cfg["model"]).get("automodel_name")
     seed = int(dict(cfg).get("seed", 0))
 
@@ -74,7 +76,7 @@ def get_dataloaders(cfg, device="cpu"):
             train_dataset[0]
         train_dataloader = DataLoader(
             train_dataset, batch_size=cfg["batch_size"], shuffle=True, seed=seed,
-            device=device)
+            device=device, process_id=process_id, process_count=process_count)
 
     test_cfg = cfg["test_dataset"]
     if dict(test_cfg).get("name") is None:
@@ -85,5 +87,6 @@ def get_dataloaders(cfg, device="cpu"):
         test_dataset[0]
     test_dataloader = DataLoader(
         test_dataset, batch_size=cfg.get("test_batch_size", cfg["batch_size"]),
-        shuffle=False, drop_last=False, device=device)
+        shuffle=False, drop_last=False, device=device, process_id=process_id,
+        process_count=process_count)
     return train_dataloader, test_dataloader, test_dataset.processor

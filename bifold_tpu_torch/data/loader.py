@@ -29,8 +29,14 @@ consumer's kernels still read it. An abandoned iterator (a ``break``, a
 preemption) stops the thread within its 5 s join and synchronises the side
 stream before the dropped batches are freed.
 
-Single process only: the JAX package's multi-host slicing (``process_id``,
-``process_count``) is not ported.
+Data parallelism (bifold_tpu/data/loader.py:80-124): with
+``process_count`` > 1 every process walks the same global order and builds
+only its contiguous slice (``process_id``) of each global batch of
+``batch_size``; ``drop_last`` is then on, so every slice has the same size.
+The batch's generator is still the global batch index's, and the Processor
+makes the global batch's draws and keeps this slice's
+(:meth:`~bifold_tpu_torch.data.processor.Processor.draw`), so each
+process's batch is the slice of the batch one process would build.
 """
 
 from __future__ import annotations
@@ -116,15 +122,18 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  seed: int = 0, drop_last: Optional[bool] = None,
                  num_workers: int = 0, prefetch: int = 2, device="cpu",
-                 process_count: int = 1):
-        if process_count != 1:
-            raise NotImplementedError(
-                "multi-process data loading is not ported (ROADMAP queue item 5: "
-                "meshes of more than one device)")
+                 process_id: int = 0, process_count: int = 1):
+        if batch_size % process_count:
+            raise ValueError(f"global batch_size {batch_size} must be divisible by "
+                             f"process_count {process_count}")
+        self.process_id, self.process_count = process_id, process_count
+        self._local_bs = batch_size // process_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = shuffle if drop_last is None else drop_last
+        if process_count > 1:
+            self.drop_last = True     # equal slices on every process
         self.num_workers = num_workers
         self.prefetch = max(1, prefetch)
         self._seed = int(seed)
@@ -153,12 +162,15 @@ class DataLoader:
         self.epoch = int(epoch)
 
     def index_batches(self, start: int = 0):
-        """(batch index, dataset indices) of this epoch from batch ``start``."""
+        """(batch index, dataset indices of this process's slice) of this
+        epoch from batch ``start``."""
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng([self._seed, self.epoch]).shuffle(idx)
+        lo = self.process_id * self._local_bs
         for b in range(start, len(self)):
-            yield b, idx[b * self.batch_size: (b + 1) * self.batch_size]
+            g = idx[b * self.batch_size: (b + 1) * self.batch_size]
+            yield b, g[lo: lo + self._local_bs]
 
     def batch_seed(self, batch_index: int) -> int:
         """The seed of batch ``batch_index``'s augmentation generator, from
@@ -169,11 +181,14 @@ class DataLoader:
     def _make_batch(self, batch_index: int, indices):
         batch = collate([self.dataset[int(i)] for i in indices])
         gen = torch.Generator(self.device).manual_seed(self.batch_seed(batch_index))
+        rows = ((self.process_id * self._local_bs, self.batch_size)
+                if self.process_count > 1 else None)
         if self.device.type != "cuda":
-            return self.processor.process_batch(batch, self.device, generator=gen)
+            return self.processor.process_batch(batch, self.device, generator=gen,
+                                                rows=rows)
         x = self._ring.upload(batch, self.device, self._stream)
         with torch.cuda.stream(self._stream):
-            out = self.processor.process_tensors(batch, x, generator=gen)
+            out = self.processor.process_tensors(batch, x, generator=gen, rows=rows)
             ready = torch.cuda.Event()
             ready.record(self._stream)
         return _Staged(out, ready)

@@ -25,7 +25,7 @@ draws as an argument, so a caller can hand in any draws.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -304,15 +304,31 @@ class Processor:
         return self._generators[device]
 
     def draw(self, spec: _CoreSpec, batch: int, in_shape, device,
-             generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+             generator: Optional[torch.Generator] = None,
+             rows: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
         """The train partition's random numbers for one batch of ``batch``
         samples at input resolution ``in_shape`` (H, W), from ``generator``
         (a generator on ``device``) or else this processor's generator on
         ``device``: uniform depth shifts, standard normals for depth noise,
         and ``max_trials`` uniform (angle, dx, dy) augmentation trials per
-        sample."""
+        sample. ``rows=(start, total)``: the batch is samples ``start`` to
+        ``start + batch`` of a global batch of ``total`` (one rank's slice
+        under data parallelism); the draws are the global batch's, cut to
+        those samples."""
         if not spec.train:
             return {}
+        if rows is not None and rows != (0, batch):
+            start, total = rows
+            draws = self.draw(spec, total, in_shape, device, generator)
+            t = max(spec.n_context, 1)
+            # (sample axis, rows per sample) of each draw; contexts are
+            # flattened sample-major
+            axes = {"depth_shift": (0, 1), "ctx_depth_shift": (0, t),
+                    "depth_noise": (1, 1), "ctx_depth_noise": (1, t)}
+            for k, v in draws.items():
+                axis, per = axes.get(k, (0, 1))
+                draws[k] = v.narrow(axis, start * per, batch * per)
+            return draws
         gen = generator if generator is not None else self._generator(device)
         t = spec.n_context
 
@@ -348,19 +364,22 @@ class Processor:
 
     def process_batch(self, batch: Dict[str, Any], device,
                       draws: Optional[Dict[str, Any]] = None,
-                      generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                      generator: Optional[torch.Generator] = None,
+                      rows: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
         """A collated raw batch (numpy, leading dim B, as :meth:`make_raw`
         records stack) -> the sample dict on ``device``. The train partition
-        draws its random numbers here, from ``generator`` when given,
-        unless ``draws`` are given."""
+        draws its random numbers here, from ``generator`` when given (for
+        the samples ``rows`` names, :meth:`draw`), unless ``draws`` are
+        given."""
         device = torch.device(device)
         x = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
              for k, v in batch.items() if isinstance(v, np.ndarray)}
-        return self.process_tensors(batch, x, draws=draws, generator=generator)
+        return self.process_tensors(batch, x, draws=draws, generator=generator, rows=rows)
 
     def process_tensors(self, batch: Dict[str, Any], x: Dict[str, torch.Tensor],
                         draws: Optional[Dict[str, Any]] = None,
-                        generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                        generator: Optional[torch.Generator] = None,
+                        rows: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
         """:meth:`process_batch` on ``x``, the batch's arrays already on
         their device as tensors; the other keys come from ``batch``
         (``label_keys``, ``raw_instruction``)."""
@@ -368,7 +387,7 @@ class Processor:
         first = next(x[k] for k in ("rgb", "depth", "mask") if k in x)
         if draws is None:
             draws = self.draw(spec, first.shape[0], tuple(first.shape[1:3]),
-                              first.device, generator)
+                              first.device, generator, rows)
         out = _core(spec, x.get("rgb"), x.get("depth"), x.get("mask"),
                     x.get("ctx_rgb"), x.get("ctx_depth"), x.get("ctx_mask"),
                     x.get("ctx_count"), {k: x[k] for k in spec.label_keys}, draws)

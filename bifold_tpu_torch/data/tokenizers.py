@@ -10,8 +10,18 @@ parts (:48-210, :220-345, :374-485):
   ``<|startoftext|>`` / ``<|endoftext|>``, zero padding) on the merges file
   the port carries itself (``data/assets/bpe_simple_vocab_16e6.txt.gz``, or
   ``$BIFOLD_CLIP_BPE``);
+- T5: the checkpoint's own ``spiece.model`` on the same unigram engine
+  (``SpmT5Tokenizer``, :283), or a hash capped at the encoder's vocabulary
+  (``pad`` 0, ``eos`` 1) when a local dir has no ``spiece.model`` or the
+  name is a registry one (:436-486);
 - the deterministic hashing fallback in either layout when an asset is
   missing.
+
+The JAX package first asks ``transformers.AutoTokenizer`` with
+``local_files_only=True`` for a T5 name without a local ``spiece.model``
+(:458-468); the port has no ``transformers`` and goes straight to the
+capped hash, which is what the JAX package gives on a host whose Hugging
+Face cache lacks the name.
 
 The same asset gives the same ids as the JAX package. The JAX package
 splits CLIP words with the ``regex`` module's ``\\p{L}`` / ``\\p{N}`` classes
@@ -25,6 +35,7 @@ from __future__ import annotations
 import gzip
 import hashlib
 import html
+import json
 import os
 import re
 import unicodedata
@@ -34,7 +45,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["HashTokenizer", "SpmSiglipTokenizer", "ClipBPETokenizer",
+__all__ = ["HashTokenizer", "SpmSiglipTokenizer", "SpmT5Tokenizer", "ClipBPETokenizer",
            "build_tokenizer", "siglip_spm_path", "clip_bpe_path",
            "ensure_spm_fixture", "SIGLIP_CONTEXT_LENGTH", "CLIP_CONTEXT_LENGTH",
            "CLIP_MODEL_NAMES"]
@@ -64,21 +75,25 @@ class HashTokenizer:
     """Deterministic word-level stand-in: lowercase, map each word to a
     stable hash bucket. SigLIP layout (the default): punctuation dropped,
     eos 1, pad 1. CLIP layout (``sot`` given): punctuation characters are
-    words of their own, ``sot`` first, ``eot`` last, ``pad`` 0."""
+    words of their own, ``sot`` first, ``eot`` last, ``pad`` 0. T5 layout
+    (``drop_punctuation=False`` without ``sot``): punctuation kept, ``eot``
+    last."""
 
     def __init__(self, vocab_size: int, context_length: int,
                  eot: int = 1, pad: int = 1, reserved: int = 3,
-                 sot: Optional[int] = None):
+                 sot: Optional[int] = None, drop_punctuation: Optional[bool] = None):
         self.vocab_size = vocab_size
         self.context_length = context_length
         self.sot = sot
         self.eot = eot
         self.pad = pad
         self.reserved = reserved
+        self.drop_punctuation = (sot is None if drop_punctuation is None
+                                 else drop_punctuation)
 
     def __call__(self, text: str) -> np.ndarray:
         text = _whitespace_clean(_basic_clean(text)).lower()
-        pattern = r"[a-z0-9]+" if self.sot is None else r"[a-z0-9]+|[^\sa-z0-9]"
+        pattern = r"[a-z0-9]+" if self.drop_punctuation else r"[a-z0-9]+|[^\sa-z0-9]"
         span = self.vocab_size - self.reserved
         ids = [self.reserved + _stable_hash(w) % span
                for w in re.findall(pattern, text)]
@@ -264,6 +279,30 @@ class SpmSiglipTokenizer:
         return out
 
 
+class SpmT5Tokenizer:
+    """HF ``T5Tokenizer`` in its default legacy mode on the built-in
+    unigram engine: plain unigram encode with the model's own
+    ``add_dummy_prefix`` (no lowercasing or punctuation stripping), append
+    ``</s>``, right-pad with ``<pad>``."""
+
+    def __init__(self, model_path, context_length: int = CLIP_CONTEXT_LENGTH):
+        from bifold_tpu_torch.data.spm import SentencePieceModel
+
+        self.spm = (SentencePieceModel.from_bytes(model_path)
+                    if isinstance(model_path, bytes)
+                    else SentencePieceModel.load(model_path))
+        self.context_length = context_length
+        self.eot = self.spm.piece_to_id("</s>")
+        self.pad = self.spm.piece_to_id("<pad>")
+        self.vocab_size = self.spm.vocab_size
+
+    def __call__(self, text: str) -> np.ndarray:
+        ids = self.spm.encode(text)[: self.context_length - 1] + [self.eot]
+        out = np.full((self.context_length,), self.pad, dtype=np.int32)
+        out[: len(ids)] = ids
+        return out
+
+
 def siglip_spm_path(autoprocessor_name: Optional[str] = None) -> Optional[Path]:
     """The SigLIP ``spiece.model``: ``$BIFOLD_SIGLIP_SPM``, else a copy in
     this package's ``data/assets``, else a local HF hub snapshot keyed to
@@ -325,7 +364,8 @@ def _warn_hash_fallback(missing: str) -> None:
     warnings.warn(
         f"tokenizer falling back to deterministic hashing (no {missing}): fine "
         "for random-weight smokes, wrong for pretrained checkpoints; set "
-        "$BIFOLD_SIGLIP_SPM or $BIFOLD_CLIP_BPE", stacklevel=3)
+        "$BIFOLD_SIGLIP_SPM or $BIFOLD_CLIP_BPE, or put the checkpoint's "
+        "spiece.model in its T5 dir", stacklevel=3)
 
 
 def build_tokenizer(autoprocessor_name: Optional[str], spm_asset=None,
@@ -335,7 +375,10 @@ def build_tokenizer(autoprocessor_name: Optional[str], spm_asset=None,
     bytes, when given, else the resolved asset); else CLIP's BPE for a CLIP
     model name (:data:`CLIP_MODEL_NAMES`) or no ``text_encoder``; either
     falls back, loudly, to hashing in its layout when its asset is missing.
-    Any other ``text_encoder`` (a T5 or Hugging Face tokenizer) raises."""
+    Any other ``text_encoder`` is a T5 encoder: a local T5 checkpoint dir's
+    ``spiece.model``, else (loudly) a hash in T5's layout capped at the
+    dir's vocabulary, at a registry name's (``T5_CONFIGS``), or at CLIP's
+    size for any other name."""
     if autoprocessor_name:
         if spm_asset is None:
             spm_asset = siglip_spm_path(autoprocessor_name)
@@ -351,6 +394,21 @@ def build_tokenizer(autoprocessor_name: Optional[str], spm_asset=None,
         return HashTokenizer(_CLIP_VOCAB_SIZE, CLIP_CONTEXT_LENGTH,
                              sot=_CLIP_VOCAB_SIZE - 2, eot=_CLIP_VOCAB_SIZE - 1,
                              pad=0)
-    raise NotImplementedError(
-        f"text_encoder {text_encoder!r}: only the SigLIP and CLIP text paths "
-        "are ported (the T5 branch is ROADMAP queue item 4)")
+    from bifold_tpu_torch.models.backbones.t5_backbone import T5_CONFIGS
+
+    vocab = _CLIP_VOCAB_SIZE
+    cfg_path = Path(str(text_encoder)) / "config.json"
+    if cfg_path.is_file():
+        raw = json.loads(cfg_path.read_text())
+        if raw.get("model_type") == "t5":
+            spm = cfg_path.parent / "spiece.model"
+            if spm.exists():
+                return SpmT5Tokenizer(spm)
+            _warn_hash_fallback(f"spiece.model in {text_encoder!r}")
+            return HashTokenizer(int(raw.get("vocab_size", 32128)), CLIP_CONTEXT_LENGTH,
+                                 eot=1, pad=0, drop_punctuation=False)
+    elif text_encoder in T5_CONFIGS:
+        vocab = T5_CONFIGS[text_encoder].vocab_size
+    _warn_hash_fallback(f"tokenizer assets for {text_encoder!r}")
+    return HashTokenizer(vocab, CLIP_CONTEXT_LENGTH, eot=1, pad=0,
+                         drop_punctuation=False)

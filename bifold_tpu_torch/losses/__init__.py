@@ -1,8 +1,16 @@
 """Losses over heatmap dicts.
 
 Counterpart of bifold_tpu/losses/__init__.py:44-203. A loss is a function
-``loss_fn(output, sample) -> (scalar, intermediates)`` built from its config
-node by :func:`build_loss` (``name`` plus the factory's keywords).
+``loss_fn(output, sample, batch_share=1.0) -> (scalar, intermediates)``
+built from its config node by :func:`build_loss` (``name`` plus the
+factory's keywords).
+
+Each term says how it reduces over the batch, for data parallelism: a term
+that takes the mean over the batch (``bce_gaussmap``, ``bce_mask``) is
+multiplied by ``batch_share`` (this rank's samples over the global batch's),
+a term that sums over the batch (``dice``, and ``focal``'s
+``mean(1).sum()``) is left as it is, so that summing each rank's value
+gives the global batch's. ``batch_share`` 1 (one process) changes nothing.
 
 :func:`binary_cross_entropy` is written as the JAX package writes it, not as
 ``F.binary_cross_entropy``: its value clamps each log term at -100 (torch's
@@ -59,6 +67,12 @@ def binary_cross_entropy_with_logits(x, target, reduction: str = "mean"):
     return _reduce(loss, reduction)
 
 
+def _batch_mean(term, batch_share):
+    """A term averaged over this rank's batch, as its share of the global
+    batch's average."""
+    return term if batch_share == 1.0 else term * batch_share
+
+
 def _squeeze_mask(mask):
     """(B, 1, H, W) or (B, H, W) -> (B, H, W)."""
     return mask[:, 0] if mask.dim() == 4 else mask
@@ -72,7 +86,7 @@ def bce_gaussmap(is_bimanual: bool, mask_pick_heatmap: bool = False, **_) -> Los
     heads = (("left_pick", "right_pick", "left_place", "right_place")
              if is_bimanual else ("pick", "place"))
 
-    def loss_fn(output, sample):
+    def loss_fn(output, sample, batch_share=1.0):
         intermediates = {}
         total = 0.0
         for head in heads:
@@ -84,6 +98,7 @@ def bce_gaussmap(is_bimanual: bool, mask_pick_heatmap: bool = False, **_) -> Los
                     output[f"{head}_logits"], target)
             else:
                 curr = binary_cross_entropy(output[f"{head}_heatmap"], target)
+            curr = _batch_mean(curr, batch_share)
             intermediates[head] = curr
             total = total + curr
         return total, intermediates
@@ -94,9 +109,10 @@ def bce_gaussmap(is_bimanual: bool, mask_pick_heatmap: bool = False, **_) -> Los
 def bce_mask(**_) -> LossFn:
     """BCE of the mask head against the cloth mask."""
 
-    def loss_fn(output, sample):
-        return binary_cross_entropy(output["mask_heatmap"],
-                                    _squeeze_mask(sample["mask"])), {}
+    def loss_fn(output, sample, batch_share=1.0):
+        return _batch_mean(binary_cross_entropy(output["mask_heatmap"],
+                                                _squeeze_mask(sample["mask"])),
+                           batch_share), {}
 
     return loss_fn
 
@@ -104,7 +120,7 @@ def bce_mask(**_) -> LossFn:
 def dice(**_) -> LossFn:
     """Dice loss on the mask head, summed over the batch."""
 
-    def loss_fn(output, sample):
+    def loss_fn(output, sample, batch_share=1.0):
         inputs = output["mask_heatmap"].reshape(output["mask_heatmap"].shape[0], -1)
         targets = _squeeze_mask(sample["mask"]).reshape(inputs.shape[0], -1).float()
         numerator = 2.0 * (inputs * targets).sum(dim=1)
@@ -119,7 +135,7 @@ def focal(alpha: float = 0.25, gamma: float = 2.0, **_) -> LossFn:
     ``loss.mean(1).sum()`` over a (B, H, W) map (mean over rows, then the
     sum over batch and columns)."""
 
-    def loss_fn(output, sample):
+    def loss_fn(output, sample, batch_share=1.0):
         prob = output["mask_heatmap"].float()
         targets = _squeeze_mask(sample["mask"]).float()
         ce = binary_cross_entropy(prob, targets, reduction="none")
@@ -140,11 +156,11 @@ def composed(loss_names, weights, **kwargs) -> LossFn:
     parts = {name: LOSSES[name](**kwargs) for name in loss_names}
     weight_of = dict(zip(loss_names, weights))
 
-    def loss_fn(output, sample):
+    def loss_fn(output, sample, batch_share=1.0):
         intermediates = {}
         total = 0.0
         for name, fn in parts.items():
-            curr, curr_inter = fn(output, sample)
+            curr, curr_inter = fn(output, sample, batch_share)
             total = total + curr * weight_of[name]
             intermediates[name] = curr
             for k, v in curr_inter.items():

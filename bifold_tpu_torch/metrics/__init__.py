@@ -8,7 +8,11 @@ at the GT pixel), over the port's :class:`~bifold_tpu_torch.env.action.Action`.
 
 Metrics accumulate on the host over decoded actions, in numpy, with the
 reference's accumulation quirks (KeypointMSE divides a sum of batch means
-by a count of valid samples).
+by a count of valid samples). Each metric turns a batch into sums and
+counts (:meth:`BaseMetric.terms`) and those into the batch's value
+(:meth:`BaseMetric.combine`); under data parallelism the Trainer sums the
+terms over the ranks first (``Metrics(..., reduce=...)``), so a batch's
+value is the global batch's, not an average of the ranks' values.
 """
 
 from __future__ import annotations
@@ -60,8 +64,18 @@ class BaseMetric:
     def __init__(self, *args, **kwargs):
         self.values: list = []
 
-    def __call__(self, action: Action, sample, **kwargs):
+    def terms(self, action: Action, sample, **kwargs) -> Optional[list]:
+        """The batch's sums and counts (None: the batch has no value)."""
         raise NotImplementedError
+
+    def combine(self, terms) -> float:
+        """The batch's value from its (possibly rank-summed) terms."""
+        raise NotImplementedError
+
+    def __call__(self, action: Action, sample, **kwargs):
+        terms = self.terms(action, sample, **kwargs)
+        if terms is not None:
+            self.values.append(self.combine(terms))
 
     @staticmethod
     def is_better(old_value, new_value) -> bool:
@@ -78,14 +92,21 @@ class KeypointMSE(BaseMetric):
     """Mean pixel distance of decoded actions to (the nearest of) the GT
     pixels; invalid (-1) targets excluded (metrics/__init__.py:106-126)."""
 
-    def __call__(self, action: Action, sample, **kwargs):
+    def terms(self, action: Action, sample, **kwargs):
+        # per field: the sum of its valid distances and their count
+        out = []
+        for k, pred in action.fields():
+            _, batch_loss = _valid_and_distance(sample[k], pred)
+            out += [batch_loss.sum(), batch_loss.size]
+        return out
+
+    def combine(self, terms):
         total_loss = 0.0
         n = 0
-        for k, pred in action.fields():
-            valid, batch_loss = _valid_and_distance(sample[k], pred)
-            total_loss += batch_loss.mean() if batch_loss.size else 0.0
-            n += int(valid.sum())
-        self.values.append(total_loss / n if n != 0 else 0)
+        for total, count in zip(terms[::2], terms[1::2]):
+            total_loss += total / count if count else 0.0
+            n += int(count)
+        return total_loss / n if n != 0 else 0
 
 
 class AveragePrecision(BaseMetric):
@@ -96,7 +117,7 @@ class AveragePrecision(BaseMetric):
         super().__init__()
         self.threshold = threshold
 
-    def __call__(self, action: Action, sample, **kwargs):
+    def terms(self, action: Action, sample, **kwargs):
         total_precision = 0
         n = 0
         for k, pred in action.fields():
@@ -106,7 +127,11 @@ class AveragePrecision(BaseMetric):
             if (~valid).any():
                 total_precision += int((pred[~valid].min(axis=1) < 0).sum())
             n += len(pred)
-        self.values.append((total_precision / n) * 100 if n else 0.0)
+        return [total_precision, n]
+
+    def combine(self, terms):
+        total_precision, n = terms
+        return (total_precision / n) * 100 if n else 0.0
 
     @staticmethod
     def is_better(old_value, new_value) -> bool:
@@ -117,22 +142,24 @@ class IoU(BaseMetric):
     """Binary Jaccard index of the mask head at 0.5 vs the cloth mask, in %;
     NaN when the model has no mask head (metrics/__init__.py:76-103)."""
 
-    def __call__(self, action=None, sample=None, raw_output: Optional[Dict] = None,
-                 **kwargs):
+    def terms(self, action=None, sample=None, raw_output: Optional[Dict] = None,
+              **kwargs):
         if raw_output is None or "mask_heatmap" not in raw_output:
-            return
+            return None
         pred = _np(raw_output["mask_heatmap"]) > 0.5
         mask = _np(sample["mask"])
         if mask.ndim == 4:
             mask = mask[:, 0]
         target = mask > 0.5
-        intersection = np.logical_and(pred, target).sum()
-        union = np.logical_or(pred, target).sum()
+        return [np.logical_and(pred, target).sum(), np.logical_or(pred, target).sum()]
+
+    def combine(self, terms):
+        intersection, union = terms
         # empty union -> 0, matching torchmetrics BinaryJaccardIndex
         # (_safe_divide of tp/(tp+fp+fn) = 0/0 returns 0, not 1): an
         # all-background prediction on an empty GT mask must not score 100
         iou = intersection / union if union > 0 else 0.0
-        self.values.append(100.0 * iou)
+        return 100.0 * iou
 
     def summary(self):
         return super().summary() if self.values else float(np.nan)
@@ -150,8 +177,8 @@ class QuantileProb(BaseMetric):
     invalid target, credit the complement (metrics/__init__.py:128-176).
     """
 
-    def __call__(self, action: Action, sample, raw_output: Optional[Dict] = None,
-                 **kwargs):
+    def terms(self, action: Action, sample, raw_output: Optional[Dict] = None,
+              **kwargs):
         assert raw_output is not None
         total_prob = 0.0
         n = 0
@@ -177,7 +204,11 @@ class QuantileProb(BaseMetric):
                 probs = (hm.flatten()[None, :] <= vals[:, None]).mean(axis=1)
                 total_prob += probs.mean() if v else 1.0 - probs.mean()
                 n += 1
-        self.values.append((total_prob / n) * 100 if n else 0.0)
+        return [total_prob, n]
+
+    def combine(self, terms):
+        total_prob, n = terms
+        return (total_prob / n) * 100 if n else 0.0
 
     @staticmethod
     def is_better(old_value, new_value) -> bool:
@@ -223,6 +254,18 @@ class Metrics:
                 has_improved = True
         return has_improved, metric_dict
 
-    def __call__(self, *args, **kwargs):
-        for metric in self.metrics.values():
-            metric(*args, **kwargs)
+    def __call__(self, *args, reduce=None, **kwargs):
+        """Add one batch to every metric; ``reduce`` (a list of numbers ->
+        their sums over the ranks) makes each batch's value the global
+        batch's: one call reduces every metric's terms together."""
+        if reduce is None:
+            for metric in self.metrics.values():
+                metric(*args, **kwargs)
+            return
+        terms = {name: metric.terms(*args, **kwargs)
+                 for name, metric in self.metrics.items()}
+        present = [name for name, t in terms.items() if t is not None]
+        summed = iter(reduce([x for name in present for x in terms[name]]))
+        for name in present:
+            metric = self.metrics[name]
+            metric.values.append(metric.combine([next(summed) for _ in terms[name]]))

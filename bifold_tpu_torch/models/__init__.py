@@ -5,11 +5,11 @@ four shipped model families (``siglip``, ``siglip_sequential``,
 ``rgb_clip``, ``text_unet``): :func:`build_model` takes the same config node
 (keys are constructor fields, unknown keys are an error) and builds the
 module on a device with a seeded init; :func:`trainable_mask` freezes the
-backbone towers (``siglip_model``, ``clip_encoder``) but their LoRA adapters
-(via ``requires_grad``); :func:`precast_frozen` casts big frozen weights to
-the compute dtype once; :func:`decode_action` turns the heatmap dict into
-pixel arrays with mask snapping and bimanual gating, at the family's
-``threshold``.
+backbone towers (``siglip_model``, ``clip_encoder``, ``text_encoder``) but
+their LoRA adapters (via ``requires_grad``); :func:`precast_frozen` casts
+big frozen weights to the compute dtype once; :func:`decode_action` turns
+the heatmap dict into pixel arrays with mask snapping and bimanual gating,
+at the family's ``threshold``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from torch import nn
 
 from bifold_tpu_torch.models.backbones.clip_backbone import (ClipBackbone,
                                                             ClipVisionTower)
+from bifold_tpu_torch.models.backbones.t5_backbone import T5Encoder
 from bifold_tpu_torch.models.bifold_models import (RGBOnly, SigLip,
                                                    SiglipSequential,
                                                    TextConditionedUNet)
@@ -95,7 +96,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     lecun-normal cross-attention kernels (fan in D for query/key/value,
     H x Dh for out), and CLIP's own:
     ``class_embedding``, the vision ``positional_embedding`` and
-    ``text_projection`` N(0, width^-0.5), the text positions N(0, 0.01)."""
+    ``text_projection`` N(0, width^-0.5), the text positions N(0, 0.01);
+    T5's token and relative-position tables N(0, 1) (its RMS norms stay
+    at 1)."""
     adapters = set()
     for mod in model.modules():
         if isinstance(mod, LoRALinear):
@@ -152,6 +155,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         p = getattr(model, name, None)
         if p is not None:
             p.normal_(0.0, 1.0, generator=generator)
+    for mod in model.modules():
+        if isinstance(mod, T5Encoder):
+            mod.shared.weight.normal_(0.0, 1.0, generator=generator)
+            attention = mod.encoder.block[0].layer[0].SelfAttention
+            attention.relative_attention_bias.weight.normal_(0.0, 1.0, generator=generator)
 
 
 _FROZEN_SUBTREES = ("siglip_model", "clip_encoder", "text_encoder")
@@ -202,7 +210,7 @@ def build_model(cfg: dict, *, dtype=torch.float32, device="cuda",
     ``precision.remat``) overrides the node's for the families that have
     it and is dropped for the others, as the JAX package's overrides are.
     Config values the port does not implement (graph conditioning, another
-    head or fusion for rgb_clip, a T5 text encoder) raise."""
+    head or fusion for rgb_clip) raise."""
     node = dict(cfg)
     cfg = {k: (tuple(v) if isinstance(v, list) else v) for k, v in node.items()}
     if remat is not None and "remat" in _FIELDS.get(cfg.get("name"), ()):

@@ -11,3 +11,9 @@ from bifold_tpu_torch.models.backbones.siglip_backbone import (  # noqa: F401
     SiglipBackbone,
     SiglipConfig,
 )
+from bifold_tpu_torch.models.backbones.t5_backbone import (  # noqa: F401
+    T5_CONFIGS,
+    T5Config,
+    T5Encoder,
+    resolve_t5_config,
+)

@@ -11,10 +11,10 @@ accepted and unused, as in the JAX model.
 ``RGBOnly`` (``rgb_clip``): the frozen CLIP towers' token features, the
 image tokens projected to the text width, learned position embeddings and
 the shared pick/place head at that width. ``TextConditionedUNet``
-(``text_unet``): a depth UNet whose decoder blocks are FiLM-modulated by the
-frozen CLIP text tower's pooled EOT features (no gradient reaches the
-tower), with flax-semantics BatchNorm (:mod:`bifold_tpu_torch.models.norm`)
-and per-pixel heads in float32. Its convolutions run in channels-last
+(``text_unet``): a depth UNet whose decoder blocks are FiLM-modulated by a
+frozen text encoder's pooled features (CLIP's EOT token, or T5's first
+token; no gradient reaches the encoder), with flax-semantics BatchNorm
+(:mod:`bifold_tpu_torch.models.norm`) and per-pixel heads in float32. Its convolutions run in channels-last
 memory; weights keep the reference's shapes (Conv2d (out, in, kh, kw),
 ConvTranspose2d (in, out, kh, kw) with torch's tap order, which
 ``convert_text_unet_inverse`` gives).
@@ -37,6 +37,7 @@ from bifold_tpu_torch.models.backbones import (
     SiglipBackbone,
     SiglipConfig,
 )
+from bifold_tpu_torch.models.backbones.t5_backbone import T5Encoder, resolve_t5_config
 from bifold_tpu_torch.models.dropout import Dropout
 from bifold_tpu_torch.models.layers import linear
 from bifold_tpu_torch.models.norm import BatchNorm
@@ -273,13 +274,18 @@ class _FiLMBlock(nn.Module):
 
 
 class TextConditionedUNet(nn.Module):
-    """Depth UNet with FiLM decoder blocks conditioned on the frozen CLIP
-    text tower's EOT features (JAX bifold_models.py:312-379): ``encoder.<i>``
-    is [conv, BN, ReLU, conv, BN, ReLU] (bias-free convs) after a 2x2 max
-    pool for i > 0; ``decoder.<j>`` are the FiLM blocks up the skips; one
-    1x1 head per action (``<name>_decoder``) gives ``<name>_logits`` and
-    ``<name>_heatmap`` in float32 at the input resolution. Only CLIP text
-    towers are ported: another ``text_encoder`` (the T5 branch) raises."""
+    """Depth UNet with FiLM decoder blocks conditioned on a frozen text
+    encoder (JAX bifold_models.py:312-379): a CLIP model name takes the
+    CLIP text tower (``clip_encoder``, its EOT token's ln_final features),
+    anything else goes through ``resolve_t5_config`` (a T5 registry name or
+    a local T5 checkpoint dir, else ``ValueError``) to the T5 encoder
+    (``text_encoder``, pooled at token 0 of its last hidden state, :347).
+    ``encoder.<i>`` is [conv, BN, ReLU, conv, BN, ReLU] (bias-free convs)
+    after a 2x2 max pool for i > 0; ``decoder.<j>`` are the FiLM blocks up
+    the skips; one 1x1 head per action (``<name>_decoder``) gives
+    ``<name>_logits`` and ``<name>_heatmap`` in float32 at the input
+    resolution. The text condition is computed without gradient; T5's
+    dropout acts in ``train()`` mode, as JAX's does."""
 
     def __init__(self, image_size: int, is_bimanual: bool,
                  text_encoder: str = "RN50",
@@ -287,17 +293,17 @@ class TextConditionedUNet(nn.Module):
                  constrain_pick_mask: bool = True, dtype=torch.float32):
         super().__init__()
         cfg = CLIP_CONFIGS.get(text_encoder) or CLIP_TEXT_CONFIGS.get(text_encoder)
-        if cfg is None:
-            raise NotImplementedError(
-                f"text_unet text_encoder={text_encoder!r}: only the CLIP text "
-                f"towers ({sorted(CLIP_CONFIGS) + sorted(CLIP_TEXT_CONFIGS)}) "
-                "are ported; the T5 branch is ROADMAP queue item 4")
+        if cfg is not None:
+            self.clip_encoder = ClipBackbone(cfg, dtype, vision=False)
+            cond_dim = cfg.text_width
+        else:
+            self.text_encoder = T5Encoder(resolve_t5_config(text_encoder), dtype)
+            cond_dim = self.text_encoder.cfg.d_model
         self.image_size = image_size
         self.is_bimanual = is_bimanual
         self.threshold = threshold
         self.constrain_pick_mask = constrain_pick_mask
         self.dtype = dtype
-        self.clip_encoder = ClipBackbone(cfg, dtype, vision=False)
         feats = list(features)
         self.encoder = nn.ModuleList()
         for i, f in enumerate(feats):
@@ -307,7 +313,7 @@ class TextConditionedUNet(nn.Module):
                 nn.ReLU(), nn.Conv2d(f, f, 3, padding=1, bias=False),
                 BatchNorm(f, dtype=dtype), nn.ReLU()))
         self.decoder = nn.ModuleList(
-            _FiLMBlock(feats[i + 1], feats[i], cfg.text_width, dtype)
+            _FiLMBlock(feats[i + 1], feats[i], cond_dim, dtype)
             for i in range(len(feats) - 2, -1, -1))
         self.names = head_names(is_bimanual)
         for name in self.names:
@@ -316,9 +322,12 @@ class TextConditionedUNet(nn.Module):
     def forward(self, sample):
         ids = sample["instruction"]
         with torch.no_grad():     # the reference encodes the text under no_grad
-            cond = self.clip_encoder.encode_text_with_embeddings(ids)
-            cond = cond[torch.arange(ids.shape[0], device=ids.device),
-                        ids.argmax(dim=-1)]
+            if hasattr(self, "clip_encoder"):
+                cond = self.clip_encoder.encode_text_with_embeddings(ids)
+                cond = cond[torch.arange(ids.shape[0], device=ids.device),
+                            ids.argmax(dim=-1)]
+            else:
+                cond = self.text_encoder(ids)[:, 0]
         x = sample["depth"].to(self.dtype).contiguous(memory_format=torch.channels_last)
         skips = []
         for i, block in enumerate(self.encoder):

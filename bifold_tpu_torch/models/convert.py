@@ -4,8 +4,10 @@ The port's own copies of ``convert_bifold`` (bifold_tpu/models/convert.py
 :442, with ``convert_siglip`` :83, ``_convert_clip_openai`` :140 and their
 helpers ``_linear``, ``_ln``, ``_wrap_lora``, ``_stack_blocks``,
 ``_max_index``), ``convert_bifold_inverse`` (:551-737),
-``convert_text_unet`` (:340) and ``convert_text_unet_inverse`` (:740-798),
-for the four model families this port serves. The keys of the state dict
+``convert_text_unet`` (:340) and ``convert_text_unet_inverse`` (:740-798)
+with their T5 branches (``convert_t5`` :261, ``convert_t5_inverse`` :302),
+and ``load_state_dict`` (:801), for the four model families this port
+serves. The keys of the state dict
 are the names the port's modules carry, so
 ``model.load_state_dict(convert_bifold_inverse(params), strict=True)`` loads
 a JAX-trained or JAX-initialised model into the port, and
@@ -36,26 +38,42 @@ and cross-attention at ``<fusion>.cross_attention.{query,key,value,out}
 ``text_unet`` carries BatchNorm statistics besides its params:
 ``convert_text_unet`` / ``convert_text_unet_inverse`` move (params,
 batch_stats) and the state dict's ``running_mean`` / ``running_var``
-together. :func:`to_jax_variables` and :func:`from_jax_variables` take the
-family's name and look its converter up, with JAX's ``extra_vars`` layout (``{"batch_stats":
-...}``, empty for the other families).
+together; its T5 text encoder (``text_encoder.``, Hugging Face
+``T5EncoderModel`` names) becomes JAX's ``text_encoder`` subtree (one
+``relative_attention_bias`` at the encoder level, ``block_<i>_*`` dense
+kernels), and back with both tied token tables (``shared.weight`` and
+``encoder.embed_tokens.weight``). :func:`to_jax_variables` and
+:func:`from_jax_variables` take the family's name and look its converter
+up, with JAX's ``extra_vars`` layout (``{"batch_stats": ...}``, empty for
+the other families).
 
 The inverses also take ``torch.bfloat16`` leaves (a JAX checkpoint's
 precast frozen towers, as :mod:`bifold_tpu_torch.utils.checkpoint` reads
 them): they move them with the same transposes and indexing, as tensors.
+
+:func:`load_state_dict` reads a checkpoint in the layouts the JAX package
+reads: a Hugging Face directory (a ``*.index.json`` shard map,
+``model.safetensors`` or ``pytorch_model.bin``), a ``.safetensors`` file
+through the port's own reader (:mod:`bifold_tpu_torch.utils.safetensors`),
+or a torch pickle through ``torch.load(weights_only=True)``.
 """
 
 from __future__ import annotations
 
+import json
 import re
+from pathlib import Path
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from bifold_tpu_torch.utils.safetensors import load_file
+
 __all__ = ["convert_bifold", "convert_siglip", "convert_bifold_inverse",
-           "convert_text_unet", "convert_text_unet_inverse",
-           "to_jax_variables", "from_jax_variables"]
+           "convert_text_unet", "convert_text_unet_inverse", "convert_t5",
+           "convert_t5_inverse", "load_state_dict", "to_jax_variables",
+           "from_jax_variables"]
 
 
 def _np(t) -> np.ndarray:
@@ -594,17 +612,72 @@ def _bn(sd: Dict, prefix: str):
              "var": _np(sd[f"{prefix}.running_var"])})
 
 
+def convert_t5(sd: Dict) -> Dict:
+    """HF ``T5EncoderModel`` state dict -> the JAX ``T5Encoder``'s params:
+    the token table from ``shared.weight`` (else its tied copy
+    ``encoder.embed_tokens.weight``), block 0's relative-position table at
+    the encoder level, ``block_<i>_{ln_attn,q,k,v,o,ln_ffn,wi | wi_0,
+    wi_1,wo}`` (kernels transposed to (in, out)), ``final_layer_norm``."""
+    emb = sd["shared.weight"] if "shared.weight" in sd else sd["encoder.embed_tokens.weight"]
+    out: Dict[str, Any] = {
+        "shared": {"embedding": _np(emb)},
+        "relative_attention_bias": {"embedding": _np(
+            sd["encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"])},
+        "final_layer_norm": {"scale": _np(sd["encoder.final_layer_norm.weight"])},
+    }
+    for i in range(_max_index(sd, r"^encoder\.block\.")):
+        p = f"encoder.block.{i}."
+        out[f"block_{i}_ln_attn"] = {"scale": _np(sd[p + "layer.0.layer_norm.weight"])}
+        for m in "qkvo":
+            out[f"block_{i}_{m}"] = {
+                "kernel": _np(sd[p + f"layer.0.SelfAttention.{m}.weight"]).T}
+        out[f"block_{i}_ln_ffn"] = {"scale": _np(sd[p + "layer.1.layer_norm.weight"])}
+        ff = p + "layer.1.DenseReluDense."
+        names = ("wi", "wo") if ff + "wi.weight" in sd else ("wi_0", "wi_1", "wo")
+        for m in names:
+            out[f"block_{i}_{m}"] = {"kernel": _np(sd[ff + m + ".weight"]).T}
+    return out
+
+
+def convert_t5_inverse(params: Dict) -> Dict[str, Any]:
+    """The JAX ``T5Encoder``'s params -> HF ``T5EncoderModel`` names (the
+    inverse of :func:`convert_t5`), both tied token tables included."""
+    emb = _arr(params["shared"]["embedding"])
+    out: Dict[str, Any] = {"shared.weight": emb, "encoder.embed_tokens.weight": emb}
+    out["encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = \
+        _arr(params["relative_attention_bias"]["embedding"])
+    out["encoder.final_layer_norm.weight"] = _arr(params["final_layer_norm"]["scale"])
+    i = 0
+    while f"block_{i}_q" in params:
+        p = f"encoder.block.{i}."
+        out[p + "layer.0.layer_norm.weight"] = _arr(params[f"block_{i}_ln_attn"]["scale"])
+        for m in "qkvo":
+            out[p + f"layer.0.SelfAttention.{m}.weight"] = \
+                _arr(params[f"block_{i}_{m}"]["kernel"]).T
+        out[p + "layer.1.layer_norm.weight"] = _arr(params[f"block_{i}_ln_ffn"]["scale"])
+        ff = p + "layer.1.DenseReluDense."
+        names = ("wi", "wo") if f"block_{i}_wi" in params else ("wi_0", "wi_1", "wo")
+        for m in names:
+            out[ff + m + ".weight"] = _arr(params[f"block_{i}_{m}"]["kernel"]).T
+        i += 1
+    return out
+
+
 def convert_text_unet(sd: Dict, *, scan_layers: bool = True):
     """TextConditionedUNet state dict -> (params, batch_stats) of the JAX
-    ``text_unet``: the CLIP text tower, the double-conv encoder blocks, the
-    FiLM decoder blocks (ConvTranspose taps flipped into flax's
-    forward-conv order) and the 1x1 heads; BatchNorm running statistics go
-    to ``batch_stats``."""
+    ``text_unet``: the CLIP text tower or the T5 encoder, the double-conv
+    encoder blocks, the FiLM decoder blocks (ConvTranspose taps flipped into
+    flax's forward-conv order) and the 1x1 heads; BatchNorm running
+    statistics go to ``batch_stats``."""
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     clip_sd = _clip_subdict(sd)
     if clip_sd:
         params["clip_encoder"] = _convert_clip_openai(clip_sd, scan_layers)
+    t5_sd = {k.removeprefix("text_encoder."): v for k, v in sd.items()
+             if k.startswith("text_encoder.")}
+    if t5_sd:
+        params["text_encoder"] = convert_t5(t5_sd)
     for i in range(_max_index(sd, r"^encoder\.")):
         for j, (conv_slot, bn_slot) in enumerate(((0, 1), (3, 4))):
             params[f"enc{i}_conv{j}"] = _conv2d(sd, f"encoder.{i}.{conv_slot}")
@@ -634,11 +707,12 @@ def convert_text_unet_inverse(params: Dict, batch_stats: Dict) -> Dict[str, Any]
     """The JAX ``text_unet``'s (params, batch_stats) -> the port's state dict
     (the reference's names, ``running_mean`` / ``running_var`` included,
     ConvTranspose taps re-flipped to torch's order)."""
-    if "text_encoder" in params:
-        raise NotImplementedError("the T5 text branch of text_unet is not ported")
     out: Dict[str, Any] = {}
     if "clip_encoder" in params:
         _inv_clip(out, "clip_encoder.", params["clip_encoder"])
+    if "text_encoder" in params:
+        for k, v in convert_t5_inverse(params["text_encoder"]).items():
+            out["text_encoder." + k] = v
 
     def inv_conv(prefix: str, conv: Dict) -> None:
         out[prefix + ".weight"] = _perm(conv["kernel"], (3, 2, 0, 1))
@@ -729,3 +803,31 @@ def from_jax_variables(family: str, params: Dict,
                        extra_vars: Dict | None = None) -> Dict[str, Any]:
     """The inverse of :func:`to_jax_variables`."""
     return _converters(family)[1](params, extra_vars or {})
+
+
+def load_state_dict(path) -> Dict[str, torch.Tensor]:
+    """A checkpoint's tensors (on the CPU) by name: a Hugging Face directory
+    (its ``model.safetensors.index.json`` or ``pytorch_model.bin.index.json``
+    shard map, else ``model.safetensors``, else ``pytorch_model.bin``), a
+    ``.safetensors`` file, or a torch pickle (``.bin``/``.pt``/``.pth``;
+    a reference Trainer file's ``{"model": state_dict, ...}`` unwrapped)."""
+    path = Path(path)
+    if path.is_dir():
+        for index in ("model.safetensors.index.json", "pytorch_model.bin.index.json"):
+            if (path / index).exists():
+                weight_map = json.loads((path / index).read_text())["weight_map"]
+                sd: Dict[str, torch.Tensor] = {}
+                for shard in sorted(set(weight_map.values())):
+                    sd.update(load_state_dict(path / shard))
+                return sd
+        for name in ("model.safetensors", "pytorch_model.bin"):
+            if (path / name).exists():
+                path = path / name
+                break
+    if path.suffix == ".safetensors":
+        return load_file(path)
+    obj = torch.load(str(path), map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and isinstance(obj.get("model"), dict) \
+            and any("." in k for k in obj["model"]):
+        obj = obj["model"]
+    return obj

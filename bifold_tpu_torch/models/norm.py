@@ -16,6 +16,14 @@ in eval), over the channels of an NCHW tensor (any memory format):
   cast to ``dtype``.
 
 Gradients flow through the batch statistics, as JAX differentiates them.
+
+Under a ``torch.distributed`` group of more than one rank (data
+parallelism, each rank a contiguous, equal slice of the global batch) the
+train-mode statistics are the global batch's, as JAX's are over a sharded
+batch: each rank's E[x] and E[x^2], times its share of the batch, are
+summed over the ranks by a differentiable all-reduce (its backward sums the
+statistics' gradients over the ranks), so the normalization and the
+running statistics equal a one-process run's.
 The buffers are ``running_mean`` and ``running_var`` (the reference's
 names, JAX's ``batch_stats`` ``mean`` / ``var``); there is no
 ``num_batches_tracked``. The running update is in place under
@@ -28,6 +36,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from bifold_tpu_torch.parallel.collectives import all_reduce_sum, world_size
 
 __all__ = ["BatchNorm"]
 
@@ -47,8 +57,11 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         xf = x.float()
         if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            mean, meansq = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+            world = world_size()
+            if world > 1:
+                mean, meansq = all_reduce_sum(torch.stack([mean, meansq]) / world)
+            var = (meansq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

@@ -129,9 +129,12 @@ QUANT_TAG = "__int8_q__"
 # token_embedding and positional_embedding, the heads' tokens and position
 # embeddings); HF's "embeddings." segment must not exclude the patch
 # embedding, a conv matmul that stays quantized, and CLIP's
-# text_projection and class_embedding are no such table.
+# text_projection and class_embedding are no such table. T5's token table
+# (``shared``, tied to ``encoder.embed_tokens``) and its relative-position
+# table are JAX ``embedding`` leaves.
 _QUANT_EXCLUDE = re.compile(
     r"(^|\.)(token_embedding|position_embedding|token_type_embeddings)\.weight$"
+    r"|(^|\.)(shared|embed_tokens|relative_attention_bias)\.weight$"
     r"|(^|\.)positional_embedding$"
     r"|^(text_token|image_token|context_pos_embedding|rgb_pos_embedding"
     r"|text_pos_embedding)$")

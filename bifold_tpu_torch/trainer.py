@@ -7,8 +7,18 @@ the RNG states for exact resume, eval-result yaml merging.
 
 How the port differs:
 
-- one device (``use_cpu: true`` asks for the CPU, else the CUDA card,
-  which must be present); the ``mesh`` config must ask for one device;
+- one device per process (``use_cpu: true`` asks for the CPU, else the
+  CUDA card, which must be present). Under a ``torch.distributed`` group
+  (``parallel.distributed_init``, which ``__main__`` calls) the run is
+  data-parallel: the ``mesh`` config's ``dcn x dp`` must equal the ranks
+  (``dp: -1`` takes them all), each rank trains on the group's device with
+  its slice of every global batch (the loaders slice), the step sums the
+  gradients over the ranks, samples/s counts the global batch, pixel eval
+  sums each metric's sums and counts over the ranks, and only rank 0
+  writes the config snapshot, logs, checkpoints and eval yaml (the other
+  ranks wait for each checkpoint, then every rank resumes from the same
+  file). ``async_checkpoint`` writes synchronously under a group, as the
+  JAX package does with more than one process;
 - frozen parameters are ``requires_grad=False`` and the optimizer updates
   the trainable float32 masters in place; ``donate_state`` is accepted and
   does nothing;
@@ -33,8 +43,10 @@ How the port differs:
   ``run_dir/profile``.
 
 The four shipped model families train (``siglip``,
-``siglip_sequential``, ``rgb_clip``, ``text_unet``), the SigLIP families
-with every head, fusion and FFN option of the JAX package
+``siglip_sequential``, ``rgb_clip``, ``text_unet`` with a CLIP or a T5 text
+encoder; a local T5 checkpoint dir that holds weights is grafted into the
+frozen encoder at start, :meth:`Trainer._maybe_load_t5_weights`), the
+SigLIP families with every head, fusion and FFN option of the JAX package
 (``pick_place_transdecoder``, ``crossattention``, ``moe_experts``; the MoE
 load-balance loss weighted in by ``model.moe_aux_weight`` and logged as
 ``moe_load_balance``, as the JAX Trainer does), and ``precision.remat``
@@ -45,11 +57,12 @@ train-mode forward; checkpoints carry them as JAX's ``extra_vars =
 so either package's Trainer resumes the other's file.
 
 Not ported, and refused with the ROADMAP queue item that holds them:
-``visualize_model_inputs`` and ``visualize_predictions`` (item 6), a T5
-``text_encoder`` and graph conditioning (item 4), meshes of more than one
-device (item 5). With ``simulator: softgym`` the final eval says that the closed loop is
-not ported (item 6) and takes pixel metrics, as the JAX Trainer does when
-its evaluator cannot be imported.
+``visualize_model_inputs`` and ``visualize_predictions`` (item 6), graph
+conditioning (item 4), mesh axes other than the data axes and MoE layers
+under a group of more than one rank (item 5). With ``simulator: softgym``
+the final eval says that the closed loop is not ported (item 6) and takes
+pixel metrics, as the JAX Trainer does when its evaluator cannot be
+imported.
 """
 
 from __future__ import annotations
@@ -75,7 +88,8 @@ from bifold_tpu_torch.metrics import Metrics
 from bifold_tpu_torch.models import (MODELS, build_model, decode_action,
                                      precast_frozen, resolve_device,
                                      trainable_mask)
-from bifold_tpu_torch.models.convert import from_jax_variables, to_jax_variables
+from bifold_tpu_torch.models.convert import (from_jax_variables, load_state_dict,
+                                             to_jax_variables)
 from bifold_tpu_torch.models.dropout import set_dropout_generator
 from bifold_tpu_torch.optim import build_optimizer
 from bifold_tpu_torch.utils.checkpoint import (WRITER, AsyncCheckpointer,
@@ -145,6 +159,20 @@ def _fill(tree, template):
     return tree if isinstance(tree, (np.ndarray, torch.Tensor)) else template
 
 
+class _NoWriter:
+    """The logger of a rank other than 0: logs nothing."""
+
+    def log(self, metrics, step) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+_T5_WEIGHTS = ("model.safetensors", "pytorch_model.bin", "model.safetensors.index.json",
+               "pytorch_model.bin.index.json")
+
+
 class Preempted(Exception):
     """Raised at a step boundary after SIGTERM. train() catches it, writes a
     step-granular last.ckpt and returns; the next run resumes mid-epoch."""
@@ -158,25 +186,32 @@ class Trainer:
         self.run_dir.mkdir(parents=True, exist_ok=True)
         self._refuse_unported(cfg)
         self._family = dict(cfg["model"])["name"]
-        save_config(cfg, self.run_dir / "config.yaml")
+        self.world = parallel.check_mesh(
+            cfg.get("mesh", {}), moe_experts=int(dict(cfg["model"]).get("moe_experts") or 0))
+        self.rank = parallel.rank()
+        if self.rank == 0:
+            save_config(cfg, self.run_dir / "config.yaml")
         if device is None:
+            # under a group, "cuda" is the card distributed_init made current
             device = "cpu" if cfg.get("use_cpu") else "cuda"
         self.device = resolve_device(device)
 
         self.key = seed_randomness(int(cfg["seed"]))
-        parallel.check_mesh(cfg.get("mesh", {}))
         self.writer = Writer(self.run_dir, use_wandb=bool(cfg.get("use_wandb")),
                              group=str(dict(cfg["train_dataset"]).get("name")),
                              name=run_name,
-                             config=cfg.to_dict() if isinstance(cfg, Config) else dict(cfg))
+                             config=cfg.to_dict() if isinstance(cfg, Config) else dict(cfg)
+                             ) if self.rank == 0 else _NoWriter()
 
         precision = dict(cfg.get("precision", {}))
         self.dtype = _DTYPES[precision.get("compute_dtype", "float32")]
         self.model = build_model(cfg["model"], dtype=self.dtype, device=self.device,
                                  seed=_draw_seed(self.key),
                                  remat=bool(precision.get("remat", False)))
+        self._maybe_load_t5_weights()
         (self.train_dataloader, self.test_dataloader,
-         self.processor) = get_dataloaders(cfg, device=self.device)
+         self.processor) = get_dataloaders(cfg, device=self.device, process_id=self.rank,
+                                           process_count=self.world)
 
         self.metrics = Metrics(dict(cfg["metrics"]))
         self.epoch = 0
@@ -199,7 +234,29 @@ class Trainer:
 
         n_params = sum(p.numel() for p in self.model.parameters())
         print(f"[trainer] model={dict(cfg['model'])['name']} params={n_params / 1e6:.1f}M "
-              f"device={self.device}")
+              f"device={self.device} rank={self.rank}/{self.world}")
+
+    def _maybe_load_t5_weights(self) -> None:
+        """A T5 ``text_encoder`` given as a local Hugging Face checkpoint dir
+        that holds weights (bifold_tpu/trainer.py:154-173): graft them into
+        the model's ``text_encoder`` (strict names; a file that keeps one
+        of the two tied token tables fills both). A dir with only a
+        ``config.json`` keeps the seeded initialisation; CLIP names never
+        reach here."""
+        enc = dict(self.cfg["model"]).get("text_encoder")
+        t5 = getattr(self.model, "text_encoder", None)
+        if t5 is None or not enc or not Path(str(enc)).is_dir():
+            return
+        d = Path(str(enc))
+        if not any((d / name).exists() for name in _T5_WEIGHTS):
+            return
+        sd = load_state_dict(d)
+        for a, b in (("shared.weight", "encoder.embed_tokens.weight"),
+                     ("encoder.embed_tokens.weight", "shared.weight")):
+            if a in sd and b not in sd:
+                sd[b] = sd[a]
+        t5.load_state_dict(sd, strict=True)
+        print(f"[trainer] loaded pretrained T5 text encoder from {d}")
 
     @staticmethod
     def _refuse_unported(cfg) -> None:
@@ -276,9 +333,15 @@ class Trainer:
         return self.jax_variables()[0]
 
     def save_model(self, name: str) -> None:
+        """Write ``checkpoints/<name>.ckpt`` (rank 0 only). Under a group the
+        other ranks wait until it is written, so that a load that follows
+        reads it."""
+        if self.rank != 0:
+            torch.distributed.barrier()
+            return
         # async_checkpoint=true moves the pickle and the write off the loop
-        # (the copy to host memory stays inline)
-        if bool(self.cfg.get("async_checkpoint", False)):
+        # (the copy to host memory stays inline); one process only
+        if bool(self.cfg.get("async_checkpoint", False)) and self.world == 1:
             if self._async_ckpt is None:
                 self._async_ckpt = AsyncCheckpointer()
             saver = self._async_ckpt.save
@@ -299,6 +362,8 @@ class Trainer:
                              for k, p in self._processors().items()},
             metadata={"model": dict(self.cfg["model"]),
                       "tracked_metric": self.metrics.tracked_metric})
+        if self.world > 1:
+            torch.distributed.barrier()
 
     def load_model(self, prefer: str = "last", path: Optional[Path] = None) -> bool:
         """Restore the newest ``prefer`` (else last, else best) checkpoint of
@@ -541,7 +606,7 @@ class Trainer:
             while len(pending) > readback_window:
                 running += float(pending.pop(0))
             first = next(v for v in batch.values() if isinstance(v, torch.Tensor))
-            samples += int(first.shape[0])
+            samples += int(first.shape[0]) * self.world     # the global batch
             if self._terminate:
                 raise Preempted()
             if save_steps and self.global_step % save_steps == 0:
@@ -633,12 +698,17 @@ class Trainer:
         return self.eval_epoch_pixel()
 
     def eval_epoch_pixel(self):
+        """Pixel metrics over the test loader; under a group each batch's
+        sums and counts are summed over the ranks first, so the metrics are
+        the global batches'."""
         self.metrics.reset()
+        reduce = parallel.all_reduce_values if self.world > 1 else None
         for batch in self.test_dataloader:
             action, raw_output = self.get_action(batch, return_raw_output=True)
             sample = {k: _numpy(v) if isinstance(v, torch.Tensor) else v
                       for k, v in batch.items()}
-            self.metrics(action=action, sample=sample, raw_output=raw_output)
+            self.metrics(action=action, sample=sample, raw_output=raw_output,
+                         reduce=reduce)
         return self.metrics.summary()
 
     def eval(self) -> Dict[str, float]:
@@ -660,6 +730,7 @@ class Trainer:
                     print(f"[eval] {k}: {old[k]} -> {v}")
         old.update({k: (None if v is None or (isinstance(v, float) and np.isnan(v))
                         else float(v)) for k, v in metric_dict.items()})
-        out_path.write_text(yaml.safe_dump(old, sort_keys=False))
+        if self.rank == 0:
+            out_path.write_text(yaml.safe_dump(old, sort_keys=False))
         print(f"[eval] {metric_dict}")
         return metric_dict

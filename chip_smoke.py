@@ -122,15 +122,29 @@ one JSON object per line:
    within 1e-6, exact f32 launches per step, peak memory of each, the
    warm steps' p50 and, from the profiler after both, device busy time
    and idle share);
-10. the script's seconds, the ``kernels`` line (twenty kernel instances:
+10. ``text_unet`` with a T5 text encoder (:func:`t5_family`: T5-base and
+   Flan-T5-base at full width, served and trained through ``main`` with no
+   flash or LayerNorm launch at all; a T5-base checkpoint dir written by
+   the port's safetensors writer grafted by the Trainer, bitwise), then
+   data parallelism: ``python -m torch.distributed.run --nproc_per_node 1``
+   over ``main`` on the flagship (:func:`dp_nccl`: a one-rank NCCL group,
+   bitwise equal to the run without the launcher, steps and checkpoints)
+   and two gloo ranks on the one card (:func:`dp_two_ranks`: the f32
+   flagship and f32 text_unet, each rank's half of a global batch of 2
+   within 1e-4 of the one-process step, running statistics within 1e-5,
+   the ranks bitwise equal, each rank's flash launches the one-process
+   step's); each worker is this script run with arguments (``dp-cli``,
+   ``dp-rank``);
+11. the script's seconds, the ``kernels`` line (twenty kernel instances:
    the flash kernels at three head dims in bf16, and in f32 those a main
    path launches (the decoder's d32, remat_phase's d48 and d64 forward
    with lse and backward), with their ptxas numbers (f32 rows: both
    bounds, FMA and 3xTF32, and the library's kernel names); the LayerNorm rows
    with those of their bf16 C = 768 instance and their largest f32 error
    at the decoder's C = 512 rows; each row names its design; its launches
-   are the sum of the main paths' own counts), then the card line, then
-   the result line ``{"ok": true, "device": {...}}``.
+   are the sum of the main paths' own counts, the data-parallel workers'
+   included), then the card line, then the result line ``{"ok": true,
+   "device": {...}}``.
 
 Each path's launch counts are reset just before it and read just after.
 Every torch.profiler session (the ``where_the_time_goes`` windows and the
@@ -2364,15 +2378,16 @@ def trainer_cli(card, flagship_p50, device="cuda"):
     return launches, ta, p50
 
 
-def trainer_profile(trainer, card, step_ms):
-    """torch.profiler over one more epoch of ``trainer`` (5 steps through its
-    loader, in the default LayerNorm mode, the mode of the CLI runs that
-    gave ``step_ms``): the device's busy time per step and its idle share of
-    ``step_ms`` (the Trainer's unprofiled step p50, as :func:`device_profile`
-    takes it) and of the profiled epoch's wall time (the profiler slows the
-    host's launches)."""
+def trainer_profile(trainer, card, step_ms, label="trainer_device_profile"):
+    """torch.profiler over one more epoch of ``trainer`` (every step of its
+    loader, 5 for the flagship's, in the default LayerNorm mode, the mode of
+    the CLI runs that gave ``step_ms``): the device's busy time per step and
+    its idle share of ``step_ms`` (the Trainer's unprofiled step p50, as
+    :func:`device_profile` takes it) and of the profiled epoch's wall time
+    (the profiler slows the host's launches)."""
     from torch.profiler import ProfilerActivity, profile
 
+    steps = len(trainer.train_dataloader)
     trainer.epoch = 1
     with ln_mode(""), profile(activities=[ProfilerActivity.CPU,
                                            ProfilerActivity.CUDA]) as prof:
@@ -2383,13 +2398,13 @@ def trainer_profile(trainer, card, step_ms):
         wall = (time.perf_counter() - t) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(getattr(e, "self_device_time_total", 0) or 0 for e in kernels) / 1e3 / 5
-    emit({"phase": "trainer_device_profile", "steps": 5, "ln_mode": "default",
-          "profiled_wall_ms_per_step": wall / 5, "device_busy_ms_per_step": busy or None,
+    busy = sum(getattr(e, "self_device_time_total", 0) or 0 for e in kernels) / 1e3 / steps
+    emit({"phase": label, "steps": steps, "ln_mode": "default",
+          "profiled_wall_ms_per_step": wall / steps, "device_busy_ms_per_step": busy or None,
           "unprofiled_step_p50_ms": step_ms,
           "device_idle_share": 1 - busy / step_ms if busy and step_ms else None,
-          "device_idle_share_profiled": 1 - busy / (wall / 5) if busy else None,
-          "device_ops_per_step": sum(e.count for e in kernels) // 5, **card})
+          "device_idle_share_profiled": 1 - busy / (wall / steps) if busy else None,
+          "device_ops_per_step": sum(e.count for e in kernels) // steps, **card})
 
 
 def trainer_pull_ahead(card):
@@ -3088,6 +3103,455 @@ def remat_phase(card, device="cuda"):
     return results, dict(launches)
 
 
+# the T5 branch of text_unet: the two encoders a user names (the relu
+# T5-base and the gated-GELU Flan-T5-base), with text_unet's composed
+# config around them
+T5_ENCODERS = ("t5-base", "google/flan-t5-base")
+T5_GRAFT = "t5-base"                     # the checkpoint dir the Trainer grafts
+T5_GRAFT_SEED = 5
+
+
+def t5_checkpoint_dir(path, name, device="cuda"):
+    """A Hugging Face T5 checkpoint dir for the registry config ``name``
+    (``config.json`` and ``model.safetensors``, the latter written by the
+    port's own writer, with HF's tied layout: ``shared.weight`` only) from
+    a T5 encoder seeded with :data:`T5_GRAFT_SEED`. Returns the written
+    tensors (on the CPU)."""
+    import dataclasses
+
+    from bifold_tpu_torch.models import init_weights
+    from bifold_tpu_torch.models.backbones.t5_backbone import T5_CONFIGS, T5Encoder
+    from bifold_tpu_torch.utils.safetensors import save_file
+
+    cfg = T5_CONFIGS[name]
+    with torch.device(device):
+        enc = T5Encoder(cfg)
+    init_weights(enc, torch.Generator(device).manual_seed(T5_GRAFT_SEED))
+    written = {k: v.detach().cpu() for k, v in enc.state_dict().items()
+               if k != "encoder.embed_tokens.weight"}
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps({"model_type": "t5",
+                                                  **dataclasses.asdict(cfg)}))
+    save_file(written, path / "model.safetensors", {"format": "pt"})
+    return written
+
+
+def t5_family(card, device="cuda"):
+    """``text_unet`` with a T5 text encoder (:data:`T5_ENCODERS`) as a user
+    runs it, at full width with seeded weights, bf16: served behind
+    ``ServingModel`` at a 720 px camera (3 requests and a pool of 8 in each
+    LayerNorm mode, then 11 requests and a pool of 8 for the p50s) and
+    trained through ``main`` (16 synthetic bimanual samples at 384 px,
+    batch 2, one epoch of 8 steps, pixel eval, best/last; the Trainer's
+    step p50 and the run's peak memory above what the process held before
+    it). Gates: T5 runs its attention
+    inline (77 tokens, under the flash threshold) and RMS norms, and the
+    UNet BatchNorms, so every request, train step and eval batch launches
+    no flash and no LayerNorm kernel, and the phase's counts stay 0; exit
+    0, 8 steps, finite metrics. Then a T5-base checkpoint dir written with
+    the port's safetensors writer (:func:`t5_checkpoint_dir`) is grafted by
+    the Trainer: its encoder's weights are the written ones, bitwise, and
+    its output on a batch of ids equals the written weights' own forward,
+    bitwise. Returns the serving phases for :func:`where_the_time_goes` and
+    (name, trainer, p50) for :func:`trainer_profile`. ``device="cpu"``: a
+    rehearsal (the caller swaps the configs for tiny ones)."""
+    import shutil
+    import tempfile
+
+    from bifold_tpu_torch.config import Config, load_yaml
+    from bifold_tpu_torch.data.processor import Processor
+    from bifold_tpu_torch.models import build_model
+    from bifold_tpu_torch.models.backbones.t5_backbone import T5Encoder, resolve_t5_config
+    from bifold_tpu_torch.serving import ServingModel
+    from bifold_tpu_torch.trainer import Trainer
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bifold_t5_"))
+    cpu = ["use_cpu=true"] if device == "cpu" else []
+    phases, trainers, ok = [], [], True
+    clear_launch_counts()                # the T5 paths start here
+    for enc in T5_ENCODERS:
+        label = f"text_unet {enc}"
+        cfg = family_config("text_unet", f"model.text_encoder={enc}")
+        mcfg = dict(cfg["model"])
+        size = int(mcfg["image_size"])
+        model = build_model(mcfg, dtype=torch.bfloat16, device=device, seed=0)
+        seeded_stats(model)
+        live = ServingModel(model, None, Processor(dict(cfg["processor"]), partition="test"),
+                            device=device)
+        live.warmup(CAMERA)
+        live.warmup(CAMERA, pool=8)
+        rng = np.random.default_rng(41)
+
+        def frame():
+            obs = observation(rng, 0)
+            del obs["context"]
+            return obs
+
+        requests = [(frame(), INSTRUCTIONS[i % 5]) for i in range(11)]
+        pool = [dict(frame(), instruction=INSTRUCTIONS[i % 5]) for i in range(8)]
+        for mode in LN_MODES:
+            for i, (obs, text) in enumerate(requests[:3]):
+                check_action(*counted(lambda: live.predict(**obs, instruction=text,
+                                                           return_raw_output=True),
+                                      mode, {}, f"{label} request {i}"), 1, size)
+            check_action(*counted(lambda: live.predict_batch(pool, pad_to=8,
+                                                             return_raw_output=True),
+                                  mode, {}, f"{label} pool"), 8, size)
+        times = {"batch1": [], "pool8": []}
+        for obs, text in requests:
+            for name, call in (("batch1", lambda: live.predict(**obs, instruction=text)),
+                               ("pool8", lambda: live.predict_batch(pool, pad_to=8))):
+                t = time.perf_counter()
+                call()
+                times[name].append((time.perf_counter() - t) * 1e3)
+        lat = {name: statistics.median(v) for name, v in times.items()}
+        obs, text = requests[0]
+        phases += [serving_phase(live, "", f"{label} {name}", obs_list, lat[name])
+                   for name, obs_list in (("batch1", [dict(obs, instruction=text)]),
+                                          ("pool8", pool))]
+
+        record = {}
+        overrides = ["model=text_unet", f"model.text_encoder={enc}", *FAMILY_DATA,
+                     *FAMILY_CLI, f"run_dir={tmp / enc.replace('/', '_')}", *cpu]
+        if device == "cuda":
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        code, run_dir, seconds = run_cli(overrides, record)
+        peak = torch.cuda.max_memory_allocated() - base if device == "cuda" else None
+        trainer = record.pop("trainers")[0]
+        evals = load_yaml(run_dir / "eval_synthetic.yaml")
+        logged = [json.loads(line) for line in
+                  (run_dir / "metrics.jsonl").read_text().splitlines()]
+        step_s = [r["train/step_time_s"] for r in logged if "train/step_time_s" in r]
+        p50 = statistics.median(step_s) * 1e3 if step_s else None
+        bad = [d for d in record.get("steps", []) + record.get("evals", []) if d]
+        finite = evals.get("kp_mse") is not None and all(
+            v is None or np.isfinite(v) for v in evals.values())
+        line = {"phase": f"t5_family_{enc}", "parameters": sum(
+                    p.numel() for p in model.parameters()),
+                "text_encoder_parameters": sum(p.numel() for p in
+                                               model.text_encoder.parameters()),
+                "p50_ms_batch1": lat["batch1"], "p50_ms_pool8": lat["pool8"],
+                "trainer_exit_code": code, "trainer_seconds": seconds,
+                "steps": len(record.get("steps", [])),
+                "eval_batches": len(record.get("evals", [])),
+                "steps_or_evals_with_launches": bad, "eval": evals,
+                "trainer_step_p50_ms": p50,
+                "trainer_samples_per_s": [r["train/samples_per_sec"] for r in logged
+                                          if "train/samples_per_sec" in r],
+                "trainer_peak_bytes_above_start": peak, **card}
+        emit(line)
+        ok &= (code == 0 and not bad and finite and line["steps"] == 8
+               and line["eval_batches"] > 0)
+        trainers.append((enc, trainer, p50))
+        del live, model
+
+    # a checkpoint dir the port writes, grafted by the Trainer
+    t5_dir = tmp / "t5-ckpt"
+    written = t5_checkpoint_dir(t5_dir, T5_GRAFT, device)
+    cfg = family_config("text_unet", f"model.text_encoder={t5_dir}", *FAMILY_CLI,
+                        f"run_dir={tmp / 'graft'}", *cpu)
+    grafted = Trainer(Config(cfg), run_dir=tmp / "graft").model.text_encoder.eval()
+    got = grafted.state_dict()
+    same_weights = all(torch.equal(got[k].cpu(), v) for k, v in written.items()) \
+        and torch.equal(got["encoder.embed_tokens.weight"].cpu(), written["shared.weight"])
+    with torch.device(device):
+        reference = T5Encoder(resolve_t5_config(str(t5_dir)), grafted.dtype)
+    reference.load_state_dict({**written, "encoder.embed_tokens.weight":
+                               written["shared.weight"]}, strict=True)
+    reference.eval()
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        0, reference.cfg.vocab_size, (2, 77))).to(device)
+    with torch.no_grad():
+        same_output = torch.equal(grafted(ids), reference(ids))
+    launches = launch_counts()           # ... and end here: none
+    emit({"phase": "t5_family_graft", "text_encoder": f"{T5_GRAFT} (written by the port)",
+          "tensors": len(written), "bytes": (t5_dir / "model.safetensors").stat().st_size,
+          "weights_bitwise": same_weights, "output_bitwise": same_output,
+          "dtype": str(grafted.dtype), "launches": launches,
+          "seconds": time.perf_counter() - t0, **card})
+    del grafted, reference
+    shutil.rmtree(tmp, ignore_errors=True)
+    if not (ok and same_weights and same_output) or launches:
+        raise AssertionError("t5_family failed (see its lines)")
+    return phases, trainers
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_cli_worker(out, *overrides):
+    """``python3 chip_smoke.py dp-cli OUT OVERRIDES...``: ``main`` of
+    ``bifold_tpu_torch.__main__`` in this process, as ``python -m
+    bifold_tpu_torch`` runs it (under ``torch.distributed.run`` it joins the
+    group from the launcher's environment), its Trainer observed; writes
+    the launches of each step and eval batch, the group it ran in and the
+    run dir to the JSON file ``OUT``."""
+    record = {}
+    code, run_dir, seconds = run_cli(list(overrides), record)
+    trainer = record.pop("trainers")[0]
+    Path(out).write_text(json.dumps({
+        "exit_code": code, "seconds": seconds, "run_dir": str(run_dir),
+        "world": trainer.world, "device": str(trainer.device),
+        "launcher": bool(os.environ.get("TORCHELASTIC_RUN_ID")),
+        "steps": record.get("steps", []), "evals": record.get("evals", [])}))
+    return code
+
+
+def dp_nccl(card, device="cuda"):
+    """Data parallelism through the launcher a user runs: ``python -m
+    torch.distributed.run --standalone --nproc_per_node 1`` over
+    :func:`dp_cli_worker` (``main``) on the flagship's CLI config with
+    ``mesh.dp=-1``: a one-rank NCCL group (the card host has one card,
+    and NCCL refuses two ranks on one card), whose step all-reduces the
+    flat gradient buffer through NCCL. The same run without the launcher
+    first, each in its own process. Gates: both exit 0 with 8 steps of
+    exactly :data:`PER_STEP` launches and :data:`INFER` per eval batch; the
+    launcher's run in a group of 1; every logged step's loss, gradient norm
+    and per-head terms and every tensor of ``last.ckpt`` and ``best.ckpt``
+    bitwise equal. Reports both runs' step p50 (``train/step_time_s``).
+    Returns the two runs' launches."""
+    import shutil
+    import tempfile
+
+    from bifold_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bifold_dp_nccl_"))
+    script = str(Path(__file__).resolve())
+    overrides = list(CLI_OVERRIDES) + ["mesh.dp=-1"] + (
+        ["use_cpu=true"] if device == "cpu" else [])
+    runs, launches = {}, collections.Counter()
+    for name in ("plain", "launcher"):
+        launcher = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc_per_node", "1"] if name == "launcher" else [sys.executable])
+        cmd = launcher + [script, "dp-cli", str(tmp / f"{name}.json"), *overrides,
+                          f"run_dir={tmp / name}"]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              cwd=str(Path(script).parent))
+        if proc.returncode != 0:
+            raise AssertionError(f"dp_nccl {name}: exit {proc.returncode}\n"
+                                 f"{proc.stderr[-3000:]}")
+        run = json.loads((tmp / f"{name}.json").read_text())
+        run["process_seconds"] = time.perf_counter() - t
+        logged = [json.loads(line) for line in
+                  (Path(run["run_dir"]) / "metrics.jsonl").read_text().splitlines()]
+        run["logged"] = [{k: v for k, v in r.items() if k not in ("time", "train/step_time_s")}
+                         for r in logged if "train/loss" in r]
+        run["step_ms"] = [r["train/step_time_s"] * 1e3 for r in logged
+                          if "train/step_time_s" in r]
+        for d in run["steps"] + run["evals"]:
+            launches.update(d)
+        runs[name] = run
+    plain, dp = runs["plain"], runs["launcher"]
+    ckpts = {}
+    for which in ("last", "best"):
+        a, b = (load_checkpoint(Path(r["run_dir"]) / "checkpoints" / f"{which}.ckpt")["params"]
+                for r in (plain, dp))
+        leaves_a, leaves_b = nested_leaves(a), nested_leaves(b)
+        ckpts[which] = len(leaves_a) == len(leaves_b) and all(
+            np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(leaves_a, leaves_b))
+    per_step = {name: [d == PER_STEP for d in r["steps"]] for name, r in runs.items()}
+    per_eval = {name: [d == INFER for d in r["evals"]] for name, r in runs.items()}
+    steps_bitwise = plain["logged"] == dp["logged"] and len(dp["logged"]) == 8
+    emit({"phase": "dp_nccl", "launcher": "python -m torch.distributed.run --standalone "
+          "--nproc_per_node 1 (main)", "world": dp["world"], "device": dp["device"],
+          "in_launcher": [plain["launcher"], dp["launcher"]],
+          "steps": [len(plain["steps"]), len(dp["steps"])],
+          "launches_per_step": PER_STEP, "launches_per_eval_batch": INFER,
+          "steps_bitwise": steps_bitwise, "checkpoints_bitwise": ckpts,
+          "step_p50_ms": {"plain": statistics.median(plain["step_ms"]),
+                          "launcher": statistics.median(dp["step_ms"])},
+          "step_ms": {"plain": plain["step_ms"], "launcher": dp["step_ms"]},
+          "process_seconds": {k: r["process_seconds"] for k, r in runs.items()},
+          "seconds": time.perf_counter() - t0, **card})
+    shutil.rmtree(tmp, ignore_errors=True)
+    if not (steps_bitwise and all(ckpts.values()) and dp["world"] == 1
+            and dp["launcher"] and not plain["launcher"]
+            and all(r["exit_code"] == 0 for r in runs.values())
+            and (device == "cpu" or all(all(v) and v for v in per_step.values())
+                 and all(all(v) and v for v in per_eval.values()))):
+        raise AssertionError("dp_nccl failed (see its line)")
+    return dict(launches)
+
+
+DP_RANKS = 2
+DP_SGD = {"name": "sgd", "lr": 1e-3}
+DP_TOL = 1e-4                            # f32: loss, grad norm, trainable tensors
+DP_STATS_TOL = 1e-5                      # f32: BatchNorm running statistics
+# flash launches of one f32 step: the flagship's fusion and vision tower
+# through the 3xTF32 instances; text_unet's only attention is its causal
+# CLIP text tower (the math path)
+DP_FAMILY_STEP = {"flagship": f32_keys(PER_STEP), "text_unet": {}}
+
+
+def dp_step(family, device="cuda", shard=False):
+    """One f32 SGD step (clip 1.0) at dropout 0 of ``family`` ("flagship":
+    SiglipSequential at :data:`FLAGSHIP`; "text_unet": its composed config,
+    CLIP RN50) from the seeded init, on the seeded global batch of
+    :data:`TRAIN_BATCH` raw 384 px frames through the train Processor on
+    ``device``, or on this rank's slice of it (``shard``): its metrics,
+    launches, trainable tensors and buffers (on the CPU), and a hash of
+    every parameter."""
+    import hashlib
+
+    from bifold_tpu_torch.data.processor import Processor
+    from bifold_tpu_torch.data.spm import fixture_model_bytes
+    from bifold_tpu_torch.losses import build_loss
+    from bifold_tpu_torch.models import build_model, trainable_mask
+    from bifold_tpu_torch.optim import build_optimizer
+    from bifold_tpu_torch.parallel import TrainState, make_train_step, shard_batch
+
+    if family == "flagship":
+        cfg = {**FLAGSHIP, "lora_dropout": 0.0, "dropout": 0.0}
+        proc = Processor(TRAIN_PROCESSOR, partition="train", max_context_length=3,
+                         autoprocessor_name=FLAGSHIP["automodel_name"],
+                         spm_asset=fixture_model_bytes(), seed=0)
+        raw = raw_train_batch(proc, 77)
+    else:
+        fcfg = family_config("text_unet")
+        cfg = dict(fcfg["model"])
+        proc = Processor(dict(fcfg["processor"]), partition="train", seed=0)
+        raw = {k: v for k, v in raw_train_batch(proc, 77).items()
+               if not k.startswith("ctx_")}
+    sample = proc.process_batch(raw, device,
+                                generator=torch.Generator(device).manual_seed(5))
+    if shard:
+        sample = shard_batch(sample)
+    model = build_model(cfg, dtype=torch.float32, device=device, seed=0)
+    mask = trainable_mask(model, lora=True)
+    opt = build_optimizer(dict(DP_SGD), [p for p in model.parameters() if p.requires_grad],
+                          None, max_iters=10, gradient_clip=1.0)
+    step = make_train_step(model, build_loss(dict(LOSS)), opt)
+    clear_launch_counts()                # the step starts here
+    _, metrics = step(TrainState.create(opt, seed=0), sample)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = launch_counts()           # ... and ends here
+    state = model.state_dict()
+    digest = hashlib.sha256()
+    for name, p in model.named_parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "launches": launches,
+            "batch": int(sample["depth"].shape[0]),
+            "trainable": {n: state[n].detach().cpu() for n, t in mask.items() if t},
+            "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()},
+            "hash": digest.hexdigest()}
+
+
+def dp_rank_worker(rank, port, out, device="cuda"):
+    """``python3 chip_smoke.py dp-rank RANK PORT OUT [DEVICE]``: rank
+    ``RANK`` of :data:`DP_RANKS` in a gloo group on the one card (NCCL
+    refuses two ranks on one card; the collective helper stages each flat
+    buffer through host memory for gloo), TF32 off as in :func:`main`;
+    runs :func:`dp_step` for both families on its slice and saves the
+    results to ``OUT/rank<RANK>.pt``."""
+    from bifold_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(rank)
+    parallel.distributed_init(f"tcp://localhost:{port}", DP_RANKS, rank,
+                              device="cuda:0" if device == "cuda" else "cpu",
+                              backend="gloo")
+    results = {family: dp_step(family, device, shard=True) for family in DP_FAMILY_STEP}
+    results["world"] = parallel.world_size()
+    results["backend"] = str(torch.distributed.get_backend())
+    torch.save(results, Path(out) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dp_two_ranks(card, device="cuda"):
+    """Two ranks on the one card in a gloo group (:func:`dp_rank_worker`),
+    each training the f32 flagship at dropout 0 through the 3xTF32 flash
+    kernels, then f32 ``text_unet`` (CLIP RN50, its BatchNorms' statistics
+    global), on its half (batch 1) of a global batch of 2; against the
+    one-process step on the same global batch in this process. Gates: loss,
+    gradient norm and per-head terms within :data:`DP_TOL` relative, every
+    updated trainable tensor within :data:`DP_TOL`, text_unet's running
+    statistics within :data:`DP_STATS_TOL`; both ranks' parameters bitwise
+    equal (a hash); each rank's flash launches those of the one-process
+    step (:data:`DP_FAMILY_STEP`). Returns every rank's launches."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bifold_dp_ranks_"))
+    script = str(Path(__file__).resolve())
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, script, "dp-rank", str(r), str(port),
+                               str(tmp), device], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=str(Path(script).parent))
+             for r in range(DP_RANKS)]
+    try:
+        for r, proc in enumerate(procs):
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"dp_two_ranks rank {r}: exit {proc.returncode}\n"
+                                     f"{err[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches, ok, lines = collections.Counter(), True, {}
+    for family, want_launches in DP_FAMILY_STEP.items():
+        one = dp_step(family, device)
+        worst = {"metrics": 0.0, "trainable": 0.0, "buffers": 0.0}
+        for r in ranks:
+            got = r[family]
+            launches.update(got["launches"])
+            worst["metrics"] = max([worst["metrics"]] + [
+                abs(got["metrics"][k] - v) / max(abs(v), 1e-30)
+                for k, v in one["metrics"].items()])
+            for kind in ("trainable", "buffers"):
+                worst[kind] = max([worst[kind]] + [
+                    float((got[kind][n] - v).abs().max()) for n, v in one[kind].items()
+                    if v.numel()])
+        same_keys = all(sorted(r[family]["metrics"]) == sorted(one["metrics"]) and
+                        sorted(r[family]["trainable"]) == sorted(one["trainable"])
+                        for r in ranks)
+        replicated = len({r[family]["hash"] for r in ranks}) == 1
+        rank_launches = [r[family]["launches"] for r in ranks]
+        lines[family] = {"loss": one["metrics"]["loss"],
+                         "grad_norm": one["metrics"]["grad_norm"],
+                         "batch_per_rank": [r[family]["batch"] for r in ranks],
+                         "one_process_batch": one["batch"],
+                         "max_rel_diff_metrics": worst["metrics"],
+                         "max_abs_diff_trainable": worst["trainable"],
+                         "max_abs_diff_buffers": worst["buffers"],
+                         "ranks_bitwise_equal": replicated,
+                         "launches_per_rank": rank_launches,
+                         "one_process_launches": one["launches"]}
+        ok &= (same_keys and replicated and worst["metrics"] <= DP_TOL
+               and worst["trainable"] <= DP_TOL and worst["buffers"] <= DP_STATS_TOL
+               and (device == "cpu" or (one["launches"] == want_launches and all(
+                   d == want_launches for d in rank_launches))))
+        del one
+    emit({"phase": "dp_two_ranks", "ranks": DP_RANKS, "device": "one card, each rank",
+          "backend": ranks[0]["backend"], "world": ranks[0]["world"], "dtype": "float32",
+          "tol": DP_TOL, "stats_tol": DP_STATS_TOL, **lines,
+          "seconds": time.perf_counter() - t0, **card})
+    if not ok:
+        raise AssertionError("dp_two_ranks failed (see its line)")
+    return dict(launches)
+
+
+WORKERS = {"dp-cli": dp_cli_worker, "dp-rank": dp_rank_worker}
+
+
 def serving_phase(server, mode, name, obs_list, p50):
     """What :func:`where_the_time_goes` needs for one served batch."""
     def stages():
@@ -3290,6 +3754,9 @@ def main() -> int:
         family_runs.append(variant_launches)
         serve_phases += variant_phases
     remat, remat_launches = remat_phase(card)
+    t5_phases, t5_trainers = t5_family(card)
+    serve_phases += t5_phases
+    dp_runs = [dp_nccl(card), dp_two_ranks(card)]
     emit({"phase": "train_peak_memory", "max_memory_allocated_bytes": {
         phase["mode"] or "default": phase["where"]["max_memory_allocated_bytes"]
         for phase in phases}, "variants_trainer_cli_bytes": variant_peaks,
@@ -3297,13 +3764,17 @@ def main() -> int:
         **card})
     launches = collections.Counter()
     for run in ([phase["launches"] for phase in phases] + [trained, pulled]
-                + list(served.values()) + [deployed] + family_runs + [remat_launches]):
+                + list(served.values()) + [deployed] + family_runs + [remat_launches]
+                + dp_runs):
         launches.update(run)
     # the profiler from here on: after every host-clock measurement
     where_the_time_goes(phases + serve_phases)
     trainer_profile(cli_trainer, card, trainer_p50)
+    for enc, t5_trainer, t5_p50 in t5_trainers:
+        trainer_profile(t5_trainer, card, t5_p50, f"t5_trainer_device_profile {enc}")
+    del t5_trainers
     library_names = f32_library_kernels()
-    del phases, serve_phases, cli_trainer
+    del phases, serve_phases, cli_trainer, t5_trainer
     torch.cuda.empty_cache()
     timings = {**time_kernels(fa, peaks), **time_train_kernels(fa, peaks),
                **time_kernels(fa, peaks, torch.float32),
@@ -3378,4 +3849,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1:
+        sys.exit(WORKERS[sys.argv[1]](*sys.argv[2:]))
     sys.exit(main())

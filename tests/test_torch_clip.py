@@ -187,8 +187,12 @@ def test_clip_hash_fallback_layout(monkeypatch):
     ids = tok("fold it, now")
     assert ids.shape == (77,) and ids[0] == 49406 and ids[5] == 49407
     assert (ids[6:] == 0).all() and (ids[1:5] < 49406).all()
-    with pytest.raises(NotImplementedError):
-        port_tokenizers.build_tokenizer(None, text_encoder="t5-small")
+    # a T5 name takes T5's layout (no sot, eos 1, pad 0) at its vocabulary,
+    # not CLIP's (tests/test_torch_t5.py holds it against JAX)
+    with pytest.warns(UserWarning, match="hashing"):
+        t5 = port_tokenizers.build_tokenizer(None, text_encoder="t5-small")
+    ids = t5("fold it, now")
+    assert t5.vocab_size == 32128 and ids[4] == 1 and (ids[5:] == 0).all()
 
 
 def _inputs(seed, b=2, n=300, h=3, d=32):

@@ -40,6 +40,11 @@ OVERRIDE_SETS = [
      "train_dataset.is_bimanual=true", "test_dataset=null"],
     ["model=text_unet", "train_dataset=synthetic", "train_dataset.image_size=384",
      "train_dataset.is_bimanual=true", "model.features=[8,16,32]"],
+    # its T5 branch by registry name and by a local dir; data parallelism
+    ["model=text_unet", "model.text_encoder=t5-base", "train_dataset=synthetic"],
+    ["model=text_unet", "model.text_encoder=google/flan-t5-base"],
+    ["model=text_unet", "model.text_encoder=/ckpt/tiny-t5", "test_dataset=synthetic"],
+    ["mesh.dp=-1", "mesh.dcn=2", "batch_size=8"],
 ]
 
 

@@ -8,7 +8,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "bifold_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "bifold_tpu", "safetensors",
+           "transformers")
 
 _CHILD = f"""
 import importlib, pkgutil, sys
@@ -24,7 +25,9 @@ for name in ("bifold_tpu_torch.ops._cuda", "bifold_tpu_torch.ops.layer_norm",
              "bifold_tpu_torch.utils.checkpoint", "bifold_tpu_torch.trainer",
              "bifold_tpu_torch.__main__", "bifold_tpu_torch.data.loader",
              "bifold_tpu_torch.metrics", "bifold_tpu_torch.models.norm",
-             "bifold_tpu_torch.models.backbones.clip_backbone"):
+             "bifold_tpu_torch.models.backbones.clip_backbone",
+             "bifold_tpu_torch.models.backbones.t5_backbone",
+             "bifold_tpu_torch.utils.safetensors", "bifold_tpu_torch.parallel.collectives"):
     assert name in names, name
 from bifold_tpu_torch.data.tokenizers import clip_bpe_path
 assert clip_bpe_path().parent.parent.parent.name == "bifold_tpu_torch", clip_bpe_path()

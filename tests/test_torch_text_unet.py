@@ -456,5 +456,10 @@ def test_trainer_matches_jax_and_checkpoints_cross(tmp_path):
 
 
 def test_t5_text_encoder_raises():
-    with pytest.raises(NotImplementedError, match="T5"):
-        build_model(dict(CFG, text_encoder="t5-small"), device="cpu")
+    """A text encoder that is neither a CLIP name nor a T5 one raises as
+    JAX's resolve_t5_config does (the T5 branch itself is ported:
+    tests/test_torch_t5.py)."""
+    with pytest.raises(ValueError, match="neither a CLIP model"):
+        build_model(dict(CFG, text_encoder="definitely-not-a-model"), device="cpu")
+    assert hasattr(build_model(dict(CFG, text_encoder="t5-small"), device="cpu"),
+                   "text_encoder")

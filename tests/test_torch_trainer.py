@@ -273,12 +273,15 @@ def test_main_on_the_cpu_writes_the_run_dir(tmp_path):
     (["model.requires_graph=true"], NotImplementedError),
     (["visualize_model_inputs=true"], NotImplementedError),
     (["visualize_predictions=true"], NotImplementedError),
-    # text_unet trains now; its T5 text branch is not ported (TINY's SigLIP
-    # keys dropped, so that the model's own refusal is what raises)
-    (["model=text_unet", "model.text_encoder=t5-small",
+    # text_unet trains with a CLIP or a T5 text encoder; a name that is
+    # neither raises (TINY's SigLIP keys dropped, so that the model's own
+    # refusal is what raises)
+    (["model=text_unet", "model.text_encoder=definitely-not-a-model",
       *(f"~model.{k}" for k in ("automodel_name", "dim", "depth", "heads", "r"))],
-     NotImplementedError),
-    (["mesh.dp=2"], NotImplementedError),
+     ValueError),
+    # data parallelism trains (tests/test_torch_data_parallel.py): a dp of
+    # 2 in one process is a mesh that does not match the ranks
+    (["mesh.dp=2"], ValueError),
     (["mesh.tp=2"], NotImplementedError),
     (["precision.param_dtype=bfloat16"], NotImplementedError),
 ], ids=lambda v: v[0] if isinstance(v, list) else "")
