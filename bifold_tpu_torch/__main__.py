@@ -13,10 +13,12 @@ unless the config asks for the CPU (``use_cpu=true``).
 Launched by ``python -m torch.distributed.run --nproc_per_node N -m
 bifold_tpu_torch ...`` (torchrun's environment), it joins the process
 group first (``parallel.distributed_init``: NCCL on ``cuda:LOCAL_RANK``,
-gloo under ``use_cpu=true``), trains data-parallel over the ranks (the
-``mesh`` node's ``dcn x dp``) and leaves the group at the end. The
-``advise`` subcommand of the JAX package (mesh layouts over many devices)
-is ROADMAP queue item 5 and raises.
+gloo under ``use_cpu=true``), trains over the ``mesh`` node's ``dcn x dp x
+fsdp x tp`` ranks (``mesh.fsdp=2 mesh.tp=2``; the Trainer places the model
+by its sharding plan) and leaves the group at the end. A caller that has
+joined a group already keeps it. The ``advise`` subcommand of the JAX
+package (mesh layouts over many devices) is ROADMAP queue item 5 and
+raises.
 """
 
 from __future__ import annotations
@@ -65,8 +67,9 @@ def main(argv: list[str] | None = None) -> int:
     overrides = list(sys.argv[1:] if argv is None else argv)
     if overrides and overrides[0] == "advise":
         raise NotImplementedError(
-            "the advise subcommand ranks mesh layouts over many devices; meshes of "
-            "more than one device are ROADMAP queue item 5")
+            "the advise subcommand ranks mesh layouts over many devices; it is "
+            "ROADMAP queue item 5, after the daemon's --mesh, a ZeRO-3 gather "
+            "per block and pp/sp/ep")
     if "--help" in overrides or "-h" in overrides:
         print(__doc__)
         print("Groups: model, dataset@train_dataset, dataset@test_dataset, "

@@ -25,7 +25,18 @@ A fusion block's FFN may be a Mixture of Experts (:class:`MoEFeedForward`,
 bifold_tpu/models/layers.py:308-400): the stack then hands each layer's
 load-balance loss back through ``forward(..., aux=list)``, where JAX sows
 it. ``remat`` (bifold_tpu/models/layers.py:473-504) recomputes each block
-in the backward (:func:`run_blocks`), replaying its dropout draws.
+in the backward (:func:`run_blocks`), replaying its dropout draws (and
+the tp collectives of its recompute, which every rank issues in the same
+order).
+
+Tensor parallelism (:class:`TensorParallel`): the attention and MLP
+modules whose projections JAX's rule shards over ``tp``
+(:mod:`~bifold_tpu_torch.parallel.sharding`) compute their rank's heads or
+hidden units when a placement gives them a ``tp`` group, Megatron's way:
+:func:`~bifold_tpu_torch.parallel.collectives.copy_to_tp` before the
+column-parallel projections, the row-parallel partial outputs summed over
+the group and the bias added once after the sum (:func:`row_linear`), so
+the fused add+LayerNorm of the next block receives the summed output.
 
 Module names follow the reference torch checkpoints so that a converted
 state dict loads with ``strict=True``:
@@ -62,6 +73,7 @@ from bifold_tpu_torch.models.lora import LORA_TARGETS, LoRALinear
 from bifold_tpu_torch.ops import layer_norm as ln_ops
 from bifold_tpu_torch.ops.attention import dot_product_attention
 from bifold_tpu_torch.ops.moe import moe_ffn
+from bifold_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
 
 __all__ = ["LayerNorm", "gelu_tanh", "gelu_exact", "quick_gelu", "GELU",
            "linear", "MultiHeadAttention", "FeedForward", "MoEFeedForward",
@@ -73,6 +85,53 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
     """``layer(x)`` computed in ``dtype`` (flax ``nn.Dense(dtype=...)``)."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def col_linear(x, weight, bias, dtype, tp=None, blocks: int = 1):
+    """A column-parallel projection: ``weight`` holds this tp rank's output
+    rows already, ``bias`` (replicated) is cut to them here."""
+    if bias is not None:
+        bias = (tp.part(bias, 0, blocks) if tp is not None else bias).to(dtype)
+    return F.linear(x.to(dtype), weight.to(dtype), bias)
+
+
+def row_linear(x, layer: nn.Linear, dtype, tp=None):
+    """A row-parallel projection: ``layer.weight`` holds this tp rank's input
+    columns; the partial outputs are summed over the tp group (in float32)
+    and the bias is added once, after the sum."""
+    if tp is None:
+        return linear(x, layer, dtype)
+    y = reduce_from_tp(F.linear(x.to(dtype), layer.weight.to(dtype)).float(), tp.group)
+    if layer.bias is not None:
+        y = y + layer.bias.float()
+    return y.to(dtype)
+
+
+class TensorParallel:
+    """What a module that can compute a tp shard declares: ``TP_CUT`` maps
+    each tensor the plan cuts over tp (a name relative to the module) to
+    (axis, blocks), and :meth:`tp_partial` names the replicated tensors it
+    uses only in part. ``tp`` is None (the whole computation) or the
+    :class:`~bifold_tpu_torch.parallel.collectives.TPGroup` a placement
+    set (:mod:`~bifold_tpu_torch.parallel.sharding`)."""
+
+    tp = None
+
+    def tp_params(self):
+        return dict(self.TP_CUT)
+
+    def tp_partial(self):
+        return []
+
+    def check_tp(self, size: int, where: str) -> None:
+        """Refuse a tp size that does not divide the heads: the port splits
+        attention by heads, and GSPMD's split of a head has no counterpart."""
+        heads = getattr(self, "heads", None)
+        if heads is not None and heads % size:
+            raise NotImplementedError(
+                f"{where}: tp={size} does not divide its {heads} heads; the "
+                "port shards attention by heads (JAX's GSPMD would split a "
+                "head, ROADMAP section 3); pick a tp that divides the heads")
 
 
 class _LayerNormFn(torch.autograd.Function):
@@ -241,12 +300,14 @@ class GELU(nn.Module):
         return gelu_exact(x)
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(TensorParallel, nn.Module):
     """QKV attention. ``fused_qkv``: the fusion stack's bias-free ``to_qkv``
     and ``to_out.0`` (reference transformer.py naming); otherwise the towers'
     biased ``q_proj/k_proj/v_proj/out_proj`` (HF naming), with LoRA on q and
     v when ``lora_rank`` > 0. ``dropout`` applies to the attention output
-    before and after the output projection."""
+    before and after the output projection. Under tp each rank holds the
+    q, k and v rows of its heads and the matching columns of the output
+    projection, and computes its heads."""
 
     def __init__(self, dim: int, heads: int, dim_head: int | None = None,
                  fused_qkv: bool = False, lora_rank: int = 0,
@@ -272,31 +333,58 @@ class MultiHeadAttention(nn.Module):
             setattr(self, name, proj)
         self.out_proj = nn.Linear(inner, dim)
 
+    @property
+    def TP_CUT(self):
+        if self.fused_qkv:
+            return {"to_qkv.weight": (0, 3), "to_out.0.weight": (1, 1)}
+        cut = {f"{self._base(p)}.weight": (0, 1) for p in ("q_proj", "k_proj", "v_proj")}
+        return {**cut, "out_proj.weight": (1, 1)}
+
+    def _base(self, name):
+        return f"{name}.base_layer" if isinstance(getattr(self, name), LoRALinear) else name
+
+    def tp_partial(self):
+        if self.fused_qkv:
+            return []
+        out = [f"{self._base(p)}.bias" for p in ("q_proj", "k_proj", "v_proj")]
+        for p in ("q_proj", "k_proj", "v_proj"):
+            layer = getattr(self, p)
+            if isinstance(layer, LoRALinear):
+                out += [f"{p}.{n}" for n, _ in layer.named_parameters()
+                        if n.startswith("lora_")]
+        return out
+
     def _proj(self, name, x):
         layer = getattr(self, name)
         if isinstance(layer, LoRALinear):
-            return layer(x)
-        return linear(x, layer, self.dtype)
+            return layer(x, self.tp)
+        return col_linear(x, layer.weight, layer.bias, self.dtype, self.tp)
 
     def forward(self, x, key_mask=None, *, legacy_query_mask=None):
         b, n, _ = x.shape
+        tp = self.tp
+        heads = self.heads // tp.size if tp is not None else self.heads
+        if tp is not None:
+            x = copy_to_tp(x, tp.group)
         if self.fused_qkv:
-            q, k, v = linear(x, self.to_qkv, self.dtype).chunk(3, dim=-1)
+            q, k, v = col_linear(x, self.to_qkv.weight, None, self.dtype).chunk(3, dim=-1)
         else:
             q, k, v = (self._proj(p, x) for p in ("q_proj", "k_proj", "v_proj"))
-        shape = (b, n, self.heads, self.dim_head)
+        shape = (b, n, heads, self.dim_head)
         out = dot_product_attention(q.reshape(shape), k.reshape(shape),
                                     v.reshape(shape), key_mask,
                                     legacy_query_mask=legacy_query_mask)
-        out = self.dropout(out.reshape(b, n, self.heads * self.dim_head))
+        out = self.dropout(out.reshape(b, n, heads * self.dim_head))
         proj = self.to_out[0] if self.fused_qkv else self.out_proj
-        return self.dropout(linear(out, proj, self.dtype))
+        return self.dropout(row_linear(out, proj, self.dtype, tp))
 
 
-class FeedForward(nn.Module):
+class FeedForward(TensorParallel, nn.Module):
     """The towers' MLP: Linear -> ``activation`` (gelu-tanh, the SigLIP
     towers'; exact gelu in the transformer decoder) -> Linear, HF names
-    ``fc1`` / ``fc2``."""
+    ``fc1`` / ``fc2``; under tp each rank computes its hidden units."""
+
+    TP_CUT = {"fc1.weight": (0, 1), "fc2.weight": (1, 1)}
 
     def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32,
                  activation=gelu_tanh):
@@ -306,9 +394,15 @@ class FeedForward(nn.Module):
         self.dtype = dtype
         self.activation = activation
 
+    def tp_partial(self):
+        return ["fc1.bias"]
+
     def forward(self, x):
-        return linear(self.activation(linear(x, self.fc1, self.dtype)), self.fc2,
-                      self.dtype)
+        tp = self.tp
+        if tp is not None:
+            x = copy_to_tp(x, tp.group)
+        h = col_linear(x, self.fc1.weight, self.fc1.bias, self.dtype, tp)
+        return row_linear(self.activation(h), self.fc2, self.dtype, tp)
 
 
 class MoEFeedForward(nn.Module):
@@ -379,10 +473,14 @@ class _PreNorm(nn.Module):
         self.fn = fn
 
 
-class _SequentialFeedForward(nn.Module):
+class _SequentialFeedForward(TensorParallel, nn.Module):
     """The reference fusion MLP: ``net`` = Linear, GELU, Dropout, Linear,
     Dropout (parameters at net.0 and net.3), evaluated in ``dtype``.
-    Returns (out, None), as :class:`MoEFeedForward` returns (out, aux)."""
+    Returns (out, None), as :class:`MoEFeedForward` returns (out, aux).
+    Under tp each rank computes its hidden units (the first dropout draws
+    on them)."""
+
+    TP_CUT = {"net.0.weight": (0, 1), "net.3.weight": (1, 1)}
 
     def __init__(self, dim, hidden_dim, dropout, dtype):
         super().__init__()
@@ -391,10 +489,15 @@ class _SequentialFeedForward(nn.Module):
                                  Dropout(dropout))
         self.dtype = dtype
 
+    def tp_partial(self):
+        return ["net.0.bias"]
+
     def forward(self, x):
-        net = self.net
-        h = net[2](net[1](linear(x, net[0], self.dtype)))
-        return net[4](linear(h, net[3], self.dtype)), None
+        net, tp = self.net, self.tp
+        if tp is not None:
+            x = copy_to_tp(x, tp.group)
+        h = net[2](net[1](col_linear(x, net[0].weight, net[0].bias, self.dtype, tp)))
+        return net[4](row_linear(h, net[3], self.dtype, tp)), None
 
 
 class FusionBlock(nn.ModuleList):
@@ -545,43 +648,62 @@ def run_blocks(blocks, x, key_mask=None, legacy_query_mask=None, *,
     return carry[0] + carry[1] if fused else carry
 
 
-class _ClipAttention(nn.Module):
+class _ClipAttention(TensorParallel, nn.Module):
     """OpenAI CLIP's ``nn.MultiheadAttention`` parameters (``in_proj_weight``
     (3D, D) and ``in_proj_bias`` (3D,) with q, k, v stacked, ``out_proj``)
     computed as the JAX package's separate q/k/v Dense layers are: each
     projection in ``dtype``, then :func:`dot_product_attention` (causal in
-    the text tower)."""
+    the text tower). Under tp each rank holds its heads' rows of q, of k
+    and of v."""
+
+    TP_CUT = {"in_proj_weight": (0, 3), "out_proj.weight": (1, 1)}
 
     def __init__(self, dim, heads, causal, dtype):
         super().__init__()
         self.heads = heads
+        self.dim_head = dim // heads
         self.causal = causal
         self.dtype = dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
 
+    def tp_partial(self):
+        return ["in_proj_bias"]
+
     def forward(self, x, key_mask=None, *, legacy_query_mask=None):
-        b, n, dim = x.shape
-        qkv = F.linear(x.to(self.dtype), self.in_proj_weight.to(self.dtype),
-                       self.in_proj_bias.to(self.dtype))
-        shape = (b, n, self.heads, dim // self.heads)
+        b, n, _ = x.shape
+        tp = self.tp
+        heads = self.heads // tp.size if tp is not None else self.heads
+        if tp is not None:
+            x = copy_to_tp(x, tp.group)
+        qkv = col_linear(x, self.in_proj_weight, self.in_proj_bias, self.dtype, tp, 3)
+        shape = (b, n, heads, self.dim_head)
         q, k, v = (t.reshape(shape) for t in qkv.chunk(3, dim=-1))
         out = dot_product_attention(q, k, v, key_mask, causal=self.causal,
                                     legacy_query_mask=legacy_query_mask)
-        return linear(out.reshape(b, n, dim), self.out_proj, self.dtype)
+        return row_linear(out.reshape(b, n, heads * self.dim_head), self.out_proj,
+                          self.dtype, tp)
 
 
-class _ClipMLP(nn.Module):
+class _ClipMLP(TensorParallel, nn.Module):
+    TP_CUT = {"c_fc.weight": (0, 1), "c_proj.weight": (1, 1)}
+
     def __init__(self, dim, hidden_dim, dtype):
         super().__init__()
         self.c_fc = nn.Linear(dim, hidden_dim)
         self.c_proj = nn.Linear(hidden_dim, dim)
         self.dtype = dtype
 
+    def tp_partial(self):
+        return ["c_fc.bias"]
+
     def forward(self, x):
-        return linear(quick_gelu(linear(x, self.c_fc, self.dtype)),
-                      self.c_proj, self.dtype)
+        tp = self.tp
+        if tp is not None:
+            x = copy_to_tp(x, tp.group)
+        h = col_linear(x, self.c_fc.weight, self.c_fc.bias, self.dtype, tp)
+        return row_linear(quick_gelu(h), self.c_proj, self.dtype, tp)
 
 
 class ClipResidualBlock(nn.Module):

@@ -4,7 +4,9 @@ Counterpart of bifold_tpu/models/lora.py:32-50: out = base(x) +
 ((dropout(x) A) B) * alpha / r. Names match peft's ``LoraLayer`` so a
 reference state dict loads as it is: ``base_layer``, ``lora_A.<adapter>``,
 ``lora_B.<adapter>`` (the reference's adapter is "siglip_adapter"). The
-dropout on the adapter's input is active in ``train()`` mode only.
+dropout on the adapter's input is active in ``train()`` mode only. Under a
+column-parallel base (tensor parallelism) ``x A B`` is computed for the
+rank's output rows only, so the gradients of A and B are partial there.
 """
 
 from __future__ import annotations
@@ -32,11 +34,15 @@ class LoRALinear(nn.Module):
         self.scaling = alpha / rank
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, tp=None):
+        """``tp`` (a column-parallel base under tensor parallelism): the base
+        holds this rank's output rows, and the replicated bias and ``B`` are
+        cut to them."""
         dt = self.dtype
         x = x.to(dt)
-        base = F.linear(x, self.base_layer.weight.to(dt),
-                        self.base_layer.bias.to(dt))
+        bias, b = self.base_layer.bias, self.lora_B[ADAPTER].weight
+        if tp is not None:
+            bias, b = tp.part(bias), tp.part(b)
+        base = F.linear(x, self.base_layer.weight.to(dt), bias.to(dt))
         a = self.lora_A[ADAPTER].weight.to(dt)
-        b = self.lora_B[ADAPTER].weight.to(dt)
-        return base + F.linear(F.linear(self.lora_dropout(x), a), b) * self.scaling
+        return base + F.linear(F.linear(self.lora_dropout(x), a), b.to(dt)) * self.scaling

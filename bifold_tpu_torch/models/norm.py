@@ -23,7 +23,9 @@ train-mode statistics are the global batch's, as JAX's are over a sharded
 batch: each rank's E[x] and E[x^2], times its share of the batch, are
 summed over the ranks by a differentiable all-reduce (its backward sums the
 statistics' gradients over the ranks), so the normalization and the
-running statistics equal a one-process run's.
+running statistics equal a one-process run's. Under a mesh the statistics
+are summed over the data ranks only (``group``, which a placement sets:
+the ranks of a tp group hold the same rows).
 The buffers are ``running_mean`` and ``running_var`` (the reference's
 names, JAX's ``batch_stats`` ``mean`` / ``var``); there is no
 ``num_batches_tracked``. The running update is in place under
@@ -37,12 +39,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from bifold_tpu_torch.parallel.collectives import all_reduce_sum, world_size
+from bifold_tpu_torch.parallel.collectives import all_reduce_sum, group_size
 
 __all__ = ["BatchNorm"]
 
 
 class BatchNorm(nn.Module):
+    group = None      # the data ranks' group; None: the default group
+
     def __init__(self, features: int, momentum: float = 0.99,
                  eps: float = 1e-5, dtype=torch.float32):
         super().__init__()
@@ -58,9 +62,10 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             mean, meansq = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
-            world = world_size()
+            world = group_size(self.group)
             if world > 1:
-                mean, meansq = all_reduce_sum(torch.stack([mean, meansq]) / world)
+                mean, meansq = all_reduce_sum(torch.stack([mean, meansq]) / world,
+                                              self.group)
             var = (meansq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum

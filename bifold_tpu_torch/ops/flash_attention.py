@@ -20,7 +20,9 @@ torch) for a tensor on the CPU; a CUDA tensor launches the kernel or raises
 ``"<kernel>_d<head dim>"`` for a bfloat16 instance and
 ``"<kernel>_d<head dim>_f32"`` for a float32 one: ``fwd_infer``,
 ``fwd_lse`` and ``bwd`` (one backward call enqueues its dk/dv and dq
-kernels together). The CPU tests
+kernels together), and to :data:`SHAPES` under (that key, the (B, N, H, D)
+shape of q), which shows the heads a tensor-parallel rank launches at. The
+CPU tests
 hold the plain versions against the JAX kernels; ``chip_smoke.py`` holds the
 CUDA kernels against the plain versions on the card.
 
@@ -56,7 +58,7 @@ from bifold_tpu_torch.ops._cuda import (DTYPE_CODES, SOURCES, build, launch,
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_train", "build",
-           "ptxas_report", "SOURCES", "LAUNCHES", "KERNEL_HEAD_DIMS"]
+           "ptxas_report", "SOURCES", "LAUNCHES", "SHAPES", "KERNEL_HEAD_DIMS"]
 
 _NEG = -100000.0  # the XLA backend's fill value
 KERNEL_HEAD_DIMS = (32, 48, 64)
@@ -64,10 +66,14 @@ KERNEL_HEAD_DIMS = (32, 48, 64)
 # launches of the CUDA kernels, keyed "<kernel>_d<head dim>" (bfloat16) or
 # "<kernel>_d<head dim>_f32"
 LAUNCHES: collections.Counter = collections.Counter()
+# the same launches keyed (key, q's shape)
+SHAPES: collections.Counter = collections.Counter()
 
 
-def _count(name: str, dtype: torch.dtype) -> None:
-    LAUNCHES[name + ("_f32" if dtype == torch.float32 else "")] += 1
+def _count(name: str, q: torch.Tensor) -> None:
+    key = name + ("_f32" if q.dtype == torch.float32 else "")
+    LAUNCHES[key] += 1
+    SHAPES[key, tuple(q.shape)] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +236,7 @@ def _forward_on_card(q, k, v, key_mask, scale, *, with_lse):
     launch("flash_fwd", f"bifold_flash_{kernel}", q.device, *ptrs, b, nq,
            k.shape[1], h, d, _strides(q, k, v), float(scale),
            DTYPE_CODES[q.dtype])
-    _count(f"{kernel}_d{d}", q.dtype)
+    _count(f"{kernel}_d{d}", q)
     return out, lse
 
 
@@ -266,7 +272,7 @@ def flash_attention_bwd(q, k, v, key_mask, out, lse, do, *, scale=None):
            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
            dv.data_ptr(), b, nq, k.shape[1], h, d, _strides(q, k, v),
            float(scale), DTYPE_CODES[q.dtype])
-    _count(f"bwd_d{d}", q.dtype)
+    _count(f"bwd_d{d}", q)
     return dq, dk, dv
 
 

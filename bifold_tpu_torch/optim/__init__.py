@@ -200,10 +200,15 @@ class Optimizer:
         self.nu = [torch.zeros_like(p) for p in self.params] if adam else None
         self.trace = ([torch.zeros_like(p) for p in self.params]
                       if name == "sgd" and self.momentum else None)
+        # sharded parameters (parallel.sharding): the norm over every rank's
+        # part and one finiteness verdict for all ranks
+        self.global_norm: Optional[Callable] = None
+        self.all_finite: Optional[Callable] = None
 
     def _clip(self, grads):
         max_norm = self.gradient_clip
-        norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+        norm = (self.global_norm(grads) if self.global_norm is not None else
+                torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads)))
         keep = norm < max_norm
         return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
 
@@ -258,7 +263,8 @@ class Optimizer:
 
     def _update(self, grads: List[torch.Tensor]) -> None:
         if self.skip_nonfinite:
-            finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+            finite = (self.all_finite(grads) if self.all_finite is not None else
+                      bool(torch.stack([torch.isfinite(g).all() for g in grads]).all()))
             self.notfinite_count = 0 if finite else self.notfinite_count + 1
             self.total_notfinite += 0 if finite else 1
             if not finite and self.notfinite_count <= self.skip_nonfinite:

@@ -1,29 +1,41 @@
-"""The train and eval steps, on one device or data-parallel over
-``torch.distributed``.
+"""The train and eval steps, on one device or over a ``torch.distributed``
+mesh.
 
 Counterpart of bifold_tpu/parallel/__init__.py: ``distributed_init`` (:58),
-the data axes of ``make_mesh`` (:126; :func:`check_mesh`), ``shard_batch``
-(:287), ``make_train_step`` (:330) and ``make_eval_step`` (:491). Under JAX
-SPMD a dp step over N devices *is* the single-device step on the global
-batch; the port keeps that meaning with one process per device, each
-holding a contiguous slice of the global batch:
+``make_mesh`` (:126; :func:`make_mesh`, :func:`check_mesh`), ``shard_batch``
+(:287), ``make_train_step`` (:330) and ``make_eval_step`` (:491), with the
+sharding rules of ``param_sharding`` (:188-284) in
+:mod:`~bifold_tpu_torch.parallel.sharding`. Under JAX SPMD a sharded step
+*is* the single-device step on the global batch; the port keeps that
+meaning with one process per device, laid out as a (dcn, dp, fsdp, tp)
+grid, tp varying fastest:
 
-- the gradients of the trainable parameters are summed over the ranks in
-  one flat buffer, after the backward, on the compute stream (no overlap
-  with the backward), together with the loss and its per-head terms;
+- each data rank (``dcn x dp x fsdp``) holds a contiguous slice of the
+  global batch; the ranks of a tp group hold the same slice;
 - each loss term says how it reduces over the batch: a mean term is scaled
   by local / global batch (``batch_share``), a sum term is left as it is,
-  so the sums over ranks are the global batch's loss and gradient;
-- BatchNorm's train-mode statistics are global (:mod:`~bifold_tpu_torch
-  .models.norm`), so the running statistics move as in one process;
-- clipping and the optimizer then see identical gradients on every rank,
-  and the parameters stay replicated;
-- each rank draws its dropout masks from (step seed, rank); rank 0 from the
-  step seed itself, so a group of one steps exactly as no group does.
+  so the sums over the data ranks are the global batch's loss and gradient;
+- a placement (:func:`place`) shards the model by its family's plan: tp
+  ranks compute their heads and hidden units (Megatron's pair of
+  collectives), fsdp ranks hold their chunks of the large leaves, gathered
+  before the forward and dropped after the update; the step then reduces
+  the gradients as the plan says (partial ones over tp, chunks
+  reduce-scattered over fsdp and summed over ``dcn x dp``, the others with
+  the loss in one flat buffer over the data ranks, after the backward, on
+  the compute stream, without overlap), and the optimizer steps on this
+  rank's parts;
+- the gradient norm (clipping, the ``grad_norm`` metric) counts each
+  element once, whatever holds it;
+- BatchNorm's train-mode statistics are global over the data ranks
+  (:mod:`~bifold_tpu_torch.models.norm`);
+- each data rank draws its dropout masks from (step seed, data rank); rank
+  0 from the step seed itself, so a group of one steps exactly as no
+  group does, and a tp group draws alike.
 
-The fsdp, tp, pp, sp and ep axes, and MoE layers under a group of more than
-one rank (JAX routes tokens over the global batch), are not ported and
-raise, naming the step of ROADMAP queue item 5 that holds each.
+The pp, sp and ep axes, and MoE layers over more than one data rank (JAX
+routes tokens over the global batch), are not ported and raise, naming the
+step of ROADMAP queue item 5 that holds each. Without a placement,
+:func:`make_train_step` is the data-parallel step over the default group.
 
 ``step(state, batch) -> (state, metrics)``: the model runs in ``train()``
 mode on the processed batch with a dropout generator made fresh for this
@@ -63,18 +75,17 @@ from torch import nn
 
 from bifold_tpu_torch.models.dropout import set_dropout_generator
 from bifold_tpu_torch.optim import Optimizer
-from bifold_tpu_torch.parallel.collectives import (all_reduce_sum_, all_reduce_values,
+from bifold_tpu_torch.parallel.collectives import (SELF, all_reduce_sum_, all_reduce_values,
                                                    rank, world_size)
 
 __all__ = ["TrainState", "make_train_step", "make_eval_step", "check_mesh",
-           "distributed_init", "shard_batch", "world_size", "rank",
-           "all_reduce_values", "MESH_AXES"]
+           "make_mesh", "Mesh", "place", "distributed_init", "shard_batch",
+           "world_size", "rank", "all_reduce_values", "MESH_AXES"]
 
 MESH_AXES = ("dcn", "dp", "fsdp", "tp", "pp", "sp", "ep")
 # the axes not ported yet, each with the step of ROADMAP queue item 5 that
 # holds it
-_HELD = {"fsdp": "fsdp/tp, the step after dp", "tp": "fsdp/tp, the step after dp",
-         "pp": "pipeline parallelism", "sp": "ring attention (sequence parallelism)",
+_HELD = {"pp": "pipeline parallelism", "sp": "ring attention (sequence parallelism)",
          "ep": "expert parallelism"}
 _MOE_UNDER_DP = ("MoE layers under data parallelism: JAX routes tokens over the "
                  "global batch (capacity and slots over all tokens), a per-rank "
@@ -125,17 +136,10 @@ def distributed_init(init_method: Optional[str] = None,
     return True
 
 
-def check_mesh(mesh_cfg, *, world: Optional[int] = None, moe_experts: int = 0) -> int:
-    """The number of data shards the config's ``mesh`` node asks for, over a
-    group of ``world`` ranks (the default group's size): ``dp: -1`` takes
-    the ranks that ``dcn`` leaves, and ``dcn x dp`` must equal the ranks.
-    ``dcn`` is the slower data axis: with ranks laid out by node
-    (``LOCAL_WORLD_SIZE`` ranks each, as torchrun lays them), ``dp`` must
-    be a multiple of it, so no node straddles two dcn groups. The other
-    axes must be 1, and MoE layers need a group of one; each refusal names
-    its step of ROADMAP queue item 5. ``pp_microbatches`` has no effect
-    without pipeline stages."""
-    world = world_size() if world is None else world
+def _axis_sizes(mesh_cfg, world: int) -> Dict[str, int]:
+    """The sizes of the axes ``dcn, dp, fsdp, tp`` a ``mesh`` config node
+    asks for over ``world`` ranks (``dp: -1`` takes what the others
+    leave), as bifold_tpu/parallel/__init__.py:126-176 reads it."""
     node = dict(mesh_cfg or {})
     node.pop("pp_microbatches", None)
     unknown = set(node) - set(MESH_AXES)
@@ -144,32 +148,171 @@ def check_mesh(mesh_cfg, *, world: Optional[int] = None, moe_experts: int = 0) -
     for axis, step in _HELD.items():
         if int(node.get(axis, 1)) != 1:
             raise NotImplementedError(
-                f"mesh {axis}={node[axis]}: the port shards only the batch "
-                f"(dcn, dp); {axis} is ROADMAP queue item 5, {step}")
-    dcn, dp = int(node.get("dcn", 1)), int(node.get("dp", -1))
+                f"mesh {axis}={node[axis]}: the port shards over dcn, dp, fsdp "
+                f"and tp; {axis} is ROADMAP queue item 5, {step}")
+    sizes = {a: int(node.get(a, 1)) for a in ("dcn", "fsdp", "tp")}
+    dp = int(node.get("dp", -1))
+    other = sizes["dcn"] * sizes["fsdp"] * sizes["tp"]
+    if min(sizes.values()) < 1:
+        raise ValueError(f"mesh axes must be positive: {sizes}")
     if dp == -1:
-        if dcn < 1 or world % dcn:
-            raise ValueError(f"mesh dcn={dcn} does not divide {world} ranks")
-        dp = world // dcn
-    if dcn * dp != world:
-        raise ValueError(f"mesh dcn x dp = {dcn} x {dp} != {world} ranks")
-    local = int(os.environ.get("LOCAL_WORLD_SIZE", dp) or dp)
-    if dcn > 1 and dp % local:
-        raise ValueError(f"mesh dp={dp} is not a multiple of the {local} ranks "
-                         "of a node (LOCAL_WORLD_SIZE): a node would straddle "
-                         "two dcn groups")
-    if world > 1 and moe_experts:
-        raise NotImplementedError(f"moe_experts={moe_experts} over {world} ranks: "
-                                  + _MOE_UNDER_DP)
+        if world % other:
+            raise ValueError(f"mesh dcn x fsdp x tp = {other} does not divide "
+                             f"{world} ranks")
+        dp = world // other
+    if dp * other != world:
+        raise ValueError(f"mesh dcn x dp x fsdp x tp = {sizes['dcn']} x {dp} x "
+                         f"{sizes['fsdp']} x {sizes['tp']} != {world} ranks")
+    return {"dcn": sizes["dcn"], "dp": dp, "fsdp": sizes["fsdp"], "tp": sizes["tp"]}
+
+
+def check_mesh(mesh_cfg, *, world: Optional[int] = None, moe_experts: int = 0) -> int:
+    """Check the config's ``mesh`` node against a group of ``world`` ranks
+    (the default group's size) and return ``world``. The axes ``dcn, dp,
+    fsdp, tp`` must multiply to the ranks (``dp: -1`` takes what the others
+    leave). ``dcn`` is the slowest axis: with ranks laid out by node
+    (``LOCAL_WORLD_SIZE`` ranks each, as torchrun lays them), a dcn group
+    must hold whole nodes. MoE layers need a single data rank (tp alone
+    runs them replicated, as JAX's rule leaves the experts); ``pp``, ``sp``
+    and ``ep`` are held. Each refusal names its step of ROADMAP queue item
+    5. ``pp_microbatches`` has no effect without pipeline stages."""
+    world = world_size() if world is None else world
+    sizes = _axis_sizes(mesh_cfg, world)
+    per_dcn = world // sizes["dcn"]
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", per_dcn) or per_dcn)
+    if sizes["dcn"] > 1 and per_dcn % local:
+        raise ValueError(f"mesh dcn={sizes['dcn']}: its groups of {per_dcn} ranks "
+                         f"are not whole nodes of {local} ranks (LOCAL_WORLD_SIZE): "
+                         "a node would straddle two dcn groups")
+    data = sizes["dcn"] * sizes["dp"] * sizes["fsdp"]
+    if data > 1 and moe_experts:
+        raise NotImplementedError(f"moe_experts={moe_experts} over {data} data "
+                                  "ranks: " + _MOE_UNDER_DP)
     return world
 
 
+@dataclasses.dataclass(eq=False)
+class Mesh:
+    """The ranks as a (dcn, dp, fsdp, tp) grid, ``tp`` varying fastest (a
+    tp group is consecutive ranks, on one node), as JAX lays devices out.
+    ``shape`` maps each axis to its size, ``coords`` this rank's position.
+    The groups (a ``torch.distributed`` group, None for the default one,
+    or :data:`~bifold_tpu_torch.parallel.collectives.SELF` for one rank):
+
+    - ``tp``: this rank's tp group;
+    - ``data``: the data ranks (``dcn x dp x fsdp``), the ranks that share
+      this rank's tp coordinate; each holds its slice of every batch;
+    - ``fsdp``: this rank's fsdp group, which holds the fsdp shards;
+    - ``replica``: the ``dcn x dp`` ranks that hold the same fsdp shard.
+    """
+
+    shape: Dict[str, int]
+    coords: Dict[str, int]
+    rank: int
+    groups: Dict[str, Any]
+
+    @property
+    def world(self) -> int:
+        return int(np.prod(list(self.shape.values())))
+
+    @property
+    def tp(self) -> int:
+        return self.shape["tp"]
+
+    @property
+    def fsdp(self) -> int:
+        return self.shape["fsdp"]
+
+    @property
+    def data_size(self) -> int:
+        """The data ranks: dcn x dp x fsdp."""
+        return self.world // self.tp
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's place among the data ranks (its batch slice)."""
+        return self.rank // self.tp
+
+    @property
+    def tp_rank(self) -> int:
+        return self.coords["tp"]
+
+    @property
+    def fsdp_rank(self) -> int:
+        return self.coords["fsdp"]
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank={self.rank})"
+
+
+# groups made once per (default group, mesh shape): every rank must call
+# new_group for every group, in the same order
+_GROUPS: Dict[tuple, Dict[str, Any]] = {}
+
+
+def _groups(shape: Dict[str, int], world: int, me: int) -> Dict[str, Any]:
+    grid = np.arange(world).reshape([shape[a] for a in _GRID])
+
+    def family(keep):
+        """The groups that vary over the axes ``keep``, and this rank's."""
+        axes = [i for i, a in enumerate(_GRID) if a in keep]
+        rest = [i for i in range(len(_GRID)) if i not in axes]
+        moved = np.transpose(grid, rest + axes).reshape(-1, int(np.prod(
+            [grid.shape[i] for i in axes])))
+        mine = None
+        for ranks in moved:
+            ranks = [int(r) for r in ranks]
+            if len(ranks) == 1:
+                handle = SELF
+            elif len(ranks) == world:
+                handle = None
+            else:
+                handle = dist.new_group(ranks)
+            if me in ranks:
+                mine = handle
+        return mine
+
+    key = (id(dist.distributed_c10d._get_default_group()), tuple(shape.items()))
+    if key not in _GROUPS:
+        _GROUPS[key] = {"tp": family(("tp",)), "data": family(("dcn", "dp", "fsdp")),
+                        "fsdp": family(("fsdp",)), "replica": family(("dcn", "dp"))}
+    return _GROUPS[key]
+
+
+_GRID = ("dcn", "dp", "fsdp", "tp")
+
+
+def make_mesh(mesh_cfg=None, *, moe_experts: int = 0) -> Mesh:
+    """The mesh of the config's ``mesh`` node over the default group (a
+    mesh of one rank without a group), checked by :func:`check_mesh`;
+    the counterpart of bifold_tpu/parallel/__init__.py:126 ``make_mesh``.
+    A :class:`Mesh` passes through."""
+    if isinstance(mesh_cfg, Mesh):
+        return mesh_cfg
+    world, me = world_size(), rank()
+    check_mesh(mesh_cfg, world=world, moe_experts=moe_experts)
+    shape = _axis_sizes(mesh_cfg, world)
+    coords = dict(zip(_GRID, (int(c) for c in np.unravel_index(
+        me, [shape[a] for a in _GRID]))))
+    if world == 1:
+        groups = {k: SELF for k in ("tp", "data", "fsdp", "replica")}
+    else:
+        groups = _groups(shape, world, me)
+    return Mesh(shape, coords, me, groups)
+
+
 def shard_batch(batch: Dict[str, Any], *, shard: Optional[int] = None,
-                shards: Optional[int] = None) -> Dict[str, Any]:
-    """Slice ``shard`` (this rank) of a global batch cut into ``shards``
-    (the group's size) contiguous equal slices along the batch dimension of
-    every tensor or array; other entries (instruction strings,
-    ``label_keys``) pass through."""
+                shards: Optional[int] = None, mesh: Optional[Mesh] = None
+                ) -> Dict[str, Any]:
+    """Slice ``shard`` of a global batch cut into ``shards`` contiguous
+    equal slices along the batch dimension of every tensor or array; other
+    entries (instruction strings, ``label_keys``) pass through. By default
+    the slice of this rank among ``mesh``'s data ranks (the ranks of a tp
+    group get the same slice), or without a mesh among the default group's
+    ranks."""
+    if mesh is not None:
+        shards = mesh.data_size if shards is None else shards
+        shard = mesh.data_rank if shard is None else shard
     shards = world_size() if shards is None else shards
     shard = rank() if shard is None else shard
 
@@ -207,12 +350,14 @@ def _rank_seed(seed: int, rank: int) -> int:
     return (seed + rank * 0x9E3779B97F4A7C15) % 2 ** 63
 
 
-def _reduce_over_ranks(grads, loss, inter):
-    """Sum the gradients, the loss and its terms over the ranks in one flat
-    float32 buffer (one collective); returns them in their shapes."""
+def _reduce_over_ranks(grads, loss, inter, group=None):
+    """Sum the gradients, the loss and its terms over the ranks of
+    ``group`` in one flat float32 buffer (one collective); returns them in
+    their shapes."""
     values = [loss.detach().float().reshape(1)] + [
         v.detach().float().reshape(1) for v in inter.values()]
-    flat = all_reduce_sum_(torch.cat([g.float().reshape(-1) for g in grads] + values))
+    flat = all_reduce_sum_(torch.cat([g.float().reshape(-1) for g in grads] + values),
+                           group)
     parts = flat.split([g.numel() for g in grads] + [1] * len(values))
     grads = [p.view(g.shape).to(g.dtype) for p, g in zip(parts, grads)]
     scalars = [p[0] for p in parts[len(grads):]]
@@ -220,45 +365,67 @@ def _reduce_over_ranks(grads, loss, inter):
 
 
 def make_train_step(model: nn.Module, loss_fn: Callable,
-                    optimizer: Optimizer, *,
-                    moe_aux_weight: float = 0.0) -> Callable:
-    """The train step over ``optimizer.params`` (the trainable parameters),
-    data-parallel over the default group when there is one of more than
-    one rank (the batch each rank is given is its slice)."""
-    params = optimizer.params
-    device = params[0].device
+                    optimizer: Optimizer, *, moe_aux_weight: float = 0.0,
+                    placement=None) -> Callable:
+    """The train step over ``optimizer.params``. Without ``placement``: the
+    trainable parameters, data-parallel over the default group when it has
+    more than one rank (each rank is given its slice of the batch). With a
+    :class:`~bifold_tpu_torch.parallel.sharding.Placement` (whose
+    ``step_params`` the optimizer was built on): sharded as its plan says,
+    over its mesh, the batch cut over the mesh's data ranks."""
+    if placement is None:
+        mesh = make_mesh(None)
+        grad_params = optimizer.params
+    else:
+        mesh = placement.mesh
+        grad_params = [p for _, p in placement.grad_params]
+        if mesh.world > 1:
+            optimizer.global_norm = placement.grad_norm
+            optimizer.all_finite = placement.all_finite
+    device = grad_params[0].device
     buffers = list(model.buffers())
-    world, me = world_size(), rank()
+    share = 1.0 / mesh.data_size
+    sharded = placement is not None and mesh.world > 1
+    gather = placement.gather if placement is not None else (lambda: None)
+    release = placement.release if placement is not None else (lambda: None)
 
     def step(state: TrainState, batch: Dict[str, Any]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=state.key))
         model.train()
         set_dropout_generator(model, torch.Generator(device).manual_seed(
-            _rank_seed(seed, me)))
+            _rank_seed(seed, mesh.data_rank)))
         before = [b.clone() for b in buffers]
+        gather()
         try:
             out = dict(model(batch))
             moe_losses = out.pop("moe_losses", None)
-            if world > 1 and moe_losses is not None:
+            if mesh.data_size > 1 and moe_losses is not None:
                 raise NotImplementedError(_MOE_UNDER_DP)
-            loss, inter = loss_fn(out, batch, batch_share=1.0 / world)
+            loss, inter = loss_fn(out, batch, batch_share=share)
             if moe_aux_weight and moe_losses is not None:
                 aux = moe_losses.float().mean()
                 loss = loss + moe_aux_weight * aux
                 inter = {**inter, "moe_load_balance": aux}
-            grads = list(torch.autograd.grad(loss, params))
+            grads = list(torch.autograd.grad(loss, grad_params))
         except BaseException:
+            release()
             with torch.no_grad():
                 for b, saved in zip(buffers, before):
                     b.copy_(saved)
             raise
         finally:
             set_dropout_generator(model, None)
-        if dist.is_initialized():
+        if sharded:
+            grads, loss, inter = placement.reduce_grads(grads, loss, inter)
+        elif dist.is_initialized():
             grads, loss, inter = _reduce_over_ranks(grads, loss, inter)
-        gnorm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
-        state.optimizer.step(grads)
+        gnorm = (placement.grad_norm(grads) if sharded else
+                 torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads)))
+        try:
+            state.optimizer.step(grads)
+        finally:
+            release()
         state.step += 1
         metrics = {"loss": loss.detach(), "grad_norm": gnorm,
                    "grad_norm_trainable": gnorm,
@@ -266,6 +433,23 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
         return state, metrics
 
     return step
+
+
+def place(model: nn.Module, family: Optional[str], mesh: Mesh,
+          min_size: int = 2 ** 16):
+    """Shard ``model`` (full tensors, the same on every rank) over ``mesh``
+    by its family's plan (:mod:`~bifold_tpu_torch.parallel.sharding`). A
+    mesh with no fsdp or tp axis replicates everything and needs no
+    family."""
+    from bifold_tpu_torch.parallel import sharding
+
+    if mesh.fsdp == 1 and mesh.tp == 1:
+        plan = sharding.Plan(family, dict(mesh.shape), [], {}, [], [], [])
+    else:
+        if family is None:
+            raise ValueError(f"{mesh}: sharding needs the model family's converter")
+        plan = sharding.make_plan(model, family, mesh.shape, min_size)
+    return sharding.Placement(model, plan, mesh)
 
 
 def make_eval_step(model: nn.Module) -> Callable:

@@ -1,0 +1,712 @@
+"""The sharding plan of the port's parameters over a mesh, and its placement.
+
+Counterpart of bifold_tpu/parallel/__init__.py:188-284 (``_fsdp_spec``,
+``_tp_axis``, ``param_sharding``). The plan is made on the JAX leaves, as
+JAX makes it: the model's state dict goes through the port's own converter
+(:func:`~bifold_tpu_torch.models.convert.to_jax_variables`) with every
+element replaced by its index, so each JAX leaf (a stack's layers under
+``blocks/block`` with a leading depth axis, kernels (in, out)) tells which
+elements of which port tensors it holds, and along which axes. That map,
+read off the converter itself, carries each decision to the port's tensors:
+
+- ``min_size`` (2**16 elements) is tested on the JAX leaf, stacked;
+- a leaf whose path holds a column-parallel name (``q_proj k_proj v_proj
+  fc1 to_qkv``) or a row-parallel one (``out_proj fc2``) and a ``kernel``
+  is sharded over ``tp`` on its output or input axis when ``tp`` divides
+  it. Biases, LoRA's ``lora_a``/``lora_b``, T5's ``q k v o wi wo``,
+  cross-attention's flax names, MoE experts and convolutions stay
+  replicated over tp, as in JAX;
+- any other leaf of at least ``min_size`` elements is sharded over
+  ``fsdp`` on its largest axis that ``fsdp`` divides; tp-sharded kernels
+  are not also fsdp-sharded.
+
+The port splits attention by heads: each tp rank holds the rows of its
+heads of q, of k and of v, also in the fused ``to_qkv`` and CLIP's stacked
+``in_proj_weight`` (JAX's GSPMD splits ``to_qkv``'s 3 x inner columns in
+one contiguous run: the same axis, other elements). So a tp size must
+divide the heads of every tp-sharded attention, which :func:`make_plan`
+checks; JAX lets GSPMD split a head (ROADMAP section 3).
+
+:class:`Placement` applies a plan to a model:
+
+- a tp-sharded tensor is cut to this rank's part for good, and its module
+  (:mod:`~bifold_tpu_torch.models.layers`) computes its heads or hidden
+  units; replicated tensors that such a module uses only in part (the
+  column-parallel biases, LoRA's adapters under a column-parallel base)
+  get partial gradients on each tp rank, which :meth:`reduce_grads` sums
+  over the tp group;
+- each fsdp-sharded JAX leaf is a *unit*: between steps this rank holds
+  only its chunk of the leaf (along the sharded axis), and the port tensors
+  it feeds are empty; :meth:`gather` rebuilds them from an all-gather over
+  the fsdp group and :meth:`release` empties them again. The optimizer
+  steps on the chunks (:attr:`step_params`), so its moments are sharded
+  too;
+- checkpoints hold full tensors: :meth:`full_state_dict` and
+  :meth:`full_optimizer_state` gather them (every rank calls them), and
+  :meth:`load_full_state_dict` / :meth:`load_optimizer_state` cut a full
+  state to this rank's parts, whatever mesh wrote it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from bifold_tpu_torch.models import layers as L
+from bifold_tpu_torch.models.convert import to_jax_variables
+from bifold_tpu_torch.models.norm import BatchNorm
+from bifold_tpu_torch.parallel.collectives import (TPGroup, all_gather,
+                                                   all_reduce_sum_,
+                                                   reduce_scatter)
+
+__all__ = ["make_plan", "Plan", "Placement", "MIN_SIZE", "TP_COL", "TP_ROW"]
+
+MIN_SIZE = 2 ** 16
+TP_COL = ("q_proj", "k_proj", "v_proj", "fc1", "to_qkv")   # shard out dim
+TP_ROW = ("out_proj", "fc2")                               # shard in dim
+
+
+def _fsdp_axis(shape, fsdp: int, min_size: int) -> Optional[int]:
+    """``_fsdp_spec``: the largest axis ``fsdp`` divides, for a leaf of at
+    least ``min_size`` elements (ties to the first)."""
+    if fsdp <= 1 or int(np.prod(shape)) < min_size:
+        return None
+    for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
+        if shape[i] % fsdp == 0 and shape[i] >= fsdp:
+            return i
+    return None
+
+
+def _tp_axis(keys, shape) -> Optional[int]:
+    """``_tp_axis``: the output axis of a column-parallel kernel, the input
+    axis of a row-parallel one."""
+    if len(shape) < 2 or "kernel" not in keys:
+        return None
+    if any(n in keys for n in TP_COL):
+        return len(shape) - 1
+    if any(n in keys for n in TP_ROW):
+        return len(shape) - 2
+    return None
+
+
+@dataclasses.dataclass
+class Box:
+    """Where a JAX leaf's elements sit in one port tensor: the leaf's
+    ``leaf`` slices hold the tensor's ``port`` slices, the leaf's axes
+    ``axes[i]`` (None: extent 1) being the tensor's, those in ``flips``
+    reversed (a transposed conv's taps)."""
+
+    leaf: Tuple[slice, ...]
+    port: Tuple[slice, ...]
+    axes: Tuple[Optional[int], ...]
+    flips: Tuple[int, ...] = ()
+
+    def numel(self) -> int:
+        return int(np.prod([s.stop - s.start for s in self.port]))
+
+    def read(self, leaf: torch.Tensor, out: torch.Tensor) -> None:
+        """``out[port] = leaf[leaf]`` (out is the port tensor)."""
+        part = leaf[self.leaf]
+        if self.flips:
+            part = part.flip(self.flips)
+        mapped = [a for a, j in enumerate(self.axes) if j is not None]
+        part = part.reshape([part.shape[a] for a in mapped])
+        order = sorted(range(len(mapped)), key=lambda i: self.axes[mapped[i]])
+        region = out[self.port]
+        region.copy_(part.permute(order).reshape(region.shape))
+
+    def write(self, port: torch.Tensor, leaf: torch.Tensor) -> None:
+        """``leaf[leaf] = port[port]``."""
+        mapped = [a for a, j in enumerate(self.axes) if j is not None]
+        order = sorted(range(len(mapped)), key=lambda i: self.axes[mapped[i]])
+        region = port[self.port]
+        dims = [region.shape[self.axes[mapped[i]]] for i in order]
+        part = region.reshape(dims).permute(np.argsort(order).tolist())
+        target = leaf[self.leaf]
+        part = part.reshape(target.shape)
+        target.copy_(part.flip(self.flips) if self.flips else part)
+
+
+def _box(ids: np.ndarray, box: Tuple[slice, ...], k: int, starts: np.ndarray,
+         shapes: List[tuple], names: List[str], arrays: Dict[str, np.ndarray]) -> Box:
+    """The :class:`Box` of the port tensor ``k`` that fills the leaf's
+    ``box``; raises unless every id there is one of the tensor's, placed by
+    slicing, stacking, transposing and flipping: the box must equal a
+    strided view of the tensor's own ids (``arrays``), compared element by
+    element."""
+    part = ids[box]
+    own = arrays[names[k]].reshape(-1)
+    shape = shapes[k]
+    strides = [int(np.prod(shape[j + 1:])) for j in range(len(shape))]
+    corner = int(part[(0,) * part.ndim]) - int(starts[k])
+    axes, flips, deltas = [], [], []
+    for a in range(ids.ndim):
+        if part.shape[a] == 1:
+            axes.append(None)
+            deltas.append(0)
+            continue
+        step = [0] * ids.ndim
+        step[a] = 1
+        delta = int(part[tuple(step)]) - int(starts[k]) - corner
+        j = next((j for j in range(len(shape)) if shape[j] > 1
+                  and strides[j] == abs(delta)), None)
+        if j is None:
+            raise ValueError(f"{names[k]}: the converter's leaf axis {a} is "
+                             "no axis of the tensor")
+        axes.append(j)
+        deltas.append(delta)
+        if delta < 0:
+            flips.append(a)
+    lo = corner + sum((n - 1) * min(d, 0) for n, d in zip(part.shape, deltas))
+    hi = corner + sum((n - 1) * max(d, 0) for n, d in zip(part.shape, deltas))
+    if lo < 0 or hi >= own.size or not np.array_equal(part, np.lib.stride_tricks.as_strided(
+            own[corner:], shape=part.shape, strides=[d * own.itemsize for d in deltas],
+            writeable=False)):
+        raise ValueError(f"{names[k]}: the converter moves it other than by "
+                         "slicing, stacking and transposing")
+    start = [int(i) for i in np.unravel_index(corner, shape)]
+    for a in flips:
+        start[axes[a]] -= part.shape[a] - 1
+    port = [slice(i, i + 1) for i in start]
+    for a, j in enumerate(axes):
+        if j is not None:
+            port[j] = slice(start[j], start[j] + part.shape[a])
+    return Box(box, tuple(port), tuple(axes), tuple(flips))
+
+
+def _slabs(ids: np.ndarray, starts: np.ndarray) -> Optional[List[Tuple[int, tuple]]]:
+    """(tensor, box) of each slab when the leaf is slabs of whole boxes
+    along at most one axis (a stack's layers, q/k/v of a fused
+    projection), read off the lines through the leaf's first element;
+    None otherwise."""
+    lines = []
+    for a in range(ids.ndim):
+        at = [0] * ids.ndim
+        at[a] = slice(None)
+        lines.append(np.searchsorted(starts, ids[tuple(at)], side="right") - 1)
+    varying = [a for a, line in enumerate(lines) if (line != line[0]).any()]
+    if len(varying) > 1:
+        return None
+    axis = varying[0] if varying else 0
+    line = lines[axis]
+    cuts = [0] + [i for i in range(1, len(line)) if line[i] != line[i - 1]] + [len(line)]
+    owners = [int(line[lo]) for lo in cuts[:-1]]
+    if len(set(owners)) != len(owners):
+        return None
+    full = [slice(0, n) for n in ids.shape]
+    return [(k, tuple(slice(lo, hi) if a == axis else full[a] for a in range(ids.ndim)))
+            for k, lo, hi in zip(owners, cuts, cuts[1:])]
+
+
+def _boxes(ids: np.ndarray, starts: np.ndarray, shapes: List[tuple],
+           names: List[str], arrays: Dict[str, np.ndarray]) -> Dict[str, Box]:
+    """The port tensors a leaf of element ids is made of, each with its
+    :class:`Box`; raises where the converter did more than slice, stack,
+    transpose and flip. Slabs (the usual case) cost one pass over the
+    leaf; anything else finds each tensor's elements by owner."""
+    if ids.size == 0:
+        return {}
+    slabs = _slabs(ids, starts)
+    if slabs is not None:
+        try:
+            return {names[k]: _box(ids, box, k, starts, shapes, names, arrays)
+                    for k, box in slabs}
+        except ValueError:
+            pass
+    owner = (np.searchsorted(starts, ids.reshape(-1), side="right") - 1).reshape(ids.shape)
+    out = {}
+    for k in np.unique(owner):
+        mask = owner == k
+        box = []
+        for a in range(ids.ndim):
+            hit = np.nonzero(mask.any(axis=tuple(j for j in range(ids.ndim) if j != a)))[0]
+            box.append(slice(int(hit[0]), int(hit[-1]) + 1))
+        box = tuple(box)
+        if mask[box].sum() != mask[box].size:
+            raise ValueError(f"{names[k]}: its elements do not fill a box of the leaf")
+        out[names[k]] = _box(ids, box, int(k), starts, shapes, names, arrays)
+    return out
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (str(k),))
+    else:
+        yield path, tree
+
+
+@dataclasses.dataclass
+class Leaf:
+    """One JAX params leaf: its path, stacked shape, spec (an axis name or
+    None per axis) and, when it is sharded, the port tensors it is made
+    of."""
+
+    path: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    spec: Tuple[Optional[str], ...]
+    boxes: Dict[str, Box]
+
+    def axis(self, name: str) -> Optional[int]:
+        return self.spec.index(name) if name in self.spec else None
+
+
+@dataclasses.dataclass
+class Plan:
+    """The plan of one model over one mesh: ``leaves`` in JAX's terms (what
+    the tests hold against ``param_sharding``), ``tp`` the port tensors cut
+    over tp (name -> (axis, blocks)), ``partial`` the replicated tensors
+    whose gradients are partial over tp, ``modules`` the modules that
+    compute a tp shard, ``units`` the fsdp-sharded leaves."""
+
+    family: str
+    shape: Dict[str, int]
+    leaves: List[Leaf]
+    tp: Dict[str, Tuple[int, int]]
+    partial: List[str]
+    modules: List[str]
+    units: List[Leaf]
+
+
+def _probe(model: nn.Module, family: str):
+    """Run the converter on the model's state dict with each element
+    replaced by its index (from 1): (params tree of ids, the tensors'
+    starts, shapes and names, and each tensor's ids by name)."""
+    sd = model.state_dict(keep_vars=True)
+    first: Dict[int, str] = {}
+    names, shapes, starts = [], [], []
+    total = 1
+    for name, t in sd.items():
+        if id(t) in first:
+            continue
+        first[id(t)] = name
+        names.append(name)
+        shapes.append(tuple(t.shape))
+        starts.append(total)
+        total += t.numel()
+    dtype = np.int32 if total < 2 ** 31 else np.int64
+    arrays = {name: np.arange(s, s + int(np.prod(shape)), dtype=dtype).reshape(shape)
+              for name, s, shape in zip(names, starts, shapes)}
+    probe = {k: arrays[first[id(t)]] for k, t in sd.items()}
+    params, _ = to_jax_variables(family, probe)
+    return params, np.asarray(starts), shapes, names, arrays
+
+
+def _tp_modules(model: nn.Module):
+    """The modules that can compute a tp shard
+    (:class:`~bifold_tpu_torch.models.layers.TensorParallel`)."""
+    for name, mod in model.named_modules():
+        if isinstance(mod, L.TensorParallel):
+            yield name, mod
+
+
+def make_plan(model: nn.Module, family: str, shape: Dict[str, int],
+              min_size: int = MIN_SIZE) -> Plan:
+    """The plan of ``model`` (full tensors, not placed) of the family
+    ``family`` over a mesh of axis sizes ``shape``. Raises
+    ``NotImplementedError`` where tp does not divide the heads of an
+    attention it shards, or would shard a module only in part."""
+    tp, fsdp = int(shape.get("tp", 1)), int(shape.get("fsdp", 1))
+    params, starts, shapes, names, arrays = _probe(model, family)
+    leaves = []
+    for path, ids in _leaves(params):
+        ids = np.asarray(ids)
+        if ids.size and int(ids.min()) < 1:
+            raise ValueError(f"{'/'.join(path)}: a leaf the converter made up, "
+                             "not one of the model's tensors")
+        spec = [None] * ids.ndim
+        axis = _tp_axis(path, ids.shape) if tp > 1 else None
+        if axis is not None and ids.shape[axis] % tp == 0:
+            spec[axis] = "tp"
+        else:
+            axis = _fsdp_axis(ids.shape, fsdp, min_size)
+            if axis is not None:
+                spec[axis] = "fsdp"
+        # the map to the port's tensors, for the leaves the plan shards
+        boxes = _boxes(ids, starts, shapes, names, arrays) if any(spec) else {}
+        leaves.append(Leaf(path, tuple(ids.shape), tuple(spec), boxes))
+
+    # tp: the port tensors the sharded kernels are, each on its mapped axis
+    cut: Dict[str, set] = {}
+    for leaf in leaves:
+        axis = leaf.axis("tp")
+        if axis is None:
+            continue
+        for name, box in leaf.boxes.items():
+            cut.setdefault(name, set()).add(box.axes[axis])
+    tp_cut, partial, modules = {}, [], []
+    for prefix, mod in _tp_modules(model):
+        own = {f"{prefix}.{k}": v for k, v in mod.tp_params().items()}
+        sharded = [n for n in own if n in cut]
+        if not sharded:
+            continue
+        mod.check_tp(tp, prefix)
+        if len(sharded) != len(own):
+            raise NotImplementedError(
+                f"{prefix}: tp={tp} shards {sorted(sharded)} but not "
+                f"{sorted(set(own) - set(sharded))}; the port shards a module's "
+                "projections together")
+        for name, (axis, blocks) in own.items():
+            if cut[name] != {axis}:
+                raise ValueError(f"{name}: the plan cuts axes {cut[name]}, the "
+                                 f"module computes axis {axis}")
+            tp_cut[name] = (axis, blocks)
+        partial += [f"{prefix}.{k}" for k in mod.tp_partial()]
+        modules.append(prefix)
+    stray = set(cut) - set(tp_cut)
+    if stray:
+        raise NotImplementedError(f"tp={tp} shards {sorted(stray)[:3]}, which no "
+                                  "module of the port computes in shards")
+    units = [leaf for leaf in leaves if leaf.axis("fsdp") is not None]
+    return Plan(family, dict(shape), leaves, tp_cut, partial, modules, units)
+
+
+def tp_local(t: torch.Tensor, tp: TPGroup, axis: int, blocks: int) -> torch.Tensor:
+    """This tp rank's part of ``t`` (:meth:`TPGroup.part`), a new tensor."""
+    return tp.part(t, axis, blocks).contiguous().clone()
+
+
+def tp_full(local: torch.Tensor, tp: TPGroup, axis: int, blocks: int) -> torch.Tensor:
+    """The inverse of :func:`tp_local` over the tp group (a collective)."""
+    moved = local.movedim(axis, 0).contiguous()
+    ranks = all_gather(moved, tp.group).chunk(tp.size)
+    per = [r.chunk(blocks) for r in ranks]
+    full = torch.cat([per[r][b] for b in range(blocks) for r in range(tp.size)])
+    return full.movedim(0, axis).contiguous()
+
+
+class _Unit:
+    """An fsdp-sharded leaf: its chunk on this rank (leaf layout, the
+    sharded axis first), and the port tensors it feeds."""
+
+    def __init__(self, leaf: Leaf, params: Dict[str, torch.Tensor]):
+        self.leaf = leaf
+        self.axis = leaf.axis("fsdp")
+        first = params[next(iter(leaf.boxes))]
+        self.dtype, self.device = first.dtype, first.device
+        self.trainable = first.requires_grad
+        for name in leaf.boxes:
+            p = params[name]
+            if p.dtype != self.dtype or p.requires_grad != self.trainable:
+                raise NotImplementedError(
+                    f"{'/'.join(leaf.path)}: its tensors differ in dtype or "
+                    "trainability; the port shards a leaf as one")
+        self.shard: Optional[torch.Tensor] = None
+
+    def full_leaf(self, tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The whole leaf (leaf layout) from full port tensors."""
+        out = torch.empty(self.leaf.shape, dtype=self.dtype, device=self.device)
+        for name, box in self.leaf.boxes.items():
+            box.write(tensors[name], out)
+        return out
+
+    def chunk(self, leaf: torch.Tensor, n: int, i: int) -> torch.Tensor:
+        return leaf.movedim(self.axis, 0).chunk(n)[i].contiguous()
+
+    def unchunk(self, gathered: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from the gathered chunks (sharded axis first)."""
+        return gathered.movedim(0, self.axis)
+
+
+class Placement:
+    """A :class:`Plan` applied to ``model`` on this rank of ``mesh``: see
+    the module docstring. The model must hold full tensors (identical on
+    every rank) when placed."""
+
+    @staticmethod
+    def tp_group(mesh) -> TPGroup:
+        return TPGroup(mesh.groups["tp"], mesh.tp, mesh.tp_rank)
+
+    def __init__(self, model: nn.Module, plan: Plan, mesh, cut: bool = True):
+        """``cut=False``: the tp-sharded tensors hold this rank's parts
+        already (a server's int8 weights, cut before they were installed);
+        such a plan may have no fsdp units."""
+        self.model, self.plan, self.mesh = model, plan, mesh
+        self.tp = self.tp_group(mesh)
+        self._params = dict(model.named_parameters())
+        self.attach_tp()
+        if not cut:
+            if plan.units:
+                raise ValueError("a placement of tensors cut already has no fsdp units")
+            plan = dataclasses.replace(plan, tp={})
+            self.plan = plan
+        with torch.no_grad():
+            for name, (axis, blocks) in plan.tp.items():
+                p = self._params[name]
+                p.data = tp_local(p.data, self.tp, axis, blocks)
+        self._full_shapes = {n: tuple(p.shape) for n, p in self._params.items()}
+        self.units = [_Unit(leaf, self._params) for leaf in plan.units]
+        self.managed = sorted({n for u in self.units for n in u.leaf.boxes})
+        covered: Dict[str, int] = {}
+        for u in self.units:
+            for name, box in u.leaf.boxes.items():
+                covered[name] = covered.get(name, 0) + box.numel()
+        for name in self.managed:
+            if covered[name] != self._params[name].numel():
+                raise NotImplementedError(
+                    f"{name}: fsdp shards only part of it; the port shards a "
+                    "tensor whole or not at all")
+        with torch.no_grad():
+            full = {n: self._params[n].data for n in self.managed}
+            for u in self.units:
+                u.shard = u.chunk(u.full_leaf(full), mesh.fsdp, mesh.fsdp_rank)
+                if u.trainable:
+                    u.shard = nn.Parameter(u.shard)
+        self.release()
+        self._gathered = False
+
+    # ------------------------------------------------------------------
+
+    def attach_tp(self) -> None:
+        """Tell the modules the plan shards to compute their shard, and the
+        BatchNorms to reduce over the data ranks."""
+        for prefix in self.plan.modules:
+            self.model.get_submodule(prefix).tp = self.tp
+        for mod in self.model.modules():
+            if isinstance(mod, BatchNorm):
+                mod.group = self.mesh.groups["data"]
+
+    def _moment_names(self):
+        """(the trainable tensors that are not fsdp-sharded, by name; the
+        trainable units): what :attr:`step_params` lists, in order."""
+        own = [n for n, p in self._params.items()
+               if p.requires_grad and n not in self.managed]
+        return own, [u for u in self.units if u.trainable]
+
+    @property
+    def step_params(self) -> List[torch.Tensor]:
+        """What the optimizer updates: the trainable tensors that are not
+        fsdp-sharded (tp parts included), then the trainable units' chunks."""
+        own, units = self._moment_names()
+        return [self._params[n] for n in own] + [u.shard for u in units]
+
+    @property
+    def step_names(self) -> List[str]:
+        own, units = self._moment_names()
+        return own + ["fsdp:" + "/".join(u.leaf.path) for u in units]
+
+    @property
+    def grad_params(self) -> List[Tuple[str, torch.Tensor]]:
+        """The trainable module tensors the backward differentiates."""
+        return [(n, p) for n, p in self._params.items() if p.requires_grad]
+
+    # ------------------------------------------------------------------
+    # fsdp
+
+    @torch.no_grad()
+    def gather(self) -> None:
+        """Rebuild every fsdp-sharded tensor from the fsdp group's chunks."""
+        if self._gathered or not self.units:
+            self._gathered = True
+            return
+        for name in self.managed:
+            p = self._params[name]
+            p.data = torch.empty(self._full_shapes[name], dtype=p.dtype, device=p.device)
+        for u in self.units:
+            leaf = u.unchunk(all_gather(u.shard.detach(), self.mesh.groups["fsdp"]))
+            for name, box in u.leaf.boxes.items():
+                box.read(leaf, self._params[name].data)
+        self._gathered = True
+
+    def release(self) -> None:
+        """Empty the fsdp-sharded tensors (their chunks stay)."""
+        for name in self.managed:
+            p = self._params[name]
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+        self._gathered = False
+
+    @contextlib.contextmanager
+    def gathered(self):
+        held = self._gathered
+        self.gather()
+        try:
+            yield
+        finally:
+            if not held:
+                self.release()
+
+    # ------------------------------------------------------------------
+    # the step's reductions
+
+    def reduce_grads(self, grads: List[torch.Tensor], loss, inter):
+        """From the backward's gradients of :attr:`grad_params` to those of
+        :attr:`step_params`, and the loss and its terms summed over the
+        data ranks: partial gradients summed over tp; fsdp units'
+        reduce-scattered over fsdp, then summed over ``dcn x dp``; the
+        others, with the loss, over all data ranks in one flat buffer."""
+        names = [n for n, _ in self.grad_params]
+        by_name = dict(zip(names, grads))
+        groups = self.mesh.groups
+        partial = [n for n in self.plan.partial if n in by_name]
+        if partial and self.mesh.tp > 1:
+            flat = all_reduce_sum_(torch.cat([by_name[n].float().reshape(-1)
+                                              for n in partial]), groups["tp"])
+            for n, part in zip(partial, flat.split([by_name[n].numel() for n in partial])):
+                by_name[n] = part.view(by_name[n].shape).to(by_name[n].dtype)
+        own = [n for n in names if n not in self.managed]
+        from bifold_tpu_torch.parallel import _reduce_over_ranks
+        out, loss, inter = _reduce_over_ranks([by_name[n] for n in own], loss, inter,
+                                              groups["data"])
+        shards = []
+        for u in self.units:
+            if not u.trainable:
+                continue
+            leaf = u.full_leaf(by_name)
+            shards.append(reduce_scatter(leaf.movedim(u.axis, 0).contiguous().float(),
+                                         groups["fsdp"]))
+        if shards and self.mesh.data_size > self.mesh.fsdp:
+            flat = all_reduce_sum_(torch.cat([s.reshape(-1) for s in shards]),
+                                   groups["replica"])
+            shards = [p.view(s.shape) for p, s in zip(flat.split(
+                [s.numel() for s in shards]), shards)]
+        dtypes = [u.shard.dtype for u in self.units if u.trainable]
+        out += [s.to(d) for s, d in zip(shards, dtypes)]
+        return out, loss, inter
+
+    def grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of :attr:`step_params`-aligned gradients, each
+        element counted once: tp parts summed over tp, fsdp chunks over
+        fsdp, replicated tensors once."""
+        own, _ = self._moment_names()
+        kinds = ["tp" if n in self.plan.tp else "rep" for n in own] + \
+            ["fsdp"] * (len(grads) - len(own))
+        zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        sq = {k: zero for k in ("rep", "tp", "fsdp")}
+        for g, k in zip(grads, kinds):
+            sq[k] = sq[k] + torch.sum(g.float() * g.float())
+        groups = self.mesh.groups
+        tp_sq = all_reduce_sum_(sq["tp"].clone(), groups["tp"])
+        fsdp_sq = all_reduce_sum_(sq["fsdp"].clone(), groups["fsdp"])
+        return torch.sqrt(sq["rep"] + tp_sq + fsdp_sq)
+
+    def all_finite(self, grads: List[torch.Tensor]) -> bool:
+        """Whether every rank's gradients are finite (one verdict for all)."""
+        bad = torch.stack([~torch.isfinite(g).all() for g in grads]).sum().float()
+        return float(all_reduce_sum_(bad.reshape(1), None)[0]) == 0.0
+
+    # ------------------------------------------------------------------
+    # full state, for checkpoints
+
+    def _full(self, local: Dict[str, torch.Tensor], unit_parts: List[torch.Tensor],
+              units: List[_Unit], names: List[str]) -> Dict[str, torch.Tensor]:
+        """Full port tensors ``names`` from their local parts: ``local``
+        (tp parts or replicated) and the chunks of ``units`` (collectives)."""
+        wanted = set(names)
+        out = {n: tp_full(local[n], self.tp, *self.plan.tp[n])
+               if n in self.plan.tp else local[n]
+               for n in names if n not in self.managed}
+        for u, part in zip(units, unit_parts):
+            leaf = u.unchunk(all_gather(part.detach(), self.mesh.groups["fsdp"]))
+            for n, box in u.leaf.boxes.items():
+                if n not in wanted:
+                    continue
+                if n not in out:
+                    out[n] = torch.empty(self._full_shapes[n], dtype=leaf.dtype,
+                                         device=leaf.device)
+                box.read(leaf, out[n])
+        return out
+
+    @torch.no_grad()
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state dict with every tensor whole (a collective)."""
+        sd = self.model.state_dict()
+        alias = {}
+        for k, v in self.model.state_dict(keep_vars=True).items():
+            alias.setdefault(id(v), k)
+        params = {n: p.detach() for n, p in self._params.items()}
+        full = self._full(params, [u.shard for u in self.units], self.units,
+                          list(self._params))
+        for k, v in self.model.state_dict(keep_vars=True).items():
+            name = alias[id(v)]
+            if name in full:
+                sd[k] = full[name]
+        return sd
+
+    @torch.no_grad()
+    def load_full_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
+        """Make a full state dict (any mesh's checkpoint) this rank's."""
+        missing = set(self.model.state_dict()) - set(sd)
+        if missing:
+            raise KeyError(f"state dict misses {sorted(missing)[:5]}")
+        full = {}
+        for n, p in self._params.items():
+            v = torch.as_tensor(sd[n]).to(p.device)
+            if tuple(v.shape) != self._full_shapes[n] and n not in self.plan.tp:
+                raise ValueError(f"{n}: shape {tuple(v.shape)}, the model has "
+                                 f"{self._full_shapes[n]}")
+            if n in self.managed:
+                full[n] = v.to(p.dtype)
+            elif n in self.plan.tp:
+                p.copy_(tp_local(v, self.tp, *self.plan.tp[n]))
+            else:
+                p.copy_(v)
+        for u in self.units:
+            u.shard.copy_(u.chunk(u.full_leaf(full), self.mesh.fsdp, self.mesh.fsdp_rank))
+        if self._gathered:
+            self._gathered = False
+            self.gather()
+        persistent = self.model.state_dict(keep_vars=True)
+        for n, b in self.model.named_buffers():
+            if n in persistent:
+                b.copy_(torch.as_tensor(sd[n]))
+
+    @torch.no_grad()
+    def full_optimizer_state(self, optimizer) -> dict:
+        """``optimizer.state_dict()`` with each moment whole and keyed by
+        the port tensor's name, as one process writes it (a collective)."""
+        state = optimizer.state_dict()
+        own, units = self._moment_names()
+        names = [n for n, p in self._params.items() if p.requires_grad]
+        for key in optimizer._MOMENTS:
+            values = getattr(optimizer, key)
+            if values is None:
+                continue
+            local = dict(zip(own, values[:len(own)]))
+            full = self._full(local, list(values[len(own):]), units, names)
+            state[key] = {n: full[n].detach().cpu().clone() for n in names}
+        return state
+
+    @torch.no_grad()
+    def load_optimizer_state(self, optimizer, state: dict) -> None:
+        """Cut a whole optimizer state (keyed by port names) to this rank's
+        parts and load it."""
+        own, units = self._moment_names()
+        local = {k: v for k, v in state.items() if k not in optimizer._MOMENTS}
+        for key in optimizer._MOMENTS:
+            if key not in state:
+                continue
+            moments = state[key]
+            cut = {}
+            for n in own:
+                if n in moments:
+                    v = torch.as_tensor(moments[n])
+                    cut[n] = (tp_local(v, self.tp, *self.plan.tp[n])
+                              if n in self.plan.tp else v)
+            for u in units:
+                if all(n in moments for n in u.leaf.boxes):
+                    full = {n: torch.as_tensor(moments[n]).to(u.device, u.dtype)
+                            for n in u.leaf.boxes}
+                    cut["fsdp:" + "/".join(u.leaf.path)] = u.chunk(
+                        u.full_leaf(full), self.mesh.fsdp, self.mesh.fsdp_rank).cpu()
+            local[key] = cut
+        optimizer.load_state_dict(local)
+
+    def held_bytes(self, optimizer=None) -> int:
+        """Bytes of parameters (and of ``optimizer``'s moments) this rank
+        holds now: what lies between steps once :meth:`release` ran."""
+        seen = set()
+        total = 0
+        for t in [*self._params.values(), *(u.shard for u in self.units)]:
+            if id(t) not in seen:
+                seen.add(id(t))
+                total += t.numel() * t.element_size()
+        if optimizer is not None:
+            for key in optimizer._MOMENTS:
+                for v in getattr(optimizer, key) or ():
+                    total += v.numel() * v.element_size()
+        return total

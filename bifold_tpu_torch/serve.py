@@ -25,8 +25,10 @@ Protocol (stdlib + numpy, no web framework), the JAX daemon's:
 
 Device work is serialized under one lock, as the JAX daemon's is. With
 ``--max-batch`` > 1, concurrent single observations of one layout coalesce
-into one padded ``predict_batch``. Mesh-sharded serving (``--mesh``) is
-not ported and is refused.
+into one padded ``predict_batch``. The daemon's ``--mesh`` (a rank-0 server
+broadcasting each request to the other ranks) is not ported and is refused
+(ROADMAP queue item 5); :func:`build_server` takes a ``mesh`` for callers
+that run every rank themselves.
 """
 
 from __future__ import annotations
@@ -52,15 +54,16 @@ def build_server(run_dir=None, checkpoint=None, config=None, artifact=None,
     ``device``. ``run_dir``: a training output dir, its ``config.yaml`` and
     ``checkpoints/{which}.ckpt`` (best falls back to last). ``checkpoint``
     and ``config`` (a YAML path or a dict) name them explicitly.
-    ``artifact``: a serving artifact of the port. A ``mesh`` raises:
-    sharded serving is not ported."""
+    ``artifact``: a serving artifact of the port. ``mesh`` (a ``mesh``
+    config node or a ``parallel.Mesh``): shard the server over the default
+    ``torch.distributed`` group, every rank building it and calling it
+    alike (``ServingModel(mesh=)``); an artifact has no sharded form."""
     from bifold_tpu_torch.serving import ServingModel
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded serving is not ported to the PyTorch port yet; "
-            "serve on one device (no --mesh)")
     if artifact is not None:
+        if mesh is not None:
+            raise NotImplementedError("a serving artifact is served on one device; "
+                                      "serve a checkpoint under a mesh")
         return ServingModel.load_exported(artifact, device=device)
     if run_dir is not None:
         run_dir = Path(run_dir)
@@ -77,7 +80,7 @@ def build_server(run_dir=None, checkpoint=None, config=None, artifact=None,
         config = load_yaml(config)
     return ServingModel.from_checkpoint(
         str(checkpoint), config, threshold=threshold,
-        depth_wire_dtype=depth_wire, quantize=quantize, device=device)
+        depth_wire_dtype=depth_wire, quantize=quantize, mesh=mesh, device=device)
 
 
 def _parse_observations(body: bytes):
@@ -475,7 +478,7 @@ def main(argv=None) -> int:
                    help="torch device to serve on (default cuda; cpu only "
                         "when asked)")
     p.add_argument("--mesh", default=None, metavar="dp=2,tp=4",
-                   help="sharded serving: not ported, refused")
+                   help="the daemon over a mesh: not ported, refused")
     p.add_argument("--threshold", type=float, default=None)
     p.add_argument("--warmup", type=int, default=None, metavar="SIZE",
                    help="one request at SIZE x SIZE before listening")
@@ -486,11 +489,17 @@ def main(argv=None) -> int:
                    help="how long the first queued request waits for "
                         "company before dispatching")
     a = p.parse_args(argv)
+    if a.mesh is not None:
+        raise NotImplementedError(
+            "the daemon's --mesh (a rank-0 server broadcasting each request to "
+            "the other ranks) is ROADMAP queue item 5, the step after in-process "
+            "mesh serving; serve on one device, or run ServingModel(mesh=) on "
+            "every rank")
 
     server = build_server(run_dir=a.run_dir, checkpoint=a.checkpoint,
                           config=a.config, artifact=a.artifact, which=a.which,
                           depth_wire=a.depth_wire, quantize=a.quantize,
-                          threshold=a.threshold, mesh=a.mesh, device=a.device)
+                          threshold=a.threshold, device=a.device)
     if a.warmup:
         # the batcher dispatches at pad_to=max_batch: warm that pool too
         pools = [None] + ([a.max_batch] if a.max_batch

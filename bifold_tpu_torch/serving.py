@@ -28,6 +28,17 @@ The deployment half (bifold_tpu/serving.py:105-184, 358-386, 467, 536-700):
   wire schema of one observation shape and pool size, and the processor
   with its tokenizer model; :meth:`ServingModel.load_exported` serves it
   without the caller's config.
+- ``mesh=`` (bifold_tpu/serving.py:187-232, 294-303): every rank of a
+  ``torch.distributed`` group builds the server with the same weights and
+  calls it with the same observations, as JAX's multi-controller runs do.
+  The weights are sharded by the family's plan
+  (:mod:`~bifold_tpu_torch.parallel.sharding`): tp-sharded projections,
+  each rank computing its heads, and fsdp-sharded large leaves gathered
+  for each request; int8 payloads shard like their weights and a
+  per-output-channel scale follows the output axis. A pooled batch that
+  the data ranks divide is cut over them and the actions and raw outputs
+  are gathered; one that does not (batch 1) is served whole on every data
+  rank. ``export`` from a sharded server raises.
 """
 
 from __future__ import annotations
@@ -320,6 +331,17 @@ class ProgramMemory(NamedTuple):
     peak_over_weights_bytes: int
 
 
+def _tp_entry(value, tp, axis: int, blocks: int):
+    """This tp rank's part of a served weight: a tensor, or an int8 entry
+    whose scale is cut too where it spans the cut axis."""
+    if not isinstance(value, dict):
+        return tp.part(value, axis, blocks).contiguous()
+    q, scale = value[QUANT_TAG], value["scale"]
+    if scale.shape[axis] == q.shape[axis]:
+        scale = tp.part(scale, axis, blocks).contiguous()
+    return {QUANT_TAG: tp.part(q, axis, blocks).contiguous(), "scale": scale}
+
+
 class ServingModel:
     """Serve a copy of ``model`` (its weights replaced by ``state_dict`` when
     given) on ``device``, in eval mode. Big float32 weights (>= 2**16
@@ -329,13 +351,15 @@ class ServingModel:
     ``quantize_min_size``) are held as int8 and scales instead, and nothing
     else is cast. The copy leaves the caller's module as it was (a model can
     be served mid-training without rounding its float32 trainable masters),
-    as the JAX server works on a new params tree."""
+    as the JAX server works on a new params tree. ``mesh`` (a ``mesh``
+    config node or a :class:`~bifold_tpu_torch.parallel.Mesh`) shards it
+    over the default ``torch.distributed`` group (module docstring)."""
 
     def __init__(self, model, state_dict, processor: Processor, *,
                  threshold: Optional[float] = None,
                  depth_wire_dtype: str = "float32",
                  quantize: Optional[str] = None,
-                 quantize_min_size: int = 2 ** 16, device="cuda"):
+                 quantize_min_size: int = 2 ** 16, mesh=None, device="cuda"):
         if quantize not in (None, "int8"):
             raise ValueError(f"quantize {quantize!r}; None or 'int8'")
         device = resolve_device(device)
@@ -352,8 +376,33 @@ class ServingModel:
             weights = {n: w.to(cdtype) if w.dtype == torch.float32
                        and w.numel() >= _PRECAST_MIN_SIZE else w
                        for n, w in weights.items()}
-        _install(served, weights, cdtype)
+        placement = None
+        if mesh is not None:
+            from bifold_tpu_torch import parallel
+            from bifold_tpu_torch.parallel.sharding import Placement, make_plan
+
+            mesh = parallel.make_mesh(mesh)
+            plan = make_plan(served, dict(getattr(model, "config", {})).get("name"),
+                             mesh.shape)
+            if quantize == "int8":
+                if plan.units:
+                    raise NotImplementedError(
+                        f"int8 serving under mesh fsdp={mesh.fsdp}: the port "
+                        "shards int8 weights over tp only; ROADMAP queue item 5")
+                tp = Placement.tp_group(mesh)
+                params = dict(served.named_parameters())
+                for name, (axis, blocks) in plan.tp.items():
+                    weights[name] = _tp_entry(weights[name], tp, axis, blocks)
+                    params[name].data = tp.part(params[name].data, axis, blocks)
+                _install(served, weights, cdtype)
+                placement = Placement(served, plan, mesh, cut=False)
+            else:
+                _install(served, weights, cdtype)
+                placement = Placement(served, plan, mesh)
+        else:
+            _install(served, weights, cdtype)
         self._setup(served, processor, threshold, depth_wire_dtype, quantize)
+        self.mesh, self.placement = mesh, placement
 
     def _setup(self, model, processor, threshold, depth_wire_dtype, quantize):
         if depth_wire_dtype not in ("float32", "float16"):
@@ -364,6 +413,7 @@ class ServingModel:
         self.quantize = quantize
         self.threshold = float(model.threshold if threshold is None else threshold)
         self._depth_wire_f16 = depth_wire_dtype == "float16"
+        self.mesh = self.placement = None
 
     @classmethod
     def _served(cls, model, processor, threshold, depth_wire_dtype, quantize):
@@ -376,7 +426,7 @@ class ServingModel:
     def from_checkpoint(cls, checkpoint_path, cfg, threshold: Optional[float] = None,
                         depth_wire_dtype: str = "float32",
                         quantize: Optional[str] = None,
-                        quantize_min_size: int = 2 ** 16,
+                        quantize_min_size: int = 2 ** 16, mesh=None,
                         device="cuda") -> "ServingModel":
         """Serve a checkpoint of the JAX trainer (bifold_tpu/serving.py:358)
         or the port's: the model from ``cfg["model"]``, its params (and
@@ -387,7 +437,8 @@ class ServingModel:
         computes in ``cfg["precision"]["compute_dtype"]``, float32 when the
         config names none, as the JAX trainer reads it (trainer.py:98; the
         JAX package's from_checkpoint builds float32 whatever the config
-        says). Reads the file without JAX."""
+        says). Reads the file without JAX. ``mesh``: as the constructor
+        takes it."""
         from bifold_tpu_torch.models.convert import from_jax_variables
         from bifold_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -406,7 +457,7 @@ class ServingModel:
         return cls(model, state, processor,
                    threshold=threshold, depth_wire_dtype=depth_wire_dtype,
                    quantize=quantize, quantize_min_size=quantize_min_size,
-                   device=device)
+                   mesh=mesh, device=device)
 
     def _action_fields(self):
         return (("left_pick", "right_pick", "left_place", "right_place")
@@ -458,15 +509,34 @@ class ServingModel:
 
     @torch.inference_mode()
     def _serve(self, batched, spec, n: int, return_raw_output: bool):
-        """Upload, preprocess, forward, decode; the first ``n`` rows out."""
+        """Upload, preprocess, forward, decode; the first ``n`` rows out.
+        Under a mesh whose data ranks divide the batch, each computes its
+        slice and the results are gathered."""
         sample = self._preprocess(spec, self._upload(batched))
-        out = self.model(sample)
-        packed = self._decode(out, sample)[:n].cpu().numpy()   # the one fetch
+        mesh = self.mesh
+        rows = next(v.shape[0] for v in sample.values() if isinstance(v, torch.Tensor))
+        split = mesh is not None and mesh.data_size > 1 and rows % mesh.data_size == 0
+        if split:
+            from bifold_tpu_torch.parallel import shard_batch
+            sample = shard_batch(sample, mesh=mesh)
+        if self.placement is not None:
+            with self.placement.gathered():
+                out = self.model(sample)
+        else:
+            out = self.model(sample)
+        packed = self._decode(out, sample)
+        raw = {k: v for k, v in out.items() if isinstance(v, torch.Tensor)}
+        if split:
+            from bifold_tpu_torch.parallel.collectives import all_gather
+            group = mesh.groups["data"]
+            packed = all_gather(packed, group)
+            if return_raw_output:
+                raw = {k: all_gather(v, group) for k, v in raw.items()}
+        packed = packed[:n].cpu().numpy()   # the one fetch
         action = Action(**{f: packed[:, i]
                            for i, f in enumerate(self._action_fields())})
         if return_raw_output:
-            return action, {k: v[:n].cpu().numpy() for k, v in out.items()
-                            if isinstance(v, torch.Tensor)}
+            return action, {k: v[:n].cpu().numpy() for k, v in raw.items()}
         return action
 
     def _preprocess(self, spec, x: Dict[str, torch.Tensor]):
@@ -539,6 +609,11 @@ class ServingModel:
         ``autoprocessor_name`` and the embedded sentencepiece model, the
         pool size, and a ``format`` field naming it. The model must come
         from ``build_model`` (its config is recorded)."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "export from a mesh-sharded server: the artifact holds one "
+                "device's weights; export from a server without a mesh "
+                "(bifold_tpu/serving.py:555-560 refuses it too)")
         config = getattr(self.model, "config", None)
         if config is None:
             raise ValueError("export records the model config: serve a model "

@@ -9,15 +9,20 @@ How the port differs:
 
 - one device per process (``use_cpu: true`` asks for the CPU, else the
   CUDA card, which must be present). Under a ``torch.distributed`` group
-  (``parallel.distributed_init``, which ``__main__`` calls) the run is
-  data-parallel: the ``mesh`` config's ``dcn x dp`` must equal the ranks
-  (``dp: -1`` takes them all), each rank trains on the group's device with
-  its slice of every global batch (the loaders slice), the step sums the
-  gradients over the ranks, samples/s counts the global batch, pixel eval
-  sums each metric's sums and counts over the ranks, and only rank 0
-  writes the config snapshot, logs, checkpoints and eval yaml (the other
-  ranks wait for each checkpoint, then every rank resumes from the same
-  file). ``async_checkpoint`` writes synchronously under a group, as the
+  (``parallel.distributed_init``, which ``__main__`` calls) the ``mesh``
+  config lays the ranks out as JAX's Trainer reads it (``dcn x dp x fsdp
+  x tp`` equal to the ranks, ``dp: -1`` taking what the others leave;
+  ``parallel.make_mesh``), and the model is placed by its family's
+  sharding plan (``parallel.place``: tp-sharded projections, fsdp-sharded
+  large leaves, the optimizer on the shards). Each data rank (``dcn x dp
+  x fsdp``) trains on its slice of every global batch (the loaders slice;
+  a tp group shares its slice), the step reduces the gradients as the
+  plan says, samples/s counts the global batch, pixel eval sums each
+  metric's sums and counts over the data ranks, and only rank 0 writes
+  the config snapshot, logs, checkpoints and eval yaml. Checkpoints hold
+  full tensors: every rank takes part in gathering them, rank 0 writes,
+  the others wait, and every rank resumes from the same file, under any
+  mesh. ``async_checkpoint`` writes synchronously under a group, as the
   JAX package does with more than one process;
 - frozen parameters are ``requires_grad=False`` and the optimizer updates
   the trainable float32 masters in place; ``donate_state`` is accepted and
@@ -58,8 +63,8 @@ so either package's Trainer resumes the other's file.
 
 Not ported, and refused with the ROADMAP queue item that holds them:
 ``visualize_model_inputs`` and ``visualize_predictions`` (item 6), graph
-conditioning (item 4), mesh axes other than the data axes and MoE layers
-under a group of more than one rank (item 5). With ``simulator: softgym``
+conditioning (item 4), the mesh axes ``pp``, ``sp`` and ``ep`` and MoE
+layers over more than one data rank (item 5). With ``simulator: softgym``
 the final eval says that the closed loop is not ported (item 6) and takes
 pixel metrics, as the JAX Trainer does when its evaluator cannot be
 imported.
@@ -67,6 +72,7 @@ imported.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import random
 import signal
@@ -186,8 +192,9 @@ class Trainer:
         self.run_dir.mkdir(parents=True, exist_ok=True)
         self._refuse_unported(cfg)
         self._family = dict(cfg["model"])["name"]
-        self.world = parallel.check_mesh(
+        self.mesh = parallel.make_mesh(
             cfg.get("mesh", {}), moe_experts=int(dict(cfg["model"]).get("moe_experts") or 0))
+        self.world = self.mesh.world
         self.rank = parallel.rank()
         if self.rank == 0:
             save_config(cfg, self.run_dir / "config.yaml")
@@ -210,8 +217,9 @@ class Trainer:
                                  remat=bool(precision.get("remat", False)))
         self._maybe_load_t5_weights()
         (self.train_dataloader, self.test_dataloader,
-         self.processor) = get_dataloaders(cfg, device=self.device, process_id=self.rank,
-                                           process_count=self.world)
+         self.processor) = get_dataloaders(cfg, device=self.device,
+                                           process_id=self.mesh.data_rank,
+                                           process_count=self.mesh.data_size)
 
         self.metrics = Metrics(dict(cfg["metrics"]))
         self.epoch = 0
@@ -229,6 +237,7 @@ class Trainer:
         self._async_ckpt = None
         self.optimizer = None
         self._train_step = None
+        self.placement = None
         self._eval_step = parallel.make_eval_step(self.model)
         self.loss_fn = None
 
@@ -285,15 +294,17 @@ class Trainer:
         self._precast = bool(cfg.get("precast_frozen", True))
         if self._precast:
             precast_frozen(self.model, self.dtype)
-        named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
+        self._place()
         sched_cfg = dict(cfg["scheduler"]) if cfg.get("scheduler") else None
         self.optimizer = build_optimizer(
-            dict(cfg["optim"]), [p for _, p in named], sched_cfg, max_iters=max_iters,
-            gradient_clip=cfg.get("gradient_clip"), names=[n for n, _ in named])
+            dict(cfg["optim"]), self.placement.step_params, sched_cfg,
+            max_iters=max_iters, gradient_clip=cfg.get("gradient_clip"),
+            names=self.placement.step_names)
         moe_aux = (float(getattr(self.model, "moe_aux_weight", 0.0))
                    if int(getattr(self.model, "moe_experts", 0) or 0) else 0.0)
         self._train_step = parallel.make_train_step(
-            self.model, self.loss_fn, self.optimizer, moe_aux_weight=moe_aux)
+            self.model, self.loss_fn, self.optimizer, moe_aux_weight=moe_aux,
+            placement=self.placement)
         self._pull_ahead = max(1, int(cfg.get("steps_per_dispatch") or 1))
         self.load_model(prefer="last")
 
@@ -324,9 +335,24 @@ class Trainer:
         params tree (float32 numpy leaves; bfloat16 weights as their exact
         float32 upcast) and its BatchNorm statistics as JAX's
         ``{"batch_stats": ...}`` (empty for the families without)."""
+        sd = (self.placement.full_state_dict() if self.placement is not None
+              else self.model.state_dict())
         return to_jax_variables(
             self._family, {k: v.float() if v.dtype == torch.bfloat16 else v
-                           for k, v in self.model.state_dict().items()})
+                           for k, v in sd.items()})
+
+    def _place(self) -> None:
+        """Shard the model over the mesh by its family's plan (once; the
+        model then holds this rank's parts)."""
+        if self.placement is None:
+            self.placement = parallel.place(self.model, self._family, self.mesh)
+
+    def _optimizer_state(self):
+        """The optimizer's state with whole moments keyed by the model's
+        names (a collective under a sharded placement)."""
+        if self.optimizer is None:
+            return None
+        return self.placement.full_optimizer_state(self.optimizer)
 
     def params_tree(self) -> Dict[str, Any]:
         """The params half of :meth:`jax_variables`."""
@@ -335,7 +361,12 @@ class Trainer:
     def save_model(self, name: str) -> None:
         """Write ``checkpoints/<name>.ckpt`` (rank 0 only). Under a group the
         other ranks wait until it is written, so that a load that follows
-        reads it."""
+        reads it. Under a sharded placement every rank first takes part in
+        gathering the full tensors."""
+        sharded = self.placement is not None and (self.mesh.fsdp > 1 or self.mesh.tp > 1)
+        if sharded:
+            params, extra_vars = self.jax_variables()
+            opt_state = self._optimizer_state()
         if self.rank != 0:
             torch.distributed.barrier()
             return
@@ -349,11 +380,13 @@ class Trainer:
             if self._async_ckpt is not None:
                 self._async_ckpt.wait()
             saver = save_checkpoint
-        params, extra_vars = self.jax_variables()
+        if not sharded:
+            params, extra_vars = self.jax_variables()
+            opt_state = self._optimizer_state()
         saver(
             self.ckpt_dir / f"{name}.ckpt",
             params=params,
-            opt_state=self.optimizer.state_dict() if self.optimizer else None,
+            opt_state=opt_state,
             extra_vars=extra_vars, epoch=self.epoch, step=self.global_step,
             best_eval=self.metrics.best_eval, step_in_epoch=self._step_in_epoch,
             loop_key=None if self._loop_key is None else self._loop_key.get_state(),
@@ -380,9 +413,14 @@ class Trainer:
         payload = load_checkpoint(path)
         weights = from_jax_variables(self._family, payload["params"],
                                      payload.get("extra_vars"))
-        self.model.load_state_dict(
-            {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
-             for k, v in weights.items()}, strict=True)
+        weights = {k: v if isinstance(v, torch.Tensor)
+                   else torch.from_numpy(np.ascontiguousarray(v))
+                   for k, v in weights.items()}
+        if self.placement is not None:
+            self.placement.load_full_state_dict(weights)
+        else:
+            self.model.load_state_dict(weights, strict=True)
+            self._place()
         if not getattr(self, "_precast", False):
             low = [n for n, p in self.model.named_parameters()
                    if isinstance(weights[n], torch.Tensor)
@@ -393,8 +431,8 @@ class Trainer:
                     f"bfloat16 in the checkpoint, e.g. {low[0]}", stacklevel=2)
         ours = dict(payload.get("metadata") or {}).get("writer") == WRITER
         if self.optimizer is not None and payload.get("opt_state") is not None:
-            self.optimizer.load_state_dict(
-                payload["opt_state"] if ours else self._jax_opt_state(payload))
+            self.placement.load_optimizer_state(
+                self.optimizer, payload["opt_state"] if ours else self._jax_opt_state(payload))
         self.epoch = int(payload.get("epoch", 0))
         self.global_step = int(payload.get("step", 0))
         self.metrics.best_eval = payload.get("best_eval")
@@ -421,7 +459,7 @@ class Trainer:
         if adam is None or self.optimizer.mu is None:
             return {}
         count, mu, nu = adam.args
-        names = set(self.optimizer.names)
+        names = {n for n, p in self.model.named_parameters() if p.requires_grad}
         out = {"count": int(np.asarray(count))}
         for key, tree in (("mu", mu), ("nu", nu)):
             moments = from_jax_variables(self._family,
@@ -606,7 +644,7 @@ class Trainer:
             while len(pending) > readback_window:
                 running += float(pending.pop(0))
             first = next(v for v in batch.values() if isinstance(v, torch.Tensor))
-            samples += int(first.shape[0]) * self.world     # the global batch
+            samples += int(first.shape[0]) * self.mesh.data_size   # the global batch
             if self._terminate:
                 raise Preempted()
             if save_steps and self.global_step % save_steps == 0:
@@ -649,9 +687,12 @@ class Trainer:
         named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
         self.model.train()
         set_dropout_generator(self.model, torch.Generator(self.device).manual_seed(0))
+        gathered = (self.placement.gathered() if self.placement is not None
+                    else contextlib.nullcontext())
         try:
-            loss, _ = self.loss_fn(self.model(batch), batch)
-            grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+            with gathered:
+                loss, _ = self.loss_fn(self.model(batch), batch)
+                grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
         finally:
             set_dropout_generator(self.model, None)
         dead = [n for (n, _), g in zip(named, grads)
@@ -671,7 +712,9 @@ class Trainer:
         """No-grad forward (the inference kernel on the card) and decode ->
         Action of numpy (B, 2) pixel arrays."""
         device_batch, _ = split_batch(batch)
-        out = self._eval_step(device_batch)
+        with (self.placement.gathered() if self.placement is not None
+              else contextlib.nullcontext()):
+            out = self._eval_step(device_batch)
         model = self.model
         decoded = decode_action(out, device_batch, is_bimanual=model.is_bimanual,
                                 constrain_pick_mask=getattr(model, "constrain_pick_mask", True),
@@ -699,10 +742,13 @@ class Trainer:
 
     def eval_epoch_pixel(self):
         """Pixel metrics over the test loader; under a group each batch's
-        sums and counts are summed over the ranks first, so the metrics are
-        the global batches'."""
+        sums and counts are summed over the data ranks first, so the metrics
+        are the global batches'."""
+        self._place()
         self.metrics.reset()
-        reduce = parallel.all_reduce_values if self.world > 1 else None
+        group = self.mesh.groups["data"]
+        reduce = ((lambda values: parallel.all_reduce_values(values, group))
+                  if self.mesh.data_size > 1 else None)
         for batch in self.test_dataloader:
             action, raw_output = self.get_action(batch, return_raw_output=True)
             sample = {k: _numpy(v) if isinstance(v, torch.Tensor) else v

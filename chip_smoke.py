@@ -12,14 +12,16 @@ one JSON object per line:
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    main paths' shapes (the flash kernels at head dims 48 and 64 for the
    flagship, 32 for rgb_clip's fusion: 1 and 8 x 275 x 16 x 32 served, 2 x
-   275 x 16 x 32 trained), on all-masked rows with a ragged n and at the
+   275 x 16 x 32 trained; a mesh rank's shapes: 8 and 6 heads under tp=2,
+   half the batch under fsdp=2), on all-masked rows with a ragged n and at the
    mma tile edges (n = 17, n = 65, B*H = 96 at n = 300, the fused-qkv views,
    at every head dim), in bf16 and in f32 (TF32 off), with the tolerance it is
    held to: the inference forward, the forward with lse (out and lse) and
    the backward (dq, dk, dv; dq and dk exactly 0 on all-masked rows; two
    calls bitwise equal); q/k/v views that break the 16-byte row rule
    raise in the wrappers and the C entry points and compute nothing (at
-   d 32 and d 48, bf16 and f32); the
+   d 32 and d 48, bf16 and f32), while a tp rank's views of its fused
+   ``to_qkv`` rows (token strides 1152 and 576) pass; the
    four LayerNorm kernels (out, s, mean, rstd; dx, dscale, dbias) at
    C = 128, 256, 768 and 1024 (1-4 chunks per lane) times R = 1, 2, 5,
    300 and the train step's fusion and vision rows, and at 40000 x 768,
@@ -133,17 +135,27 @@ one JSON object per line:
    flagship and f32 text_unet, each rank's half of a global batch of 2
    within 1e-4 of the one-process step, running statistics within 1e-5,
    the ranks bitwise equal, each rank's flash launches the one-process
-   step's); each worker is this script run with arguments (``dp-cli``,
-   ``dp-rank``);
-11. the script's seconds, the ``kernels`` line (twenty kernel instances:
-   the flash kernels at three head dims in bf16, and in f32 those a main
-   path launches (the decoder's d32, remat_phase's d48 and d64 forward
-   with lse and backward), with their ptxas numbers (f32 rows: both
+   step's); then fsdp and tp with two gloo ranks on the card
+   (:func:`mesh_two_ranks`: the f32 flagship step under ``{fsdp: 2}`` and
+   ``{tp: 2}`` against one process's, 1e-5 and 1e-6, exact launches per
+   rank at the heads each rank runs, bytes held per rank, a tp step at
+   dropout 0.1 under ``fused``; the server under ``{tp: 2}`` and ``{dp:
+   2}`` in f32, and bf16 int8 under tp; ``export`` refused) and ``main``
+   under ``mesh.fsdp=2`` and ``mesh.tp=2`` (:func:`mesh_cli`: steps, eval,
+   checkpoints served by one process in f32, a stopped and resumed run
+   bitwise); each worker is this script run with arguments (``dp-cli``,
+   ``dp-rank``, ``mesh-rank``, ``mesh-cli``);
+11. the script's seconds, the ``kernels`` line (twenty-two kernel
+   instances: the flash kernels at three head dims in bf16, and in f32
+   those a main path launches (the decoder's d32, the f32 flagship's d48
+   and d64 forward with lse and backward in remat_phase and
+   mesh_two_ranks, and its inference forwards in mesh_two_ranks' server),
+   with their ptxas numbers (f32 rows: both
    bounds, FMA and 3xTF32, and the library's kernel names); the LayerNorm rows
    with those of their bf16 C = 768 instance and their largest f32 error
    at the decoder's C = 512 rows; each row names its design; its launches
-   are the sum of the main paths' own counts, the data-parallel workers'
-   included), then the card line, then the result line ``{"ok": true,
+   are the sum of the main paths' own counts, the data-parallel and mesh
+   workers' included), then the card line, then the result line ``{"ok": true,
    "device": {...}}``.
 
 Each path's launch counts are reset just before it and read just after.
@@ -166,6 +178,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -313,6 +326,7 @@ def check_kernels(fa):
              ("vision", 4, 576, 12, 64, False, None),
              ("rgb_clip fusion, batch 1", 1, 275, 16, 32, True, None),
              ("rgb_clip fusion, pool of 8", 8, 275, 16, 32, True, None)]
+    cases += TP_CASES["infer"]
     cases += [("ragged n=300, all-masked rows", 2, 300, 3, d, False, "rows")
               for d in HEAD_DIMS]
     cases += edge_cases()
@@ -336,6 +350,16 @@ def check_kernels(fa):
 # the flash kernels' instances: the flagship's fusion (48) and SigLIP
 # vision (64) stacks, rgb_clip's fusion stack (32)
 HEAD_DIMS = (32, 48, 64)
+# the shapes a rank of a mesh launches at: under tp=2 half the heads (the
+# fusion's q, k, v views of the rank's to_qkv rows, 3 x 384 wide), under
+# fsdp=2 half the batch
+TP_CASES = {
+    "infer": [("fusion, tp=2 rank: 8 heads", 1, 2373, 8, 48, True, 1),
+              ("vision, tp=2 rank: 6 heads", 4, 576, 6, 64, False, None)],
+    "train": [("fusion, tp=2 rank: 8 heads", 2, 2373, 8, 48, True, 1),
+              ("vision, tp=2 rank: 6 heads", 8, 576, 6, 64, False, None),
+              ("fusion, fsdp=2 rank: batch 1", 1, 2373, 16, 48, True, 1),
+              ("vision, fsdp=2 rank: batch 4", 4, 576, 12, 64, False, None)]}
 # the train steps' shapes: (B, N, H, fused qkv views)
 TRAIN_SHAPES = {48: (2, 2373, 16, True), 64: (8, 576, 12, False),
                 32: (2, 275, 16, True)}
@@ -357,8 +381,9 @@ def train_cases():
 
 
 def train_check_cases():
-    """:func:`train_cases` and the tile edges (:func:`edge_cases`)."""
-    return train_cases() + edge_cases()
+    """:func:`train_cases`, the tile edges (:func:`edge_cases`) and a mesh
+    rank's shapes (:data:`TP_CASES`)."""
+    return train_cases() + edge_cases() + TP_CASES["train"]
 
 
 def within_lse(out, ref):
@@ -487,6 +512,26 @@ def check_alignment(fa, d=48, dtype=torch.bfloat16):
           "cases": list(bad), "launches": launched})
     if launched:
         raise AssertionError(f"refused calls counted launches: {launched}")
+
+
+def check_tp_views(fa):
+    """The per-rank views of a tensor-parallel fused projection pass the
+    wrappers' 16-byte row rule: q, k and v of a rank's ``to_qkv`` rows
+    (token stride 3 x heads/tp x 48: 1152 elements at tp=2, 576 at tp=4),
+    in bf16 and f32, each within its plain version's tolerance."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for tp in (2, 4):
+            q, k, v = attention_inputs(gen, 1, 300, 16 // tp, 48, dtype, True)
+            out = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            err, tol, ok = within(out, fa.flash_attention_plain(q, k, v), dtype)
+            rows.append({"tp": tp, "dtype": str(dtype), "token_stride": q.stride(1),
+                         "max_abs_err": err, "tol": tol, "ok": ok})
+            if not ok:
+                raise AssertionError(f"tp={tp} to_qkv views disagree with plain ({dtype})")
+    emit({"phase": "tp_views_accepted", "cases": rows})
 
 
 def check_function_grads(fa):
@@ -1389,6 +1434,7 @@ def clear_launch_counts() -> None:
     from bifold_tpu_torch.ops import layer_norm as ln
 
     fa.LAUNCHES.clear()
+    fa.SHAPES.clear()
     ln.LAUNCHES.clear()
 
 
@@ -1588,7 +1634,7 @@ def train_flagship(card, mode="", warmup=3, steps=10) -> dict:
     return phase
 
 
-def train_interleaved(steppers, card, rounds=10):
+def train_interleaved(steppers, card, rounds=5):
     """The train step p50 of each LayerNorm mode, with the modes' steps
     taken in turns (default, pallas, fused, default, ...) on the same
     batches, so that drift of the shared host's speed falls on all modes
@@ -2407,11 +2453,14 @@ def trainer_profile(trainer, card, step_ms, label="trainer_device_profile"):
           "device_ops_per_step": sum(e.count for e in kernels) // steps, **card})
 
 
+PULL_AHEAD_ORDER = (1, 8, 8, 1)
+
+
 def trainer_pull_ahead(card):
     """The Trainer of :data:`CLI_OVERRIDES` with ``steps_per_dispatch`` 1
     (each batch stepped as it arrives, the loader's thread making the next
     ones meanwhile) and 8 (the default: 8 batches pulled, then stepped),
-    one epoch of 8 steps each in turns (1, 8, 8, 1, 1, 8, 8, 1), checkpoints
+    one epoch of 8 steps each in turns (1, 8, 8, 1), checkpoints
     off: each setting's step p50 (``train/step_time_s``) and samples/s per
     epoch. A measurement; no gate."""
     import shutil
@@ -2426,14 +2475,14 @@ def trainer_pull_ahead(card):
     trainers = {}
     for k in (1, 8):
         cfg = compose(list(CLI_OVERRIDES) + [
-            "epochs=4", "eval_epochs=0", f"steps_per_dispatch={k}",
+            "epochs=2", "eval_epochs=0", f"steps_per_dispatch={k}",
             f"run_dir={tmp / str(k)}"])
         trainers[k] = Trainer(Config(cfg), run_dir=tmp / str(k))
         trainers[k].save_model = lambda name: None
         trainers[k].prepare_train()
     step_ms = {1: [], 8: []}
     samples_per_s = {1: [], 8: []}
-    for epoch, k in enumerate((1, 8, 8, 1, 1, 8, 8, 1)):
+    for epoch, k in enumerate(PULL_AHEAD_ORDER):
         tr = trainers[k]
         tr.epoch = epoch // 2
         tr.train_epoch()
@@ -2448,7 +2497,7 @@ def trainer_pull_ahead(card):
     launches = launch_counts()
     del trainers, tr
     shutil.rmtree(tmp, ignore_errors=True)
-    emit({"phase": "trainer_pull_ahead", "order": [1, 8, 8, 1, 1, 8, 8, 1],
+    emit({"phase": "trainer_pull_ahead", "order": list(PULL_AHEAD_ORDER),
           "step_p50_ms": {k: statistics.median(v) for k, v in step_ms.items()},
           "step_ms": step_ms, "samples_per_s_per_epoch": samples_per_s,
           "seconds": time.perf_counter() - t0, "launches": launches, **card})
@@ -3394,25 +3443,33 @@ DP_STATS_TOL = 1e-5                      # f32: BatchNorm running statistics
 DP_FAMILY_STEP = {"flagship": f32_keys(PER_STEP), "text_unet": {}}
 
 
-def dp_step(family, device="cuda", shard=False):
-    """One f32 SGD step (clip 1.0) at dropout 0 of ``family`` ("flagship":
-    SiglipSequential at :data:`FLAGSHIP`; "text_unet": its composed config,
-    CLIP RN50) from the seeded init, on the seeded global batch of
-    :data:`TRAIN_BATCH` raw 384 px frames through the train Processor on
-    ``device``, or on this rank's slice of it (``shard``): its metrics,
-    launches, trainable tensors and buffers (on the CPU), and a hash of
-    every parameter."""
+def dp_step(family, device="cuda", shard=False, mesh=None, dropout=0.0, mode="",
+            optim=DP_SGD):
+    """One f32 SGD step (clip 1.0) at ``dropout`` (0 by default) of
+    ``family`` ("flagship": SiglipSequential at :data:`FLAGSHIP`;
+    "text_unet": its composed config, CLIP RN50) from the seeded init, on
+    the seeded global batch of :data:`TRAIN_BATCH` raw 384 px frames through
+    the train Processor on ``device``, or on this rank's slice of it
+    (``shard``), or placed on ``mesh`` (a config node: the model sharded by
+    its plan, the batch cut over the data ranks), under
+    ``BIFOLD_LN_KERNEL=mode``: its metrics, launches (and their shapes),
+    trainable tensors (gathered whole) and buffers (on the CPU), a hash of
+    every parameter this rank holds replicated, the bytes of parameters and
+    optimizer state it holds after the step, and the LayerNorm launches
+    one train step of this model takes in ``mode``."""
     import hashlib
 
+    from bifold_tpu_torch import parallel
     from bifold_tpu_torch.data.processor import Processor
     from bifold_tpu_torch.data.spm import fixture_model_bytes
     from bifold_tpu_torch.losses import build_loss
     from bifold_tpu_torch.models import build_model, trainable_mask
+    from bifold_tpu_torch.ops import flash_attention as fa
     from bifold_tpu_torch.optim import build_optimizer
     from bifold_tpu_torch.parallel import TrainState, make_train_step, shard_batch
 
     if family == "flagship":
-        cfg = {**FLAGSHIP, "lora_dropout": 0.0, "dropout": 0.0}
+        cfg = {**FLAGSHIP, "lora_dropout": dropout, "dropout": dropout}
         proc = Processor(TRAIN_PROCESSOR, partition="train", max_context_length=3,
                          autoprocessor_name=FLAGSHIP["automodel_name"],
                          spm_asset=fixture_model_bytes(), seed=0)
@@ -3429,23 +3486,47 @@ def dp_step(family, device="cuda", shard=False):
         sample = shard_batch(sample)
     model = build_model(cfg, dtype=torch.float32, device=device, seed=0)
     mask = trainable_mask(model, lora=True)
-    opt = build_optimizer(dict(DP_SGD), [p for p in model.parameters() if p.requires_grad],
-                          None, max_iters=10, gradient_clip=1.0)
-    step = make_train_step(model, build_loss(dict(LOSS)), opt)
-    clear_launch_counts()                # the step starts here
-    _, metrics = step(TrainState.create(opt, seed=0), sample)
-    if device == "cuda":
-        torch.cuda.synchronize()
-    launches = launch_counts()           # ... and ends here
-    state = model.state_dict()
+    ln_want = ln_launches(model, mode, True) if family == "flagship" else {}
+    placement, t = None, time.perf_counter()
+    if mesh is not None:
+        mesh = parallel.make_mesh(mesh)
+        placement = parallel.place(model, cfg["name"], mesh)
+        sample = shard_batch(sample, mesh=mesh)
+        params, names = placement.step_params, placement.step_names
+    else:
+        params, names = [p for p in model.parameters() if p.requires_grad], None
+    opt = build_optimizer(dict(optim), params, None, max_iters=10, gradient_clip=1.0,
+                          names=names)
+    step = make_train_step(model, build_loss(dict(LOSS)), opt, placement=placement)
+    place_s = time.perf_counter() - t
+    with ln_mode(mode):
+        clear_launch_counts()            # the step starts here
+        t = time.perf_counter()
+        _, metrics = step(TrainState.create(opt, seed=0), sample)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+        launches = launch_counts()       # ... and ends here
+    shapes = {f"{k} {list(shape)}": n for (k, shape), n in fa.SHAPES.items()}
+    if placement is not None:
+        held = placement.held_bytes(opt)
+        state = placement.full_state_dict()
+        local = [(n, p) for n, p in model.named_parameters()
+                 if n not in placement.plan.tp and n not in placement.managed]
+    else:
+        held = sum(t.numel() * t.element_size() for t in [
+            *model.parameters(), *(v for key in opt._MOMENTS for v in getattr(opt, key) or ())])
+        state = model.state_dict()
+        local = list(model.named_parameters())
     digest = hashlib.sha256()
-    for name, p in model.named_parameters():
+    for name, p in local:
         digest.update(p.detach().cpu().numpy().tobytes())
     return {"metrics": {k: float(v) for k, v in metrics.items()}, "launches": launches,
-            "batch": int(sample["depth"].shape[0]),
+            "shapes": shapes, "batch": int(sample["depth"].shape[0]),
             "trainable": {n: state[n].detach().cpu() for n, t in mask.items() if t},
             "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()},
-            "hash": digest.hexdigest()}
+            "hash": digest.hexdigest(), "held_bytes": held,
+            "ln_want": ln_want, "place_seconds": place_s, "step_seconds": step_s}
 
 
 def dp_rank_worker(rank, port, out, device="cuda"):
@@ -3549,7 +3630,448 @@ def dp_two_ranks(card, device="cuda"):
     return dict(launches)
 
 
-WORKERS = {"dp-cli": dp_cli_worker, "dp-rank": dp_rank_worker}
+MESH_RANKS = 2
+# f32 flagship steps under a mesh against the one-process step: loss and
+# gradient norm relative, every trainable tensor absolute
+MESH_TOL = 1e-5
+MESH_PARAM_TOL = 1e-6
+MESH_SGD = {"name": "sgd", "lr": 1e-3, "momentum": 0.9}   # a moment to shard
+MESH_STEPS = {"fsdp": {"fsdp": 2}, "tp": {"tp": 2}}
+# the heads each rank's flash launches run at, per head dim
+MESH_HEADS = {"fsdp": {48: 16, 64: 12}, "tp": {48: 8, 64: 6}}
+MESH_SERVE = {"tp": {"tp": 2}, "dp": {"dp": 2}}
+MESH_SERVED = (("tp", torch.float32, None), ("dp", torch.float32, None),
+               ("tp_int8", torch.bfloat16, "int8"))
+MESH_POOL = 8
+MESH_F32_HEATMAP_TOL = 1e-4
+# a whole bf16 network's heatmaps, two summation orders apart (the tp
+# ranks' row-parallel halves summed in f32 and rounded once more): 0.084
+# at most over 9 x 4 heatmaps of 384^2 on an H100 80GB HBM3 at 700 W, as
+# far as one process's own bf16 int8 server is from its f32 int8 one
+# (0.085), its decoded actions 1-2 px apart (PERF.md)
+MESH_BF16_HEATMAP_TOL = 2.0 ** -3
+
+
+def heads_of(shapes: dict, mesh: str) -> bool:
+    """Every flash launch in ``shapes`` ("<key> [B, N, H, D]" -> count) at
+    the heads a rank of ``mesh`` computes."""
+    want = MESH_HEADS[mesh]
+    return bool(shapes) and all(
+        json.loads(k.split(" ", 1)[1])[2] == want[json.loads(k.split(" ", 1)[1])[3]]
+        for k in shapes)
+
+
+def mesh_serve(mesh, dtype, quantize, device="cuda"):
+    """The flagship served in ``dtype`` (``quantize``) on ``mesh`` (None:
+    one process) at batch 1 and at a pool of :data:`MESH_POOL`: each
+    request's actions, raw outputs and launches (and their shapes), and
+    whether ``export`` refused the sharded server."""
+    from bifold_tpu_torch.data.processor import Processor
+    from bifold_tpu_torch.data.spm import fixture_model_bytes
+    from bifold_tpu_torch.models import build_model
+    from bifold_tpu_torch.ops import flash_attention as fa
+    from bifold_tpu_torch.serving import ServingModel
+
+    model = build_model(FLAGSHIP, dtype=dtype, device=device, seed=0)
+    proc = Processor(PROCESSOR, max_context_length=3,
+                     autoprocessor_name=FLAGSHIP["automodel_name"],
+                     spm_asset=fixture_model_bytes())
+    server = ServingModel(model, None, proc, quantize=quantize, mesh=mesh, device=device)
+    del model
+    rng = np.random.default_rng(17)
+    out = {}
+    for name, n in (("batch_1", 1), ("pool", MESH_POOL)):
+        obs = [observation(rng, n_ctx=3) for _ in range(n)]
+        texts = [INSTRUCTIONS[i % len(INSTRUCTIONS)] for i in range(n)]
+        batch = [dict(o, instruction=t) for o, t in zip(obs, texts)]
+        server.predict_batch(batch)              # warm
+        clear_launch_counts()
+        action, raw = server.predict_batch(batch, return_raw_output=True)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[name] = {"action": {f: np.asarray(getattr(action, f)) for f in ACTION_FIELDS},
+                     "raw": raw, "launches": launch_counts(),
+                     "shapes": {f"{k} {list(s)}": c for (k, s), c in fa.SHAPES.items()}}
+        check_action(action, raw, n, FLAGSHIP["image_size"])
+    if mesh is not None:
+        try:
+            server.export(Path(tempfile.gettempdir()) / "never.pt", **obs[0])
+            out["export"] = "exported"
+        except NotImplementedError as err:
+            out["export"] = str(err)
+    return out
+
+
+def mesh_rank_worker(rank, port, out, device="cuda"):
+    """``python3 chip_smoke.py mesh-rank RANK PORT OUT [DEVICE]``: rank
+    ``RANK`` of :data:`MESH_RANKS` in a gloo group on the one card, TF32 off
+    as in :func:`main`: the f32 flagship step under each of
+    :data:`MESH_STEPS`, a tp step at dropout 0.1 under
+    ``BIFOLD_LN_KERNEL=fused``, and the flagship served under each of
+    :data:`MESH_SERVE` in f32 and, under tp, in bf16 int8; saves the
+    results to ``OUT/rank<RANK>.pt``."""
+    from bifold_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(rank)
+    parallel.distributed_init(f"tcp://localhost:{port}", MESH_RANKS, rank,
+                              device="cuda:0" if device == "cuda" else "cpu",
+                              backend="gloo")
+    results = {"steps": {}, "serve": {}}
+    for name, mesh in MESH_STEPS.items():
+        results["steps"][name] = dp_step("flagship", device, mesh=mesh, optim=MESH_SGD)
+    results["dropout"] = dp_step("flagship", device, mesh=MESH_STEPS["tp"], dropout=0.1,
+                                 mode="fused", optim=MESH_SGD)
+    for name, mesh in MESH_SERVE.items():
+        results["serve"][name] = mesh_serve(mesh, torch.float32, None, device)
+    results["serve"]["tp_int8"] = mesh_serve(MESH_STEPS["tp"], torch.bfloat16, "int8",
+                                             device)
+    results["backend"] = str(torch.distributed.get_backend())
+    torch.save(results, Path(out) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(worker, out, *args):
+    """:data:`MESH_RANKS` processes of this script as ``worker`` ranks
+    (``worker RANK PORT OUT ARGS...``), started; :func:`wait_ranks` waits."""
+    script = str(Path(__file__).resolve())
+    port = _free_port()
+    Path(out).mkdir(parents=True, exist_ok=True)
+    return [subprocess.Popen([sys.executable, script, worker, str(r), str(port), str(out),
+                              *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, cwd=str(Path(script).parent))
+            for r in range(MESH_RANKS)]
+
+
+def wait_ranks(procs, worker, out, timeout=900):
+    """Wait for :func:`spawn_ranks`' processes and load each rank's
+    ``OUT/rank<R>.pt``; raises with a rank's error output if one fails,
+    and stops every rank on the way out."""
+    try:
+        for r, proc in enumerate(procs):
+            _, err = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                raise AssertionError(f"{worker} rank {r}: exit {proc.returncode}\n"
+                                     f"{err[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return [torch.load(Path(out) / f"rank{r}.pt", weights_only=False)
+            for r in range(MESH_RANKS)]
+
+
+def mesh_two_ranks(card, device="cuda"):
+    """fsdp and tp on the one card: two gloo ranks (:func:`mesh_rank_worker`;
+    every collective staged through host memory, so their times measure
+    that staging and not NCCL). The full-width, full-depth f32 flagship at
+    dropout 0, global batch 2, SGD (momentum 0.9), from the same weights
+    and batch, under ``{fsdp: 2}`` and ``{tp: 2}``, each held against the
+    one-process step in this process: loss and gradient norm within
+    :data:`MESH_TOL` relative, every trainable tensor (gathered whole)
+    within :data:`MESH_PARAM_TOL`; per rank exactly the f32 flash launches
+    of one step (8 + 12 forwards with lse and backwards), at 16 and 12
+    heads under fsdp and 8 and 6 under tp; the tp ranks' replicated
+    tensors bitwise equal; under fsdp each rank's bytes of parameters and
+    optimizer state beside one process's. A tp step at dropout 0.1 under
+    ``BIFOLD_LN_KERNEL=fused``: replicated tensors bitwise equal across
+    the tp group, the fused LayerNorm launches exact. The f32 flagship
+    served under ``{tp: 2}`` and ``{dp: 2}`` at batch 1 and a pool of 8:
+    actions identical to the one-process server's, heatmaps within
+    :data:`MESH_F32_HEATMAP_TOL`, exact inference launches per request;
+    bf16 int8 under ``{tp: 2}``: heatmaps within
+    :data:`MESH_BF16_HEATMAP_TOL`, decoded actions reported beside one
+    process's, and one process's own bf16 int8 heatmaps' distance from its
+    f32 int8 ones beside them; ``export`` refused. Returns every rank's
+    launches."""
+    import shutil
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bifold_mesh_ranks_"))
+    procs = spawn_ranks("mesh-rank", tmp, device)
+    # the one-process references while the ranks run (launches of this
+    # process are not counted: only the ranks' own counts are summed)
+    one = dp_step("flagship", device, optim=MESH_SGD)
+    refs = {name: mesh_serve(None, dtype, quantize, device)
+            for name, dtype, quantize in MESH_SERVED}
+    # how far one process's bf16 int8 server is from its f32 one: the
+    # scale of bf16's own error, beside the tp ranks' distance from it
+    f32_int8 = mesh_serve(None, torch.float32, "int8", device)
+    bf16_error = {case: max(float(np.abs(refs["tp_int8"][case]["raw"][k]
+                                         - f32_int8[case]["raw"][k]).max())
+                            for k in f32_int8[case]["raw"]) for case in ("batch_1", "pool")}
+    del f32_int8
+    ranks = wait_ranks(procs, "mesh-rank", tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches, ok, lines = collections.Counter(), True, {}
+    want_step = f32_keys(PER_STEP)
+    for name in MESH_STEPS:
+        worst = {"metrics": 0.0, "trainable": 0.0}
+        for r in ranks:
+            got = r["steps"][name]
+            launches.update(got["launches"])
+            worst["metrics"] = max([worst["metrics"]] + [
+                abs(got["metrics"][k] - one["metrics"][k]) / max(abs(one["metrics"][k]), 1e-30)
+                for k in ("loss", "grad_norm")])
+            worst["trainable"] = max([worst["trainable"]] + [
+                float((got["trainable"][n] - v).abs().max()) for n, v in
+                one["trainable"].items() if v.numel()])
+        same_keys = all(sorted(r["steps"][name]["trainable"]) == sorted(one["trainable"])
+                        for r in ranks)
+        rank_launches = [r["steps"][name]["launches"] for r in ranks]
+        heads = all(heads_of(r["steps"][name]["shapes"], name) for r in ranks)
+        replicated = len({r["steps"][name]["hash"] for r in ranks}) == 1
+        lines[name] = {
+            "loss": one["metrics"]["loss"], "grad_norm": one["metrics"]["grad_norm"],
+            "max_rel_diff_loss_grad_norm": worst["metrics"],
+            "max_abs_diff_trainable": worst["trainable"],
+            "launches_per_rank": rank_launches, "shapes_per_rank": [
+                r["steps"][name]["shapes"] for r in ranks], "heads_ok": heads,
+            "batch_per_rank": [r["steps"][name]["batch"] for r in ranks],
+            "held_bytes_per_rank": [r["steps"][name]["held_bytes"] for r in ranks],
+            "one_process_held_bytes": one["held_bytes"],
+            "replicated_bitwise_equal": replicated,
+            "first_step_seconds_host_staged": [r["steps"][name]["step_seconds"]
+                                               for r in ranks],
+            "one_process_first_step_seconds": one["step_seconds"],
+            "place_seconds": [r["steps"][name]["place_seconds"] for r in ranks]}
+        ok &= (same_keys and worst["metrics"] <= MESH_TOL
+               and worst["trainable"] <= MESH_PARAM_TOL
+               and (name != "tp" or replicated)
+               and (device == "cpu" or (heads and all(d == want_step for d in rank_launches))))
+    drop = [r["dropout"] for r in ranks]
+    for d in drop:
+        launches.update(d["launches"])
+    fused_want = {**want_step, **drop[0]["ln_want"]}
+    lines["tp_dropout_fused"] = {
+        "replicated_bitwise_equal": drop[0]["hash"] == drop[1]["hash"],
+        "launches_per_rank": [d["launches"] for d in drop], "want": fused_want,
+        "loss": [d["metrics"]["loss"] for d in drop]}
+    ok &= drop[0]["hash"] == drop[1]["hash"] and (device == "cpu" or all(
+        d["launches"] == fused_want for d in drop))
+    del one
+    infer = f32_keys(INFER)
+    for name, dtype, quantize in MESH_SERVED:
+        ref = refs.pop(name)
+        rows = {}
+        for case in ("batch_1", "pool"):
+            want = ref[case]
+            heat = max(float(np.abs(r["serve"][name][case]["raw"][k]
+                                    - want["raw"][k]).max())
+                       for r in ranks for k in want["raw"])
+            same = all(np.array_equal(r["serve"][name][case]["action"][f], want["action"][f])
+                       for r in ranks for f in ACTION_FIELDS)
+            per_rank = [r["serve"][name][case]["launches"] for r in ranks]
+            for d in per_rank:
+                launches.update(d)
+            want_launches = want["launches"]
+            ok &= want_launches == (infer if dtype == torch.float32 else INFER) or \
+                device == "cpu"
+            heads = all(heads_of(r["serve"][name][case]["shapes"], "tp")
+                        for r in ranks) if name.startswith("tp") else True
+            rows[case] = {"max_abs_diff_heatmaps": heat, "actions_identical": same,
+                          "launches_per_rank": per_rank, "shapes_per_rank": [
+                              r["serve"][name][case]["shapes"] for r in ranks],
+                          "actions": {f: ranks[0]["serve"][name][case]["action"][f].tolist()
+                                      for f in ACTION_FIELDS},
+                          "one_process_actions": {f: want["action"][f].tolist()
+                                                  for f in ACTION_FIELDS}}
+            tol = MESH_F32_HEATMAP_TOL if dtype == torch.float32 else MESH_BF16_HEATMAP_TOL
+            ok &= heat <= tol and (dtype != torch.float32 or same) and (
+                device == "cpu" or (heads and all(d == want_launches for d in per_rank)))
+        refused = all("mesh-sharded" in r["serve"][name].get("export", "") for r in ranks)
+        ok &= refused
+        lines[f"serve_{name}"] = {**rows, "export_refused": refused, "dtype": str(dtype),
+                                  "quantize": quantize}
+        if dtype == torch.bfloat16:
+            lines[f"serve_{name}"]["one_process_bf16_vs_f32_heatmaps"] = bf16_error
+        del ref
+    emit({"phase": "mesh_two_ranks", "ranks": MESH_RANKS, "device": "one card, each rank",
+          "backend": ranks[0]["backend"], "collectives": "gloo, staged through host memory",
+          "dtype": "float32 steps", "tol": MESH_TOL, "param_tol": MESH_PARAM_TOL,
+          **lines, "seconds": time.perf_counter() - t0, **card})
+    if not ok:
+        raise AssertionError("mesh_two_ranks failed (see its line)")
+    return dict(launches)
+
+
+# 2 steps per epoch; pixel eval after the second epoch, in the unstopped
+# run only (the stopped and resumed runs write last.ckpt alone)
+MESH_CLI = ("train_dataset.n_samples=4", "test_batch_size=2")
+MESH_CLI_MESHES = {"fsdp": "mesh.fsdp=2", "tp": "mesh.tp=2"}
+
+
+def f32_config(run_dir):
+    """A run's config with the model computing in float32: its checkpoint
+    (float32 masters, the frozen bf16 towers' exact upcasts) served so that
+    a sharded server and one process agree to f32 rounding."""
+    from bifold_tpu_torch.config import load_yaml
+
+    cfg = load_yaml(Path(run_dir) / "config.yaml")
+    return {**cfg, "precision": {**dict(cfg.get("precision") or {}),
+                                 "compute_dtype": "float32"}}
+
+
+def mesh_cli_worker(rank, port, out, device="cuda", name="fsdp"):
+    """``python3 chip_smoke.py mesh-cli RANK PORT OUT DEVICE MESH``: rank
+    ``RANK`` of :data:`MESH_RANKS` joins a gloo group on the card, then runs
+    ``main`` of ``bifold_tpu_torch.__main__`` (which finds the group up and
+    keeps it) under ``MESH`` (:data:`MESH_CLI_MESHES`) three times on the
+    bf16 flagship: 2 epochs of 2 steps with pixel eval and checkpoints; 1
+    epoch; and 2 epochs again from that one's checkpoints (a resume).
+    Saves each run's launches, exit code, run dir, checkpoint seconds and
+    the sharded server's output on the last checkpoint to
+    ``OUT/rank<RANK>.pt``."""
+    import shutil
+
+    from bifold_tpu_torch import __main__ as cli
+    from bifold_tpu_torch import parallel
+    from bifold_tpu_torch.config import compose
+    from bifold_tpu_torch.serving import ServingModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(rank)
+    torch.set_num_threads(2)             # two pairs of ranks share the host
+    parallel.distributed_init(f"tcp://localhost:{port}", MESH_RANKS, rank,
+                              device="cuda:0" if device == "cuda" else "cpu",
+                              backend="gloo")
+    base = [o for o in CLI_OVERRIDES
+            if not o.startswith(("epochs", "eval_epochs", "train_dataset.n_samples"))]
+    base += list(MESH_CLI) + [MESH_CLI_MESHES[name]] + (
+        ["use_cpu=true"] if device == "cpu" else [])
+    runs = {}
+    for run, epochs, root in (("straight", 2, "a"), ("first", 1, "b"), ("resumed", 2, "b")):
+        overrides = base + [f"epochs={epochs}", f"run_dir={Path(out) / root}",
+                            f"eval_epochs={2 if run == 'straight' else 0}"]
+        run_dir = Path(compose(overrides)["run_dir"]) / cli.run_dir_name(
+            cli.override_dirname(overrides))
+        if run == "resumed" and rank == 0:
+            shutil.copytree(runs["first"]["run_dir"] / "checkpoints",
+                            run_dir / "checkpoints")
+        torch.distributed.barrier()
+        record = {}
+        clear_launch_counts()
+        code, _, seconds = run_cli(overrides, record)
+        trainer = record.pop("trainers")[0]
+        runs[run] = {"code": code, "seconds": seconds, "run_dir": run_dir,
+                     "steps": record.get("steps", []), "evals": record.get("evals", []),
+                     "epochs": record.get("epochs", []), "global_step": trainer.global_step,
+                     "data_size": trainer.mesh.data_size,
+                     "save_seconds": record.get("saves", []),
+                     "load_seconds": record.get("loads", [])}
+        del trainer, record
+    server = ServingModel.from_checkpoint(
+        runs["straight"]["run_dir"] / "checkpoints" / "last.ckpt",
+        f32_config(runs["straight"]["run_dir"]),
+        mesh={"tp": 2} if name == "tp" else {"dp": 2}, device=device)
+    obs = observation(np.random.default_rng(23), n_ctx=3)
+    action, raw = server.predict(**obs, instruction=INSTRUCTIONS[1],
+                                 return_raw_output=True)
+    runs["served"] = {"action": {f: np.asarray(getattr(action, f)) for f in ACTION_FIELDS},
+                      "raw": raw}
+    del server
+    runs = {k: ({**v, "run_dir": str(v["run_dir"])} if "run_dir" in v else v)
+            for k, v in runs.items()}
+    torch.save(runs, Path(out) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_cli(card, device="cuda"):
+    """``main`` under a mesh: two gloo ranks on the card
+    (:func:`mesh_cli_worker`) train the bf16 flagship through
+    ``bifold_tpu_torch.__main__.main`` with ``mesh.fsdp=2`` and then with
+    ``mesh.tp=2``: 4 steps, pixel eval and checkpoints each; exactly
+    ``PER_STEP`` launches per step and ``INFER`` per eval batch on each
+    rank. Then, in this process: each ``last.ckpt`` served in f32 by a
+    one-process ``ServingModel.from_checkpoint`` (the gathered weights,
+    read back), its actions identical to the ranks' sharded server's on
+    the same file and its heatmaps within :data:`MESH_F32_HEATMAP_TOL`;
+    and a run stopped after its first epoch and
+    resumed under the same mesh, whose ``last.ckpt`` equals the unstopped
+    run's bitwise (every leaf, the optimizer's moments gathered whole
+    included). Returns every rank's launches."""
+    import shutil
+
+    from bifold_tpu_torch.serving import ServingModel
+    from bifold_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bifold_mesh_cli_"))
+    # both meshes at once, each a pair of ranks of its own
+    pairs = {name: spawn_ranks("mesh-cli", tmp / name, device, name)
+             for name in MESH_CLI_MESHES}
+    ranks = {name: wait_ranks(procs, "mesh-cli", tmp / name) for name, procs in pairs.items()}
+    launches, ok, lines = collections.Counter(), True, {}
+    for name in MESH_CLI_MESHES:
+        runs = ranks[name]
+        for r in runs:
+            for run in ("straight", "first", "resumed"):
+                for d in r[run]["steps"] + r[run]["evals"]:
+                    launches.update(d)
+        straight, resumed = (Path(runs[0][k]["run_dir"]) / "checkpoints" / "last.ckpt"
+                             for k in ("straight", "resumed"))
+        a, b = load_checkpoint(straight), load_checkpoint(resumed)
+        leaves = {k: (nested_leaves(a[k]), nested_leaves(b[k]))
+                  for k in ("params", "opt_state")}
+        bitwise = all(len(x) == len(y) and all(np.array_equal(np.asarray(p), np.asarray(q))
+                                               for p, q in zip(x, y))
+                      for x, y in leaves.values())
+        server = ServingModel.from_checkpoint(
+            straight, f32_config(Path(runs[0]["straight"]["run_dir"])), device=device)
+        obs = observation(np.random.default_rng(23), n_ctx=3)
+        action, raw = server.predict(**obs, instruction=INSTRUCTIONS[1],
+                                     return_raw_output=True)
+        check_action(action, raw, 1, FLAGSHIP["image_size"])
+        del server
+        heat = max(float(np.abs(r["served"]["raw"][k] - raw[k]).max())
+                   for r in runs for k in raw)
+        same = all(np.array_equal(r["served"]["action"][f], np.asarray(getattr(action, f)))
+                   for r in runs for f in ACTION_FIELDS)
+        per_step = [d == PER_STEP for r in runs for run in ("straight", "first", "resumed")
+                    for d in r[run]["steps"]]
+        per_eval = [d == INFER for r in runs for run in ("straight", "first", "resumed")
+                    for d in r[run]["evals"]]
+        counts = [(len(r["straight"]["steps"]), len(r["first"]["steps"]),
+                   len(r["resumed"]["steps"])) for r in runs]
+        lines[name] = {
+            "exit_codes": [[r[k]["code"] for k in ("straight", "first", "resumed")] for r in runs],
+            "steps_per_run": counts, "resumed_epochs": [r["resumed"]["epochs"] for r in runs],
+            "global_step": [r["resumed"]["global_step"] for r in runs],
+            "data_ranks": runs[0]["straight"]["data_size"],
+            "launches_ok": [all(per_step), all(per_eval)],
+            "resume_bitwise": bitwise,
+            "served_f32_max_abs_diff_heatmaps": heat, "served_actions_identical": same,
+            "actions_sharded": {f: runs[0]["served"]["action"][f].tolist()
+                                for f in ACTION_FIELDS},
+            "actions_one_process": {f: np.asarray(getattr(action, f)).tolist()
+                                    for f in ACTION_FIELDS},
+            "seconds_per_run": [[r[k]["seconds"] for k in ("straight", "first", "resumed")]
+                                for r in runs],
+            "checkpoint_write_seconds": [[r[k]["save_seconds"] for k in
+                                          ("straight", "first", "resumed")] for r in runs],
+            "resume_load_seconds": [r["resumed"]["load_seconds"] for r in runs]}
+        ok &= (all(r[k]["code"] == 0 for r in runs for k in ("straight", "first", "resumed"))
+               and all(c == (4, 2, 2) for c in counts) and bitwise
+               and all(r["resumed"]["epochs"] == [1] for r in runs)
+               and heat <= MESH_F32_HEATMAP_TOL and same
+               and (device == "cpu" or (all(per_step) and all(per_eval)
+                                        and bool(per_step) and bool(per_eval))))
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "mesh_cli", "ranks": MESH_RANKS, "entry": "bifold_tpu_torch.__main__.main",
+          "collectives": "gloo, staged through host memory", **lines,
+          "seconds": time.perf_counter() - t0, **card})
+    if not ok:
+        raise AssertionError("mesh_cli failed (see its line)")
+    return dict(launches)
+
+
+WORKERS = {"dp-cli": dp_cli_worker, "dp-rank": dp_rank_worker,
+           "mesh-rank": mesh_rank_worker, "mesh-cli": mesh_cli_worker}
 
 
 def serving_phase(server, mode, name, obs_list, p50):
@@ -3728,6 +4250,7 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         for d in (32, 48):
             check_alignment(fa, d, dtype)
+    check_tp_views(fa)
     check_function_grads(fa)
     check_auto_route(fa)
     # every main-path run, each with its counts reset just before it and
@@ -3756,7 +4279,7 @@ def main() -> int:
     remat, remat_launches = remat_phase(card)
     t5_phases, t5_trainers = t5_family(card)
     serve_phases += t5_phases
-    dp_runs = [dp_nccl(card), dp_two_ranks(card)]
+    dp_runs = [dp_nccl(card), dp_two_ranks(card), mesh_two_ranks(card), mesh_cli(card)]
     emit({"phase": "train_peak_memory", "max_memory_allocated_bytes": {
         phase["mode"] or "default": phase["where"]["max_memory_allocated_bytes"]
         for phase in phases}, "variants_trainer_cli_bytes": variant_peaks,
@@ -3788,16 +4311,18 @@ def main() -> int:
     sources = {"flash_fwd_infer": ("flash_fwd.cu", 250, "serving: predict"),
                "flash_fwd_lse": ("flash_fwd.cu", 241, "training: train step"),
                "flash_bwd": ("flash_bwd.cu", 360, "training: train step")}
-    stacks = {torch.bfloat16: {48: "flagship fusion", 64: "flagship vision",
+    stacks = {torch.bfloat16: {48: "flagship fusion (16 heads; 8 per tp=2 rank)",
+                               64: "flagship vision (12 heads; 6 per tp=2 rank)",
                                32: "rgb_clip fusion"},
-              torch.float32: {48: "f32 flagship fusion (remat_phase)",
-                              64: "f32 flagship vision (remat_phase)",
+              torch.float32: {48: "f32 flagship fusion (remat_phase, mesh_two_ranks; "
+                                  "8 heads per tp=2 rank)",
+                              64: "f32 flagship vision (remat_phase, mesh_two_ranks; "
+                                  "6 heads per tp=2 rank)",
                               32: "transformer decoder (pick_place_transdecoder)"}}
     # the f32 instances that a main path launches: the transformer
-    # decoder's, served and trained, and the f32 flagship's in
-    # remat_phase, trained only (the f32 inference forwards at d48 and d64
-    # run in checks alone; they are timed, not listed here)
-    f32_on_path = {"flash_fwd_infer": (32,), "flash_fwd_lse": (48, 64, 32),
+    # decoder's, served and trained, the f32 flagship's, trained in
+    # remat_phase and mesh_two_ranks and served in mesh_two_ranks
+    f32_on_path = {"flash_fwd_infer": (32, 48, 64), "flash_fwd_lse": (48, 64, 32),
                    "flash_bwd": (48, 64, 32)}
     kernels = []
     for dtype, design in ((torch.bfloat16, "mma.sync bf16"),

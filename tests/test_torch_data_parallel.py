@@ -29,8 +29,9 @@ Held:
   metrics, summed over the ranks as sums and counts, equal a one-process
   eval of the same weights;
 - ``distributed_init`` is a no-op without an environment, and
-  ``check_mesh`` refuses fsdp, tp, pp, sp, ep and MoE over more than one
-  rank, each naming its ROADMAP step, and a dcn x dp that does not match.
+  ``check_mesh`` takes fsdp and tp (tests/test_torch_mesh.py runs them),
+  refuses pp, sp, ep and MoE over more than one data rank, each naming its
+  ROADMAP step, and a mesh that does not match the ranks.
 """
 
 import hashlib
@@ -362,8 +363,16 @@ def test_distributed_init_is_a_no_op_without_an_environment(monkeypatch):
     ("fsdp", "fsdp/tp"), ("tp", "fsdp/tp"), ("pp", "pipeline"), ("sp", "ring attention"),
     ("ep", "expert parallelism")])
 def test_check_mesh_refuses_what_is_not_ported(axis, step):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue item 5, {step}"):
-        parallel.check_mesh({axis: 2}, world=2)
+    if step == "fsdp/tp":
+        # ported (tests/test_torch_mesh.py): taken, and refused only where
+        # the axis does not divide the ranks; MoE runs under tp alone
+        assert parallel.check_mesh({axis: 2}, world=4) == 4
+        with pytest.raises(ValueError, match="ranks"):
+            parallel.check_mesh({axis: 3}, world=4)
+        assert parallel.check_mesh({"tp": 2}, world=2, moe_experts=4) == 2
+    else:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue item 5, {step}"):
+            parallel.check_mesh({axis: 2}, world=2)
     with pytest.raises(NotImplementedError, match="expert parallelism"):
         parallel.check_mesh({"dp": -1}, world=2, moe_experts=4)
 

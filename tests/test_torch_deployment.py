@@ -535,7 +535,12 @@ def test_build_server_from_run_dir_and_artifact(jax_checkpoint, tmp_path):
         root / "checkpoints" / "last.ckpt",
         {**cfg, "precision": {"compute_dtype": "bfloat16"}}, device="cpu")
     assert bf16.model.dtype == torch.bfloat16 and server.model.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh of two ranks in one process does not match the ranks
+    # (tests/test_torch_mesh.py serves under meshes), and an artifact has
+    # no sharded form
+    with pytest.raises(ValueError, match="ranks"):
         build_server(run_dir=root, mesh={"dp": 2}, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        build_server(artifact=art, mesh={"dp": 1}, device="cpu")
     with pytest.raises(ValueError, match="need --artifact"):
         build_server(checkpoint=root / "checkpoints" / "last.ckpt")

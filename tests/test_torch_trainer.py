@@ -279,10 +279,11 @@ def test_main_on_the_cpu_writes_the_run_dir(tmp_path):
     (["model=text_unet", "model.text_encoder=definitely-not-a-model",
       *(f"~model.{k}" for k in ("automodel_name", "dim", "depth", "heads", "r"))],
      ValueError),
-    # data parallelism trains (tests/test_torch_data_parallel.py): a dp of
-    # 2 in one process is a mesh that does not match the ranks
+    # data and model parallelism train (tests/test_torch_data_parallel.py,
+    # tests/test_torch_mesh.py): a dp or tp of 2 in one process is a mesh
+    # that does not match the ranks
     (["mesh.dp=2"], ValueError),
-    (["mesh.tp=2"], NotImplementedError),
+    (["mesh.tp=2"], ValueError),
     (["precision.param_dtype=bfloat16"], NotImplementedError),
 ], ids=lambda v: v[0] if isinstance(v, list) else "")
 def test_unported_keys_raise(tmp_path, extra, error):
