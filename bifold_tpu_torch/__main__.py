@@ -14,8 +14,9 @@ Launched by ``python -m torch.distributed.run --nproc_per_node N -m
 bifold_tpu_torch ...`` (torchrun's environment), it joins the process
 group first (``parallel.distributed_init``: NCCL on ``cuda:LOCAL_RANK``,
 gloo under ``use_cpu=true``), trains over the ``mesh`` node's ``dcn x dp x
-fsdp x tp`` ranks (``mesh.fsdp=2 mesh.tp=2``; the Trainer places the model
-by its sharding plan) and leaves the group at the end. A caller that has
+fsdp x tp x pp x sp x ep`` ranks (``mesh.fsdp=2 mesh.tp=2``, ``mesh.pp=2
+mesh.pp_microbatches=2``, ``mesh.ep=2``; the Trainer places the model by
+its sharding plan) and leaves the group at the end. A caller that has
 joined a group already keeps it. The ``advise`` subcommand of the JAX
 package (mesh layouts over many devices) is ROADMAP queue item 5 and
 raises.

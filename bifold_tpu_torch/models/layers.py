@@ -29,6 +29,16 @@ in the backward (:func:`run_blocks`), replaying its dropout draws (and
 the tp collectives of its recompute, which every rank issues in the same
 order).
 
+Pipeline parallelism (:class:`PipelineStack`): a placement over a mesh
+with ``pp`` stages gives each stack it pipelines (JAX's
+``Transformer._maybe_pipeline`` conditions,
+:func:`~bifold_tpu_torch.parallel.sharding.pipelined`) a :class:`PipeStage`,
+and the stack then runs its stage's layers as a GPipe pipe
+(:mod:`~bifold_tpu_torch.parallel.pipeline`), ``remat`` checkpointing each
+layer inside the stage. Over any mesh of more than one rank an MoE layer
+routes over the global token order and sends tokens to the ep rank that
+holds their experts (:func:`~bifold_tpu_torch.ops.moe.expert_parallel_ffn`).
+
 Tensor parallelism (:class:`TensorParallel`): the attention and MLP
 modules whose projections JAX's rule shards over ``tp``
 (:mod:`~bifold_tpu_torch.parallel.sharding`) compute their rank's heads or
@@ -72,12 +82,13 @@ from bifold_tpu_torch.models.dropout import Dropout
 from bifold_tpu_torch.models.lora import LORA_TARGETS, LoRALinear
 from bifold_tpu_torch.ops import layer_norm as ln_ops
 from bifold_tpu_torch.ops.attention import dot_product_attention
-from bifold_tpu_torch.ops.moe import moe_ffn
+from bifold_tpu_torch.ops.moe import expert_parallel_ffn, moe_ffn
 from bifold_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
 
 __all__ = ["LayerNorm", "gelu_tanh", "gelu_exact", "quick_gelu", "GELU",
            "linear", "MultiHeadAttention", "FeedForward", "MoEFeedForward",
            "TransformerBlock", "FusionBlock", "Transformer", "run_blocks",
+           "PipelineStack", "PipeStage",
            "ClipResidualBlock", "ClipTransformer", "get_2d_sincos_pos_embed"]
 
 
@@ -412,7 +423,12 @@ class MoEFeedForward(nn.Module):
     JAX's shapes, :func:`~bifold_tpu_torch.ops.moe.moe_ffn` over the input
     in ``dtype`` (its expert math in float32), then ``dropout``. Returns
     (out, aux): aux is the layer's Switch load-balance loss, which JAX sows
-    into ``moe_losses``."""
+    into ``moe_losses``. Given a ``mesh`` (:func:`~bifold_tpu_torch.parallel.place`
+    sets it for training over more than one rank), the layer takes its
+    input as this data rank's slice of the global batch and runs over the
+    mesh (:func:`~bifold_tpu_torch.ops.moe.expert_parallel_ffn`)."""
+
+    mesh = None
 
     def __init__(self, dim: int, hidden_dim: int, num_experts: int,
                  top_k: int = 1, capacity_factor: float = 1.25,
@@ -431,8 +447,13 @@ class MoEFeedForward(nn.Module):
 
     def forward(self, x):
         params = {k: getattr(self, k) for k in ("router", "w1", "b1", "w2", "b2")}
-        out, aux = moe_ffn(x.to(self.dtype), params, top_k=self.top_k,
-                           capacity_factor=self.capacity_factor, return_aux=True)
+        if self.mesh is None:
+            out, aux = moe_ffn(x.to(self.dtype), params, top_k=self.top_k,
+                               capacity_factor=self.capacity_factor, return_aux=True)
+        else:
+            out, aux = expert_parallel_ffn(
+                x.to(self.dtype), params, self.mesh, top_k=self.top_k,
+                capacity_factor=self.capacity_factor, return_aux=True)
         return self.dropout(out), aux
 
 
@@ -538,7 +559,61 @@ class FusionBlock(nn.ModuleList):
         return (s2, h), aux
 
 
-class Transformer(nn.Module):
+class PipeStage:
+    """A pp stage's share of a pipelined stack: its layers ``[lo, hi)`` of
+    the stack, the mesh, and whether the stack trains (the same on every
+    stage). Called with the stack's blocks and inputs, it runs them as a
+    GPipe pipe; key and query masks ride as per-sample side inputs (a mask
+    of batch 1 is broadcast to the batch first: the same math as JAX's
+    scan path, which takes such a mask)."""
+
+    def __init__(self, mesh, lo: int, hi: int, trainable: bool):
+        self.mesh, self.lo, self.hi, self.trainable = mesh, lo, hi, trainable
+
+    def __call__(self, blocks, x, key_mask, legacy_query_mask, remat):
+        from bifold_tpu_torch.parallel.pipeline import gpipe, microbatch_count
+
+        if ln_ops.ln_mode() == "fused":
+            raise RuntimeError("a stack placed as a pipe runs outside the "
+                               "BIFOLD_LN_KERNEL=fused wiring (JAX's pipe does); "
+                               "place the model again under this mode")
+        layers = blocks[self.lo:self.hi]
+        b = x.shape[0]
+        side = [None if m is None else m.expand(b, *m.shape[1:]) if m.shape[0] == 1
+                else m for m in (key_mask, legacy_query_mask)]
+
+        def body(h, km, lqm):
+            return run_blocks(layers, h, km, lqm, remat=remat)
+
+        params = [p for layer in layers for p in layer.parameters()]
+        m = microbatch_count(b, self.mesh.shape["pp"], self.mesh.pp_microbatches)
+        return gpipe(body, params, x, mesh=self.mesh, microbatches=m, side=side,
+                     trainable=self.trainable)
+
+
+class PipelineStack:
+    """A stack of pre-norm blocks (``BLOCKS`` names its ``ModuleList``)
+    that a placement may pipeline: with a :class:`PipeStage` in ``pipe`` it
+    runs as one, else through :func:`run_blocks`."""
+
+    pipe = None
+    BLOCKS = "layers"
+
+    @property
+    def blocks(self) -> nn.ModuleList:
+        return getattr(self, self.BLOCKS)
+
+    def has_experts(self) -> bool:
+        return any(isinstance(m, MoEFeedForward) for m in self.modules())
+
+    def run(self, x, key_mask=None, legacy_query_mask=None, *, remat=False, aux=None):
+        if self.pipe is None:
+            return run_blocks(self.blocks, x, key_mask, legacy_query_mask,
+                              remat=remat, aux=aux)
+        return self.pipe(self.blocks, x, key_mask, legacy_query_mask, remat)
+
+
+class Transformer(PipelineStack, nn.Module):
     """Stack of ``depth`` pre-norm blocks under ``layers``: HF-named
     :class:`TransformerBlock` (gelu-tanh for the towers, ``activation``
     otherwise) or :class:`FusionBlock` (exact gelu) for the fusion stack
@@ -570,8 +645,7 @@ class Transformer(nn.Module):
         self.remat = remat
 
     def forward(self, x, key_mask=None, *, legacy_query_mask=None, aux=None):
-        return run_blocks(self.layers, x, key_mask, legacy_query_mask,
-                          remat=self.remat, aux=aux)
+        return self.run(x, key_mask, legacy_query_mask, remat=self.remat, aux=aux)
 
 
 def _dropout_generators(module: nn.Module):
@@ -732,9 +806,11 @@ class ClipResidualBlock(nn.Module):
         return s2, self.mlp(n2)
 
 
-class ClipTransformer(nn.Module):
+class ClipTransformer(PipelineStack, nn.Module):
     """``depth`` :class:`ClipResidualBlock` under ``resblocks`` (CLIP's
     ``Transformer``), run as :class:`Transformer` runs its stack."""
+
+    BLOCKS = "resblocks"
 
     def __init__(self, dim, depth, heads, causal=False, dtype=torch.float32):
         super().__init__()
@@ -743,7 +819,7 @@ class ClipTransformer(nn.Module):
             for _ in range(depth))
 
     def forward(self, x, key_mask=None):
-        return run_blocks(self.resblocks, x, key_mask)
+        return self.run(x, key_mask)
 
 
 def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int,

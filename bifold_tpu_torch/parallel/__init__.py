@@ -5,37 +5,42 @@ Counterpart of bifold_tpu/parallel/__init__.py: ``distributed_init`` (:58),
 ``make_mesh`` (:126; :func:`make_mesh`, :func:`check_mesh`), ``shard_batch``
 (:287), ``make_train_step`` (:330) and ``make_eval_step`` (:491), with the
 sharding rules of ``param_sharding`` (:188-284) in
-:mod:`~bifold_tpu_torch.parallel.sharding`. Under JAX SPMD a sharded step
-*is* the single-device step on the global batch; the port keeps that
-meaning with one process per device, laid out as a (dcn, dp, fsdp, tp)
-grid, tp varying fastest:
+:mod:`~bifold_tpu_torch.parallel.sharding`, ``gpipe`` in
+:mod:`~bifold_tpu_torch.parallel.pipeline`, ``ring_attention`` and
+``expert_parallel_ffn`` in :mod:`~bifold_tpu_torch.ops`. Under JAX SPMD a
+sharded step *is* the single-device step on the global batch; the port
+keeps that meaning with one process per device, laid out as a (dcn, dp,
+fsdp, tp, pp, sp, ep) grid, ep varying fastest:
 
 - each data rank (``dcn x dp x fsdp``) holds a contiguous slice of the
-  global batch; the ranks of a tp group hold the same slice;
+  global batch; the ranks of a tp, pp, sp or ep group hold the same slice;
 - each loss term says how it reduces over the batch: a mean term is scaled
   by local / global batch (``batch_share``), a sum term is left as it is,
   so the sums over the data ranks are the global batch's loss and gradient;
 - a placement (:func:`place`) shards the model by its family's plan: tp
   ranks compute their heads and hidden units (Megatron's pair of
   collectives), fsdp ranks hold their chunks of the large leaves, gathered
-  before the forward and dropped after the update; the step then reduces
-  the gradients as the plan says (partial ones over tp, chunks
-  reduce-scattered over fsdp and summed over ``dcn x dp``, the others with
-  the loss in one flat buffer over the data ranks, after the backward, on
-  the compute stream, without overlap), and the optimizer steps on this
-  rank's parts;
+  before the forward and dropped after the update, pp stages hold their
+  layers of each pipelined stack and run it as a GPipe pipe, ep ranks
+  hold their experts, to which an all_to_all brings the routed tokens;
+  MoE layers route over the global token order, as JAX does (the data
+  ranks' router choices gathered); the step then reduces the gradients as
+  the plan says (partial ones over tp, chunks reduce-scattered over fsdp
+  and summed over ``dcn x dp``, the others with the loss in one flat
+  buffer over the data ranks, after the backward, on the compute stream,
+  without overlap), and the optimizer steps on this rank's parts;
+- an sp group computes the same step on every rank, as JAX's GSPMD step
+  does (JAX's model never calls the ring; the port exports it the same);
 - the gradient norm (clipping, the ``grad_norm`` metric) counts each
   element once, whatever holds it;
 - BatchNorm's train-mode statistics are global over the data ranks
   (:mod:`~bifold_tpu_torch.models.norm`);
 - each data rank draws its dropout masks from (step seed, data rank); rank
   0 from the step seed itself, so a group of one steps exactly as no
-  group does, and a tp group draws alike.
+  group does, and the ranks of a tp, pp, sp or ep group draw alike.
 
-The pp, sp and ep axes, and MoE layers over more than one data rank (JAX
-routes tokens over the global batch), are not ported and raise, naming the
-step of ROADMAP queue item 5 that holds each. Without a placement,
-:func:`make_train_step` is the data-parallel step over the default group.
+Without a placement, :func:`make_train_step` is the data-parallel step
+over the default group.
 
 ``step(state, batch) -> (state, metrics)``: the model runs in ``train()``
 mode on the processed batch with a dropout generator made fresh for this
@@ -77,20 +82,19 @@ from bifold_tpu_torch.models.dropout import set_dropout_generator
 from bifold_tpu_torch.optim import Optimizer
 from bifold_tpu_torch.parallel.collectives import (SELF, all_reduce_sum_, all_reduce_values,
                                                    rank, world_size)
+# the primitives JAX's parallel exports (bifold_tpu/parallel/__init__.py:46-55)
+from bifold_tpu_torch.parallel.pipeline import gpipe
+from bifold_tpu_torch.ops.moe import expert_parallel_ffn
+from bifold_tpu_torch.ops.ring_attention import ring_attention
 
 __all__ = ["TrainState", "make_train_step", "make_eval_step", "check_mesh",
            "make_mesh", "Mesh", "place", "distributed_init", "shard_batch",
-           "world_size", "rank", "all_reduce_values", "MESH_AXES"]
+           "world_size", "rank", "all_reduce_values", "MESH_AXES", "BATCH_AXES",
+           "gpipe", "ring_attention", "expert_parallel_ffn"]
 
 MESH_AXES = ("dcn", "dp", "fsdp", "tp", "pp", "sp", "ep")
-# the axes not ported yet, each with the step of ROADMAP queue item 5 that
-# holds it
-_HELD = {"pp": "pipeline parallelism", "sp": "ring attention (sequence parallelism)",
-         "ep": "expert parallelism"}
-_MOE_UNDER_DP = ("MoE layers under data parallelism: JAX routes tokens over the "
-                 "global batch (capacity and slots over all tokens), a per-rank "
-                 "dispatch would drop other tokens; ROADMAP queue item 5, expert "
-                 "parallelism")
+# the axes the batch is cut over (bifold_tpu/parallel/__init__.py:89)
+BATCH_AXES = ("dcn", "dp", "fsdp")
 
 
 def distributed_init(init_method: Optional[str] = None,
@@ -137,45 +141,40 @@ def distributed_init(init_method: Optional[str] = None,
 
 
 def _axis_sizes(mesh_cfg, world: int) -> Dict[str, int]:
-    """The sizes of the axes ``dcn, dp, fsdp, tp`` a ``mesh`` config node
-    asks for over ``world`` ranks (``dp: -1`` takes what the others
+    """The sizes of the seven axes a ``mesh`` config node asks for over
+    ``world`` ranks (``dp: -1`` takes what ``dcn x fsdp x tp x pp x sp x ep``
     leave), as bifold_tpu/parallel/__init__.py:126-176 reads it."""
     node = dict(mesh_cfg or {})
     node.pop("pp_microbatches", None)
     unknown = set(node) - set(MESH_AXES)
     if unknown:
         raise KeyError(f"unknown mesh axes {sorted(unknown)} (have {MESH_AXES})")
-    for axis, step in _HELD.items():
-        if int(node.get(axis, 1)) != 1:
-            raise NotImplementedError(
-                f"mesh {axis}={node[axis]}: the port shards over dcn, dp, fsdp "
-                f"and tp; {axis} is ROADMAP queue item 5, {step}")
-    sizes = {a: int(node.get(a, 1)) for a in ("dcn", "fsdp", "tp")}
-    dp = int(node.get("dp", -1))
-    other = sizes["dcn"] * sizes["fsdp"] * sizes["tp"]
+    sizes = {a: int(node.get(a, 1)) for a in MESH_AXES if a != "dp"}
     if min(sizes.values()) < 1:
         raise ValueError(f"mesh axes must be positive: {sizes}")
+    other = int(np.prod(list(sizes.values())))
+    dp = int(node.get("dp", -1))
     if dp == -1:
         if world % other:
-            raise ValueError(f"mesh dcn x fsdp x tp = {other} does not divide "
-                             f"{world} ranks")
+            raise ValueError(f"mesh dcn x fsdp x tp x pp x sp x ep = {other} does not "
+                             f"divide {world} ranks")
         dp = world // other
-    if dp * other != world:
-        raise ValueError(f"mesh dcn x dp x fsdp x tp = {sizes['dcn']} x {dp} x "
-                         f"{sizes['fsdp']} x {sizes['tp']} != {world} ranks")
-    return {"dcn": sizes["dcn"], "dp": dp, "fsdp": sizes["fsdp"], "tp": sizes["tp"]}
+    if dp < 1 or dp * other != world:
+        raise ValueError(f"mesh {' x '.join(MESH_AXES)} = "
+                         f"{' x '.join(str(dp if a == 'dp' else sizes[a]) for a in MESH_AXES)}"
+                         f" != {world} ranks")
+    return {a: dp if a == "dp" else sizes[a] for a in MESH_AXES}
 
 
-def check_mesh(mesh_cfg, *, world: Optional[int] = None, moe_experts: int = 0) -> int:
+def check_mesh(mesh_cfg, *, world: Optional[int] = None) -> int:
     """Check the config's ``mesh`` node against a group of ``world`` ranks
-    (the default group's size) and return ``world``. The axes ``dcn, dp,
-    fsdp, tp`` must multiply to the ranks (``dp: -1`` takes what the others
-    leave). ``dcn`` is the slowest axis: with ranks laid out by node
+    (the default group's size) and return ``world``. The seven axes must
+    multiply to the ranks (``dp: -1`` takes what the others leave).
+    ``dcn`` is the slowest axis: with ranks laid out by node
     (``LOCAL_WORLD_SIZE`` ranks each, as torchrun lays them), a dcn group
-    must hold whole nodes. MoE layers need a single data rank (tp alone
-    runs them replicated, as JAX's rule leaves the experts); ``pp``, ``sp``
-    and ``ep`` are held. Each refusal names its step of ROADMAP queue item
-    5. ``pp_microbatches`` has no effect without pipeline stages."""
+    must hold whole nodes. What ``pp`` and ``ep`` do not divide (a stack's
+    depth, the experts) stays whole, as JAX leaves it
+    (:mod:`~bifold_tpu_torch.parallel.sharding`)."""
     world = world_size() if world is None else world
     sizes = _axis_sizes(mesh_cfg, world)
     per_dcn = world // sizes["dcn"]
@@ -184,25 +183,25 @@ def check_mesh(mesh_cfg, *, world: Optional[int] = None, moe_experts: int = 0) -
         raise ValueError(f"mesh dcn={sizes['dcn']}: its groups of {per_dcn} ranks "
                          f"are not whole nodes of {local} ranks (LOCAL_WORLD_SIZE): "
                          "a node would straddle two dcn groups")
-    data = sizes["dcn"] * sizes["dp"] * sizes["fsdp"]
-    if data > 1 and moe_experts:
-        raise NotImplementedError(f"moe_experts={moe_experts} over {data} data "
-                                  "ranks: " + _MOE_UNDER_DP)
     return world
 
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
-    """The ranks as a (dcn, dp, fsdp, tp) grid, ``tp`` varying fastest (a
-    tp group is consecutive ranks, on one node), as JAX lays devices out.
-    ``shape`` maps each axis to its size, ``coords`` this rank's position.
-    The groups (a ``torch.distributed`` group, None for the default one,
-    or :data:`~bifold_tpu_torch.parallel.collectives.SELF` for one rank):
+    """The ranks as a (dcn, dp, fsdp, tp, pp, sp, ep) grid, ``ep`` varying
+    fastest, as JAX lays its devices out (``pp``, ``sp`` and ``ep`` after
+    ``tp``, bifold_tpu/parallel/__init__.py:156-172). ``shape`` maps each
+    axis to its size, ``coords`` this rank's position,
+    ``pp_microbatches`` is the config's (0: each pipelined stack picks).
+    ``groups`` holds this rank's group along each axis or set of axes (a
+    ``torch.distributed`` group, None for the default one, or
+    :data:`~bifold_tpu_torch.parallel.collectives.SELF` for one rank), and
+    ``ranks`` the global ranks of the same groups in order:
 
-    - ``tp``: this rank's tp group;
+    - one per axis (``tp``, ``fsdp``, ``pp``, ``sp``, ``ep``);
     - ``data``: the data ranks (``dcn x dp x fsdp``), the ranks that share
-      this rank's tp coordinate; each holds its slice of every batch;
-    - ``fsdp``: this rank's fsdp group, which holds the fsdp shards;
+      every other coordinate with this one; each holds its slice of every
+      batch, and the ranks of a tp, pp, sp or ep group hold the same slice;
     - ``replica``: the ``dcn x dp`` ranks that hold the same fsdp shard.
     """
 
@@ -210,6 +209,8 @@ class Mesh:
     coords: Dict[str, int]
     rank: int
     groups: Dict[str, Any]
+    ranks: Dict[str, list] = dataclasses.field(default_factory=dict)
+    pp_microbatches: int = 0
 
     @property
     def world(self) -> int:
@@ -226,12 +227,13 @@ class Mesh:
     @property
     def data_size(self) -> int:
         """The data ranks: dcn x dp x fsdp."""
-        return self.world // self.tp
+        return int(np.prod([self.shape[a] for a in BATCH_AXES]))
 
     @property
     def data_rank(self) -> int:
         """This rank's place among the data ranks (its batch slice)."""
-        return self.rank // self.tp
+        return int(np.ravel_multi_index([self.coords[a] for a in BATCH_AXES],
+                                        [self.shape[a] for a in BATCH_AXES]))
 
     @property
     def tp_rank(self) -> int:
@@ -247,16 +249,19 @@ class Mesh:
 
 # groups made once per (default group, mesh shape): every rank must call
 # new_group for every group, in the same order
-_GROUPS: Dict[tuple, Dict[str, Any]] = {}
+_GROUPS: Dict[tuple, Tuple[Dict[str, Any], Dict[str, list]]] = {}
+_FAMILIES = {"tp": ("tp",), "fsdp": ("fsdp",), "pp": ("pp",), "sp": ("sp",),
+             "ep": ("ep",), "data": BATCH_AXES, "replica": ("dcn", "dp")}
 
 
-def _groups(shape: Dict[str, int], world: int, me: int) -> Dict[str, Any]:
-    grid = np.arange(world).reshape([shape[a] for a in _GRID])
+def _groups(shape: Dict[str, int], world: int, me: int):
+    grid = np.arange(world).reshape([shape[a] for a in MESH_AXES])
 
     def family(keep):
-        """The groups that vary over the axes ``keep``, and this rank's."""
-        axes = [i for i, a in enumerate(_GRID) if a in keep]
-        rest = [i for i in range(len(_GRID)) if i not in axes]
+        """The groups that vary over the axes ``keep``: this rank's handle
+        and its ranks in order."""
+        axes = [i for i, a in enumerate(MESH_AXES) if a in keep]
+        rest = [i for i in range(len(MESH_AXES)) if i not in axes]
         moved = np.transpose(grid, rest + axes).reshape(-1, int(np.prod(
             [grid.shape[i] for i in axes])))
         mine = None
@@ -269,36 +274,37 @@ def _groups(shape: Dict[str, int], world: int, me: int) -> Dict[str, Any]:
             else:
                 handle = dist.new_group(ranks)
             if me in ranks:
-                mine = handle
+                mine = handle, ranks
         return mine
 
     key = (id(dist.distributed_c10d._get_default_group()), tuple(shape.items()))
     if key not in _GROUPS:
-        _GROUPS[key] = {"tp": family(("tp",)), "data": family(("dcn", "dp", "fsdp")),
-                        "fsdp": family(("fsdp",)), "replica": family(("dcn", "dp"))}
+        made = {name: family(keep) for name, keep in _FAMILIES.items()}
+        _GROUPS[key] = ({k: v[0] for k, v in made.items()},
+                        {k: v[1] for k, v in made.items()})
     return _GROUPS[key]
 
 
-_GRID = ("dcn", "dp", "fsdp", "tp")
-
-
-def make_mesh(mesh_cfg=None, *, moe_experts: int = 0) -> Mesh:
+def make_mesh(mesh_cfg=None) -> Mesh:
     """The mesh of the config's ``mesh`` node over the default group (a
     mesh of one rank without a group), checked by :func:`check_mesh`;
-    the counterpart of bifold_tpu/parallel/__init__.py:126 ``make_mesh``.
-    A :class:`Mesh` passes through."""
+    the counterpart of bifold_tpu/parallel/__init__.py:126 ``make_mesh``
+    and of its active ``pp_microbatches`` (:98-120). A :class:`Mesh`
+    passes through."""
     if isinstance(mesh_cfg, Mesh):
         return mesh_cfg
     world, me = world_size(), rank()
-    check_mesh(mesh_cfg, world=world, moe_experts=moe_experts)
+    check_mesh(mesh_cfg, world=world)
     shape = _axis_sizes(mesh_cfg, world)
-    coords = dict(zip(_GRID, (int(c) for c in np.unravel_index(
-        me, [shape[a] for a in _GRID]))))
+    coords = dict(zip(MESH_AXES, (int(c) for c in np.unravel_index(
+        me, [shape[a] for a in MESH_AXES]))))
     if world == 1:
-        groups = {k: SELF for k in ("tp", "data", "fsdp", "replica")}
+        groups = {k: SELF for k in _FAMILIES}
+        ranks = {k: [0] for k in _FAMILIES}
     else:
-        groups = _groups(shape, world, me)
-    return Mesh(shape, coords, me, groups)
+        groups, ranks = _groups(shape, world, me)
+    micro = int(dict(mesh_cfg or {}).get("pp_microbatches", 0) or 0)
+    return Mesh(shape, coords, me, groups, ranks, micro)
 
 
 def shard_batch(batch: Dict[str, Any], *, shard: Optional[int] = None,
@@ -400,8 +406,6 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
         try:
             out = dict(model(batch))
             moe_losses = out.pop("moe_losses", None)
-            if mesh.data_size > 1 and moe_losses is not None:
-                raise NotImplementedError(_MOE_UNDER_DP)
             loss, inter = loss_fn(out, batch, batch_share=share)
             if moe_aux_weight and moe_losses is not None:
                 aux = moe_losses.float().mean()
@@ -438,18 +442,25 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
 def place(model: nn.Module, family: Optional[str], mesh: Mesh,
           min_size: int = 2 ** 16):
     """Shard ``model`` (full tensors, the same on every rank) over ``mesh``
-    by its family's plan (:mod:`~bifold_tpu_torch.parallel.sharding`). A
-    mesh with no fsdp or tp axis replicates everything and needs no
-    family."""
+    by its family's plan (:mod:`~bifold_tpu_torch.parallel.sharding`) for
+    training. A mesh with no fsdp, tp, pp or ep axis replicates everything
+    and needs no family. Over more than one rank each MoE layer gets the
+    mesh, and routes over the global batch the data ranks hold together."""
+    from bifold_tpu_torch.models.layers import MoEFeedForward
     from bifold_tpu_torch.parallel import sharding
 
-    if mesh.fsdp == 1 and mesh.tp == 1:
+    if all(mesh.shape[a] == 1 for a in ("fsdp", "tp", "pp", "ep")):
         plan = sharding.Plan(family, dict(mesh.shape), [], {}, [], [], [])
     else:
         if family is None:
             raise ValueError(f"{mesh}: sharding needs the model family's converter")
         plan = sharding.make_plan(model, family, mesh.shape, min_size)
-    return sharding.Placement(model, plan, mesh)
+    placement = sharding.Placement(model, plan, mesh)
+    if mesh.world > 1:
+        for mod in model.modules():
+            if isinstance(mod, MoEFeedForward):
+                mod.mesh = mesh
+    return placement
 
 
 def make_eval_step(model: nn.Module) -> Callable:

@@ -10,18 +10,37 @@ and a CUDA tensor handed to a gloo group is staged through host memory
 here and nowhere else. Without a group (or in a group of one)
 :func:`world_size` is 1 and callers skip these.
 
-The two autograd Functions are Megatron's conjugate pair around a
-tensor-parallel region: :func:`copy_to_tp` (the identity forward, a sum over
-the tp group backward) goes before a column-parallel projection, whose
-input every tp rank holds whole; :func:`reduce_from_tp` (a sum over the tp
-group forward, the identity backward) goes after a row-parallel one, whose
-output is partial on each tp rank.
+The autograd Functions:
+
+- Megatron's conjugate pair around a tensor-parallel region:
+  :func:`copy_to_tp` (the identity forward, a sum over the tp group
+  backward) goes before a column-parallel projection, whose input every tp
+  rank holds whole; :func:`reduce_from_tp` (a sum over the tp group
+  forward, the identity backward) goes after a row-parallel one, whose
+  output is partial on each tp rank;
+- the pair around work that a group of ranks holding the same tensor
+  splits among themselves (the ep ranks' share of their tokens, the sp
+  ranks' chunks of a sequence): :func:`split_to_group` (this rank's chunk
+  forward; the chunks' gradients gathered backward, so every rank holds
+  the whole gradient again) and :func:`gather_from_group` (the chunks
+  gathered forward; this rank's chunk of the gradient backward: every rank
+  computes the same loss from the gathered tensor, so each chunk's one
+  cotangent is its owner's);
+- :func:`all_to_all` over a group, with row counts per rank, whose
+  backward is the reverse all_to_all.
+
+Point to point: :func:`send` and :func:`recv` between two global ranks
+(the pipeline's stage to stage transfers, whose backward sends the
+gradient back: :mod:`~bifold_tpu_torch.parallel.pipeline` runs both
+directions in its own schedule), and :func:`ring_shift`, each rank's
+tensor to the next rank of a group and the previous rank's to it (the
+ring of :mod:`~bifold_tpu_torch.ops.ring_attention`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +48,9 @@ import torch.distributed as dist
 
 __all__ = ["world_size", "rank", "all_reduce_sum_", "all_reduce_sum",
            "all_reduce_values", "all_gather", "reduce_scatter", "copy_to_tp",
-           "reduce_from_tp", "group_size", "SELF", "TPGroup"]
+           "reduce_from_tp", "group_size", "SELF", "TPGroup", "broadcast_",
+           "send", "recv", "ring_shift", "all_to_all", "split_to_group",
+           "gather_from_group", "chunk_bounds"]
 
 # the group of one rank: collectives over it are the identity
 SELF = "self"
@@ -188,3 +209,183 @@ def all_reduce_values(values: Sequence[float], group=None) -> np.ndarray:
     t = torch.tensor(np.asarray(values, dtype=np.float64), device=device)
     return all_reduce_sum_(t, group).cpu().numpy()
 
+
+
+def _global(group, index: int) -> int:
+    """The global rank of ``group``'s ``index``-th rank."""
+    return index if group is None else dist.get_global_rank(group, index)
+
+
+def broadcast_(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """``t`` of ``group``'s rank ``src`` (its index in the group) on every
+    rank of the group, in place. Returns ``t``."""
+    if group_size(group) == 1:
+        return t
+    root = _global(group, src)
+    if _staged(t, group):
+        host = t.cpu()
+        dist.broadcast(host, root, group=group)
+        t.copy_(host)
+    else:
+        dist.broadcast(t, root, group=group)
+    return t
+
+
+def send(t: torch.Tensor, dst: int, tag: int = 0):
+    """Start sending ``t`` to the global rank ``dst`` over the default group;
+    returns the handle to ``wait()`` on (which keeps the staged host copy
+    of a CUDA tensor under gloo alive until then)."""
+    src = t.contiguous()
+    host = src.cpu() if _staged(src, None) else src
+    work = dist.isend(host, dst, tag=tag)
+    return _Pending(work, host)
+
+
+def recv(shape, dtype, device, src: int, tag: int = 0) -> torch.Tensor:
+    """A new tensor of ``shape`` and ``dtype`` on ``device``, received from
+    the global rank ``src`` over the default group (blocking)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    host = out.cpu() if _staged(out, None) else out
+    dist.recv(host, src, tag=tag)
+    return out.copy_(host) if host is not out else out
+
+
+@dataclasses.dataclass
+class _Pending:
+    work: Any
+    buffer: torch.Tensor
+
+    def wait(self) -> None:
+        self.work.wait()
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], ranks: Sequence[int],
+               me: int) -> list:
+    """Each of ``tensors`` sent to the next rank of the ring ``ranks``
+    (global ranks in ring order; ``me`` this rank's index) and replaced by
+    the previous rank's: new tensors, contiguous, of the same shapes and
+    dtypes. The sends start before the receives block, so every rank
+    posts both at once."""
+    n = len(ranks)
+    if n == 1:
+        return [t.contiguous() for t in tensors]
+    nxt, prev = ranks[(me + 1) % n], ranks[(me - 1) % n]
+    pending = [send(t, nxt, tag=i) for i, t in enumerate(tensors)]
+    out = [recv(t.shape, t.dtype, t.device, prev, tag=i) for i, t in enumerate(tensors)]
+    for p in pending:
+        p.wait()
+    return out
+
+
+def _all_to_all_rows(x: torch.Tensor, send_rows: Sequence[int],
+                     recv_rows: Sequence[int], group) -> torch.Tensor:
+    out = torch.empty((sum(recv_rows), *x.shape[1:]), dtype=x.dtype, device=x.device)
+    src = x.contiguous()
+    if _staged(src, group):
+        host_out = torch.empty(out.shape, dtype=out.dtype)
+        dist.all_to_all_single(host_out, src.cpu(), list(recv_rows), list(send_rows),
+                               group=group)
+        return out.copy_(host_out)
+    dist.all_to_all_single(out, src, list(recv_rows), list(send_rows), group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, send_rows, recv_rows, group):
+        ctx.rows, ctx.group = (send_rows, recv_rows), group
+        return _all_to_all_rows(x, send_rows, recv_rows, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        send_rows, recv_rows = ctx.rows
+        return _all_to_all_rows(grad, recv_rows, send_rows, ctx.group), None, None, None
+
+
+def all_to_all(x: torch.Tensor, send_rows: Sequence[int], group,
+               recv_rows: Optional[Sequence[int]] = None):
+    """Rows of ``x`` (dim 0) sent over ``group``: the first ``send_rows[0]``
+    to its rank 0, the next ``send_rows[1]`` to rank 1, ...; returns (the
+    rows received, in the senders' rank order, and ``recv_rows``, how many
+    came from each). Without ``recv_rows`` the counts are exchanged first
+    (a small all_to_all). Differentiable: the backward sends each row's
+    gradient back the reverse way."""
+    n = group_size(group)
+    if n == 1:
+        return x, [x.shape[0]]
+    send_rows = [int(r) for r in send_rows]
+    if recv_rows is None:
+        counts = torch.tensor(send_rows, dtype=torch.int64)
+        got = torch.empty_like(counts)
+        if dist.get_backend(group) == dist.Backend.NCCL:
+            counts, got = counts.to(x.device), got.to(x.device)
+        dist.all_to_all_single(got, counts, group=group)
+        recv_rows = [int(r) for r in got.tolist()]
+    return _AllToAll.apply(x, tuple(send_rows), tuple(recv_rows), group), recv_rows
+
+
+def chunk_bounds(length: int, n: int, i: int) -> Tuple[int, int]:
+    """[lo, hi) of chunk ``i`` of ``length`` cut into ``n`` as
+    ``torch.tensor_split`` cuts it (the first ``length % n`` chunks one
+    longer): the chunk :func:`split_to_group` gives rank ``i``."""
+    base, extra = divmod(length, n)
+    lo = i * base + min(i, extra)
+    return lo, lo + base + (i < extra)
+
+
+def _gather_chunks(chunk: torch.Tensor, length: int, dim: int, group) -> torch.Tensor:
+    """The ranks' chunks of a dim of ``length`` (cut as
+    :func:`chunk_bounds` cuts it) concatenated along ``dim``; the shorter
+    chunks are padded to the first one's size for the all-gather."""
+    n = group_size(group)
+    sizes = [hi - lo for lo, hi in (chunk_bounds(length, n, i) for i in range(n))]
+    moved = chunk.movedim(dim, 0)
+    pad = sizes[0] - moved.shape[0]
+    if pad:
+        moved = torch.cat([moved, moved.new_zeros((pad, *moved.shape[1:]))])
+    parts = all_gather(moved, group).chunk(n)
+    return torch.cat([p[:size] for p, size in zip(parts, sizes)]).movedim(0, dim)
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        n, me = group_size(group), dist.get_rank(group)
+        lo, hi = chunk_bounds(x.shape[dim], n, me)
+        ctx.dim, ctx.group, ctx.length = dim, group, x.shape[dim]
+        return x.narrow(dim, lo, hi - lo).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_chunks(grad.contiguous(), ctx.length, ctx.dim, ctx.group), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, chunk, dim, length, group):
+        ctx.dim, ctx.group = dim, group
+        ctx.bounds = chunk_bounds(length, group_size(group), dist.get_rank(group))
+        return _gather_chunks(chunk.contiguous(), length, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo, hi = ctx.bounds
+        return grad.narrow(ctx.dim, lo, hi - lo).contiguous(), None, None, None
+
+
+def split_to_group(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's chunk of ``x`` along ``dim`` (``x`` the same on every
+    rank of ``group``, cut as ``torch.tensor_split`` cuts it); its gradient
+    is the chunks' gradients gathered over the group."""
+    if group_size(group) == 1:
+        return x
+    return _Split.apply(x, dim, group)
+
+
+def gather_from_group(chunk: torch.Tensor, dim: int, length: int, group) -> torch.Tensor:
+    """The ranks' chunks (of :func:`split_to_group`'s cut of a dim of
+    ``length``) concatenated along ``dim``, on every rank; the gradient of
+    this rank's chunk is its slice of the gathered tensor's gradient."""
+    if group_size(group) == 1:
+        return chunk
+    return _Gather.apply(chunk, dim, length, group)

@@ -18,7 +18,17 @@ read off the converter itself, carries each decision to the port's tensors:
   replicated over tp, as in JAX;
 - any other leaf of at least ``min_size`` elements is sharded over
   ``fsdp`` on its largest axis that ``fsdp`` divides; tp-sharded kernels
-  are not also fsdp-sharded.
+  are not also fsdp-sharded;
+- under ``pp``, the stacked leaves of a stack that runs as a pipe
+  (:func:`pipelined`: a ``Transformer`` or CLIP stack whose depth ``pp``
+  divides, of depth above 1, without MoE blocks, outside the
+  ``BIFOLD_LN_KERNEL=fused`` wiring, as bifold_tpu/models/layers.py:554-626
+  decides) are sharded over ``pp`` on their depth axis and nothing else
+  (JAX's gpipe is manual over pp alone); other stacks stay whole on every
+  pp rank, where JAX's rule would shard them and GSPMD gather them back;
+- under ``ep``, the MoE experts' ``w1 b1 w2 b2`` are sharded over ``ep`` on
+  their expert axis when ``ep`` divides the experts (``_EP_LEAVES``), and
+  nothing else.
 
 The port splits attention by heads: each tp rank holds the rows of its
 heads of q, of k and of v, also in the fused ``to_qkv`` and CLIP's stacked
@@ -41,6 +51,12 @@ checks; JAX lets GSPMD split a head (ROADMAP section 3).
   the fsdp group and :meth:`release` empties them again. The optimizer
   steps on the chunks (:attr:`step_params`), so its moments are sharded
   too;
+- a pp stage keeps the layers of each pipelined stack that are its own
+  (``[s * depth / pp, (s + 1) * depth / pp)``); the others' tensors are
+  emptied for good, and the stack runs as a pipe
+  (:mod:`~bifold_tpu_torch.parallel.pipeline`); an ep rank keeps its
+  ``E / ep`` experts, and every MoE layer runs over the mesh
+  (:func:`~bifold_tpu_torch.ops.moe.expert_parallel_ffn`);
 - checkpoints hold full tensors: :meth:`full_state_dict` and
   :meth:`full_optimizer_state` gather them (every rank calls them), and
   :meth:`load_full_state_dict` / :meth:`load_optimizer_state` cut a full
@@ -60,8 +76,9 @@ from torch import nn
 from bifold_tpu_torch.models import layers as L
 from bifold_tpu_torch.models.convert import to_jax_variables
 from bifold_tpu_torch.models.norm import BatchNorm
+from bifold_tpu_torch.ops import layer_norm as ln_ops
 from bifold_tpu_torch.parallel.collectives import (TPGroup, all_gather,
-                                                   all_reduce_sum_,
+                                                   all_reduce_sum_, broadcast_,
                                                    reduce_scatter)
 
 __all__ = ["make_plan", "Plan", "Placement", "MIN_SIZE", "TP_COL", "TP_ROW"]
@@ -69,6 +86,7 @@ __all__ = ["make_plan", "Plan", "Placement", "MIN_SIZE", "TP_COL", "TP_ROW"]
 MIN_SIZE = 2 ** 16
 TP_COL = ("q_proj", "k_proj", "v_proj", "fc1", "to_qkv")   # shard out dim
 TP_ROW = ("out_proj", "fc2")                               # shard in dim
+EP_LEAVES = ("w1", "b1", "w2", "b2")                        # expert axis first
 
 
 def _fsdp_axis(shape, fsdp: int, min_size: int) -> Optional[int]:
@@ -262,7 +280,9 @@ class Plan:
     the tests hold against ``param_sharding``), ``tp`` the port tensors cut
     over tp (name -> (axis, blocks)), ``partial`` the replicated tensors
     whose gradients are partial over tp, ``modules`` the modules that
-    compute a tp shard, ``units`` the fsdp-sharded leaves."""
+    compute a tp shard, ``units`` the fsdp-sharded leaves, ``pipes`` the
+    stacks that run as a pipe over pp (module name -> depth), ``ep`` the
+    port tensors cut over ep on their axis 0 (the experts)."""
 
     family: str
     shape: Dict[str, int]
@@ -271,6 +291,8 @@ class Plan:
     partial: List[str]
     modules: List[str]
     units: List[Leaf]
+    pipes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    ep: List[str] = dataclasses.field(default_factory=list)
 
 
 def _probe(model: nn.Module, family: str):
@@ -305,6 +327,28 @@ def _tp_modules(model: nn.Module):
             yield name, mod
 
 
+def pipelined(model: nn.Module, pp: int) -> Dict[str, int]:
+    """The stacks of ``model`` that run as a pipe over ``pp`` stages (name
+    -> depth): JAX's conditions (bifold_tpu/models/layers.py:576-584) read
+    off the config, never off a failure: ``pp`` > 1 divides a depth above 1,
+    no MoE blocks, and the LayerNorm mode is not ``fused`` now (a stack
+    placed for the pipe refuses to run in it later)."""
+    if pp <= 1 or ln_ops.ln_mode() == "fused":
+        return {}
+    out = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, L.PipelineStack):
+            depth = len(mod.blocks)
+            if depth > 1 and depth % pp == 0 and not mod.has_experts():
+                out[name] = depth
+    return out
+
+
+def _under(name: str, prefixes) -> Optional[str]:
+    """The first of ``prefixes`` that module-path ``name`` lies under."""
+    return next((p for p in prefixes if name.startswith(p + ".")), None)
+
+
 def make_plan(model: nn.Module, family: str, shape: Dict[str, int],
               min_size: int = MIN_SIZE) -> Plan:
     """The plan of ``model`` (full tensors, not placed) of the family
@@ -312,15 +356,34 @@ def make_plan(model: nn.Module, family: str, shape: Dict[str, int],
     ``NotImplementedError`` where tp does not divide the heads of an
     attention it shards, or would shard a module only in part."""
     tp, fsdp = int(shape.get("tp", 1)), int(shape.get("fsdp", 1))
+    pp, ep = int(shape.get("pp", 1)), int(shape.get("ep", 1))
+    pipes = pipelined(model, pp)
     params, starts, shapes, names, arrays = _probe(model, family)
-    leaves = []
+    leaves, ep_names = [], []
     for path, ids in _leaves(params):
         ids = np.asarray(ids)
         if ids.size and int(ids.min()) < 1:
             raise ValueError(f"{'/'.join(path)}: a leaf the converter made up, "
                              "not one of the model's tensors")
         spec = [None] * ids.ndim
+        owner = (names[int(np.searchsorted(starts, ids.flat[0], side="right")) - 1]
+                 if ids.size else "")
         axis = _tp_axis(path, ids.shape) if tp > 1 else None
+        ep_axis = (1 if "blocks" in path and ids.ndim >= 2 else 0) if (
+            ep > 1 and path and path[-1] in EP_LEAVES and "mlp" in path) else None
+        if _under(owner, pipes) is not None:
+            spec[0] = "pp"
+            leaves.append(Leaf(path, tuple(ids.shape), tuple(spec), {}))
+            continue
+        if ep_axis is not None and ids.shape[ep_axis] % ep == 0:
+            spec[ep_axis] = "ep"
+            boxes = _boxes(ids, starts, shapes, names, arrays)
+            for name, box in boxes.items():
+                if box.axes[ep_axis] != 0:
+                    raise ValueError(f"{name}: its experts are not its axis 0")
+                ep_names.append(name)
+            leaves.append(Leaf(path, tuple(ids.shape), tuple(spec), {}))
+            continue
         if axis is not None and ids.shape[axis] % tp == 0:
             spec[axis] = "tp"
         else:
@@ -363,7 +426,8 @@ def make_plan(model: nn.Module, family: str, shape: Dict[str, int],
         raise NotImplementedError(f"tp={tp} shards {sorted(stray)[:3]}, which no "
                                   "module of the port computes in shards")
     units = [leaf for leaf in leaves if leaf.axis("fsdp") is not None]
-    return Plan(family, dict(shape), leaves, tp_cut, partial, modules, units)
+    return Plan(family, dict(shape), leaves, tp_cut, partial, modules, units, pipes,
+                sorted(ep_names))
 
 
 def tp_local(t: torch.Tensor, tp: TPGroup, axis: int, blocks: int) -> torch.Tensor:
@@ -429,17 +493,25 @@ class Placement:
         self.model, self.plan, self.mesh = model, plan, mesh
         self.tp = self.tp_group(mesh)
         self._params = dict(model.named_parameters())
+        self._full_shapes = {n: tuple(p.shape) for n, p in self._params.items()}
+        self._stages()
         self.attach_tp()
         if not cut:
             if plan.units:
                 raise ValueError("a placement of tensors cut already has no fsdp units")
             plan = dataclasses.replace(plan, tp={})
             self.plan = plan
+        ep, j = mesh.shape.get("ep", 1), mesh.coords.get("ep", 0)
         with torch.no_grad():
             for name, (axis, blocks) in plan.tp.items():
                 p = self._params[name]
                 p.data = tp_local(p.data, self.tp, axis, blocks)
-        self._full_shapes = {n: tuple(p.shape) for n, p in self._params.items()}
+            for name in plan.ep:
+                p = self._params[name]
+                p.data = p.data.chunk(ep)[j].contiguous().clone()
+            for name in self.foreign:
+                p = self._params[name]
+                p.data = torch.empty(0, dtype=p.dtype, device=p.device)
         self.units = [_Unit(leaf, self._params) for leaf in plan.units]
         self.managed = sorted({n for u in self.units for n in u.leaf.boxes})
         covered: Dict[str, int] = {}
@@ -460,6 +532,29 @@ class Placement:
         self.release()
         self._gathered = False
 
+    def _stages(self) -> None:
+        """The pp stage's layers of every pipelined stack: ``owner`` maps
+        each of their tensors to the stage that holds it, ``foreign`` lists
+        the other stages' (cut away here), and each stack learns its
+        stage."""
+        pp, stage = self.mesh.shape.get("pp", 1), self.mesh.coords.get("pp", 0)
+        self.owner: Dict[str, int] = {}
+        for prefix, depth in self.plan.pipes.items():
+            stack = self.model.get_submodule(prefix)
+            per = depth // pp
+            trains = [False] * pp
+            for i, block in enumerate(stack.blocks):
+                for n, p in block.named_parameters():
+                    self.owner[f"{prefix}.{stack.BLOCKS}.{i}.{n}"] = i // per
+                    trains[i // per] |= p.requires_grad
+            if len(set(trains)) > 1:
+                raise NotImplementedError(
+                    f"{prefix}: pp={pp} stages differ in whether they hold trainable "
+                    "layers; the port pipes a stack whose stages all train or none")
+            stack.pipe = L.PipeStage(self.mesh, stage * per, (stage + 1) * per, trains[0])
+        self.foreign = sorted(n for n, s in self.owner.items() if s != stage)
+        self.staged = sorted(n for n, s in self.owner.items() if s == stage)
+
     # ------------------------------------------------------------------
 
     def attach_tp(self) -> None:
@@ -471,11 +566,19 @@ class Placement:
             if isinstance(mod, BatchNorm):
                 mod.group = self.mesh.groups["data"]
 
+    @property
+    def sharded(self) -> bool:
+        """Whether any tensor is cut over the mesh (its checkpoints then
+        gather, a collective every rank joins)."""
+        return bool(self.plan.tp or self.units or self.plan.ep or self.owner)
+
     def _moment_names(self):
-        """(the trainable tensors that are not fsdp-sharded, by name; the
-        trainable units): what :attr:`step_params` lists, in order."""
+        """(the trainable tensors that are not fsdp-sharded and that this
+        pp stage holds, by name; the trainable units): what
+        :attr:`step_params` lists, in order."""
+        foreign = set(self.foreign)
         own = [n for n, p in self._params.items()
-               if p.requires_grad and n not in self.managed]
+               if p.requires_grad and n not in self.managed and n not in foreign]
         return own, [u for u in self.units if u.trainable]
 
     @property
@@ -492,8 +595,11 @@ class Placement:
 
     @property
     def grad_params(self) -> List[Tuple[str, torch.Tensor]]:
-        """The trainable module tensors the backward differentiates."""
-        return [(n, p) for n, p in self._params.items() if p.requires_grad]
+        """The trainable module tensors the backward differentiates (this
+        pp stage's layers of the pipelined stacks)."""
+        foreign = set(self.foreign)
+        return [(n, p) for n, p in self._params.items()
+                if p.requires_grad and n not in foreign]
 
     # ------------------------------------------------------------------
     # fsdp
@@ -570,19 +676,22 @@ class Placement:
 
     def grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """The global norm of :attr:`step_params`-aligned gradients, each
-        element counted once: tp parts summed over tp, fsdp chunks over
-        fsdp, replicated tensors once."""
+        element counted once: tp parts summed over tp, pp stages' layers
+        over pp, experts over ep, fsdp chunks over fsdp, replicated tensors
+        once."""
         own, _ = self._moment_names()
-        kinds = ["tp" if n in self.plan.tp else "rep" for n in own] + \
+        staged, ep = set(self.staged), set(self.plan.ep)
+        kinds = ["tp" if n in self.plan.tp else "pp" if n in staged else
+                 "ep" if n in ep else "rep" for n in own] + \
             ["fsdp"] * (len(grads) - len(own))
         zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-        sq = {k: zero for k in ("rep", "tp", "fsdp")}
+        sq = {k: zero for k in ("rep", "tp", "pp", "ep", "fsdp")}
         for g, k in zip(grads, kinds):
             sq[k] = sq[k] + torch.sum(g.float() * g.float())
-        groups = self.mesh.groups
-        tp_sq = all_reduce_sum_(sq["tp"].clone(), groups["tp"])
-        fsdp_sq = all_reduce_sum_(sq["fsdp"].clone(), groups["fsdp"])
-        return torch.sqrt(sq["rep"] + tp_sq + fsdp_sq)
+        total = sq.pop("rep")
+        for k, v in sq.items():
+            total = total + all_reduce_sum_(v.clone(), self.mesh.groups[k])
+        return torch.sqrt(total)
 
     def all_finite(self, grads: List[torch.Tensor]) -> bool:
         """Whether every rank's gradients are finite (one verdict for all)."""
@@ -597,9 +706,24 @@ class Placement:
         """Full port tensors ``names`` from their local parts: ``local``
         (tp parts or replicated) and the chunks of ``units`` (collectives)."""
         wanted = set(names)
-        out = {n: tp_full(local[n], self.tp, *self.plan.tp[n])
-               if n in self.plan.tp else local[n]
-               for n in names if n not in self.managed}
+        ep = set(self.plan.ep)
+        out = {}
+        for n in names:
+            if n in self.managed:
+                continue
+            if n in self.owner:
+                # a pipelined stack's layer: from the stage that holds it
+                t = (local[n] if self.owner[n] == self.mesh.coords["pp"] else
+                     torch.empty(self._full_shapes[n], dtype=self._params[n].dtype,
+                                 device=self._params[n].device))
+                out[n] = broadcast_(t.contiguous().clone(), self.owner[n],
+                                    self.mesh.groups["pp"])
+            elif n in ep:
+                out[n] = all_gather(local[n].contiguous(), self.mesh.groups["ep"])
+            elif n in self.plan.tp:
+                out[n] = tp_full(local[n], self.tp, *self.plan.tp[n])
+            else:
+                out[n] = local[n]
         for u, part in zip(units, unit_parts):
             leaf = u.unchunk(all_gather(part.detach(), self.mesh.groups["fsdp"]))
             for n, box in u.leaf.boxes.items():
@@ -610,6 +734,10 @@ class Placement:
                                          device=leaf.device)
                 box.read(leaf, out[n])
         return out
+
+    def _ep_local(self, full: torch.Tensor) -> torch.Tensor:
+        """This ep rank's experts of a whole expert tensor."""
+        return full.chunk(self.mesh.shape["ep"])[self.mesh.coords["ep"]].contiguous().clone()
 
     @torch.no_grad()
     def full_state_dict(self) -> Dict[str, torch.Tensor]:
@@ -634,15 +762,20 @@ class Placement:
         if missing:
             raise KeyError(f"state dict misses {sorted(missing)[:5]}")
         full = {}
+        foreign, ep = set(self.foreign), set(self.plan.ep)
         for n, p in self._params.items():
             v = torch.as_tensor(sd[n]).to(p.device)
             if tuple(v.shape) != self._full_shapes[n] and n not in self.plan.tp:
                 raise ValueError(f"{n}: shape {tuple(v.shape)}, the model has "
                                  f"{self._full_shapes[n]}")
+            if n in foreign:
+                continue
             if n in self.managed:
                 full[n] = v.to(p.dtype)
             elif n in self.plan.tp:
                 p.copy_(tp_local(v, self.tp, *self.plan.tp[n]))
+            elif n in ep:
+                p.copy_(self._ep_local(v))
             else:
                 p.copy_(v)
         for u in self.units:
@@ -685,8 +818,8 @@ class Placement:
             for n in own:
                 if n in moments:
                     v = torch.as_tensor(moments[n])
-                    cut[n] = (tp_local(v, self.tp, *self.plan.tp[n])
-                              if n in self.plan.tp else v)
+                    cut[n] = (tp_local(v, self.tp, *self.plan.tp[n]) if n in self.plan.tp
+                              else self._ep_local(v) if n in self.plan.ep else v)
             for u in units:
                 if all(n in moments for n in u.leaf.boxes):
                     full = {n: torch.as_tensor(moments[n]).to(u.device, u.dtype)

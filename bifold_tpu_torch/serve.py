@@ -25,10 +25,28 @@ Protocol (stdlib + numpy, no web framework), the JAX daemon's:
 
 Device work is serialized under one lock, as the JAX daemon's is. With
 ``--max-batch`` > 1, concurrent single observations of one layout coalesce
-into one padded ``predict_batch``. The daemon's ``--mesh`` (a rank-0 server
-broadcasting each request to the other ranks) is not ported and is refused
-(ROADMAP queue item 5); :func:`build_server` takes a ``mesh`` for callers
-that run every rank themselves.
+into one padded ``predict_batch``.
+
+``--mesh dp=2,tp=2`` (parsed as JAX's daemon parses it) serves a model
+sharded over a ``torch.distributed`` group, one process per device, every
+process started by a launcher::
+
+    python -m torch.distributed.run --nproc_per_node 2 -m bifold_tpu_torch.serve \
+        --run-dir outputs/vr_folding/default --mesh tp=2
+
+Every rank builds the same ``ServingModel(mesh=)``. Rank 0 runs the HTTP
+server (``/healthz``, ``/metrics``, the dynamic batcher) and, before each
+call to the model (a request, a batcher's pool, a warm-up), broadcasts the
+call with its decoded observations to the other ranks, which make the same
+call (:class:`MeshLeader`, :func:`follow`); rank 0 answers. An idle leader
+broadcasts a no-op now and then, so that the other ranks' wait never
+reaches the group's timeout. SIGINT or SIGTERM stops rank 0, which sends a
+stop message; every rank then leaves the group and exits 0 (the other
+ranks ignore those signals: the stop message ends them). JAX's daemon is
+one process over its local devices; the HTTP contract is the same. The
+group's backend is NCCL for CUDA and gloo for the CPU; a caller that has
+joined a group of its own before ``main`` keeps it. An artifact keeps its
+refusal of a mesh, and int8 under fsdp keeps its own.
 """
 
 from __future__ import annotations
@@ -44,7 +62,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-__all__ = ["build_server", "make_httpd", "RemotePolicy", "main"]
+__all__ = ["build_server", "make_httpd", "RemotePolicy", "MeshLeader", "follow",
+           "parse_mesh", "main"]
 
 
 def build_server(run_dir=None, checkpoint=None, config=None, artifact=None,
@@ -457,6 +476,97 @@ class RemotePolicy:
         return Action(**{f: out[f] for f in self.fields}), None
 
 
+def parse_mesh(text: str) -> Dict[str, int]:
+    """``"dp=2,tp=4"`` -> ``{"dp": 2, "tp": 4}``; ValueError otherwise."""
+    return {k.strip(): int(v) for k, v in (kv.split("=") for kv in text.split(","))}
+
+
+def _broadcast(message):
+    """``message`` (rank 0's) on every rank of the default group."""
+    import torch.distributed as dist
+
+    box = [message]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+# an idle leader broadcasts a no-op this often (seconds), well inside the
+# group's timeout that the other ranks' wait for the next call runs under
+HEARTBEAT_S = 60.0
+
+
+class MeshLeader:
+    """Rank 0's handle on a server sharded over the default group: each
+    call to the model is broadcast to the other ranks (which run
+    :func:`follow`) before rank 0 makes it; anything else reads through to
+    the server. An idle leader broadcasts a no-op every
+    :data:`HEARTBEAT_S`."""
+
+    def __init__(self, server):
+        self.server = server
+        self._lock = threading.Lock()
+        self._last = time.monotonic()
+        self._closed = threading.Event()
+        self._beat = threading.Thread(target=self._heartbeat, daemon=True)
+        self._beat.start()
+
+    def __getattr__(self, name):
+        return getattr(self.server, name)
+
+    def _call(self, method: str, *args, **kwargs):
+        with self._lock:
+            _broadcast((method, args, kwargs))
+            self._last = time.monotonic()
+            return getattr(self.server, method)(*args, **kwargs)
+
+    def predict_batch(self, *args, **kwargs):
+        return self._call("predict_batch", *args, **kwargs)
+
+    def warmup(self, *args, **kwargs):
+        return self._call("warmup", *args, **kwargs)
+
+    def _heartbeat(self):
+        while not self._closed.wait(HEARTBEAT_S / 4):
+            with self._lock:
+                if self._closed.is_set():
+                    return
+                if time.monotonic() - self._last >= HEARTBEAT_S:
+                    _broadcast(("ping", (), {}))
+                    self._last = time.monotonic()
+
+    def stop(self) -> None:
+        """Tell the other ranks to leave (once)."""
+        with self._lock:
+            if not self._closed.is_set():
+                self._closed.set()
+                _broadcast(("stop", (), {}))
+
+
+def follow(server) -> int:
+    """A rank other than 0: make every call rank 0 broadcasts, until the
+    stop message. A call that raises here raises on rank 0 too (the same
+    inputs), which answers it with an error; this rank waits for the next."""
+    calls = 0
+    while True:
+        method, args, kwargs = _broadcast(None)
+        if method == "stop":
+            return calls
+        if method == "ping":
+            continue
+        calls += 1
+        try:
+            getattr(server, method)(*args, **kwargs)
+        except Exception as e:  # rank 0 reports it to its client
+            print(f"[serve] rank {_rank()}: {method} failed: {type(e).__name__}: {e}",
+                  flush=True)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m bifold_tpu_torch.serve",
@@ -478,7 +588,10 @@ def main(argv=None) -> int:
                    help="torch device to serve on (default cuda; cpu only "
                         "when asked)")
     p.add_argument("--mesh", default=None, metavar="dp=2,tp=4",
-                   help="the daemon over a mesh: not ported, refused")
+                   help="shard serving over the ranks of a launcher's group "
+                        "(one process per device): comma-separated mesh axes; "
+                        "rank 0 serves HTTP and broadcasts each call. "
+                        "Incompatible with --artifact")
     p.add_argument("--threshold", type=float, default=None)
     p.add_argument("--warmup", type=int, default=None, metavar="SIZE",
                    help="one request at SIZE x SIZE before listening")
@@ -489,17 +602,70 @@ def main(argv=None) -> int:
                    help="how long the first queued request waits for "
                         "company before dispatching")
     a = p.parse_args(argv)
-    if a.mesh is not None:
-        raise NotImplementedError(
-            "the daemon's --mesh (a rank-0 server broadcasting each request to "
-            "the other ranks) is ROADMAP queue item 5, the step after in-process "
-            "mesh serving; serve on one device, or run ServingModel(mesh=) on "
-            "every rank")
 
+    mesh = None
+    if a.mesh:
+        try:
+            mesh = parse_mesh(a.mesh)
+        except ValueError:
+            p.error(f"--mesh wants comma-separated axis=size pairs, got {a.mesh!r}")
+        if a.artifact is not None:
+            p.error("--artifact is served on one device; --mesh requires "
+                    "--run-dir or --checkpoint")
+        return _serve_mesh(a, mesh)
     server = build_server(run_dir=a.run_dir, checkpoint=a.checkpoint,
                           config=a.config, artifact=a.artifact, which=a.which,
                           depth_wire=a.depth_wire, quantize=a.quantize,
                           threshold=a.threshold, device=a.device)
+    return _serve_http(a, server)
+
+
+def _serve_mesh(a, mesh) -> int:
+    """``main`` under ``--mesh``: join the launcher's group, build the
+    sharded server on every rank, serve on rank 0, follow elsewhere."""
+    import signal
+
+    import torch.distributed as dist
+
+    from bifold_tpu_torch import parallel
+
+    device = None if a.device == "cuda" else a.device
+    if not parallel.distributed_init(device=device):
+        raise ValueError(
+            "--mesh serves over a launcher's group, one process per device: "
+            "python -m torch.distributed.run --nproc_per_node N -m "
+            "bifold_tpu_torch.serve ... --mesh ...; no launcher environment "
+            "(MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK) here")
+    if dist.get_rank() != 0:
+        # the stop message ends a follower, not a launcher's signal
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    server = build_server(run_dir=a.run_dir, checkpoint=a.checkpoint,
+                          config=a.config, which=a.which, depth_wire=a.depth_wire,
+                          quantize=a.quantize, threshold=a.threshold, mesh=mesh,
+                          device=a.device)
+    try:
+        if dist.get_rank() != 0:
+            calls = follow(server)
+            print(f"[serve] rank {dist.get_rank()}: stopped after {calls} calls",
+                  flush=True)
+            return 0
+        leader = MeshLeader(server)
+
+        def _term(signum, frame):
+            raise KeyboardInterrupt
+
+        signal.signal(signal.SIGTERM, _term)
+        try:
+            return _serve_http(a, leader)
+        finally:
+            leader.stop()
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve_http(a, server) -> int:
+    """Warm up, then answer HTTP until interrupted."""
     if a.warmup:
         # the batcher dispatches at pad_to=max_batch: warm that pool too
         pools = [None] + ([a.max_batch] if a.max_batch

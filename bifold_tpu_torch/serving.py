@@ -38,7 +38,11 @@ The deployment half (bifold_tpu/serving.py:105-184, 358-386, 467, 536-700):
   per-output-channel scale follows the output axis. A pooled batch that
   the data ranks divide is cut over them and the actions and raw outputs
   are gathered; one that does not (batch 1) is served whole on every data
-  rank. ``export`` from a sharded server raises.
+  rank. The pp, sp and ep axes replicate the server, as JAX's server
+  (which never sets an active mesh) runs the whole model on every device.
+  A model with MoE layers serves every batch whole on every rank: its
+  layers then route the batch as one group, as JAX's server routes it.
+  ``export`` from a sharded server raises.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from torch.nn.utils import parametrize
 
 from bifold_tpu_torch.env.action import Action
 from bifold_tpu_torch.models import build_model, decode_action, resolve_device
+from bifold_tpu_torch.models.layers import MoEFeedForward
 from bifold_tpu_torch.data.processor import Processor, _core
 
 __all__ = ["ServingModel", "ServingPolicy", "ExportedServingModel",
@@ -383,7 +388,7 @@ class ServingModel:
 
             mesh = parallel.make_mesh(mesh)
             plan = make_plan(served, dict(getattr(model, "config", {})).get("name"),
-                             mesh.shape)
+                             {**mesh.shape, "pp": 1, "ep": 1})
             if quantize == "int8":
                 if plan.units:
                     raise NotImplementedError(
@@ -413,6 +418,7 @@ class ServingModel:
         self.quantize = quantize
         self.threshold = float(model.threshold if threshold is None else threshold)
         self._depth_wire_f16 = depth_wire_dtype == "float16"
+        self._experts = any(isinstance(m, MoEFeedForward) for m in model.modules())
         self.mesh = self.placement = None
 
     @classmethod
@@ -515,7 +521,8 @@ class ServingModel:
         sample = self._preprocess(spec, self._upload(batched))
         mesh = self.mesh
         rows = next(v.shape[0] for v in sample.values() if isinstance(v, torch.Tensor))
-        split = mesh is not None and mesh.data_size > 1 and rows % mesh.data_size == 0
+        split = (mesh is not None and mesh.data_size > 1 and rows % mesh.data_size == 0
+                 and not self._experts)
         if split:
             from bifold_tpu_torch.parallel import shard_batch
             sample = shard_batch(sample, mesh=mesh)

@@ -11,12 +11,15 @@ How the port differs:
   CUDA card, which must be present). Under a ``torch.distributed`` group
   (``parallel.distributed_init``, which ``__main__`` calls) the ``mesh``
   config lays the ranks out as JAX's Trainer reads it (``dcn x dp x fsdp
-  x tp`` equal to the ranks, ``dp: -1`` taking what the others leave;
-  ``parallel.make_mesh``), and the model is placed by its family's
-  sharding plan (``parallel.place``: tp-sharded projections, fsdp-sharded
-  large leaves, the optimizer on the shards). Each data rank (``dcn x dp
-  x fsdp``) trains on its slice of every global batch (the loaders slice;
-  a tp group shares its slice), the step reduces the gradients as the
+  x tp x pp x sp x ep`` equal to the ranks, ``dp: -1`` taking what the
+  others leave, ``pp_microbatches`` as JAX's; ``parallel.make_mesh``), and
+  the model is placed by its family's sharding plan (``parallel.place``:
+  tp-sharded projections, fsdp-sharded large leaves, the optimizer on the
+  shards, pp stages holding their layers of each pipelined stack, which
+  trains and evaluates as a GPipe pipe, ep ranks holding their experts;
+  MoE layers route over the global batch). Each data rank (``dcn x dp x
+  fsdp``) trains on its slice of every global batch (the loaders slice; a
+  tp, pp, sp or ep group shares its slice), the step reduces the gradients as the
   plan says, samples/s counts the global batch, pixel eval sums each
   metric's sums and counts over the data ranks, and only rank 0 writes
   the config snapshot, logs, checkpoints and eval yaml. Checkpoints hold
@@ -62,9 +65,8 @@ train-mode forward; checkpoints carry them as JAX's ``extra_vars =
 so either package's Trainer resumes the other's file.
 
 Not ported, and refused with the ROADMAP queue item that holds them:
-``visualize_model_inputs`` and ``visualize_predictions`` (item 6), graph
-conditioning (item 4), the mesh axes ``pp``, ``sp`` and ``ep`` and MoE
-layers over more than one data rank (item 5). With ``simulator: softgym``
+``visualize_model_inputs`` and ``visualize_predictions`` (item 6) and graph
+conditioning (item 4). With ``simulator: softgym``
 the final eval says that the closed loop is not ported (item 6) and takes
 pixel metrics, as the JAX Trainer does when its evaluator cannot be
 imported.
@@ -192,8 +194,7 @@ class Trainer:
         self.run_dir.mkdir(parents=True, exist_ok=True)
         self._refuse_unported(cfg)
         self._family = dict(cfg["model"])["name"]
-        self.mesh = parallel.make_mesh(
-            cfg.get("mesh", {}), moe_experts=int(dict(cfg["model"]).get("moe_experts") or 0))
+        self.mesh = parallel.make_mesh(cfg.get("mesh", {}))
         self.world = self.mesh.world
         self.rank = parallel.rank()
         if self.rank == 0:
@@ -363,7 +364,7 @@ class Trainer:
         other ranks wait until it is written, so that a load that follows
         reads it. Under a sharded placement every rank first takes part in
         gathering the full tensors."""
-        sharded = self.placement is not None and (self.mesh.fsdp > 1 or self.mesh.tp > 1)
+        sharded = self.placement is not None and self.placement.sharded
         if sharded:
             params, extra_vars = self.jax_variables()
             opt_state = self._optimizer_state()

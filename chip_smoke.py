@@ -98,7 +98,7 @@ one JSON object per line:
    coalescing and its p50 beside in-process;
 8. the two CLIP families at their composed configs (:func:`serve_family`,
    :func:`trainer_cli_families`): ``rgb_clip`` and ``text_unet`` served
-   (bimanual, bf16, seeded weights; 11 requests and a pool of 8 in each
+   (bimanual, bf16, seeded weights; requests and a pool of 8 in each
    LayerNorm mode with exact launches: 8 ``fwd_infer_d32`` per rgb_clip
    request, none for text_unet, whose 25 text-tower norms take ``ln_fwd``
    under ``pallas``), the f32 kernel forward against the math path, int8
@@ -143,8 +143,21 @@ one JSON object per line:
    2}`` in f32, and bf16 int8 under tp; ``export`` refused) and ``main``
    under ``mesh.fsdp=2`` and ``mesh.tp=2`` (:func:`mesh_cli`: steps, eval,
    checkpoints served by one process in f32, a stopped and resumed run
-   bitwise); each worker is this script run with arguments (``dp-cli``,
-   ``dp-rank``, ``mesh-rank``, ``mesh-cli``);
+   bitwise); then pp and ep with two gloo ranks (:func:`mesh_axes_two_ranks`:
+   the f32 flagship step under ``{pp: 2}``, its three stacks as GPipe pipes,
+   against one process's, 1e-6 and 1e-8, each stage's exact launches per
+   microbatch, eval through the pipe, the step under ``pallas`` with each
+   stage's LayerNorm launches; the f32 MoE variant under ``{ep: 2}`` and
+   ``{dp: 2}`` at a capacity that drops tokens against one process routing
+   as JAX routes), ring attention over three gloo ranks
+   (:func:`ring_three_ranks`: sp = 3 at the tower's and the fusion's
+   shapes, bf16 and f32, forward and backward, a wholly masked chunk,
+   against the single-device kernels) and the daemon's ``--mesh tp=2``
+   (:func:`daemon_mesh`: HTTP to rank 0, actions equal to an in-process
+   sharded server's, exact launches per rank, a clean stop); each worker
+   is this script run with arguments (``dp-cli``, ``dp-rank``,
+   ``mesh-rank``, ``mesh-cli``, ``axes-rank``, ``ring-rank``,
+   ``daemon-rank``, ``serve-rank``);
 11. the script's seconds, the ``kernels`` line (twenty-two kernel
    instances: the flash kernels at three head dims in bf16, and in f32
    those a main path launches (the decoder's d32, the f32 flagship's d48
@@ -179,6 +192,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -200,6 +214,8 @@ PROCESSOR = {"model_image_size": 384, "text_encoder": None, "sigma": 5,
              "requires_graph": False, "spatial_augment": True,
              "strategy": "gmm", "mask_depth": True, "standardize_depth": False}
 CAMERA = 720
+# requests per latency p50, each call in turns
+LATENCY_ROUNDS = 5
 INSTRUCTIONS = ("fold the left sleeve to the center",
                 "fold the towel in half from bottom to top",
                 "fold the right sleeve in", "fold the tshirt in half",
@@ -1650,7 +1666,7 @@ def train_interleaved(steppers, card, rounds=5):
           "step_ms": step_ms, **card})
 
 
-def train_stages(model, optimizer, sample, iters: int = 5):
+def train_stages(model, optimizer, sample, iters: int = 3):
     """Median ms of the train step's stages, synchronised between stages:
     forward + loss, backward (gradients of the trainable parameters) and the
     optimizer (global norm, clip, update in place). Updates the model."""
@@ -1887,13 +1903,13 @@ def serve_flagship(card):
     del f32_server
 
     # latency with the modes in turns (default, pallas, fused, default,
-    # ...), 11 requests each, so that drift of the shared host's speed falls
+    # ...), LATENCY_ROUNDS requests each, so that drift of the shared host's speed falls
     # on all modes alike
     calls = {"batch1": lambda: server.predict(**obs, instruction=text),
              "pool8": lambda: server.predict_batch(pool, pad_to=8)}
     times = {mode: {name: [] for name in calls} for mode in LN_MODES}
     for name, call in calls.items():
-        for _ in range(11):
+        for _ in range(LATENCY_ROUNDS):
             for mode in LN_MODES:
                 with ln_mode(mode):
                     t = time.perf_counter()
@@ -1904,7 +1920,7 @@ def serve_flagship(card):
         lat = {name: statistics.median(v) for name, v in times[mode].items()}
         emit({"phase": "predict_latency", "ln_mode": mode,
               "p50_ms_batch1": lat["batch1"], "p50_ms_pool8": lat["pool8"],
-              "requests_each": 11, "in_turns_with": list(LN_MODES), **card})
+              "requests_each": LATENCY_ROUNDS, "in_turns_with": list(LN_MODES), **card})
         for name, obs_list in (("batch1", [dict(obs, instruction=text)]),
                                ("pool8", pool)):
             phases.append(serving_phase(server, mode, name, obs_list, lat[name]))
@@ -1998,8 +2014,8 @@ def deployment_phase(card, device="cuda"):
       ``predict`` / ``predict_batch`` do, and a bad body with a 400; a
       second one with ``--max-batch 8`` coalesces 8 concurrent clients into
       fewer dispatches, each client's actions those of its observation in an
-      in-process pool of 8; HTTP p50 beside in-process p50 (11 requests
-      each, in turns).
+      in-process pool of 8; HTTP p50 beside in-process p50
+      (:data:`LATENCY_ROUNDS` requests each, in turns).
 
     Returns the launches of every request here. ``device="cpu"`` runs the
     same steps on the CPU (a rehearsal at a tiny size, with the launch
@@ -2129,7 +2145,7 @@ def deployment_phase(card, device="cuda"):
             "daemon pool"), ref_pool[mode]) for mode in LN_MODES}
         bad = http_call(port, "POST", "/predict", b"not an npz")[0]
         times = {"http": [], "in_process": []}
-        for _ in range(11):
+        for _ in range(LATENCY_ROUNDS):
             for name, call in (("http", lambda: http_predict(port, [obs])),
                                ("in_process", lambda: live.predict(**obs))):
                 t = time.perf_counter()
@@ -2168,7 +2184,7 @@ def deployment_phase(card, device="cuda"):
           "concurrent_clients": 8, "requests_dispatches": list(coalesced),
           "clients_actions_equal_in_process": clients_ok,
           "p50_ms": {k: statistics.median(v) for k, v in times.items()},
-          "requests_each": 11, "daemon_metrics": metrics, **card})
+          "requests_each": LATENCY_ROUNDS, "daemon_metrics": metrics, **card})
     launches = launch_counts()           # ... and ends here
     failed = [f"{path} {mode}" for path, by_mode in results.items()
               for mode, ok in by_mode.items() if not ok]
@@ -2424,17 +2440,23 @@ def trainer_cli(card, flagship_p50, device="cuda"):
     return launches, ta, p50
 
 
+# steps of a Trainer's epoch that trainer_profile traces: its last ones
+TRAINER_PROFILE_STEPS = 2
+
+
 def trainer_profile(trainer, card, step_ms, label="trainer_device_profile"):
-    """torch.profiler over one more epoch of ``trainer`` (every step of its
-    loader, 5 for the flagship's, in the default LayerNorm mode, the mode of
-    the CLI runs that gave ``step_ms``): the device's busy time per step and
-    its idle share of ``step_ms`` (the Trainer's unprofiled step p50, as
-    :func:`device_profile` takes it) and of the profiled epoch's wall time
-    (the profiler slows the host's launches)."""
+    """torch.profiler over the last :data:`TRAINER_PROFILE_STEPS` steps of
+    one more epoch of ``trainer`` (its loader started at that batch), in the
+    default LayerNorm mode, the mode of the CLI runs that gave ``step_ms``:
+    the device's busy time per step and its idle share of ``step_ms`` (the
+    Trainer's unprofiled step p50, as :func:`device_profile` takes it) and
+    of the profiled steps' wall time (the profiler slows the host's
+    launches)."""
     from torch.profiler import ProfilerActivity, profile
 
-    steps = len(trainer.train_dataloader)
+    steps = min(TRAINER_PROFILE_STEPS, len(trainer.train_dataloader))
     trainer.epoch = 1
+    trainer.train_dataloader.start_batch = len(trainer.train_dataloader) - steps
     with ln_mode(""), profile(activities=[ProfilerActivity.CPU,
                                            ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -2666,7 +2688,7 @@ def serve_family(card, family, device="cuda"):
             del from_ckpt
 
     times = {"batch1": [], "pool8": []}
-    for _ in range(11):
+    for _ in range(LATENCY_ROUNDS):
         for name, call in (("batch1", lambda: live.predict(**obs, instruction=text)),
                            ("pool8", lambda: live.predict_batch(pool, pad_to=8))):
             t = time.perf_counter()
@@ -2674,7 +2696,7 @@ def serve_family(card, family, device="cuda"):
             times[name].append((time.perf_counter() - t) * 1e3)
     lat = {name: statistics.median(v) for name, v in times.items()}
     emit({"phase": f"serve_{family}_latency", "p50_ms_batch1": lat["batch1"],
-          "p50_ms_pool8": lat["pool8"], "requests_each": 11, "ln_mode": "default",
+          "p50_ms_pool8": lat["pool8"], "requests_each": LATENCY_ROUNDS, "ln_mode": "default",
           "seconds": time.perf_counter() - t0, **card})
     phases = [serving_phase(live, "", f"{family} {name}", obs_list, lat[name])
               for name, obs_list in (("batch1", [dict(obs, instruction=text)]),
@@ -2971,7 +2993,7 @@ def variant_phase(card, variant, device="cuda"):
             raise AssertionError(f"{variant}: deployment paths differ from live: {failed}")
 
     times = {"batch1": [], "pool8": []}
-    for _ in range(11):
+    for _ in range(LATENCY_ROUNDS):
         for name, call in (("batch1", lambda: live.predict(**obs)),
                            ("pool8", lambda: live.predict_batch(pool, pad_to=8))):
             t = time.perf_counter()
@@ -2979,7 +3001,7 @@ def variant_phase(card, variant, device="cuda"):
             times[name].append((time.perf_counter() - t) * 1e3)
     lat = {name: statistics.median(v) for name, v in times.items()}
     emit({"phase": f"variant_{variant}_latency", "p50_ms_batch1": lat["batch1"],
-          "p50_ms_pool8": lat["pool8"], "requests_each": 11, "ln_mode": "default",
+          "p50_ms_pool8": lat["pool8"], "requests_each": LATENCY_ROUNDS, "ln_mode": "default",
           **card})
     phases = [serving_phase(live, "", f"{variant} {name}", obs_list, lat[name])
               for name, obs_list in (("batch1", [obs]), ("pool8", pool))]
@@ -3443,8 +3465,35 @@ DP_STATS_TOL = 1e-5                      # f32: BatchNorm running statistics
 DP_FAMILY_STEP = {"flagship": f32_keys(PER_STEP), "text_unet": {}}
 
 
+def jax_ep_routing(model, ep):
+    """Make every MoE layer of ``model`` compute what JAX's layer computes
+    on one device under an ep mesh of size ``ep``: the ``j``-th of ``ep``
+    contiguous chunks of the token order routed alone, with the capacity of
+    its own tokens (``moe_ffn`` on the chunk), when ``ep`` divides the
+    tokens; the load-balance loss over every token (JAX's ``route`` at
+    top 1)."""
+    import types
+
+    from bifold_tpu_torch.models.layers import MoEFeedForward
+    from bifold_tpu_torch.ops import moe
+
+    def forward(self, x):
+        params = {k: getattr(self, k) for k in ("router", "w1", "b1", "w2", "b2")}
+        x2 = x.to(self.dtype).reshape(-1, x.shape[-1])
+        parts = x2.chunk(ep) if x2.shape[0] % ep == 0 else (x2,)
+        out = torch.cat([moe.moe_ffn(part, params, top_k=self.top_k,
+                                     capacity_factor=self.capacity_factor)
+                         for part in parts])
+        _, _, aux = moe.route(x2, params["router"], top_k=1, capacity=1, return_aux=True)
+        return self.dropout(out.reshape(x.shape)), aux
+
+    for mod in model.modules():
+        if isinstance(mod, MoEFeedForward):
+            mod.forward = types.MethodType(forward, mod)
+
+
 def dp_step(family, device="cuda", shard=False, mesh=None, dropout=0.0, mode="",
-            optim=DP_SGD):
+            optim=DP_SGD, extra=None, aux_weight=0.0, ep_groups=1, evaluate=False):
     """One f32 SGD step (clip 1.0) at ``dropout`` (0 by default) of
     ``family`` ("flagship": SiglipSequential at :data:`FLAGSHIP`;
     "text_unet": its composed config, CLIP RN50) from the seeded init, on
@@ -3456,7 +3505,12 @@ def dp_step(family, device="cuda", shard=False, mesh=None, dropout=0.0, mode="",
     trainable tensors (gathered whole) and buffers (on the CPU), a hash of
     every parameter this rank holds replicated, the bytes of parameters and
     optimizer state it holds after the step, and the LayerNorm launches
-    one train step of this model takes in ``mode``."""
+    one train step of this model takes in ``mode``. ``extra``: model
+    options over the flagship's (the MoE variant), ``aux_weight`` its
+    load-balance weight; ``ep_groups`` > 1 routes the MoE layers in this
+    one process as JAX's ``expert_parallel_ffn`` routes them under an ep
+    mesh of that size (:func:`jax_ep_routing`); ``evaluate``: also the eval step on the same batch after
+    the train step (its launches, their shapes and the heatmaps)."""
     import hashlib
 
     from bifold_tpu_torch import parallel
@@ -3469,7 +3523,7 @@ def dp_step(family, device="cuda", shard=False, mesh=None, dropout=0.0, mode="",
     from bifold_tpu_torch.parallel import TrainState, make_train_step, shard_batch
 
     if family == "flagship":
-        cfg = {**FLAGSHIP, "lora_dropout": dropout, "dropout": dropout}
+        cfg = {**FLAGSHIP, **(extra or {}), "lora_dropout": dropout, "dropout": dropout}
         proc = Processor(TRAIN_PROCESSOR, partition="train", max_context_length=3,
                          autoprocessor_name=FLAGSHIP["automodel_name"],
                          spm_asset=fixture_model_bytes(), seed=0)
@@ -3486,6 +3540,8 @@ def dp_step(family, device="cuda", shard=False, mesh=None, dropout=0.0, mode="",
         sample = shard_batch(sample)
     model = build_model(cfg, dtype=torch.float32, device=device, seed=0)
     mask = trainable_mask(model, lora=True)
+    if ep_groups > 1:
+        jax_ep_routing(model, ep_groups)
     ln_want = ln_launches(model, mode, True) if family == "flagship" else {}
     placement, t = None, time.perf_counter()
     if mesh is not None:
@@ -3497,7 +3553,8 @@ def dp_step(family, device="cuda", shard=False, mesh=None, dropout=0.0, mode="",
         params, names = [p for p in model.parameters() if p.requires_grad], None
     opt = build_optimizer(dict(optim), params, None, max_iters=10, gradient_clip=1.0,
                           names=names)
-    step = make_train_step(model, build_loss(dict(LOSS)), opt, placement=placement)
+    step = make_train_step(model, build_loss(dict(LOSS)), opt, placement=placement,
+                           moe_aux_weight=aux_weight)
     place_s = time.perf_counter() - t
     with ln_mode(mode):
         clear_launch_counts()            # the step starts here
@@ -3508,6 +3565,16 @@ def dp_step(family, device="cuda", shard=False, mesh=None, dropout=0.0, mode="",
         step_s = time.perf_counter() - t
         launches = launch_counts()       # ... and ends here
     shapes = {f"{k} {list(shape)}": n for (k, shape), n in fa.SHAPES.items()}
+    evaluated = None
+    if evaluate:
+        clear_launch_counts()
+        out = parallel.make_eval_step(model)(sample)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        evaluated = {"launches": launch_counts(),
+                     "shapes": {f"{k} {list(shape)}": n for (k, shape), n in fa.SHAPES.items()},
+                     "out": {k: v.float().cpu() for k, v in out.items()
+                             if isinstance(v, torch.Tensor) and k.endswith("heatmap")}}
     if placement is not None:
         held = placement.held_bytes(opt)
         state = placement.full_state_dict()
@@ -3525,7 +3592,7 @@ def dp_step(family, device="cuda", shard=False, mesh=None, dropout=0.0, mode="",
             "shapes": shapes, "batch": int(sample["depth"].shape[0]),
             "trainable": {n: state[n].detach().cpu() for n, t in mask.items() if t},
             "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()},
-            "hash": digest.hexdigest(), "held_bytes": held,
+            "hash": digest.hexdigest(), "held_bytes": held, "eval": evaluated,
             "ln_want": ln_want, "place_seconds": place_s, "step_seconds": step_s}
 
 
@@ -3733,21 +3800,21 @@ def mesh_rank_worker(rank, port, out, device="cuda"):
     return 0
 
 
-def spawn_ranks(worker, out, *args):
-    """:data:`MESH_RANKS` processes of this script as ``worker`` ranks
-    (``worker RANK PORT OUT ARGS...``), started; :func:`wait_ranks` waits."""
+def spawn_ranks(worker, out, *args, n=MESH_RANKS):
+    """``n`` processes of this script as ``worker`` ranks (``worker RANK
+    PORT OUT ARGS...``), started; :func:`wait_ranks` waits."""
     script = str(Path(__file__).resolve())
     port = _free_port()
     Path(out).mkdir(parents=True, exist_ok=True)
     return [subprocess.Popen([sys.executable, script, worker, str(r), str(port), str(out),
                               *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                              text=True, cwd=str(Path(script).parent))
-            for r in range(MESH_RANKS)]
+            for r in range(n)]
 
 
-def wait_ranks(procs, worker, out, timeout=900):
+def wait_ranks(procs, worker, out, timeout=900, n=MESH_RANKS, name="rank"):
     """Wait for :func:`spawn_ranks`' processes and load each rank's
-    ``OUT/rank<R>.pt``; raises with a rank's error output if one fails,
+    ``OUT/<name><R>.pt``; raises with a rank's error output if one fails,
     and stops every rank on the way out."""
     try:
         for r, proc in enumerate(procs):
@@ -3760,8 +3827,7 @@ def wait_ranks(procs, worker, out, timeout=900):
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
-    return [torch.load(Path(out) / f"rank{r}.pt", weights_only=False)
-            for r in range(MESH_RANKS)]
+    return [torch.load(Path(out) / f"{name}{r}.pt", weights_only=False) for r in range(n)]
 
 
 def mesh_two_ranks(card, device="cuda"):
@@ -4070,8 +4136,510 @@ def mesh_cli(card, device="cuda"):
     return dict(launches)
 
 
+# the mesh axes pp and ep and MoE over data ranks, two gloo ranks on the
+# card: the f32 flagship step under {pp: 2} (each stage's layers of the
+# three stacks, microbatched), again under BIFOLD_LN_KERNEL=pallas, eval
+# through the pipe, and the f32 MoE variant under {ep: 2} and {dp: 2} at a
+# capacity that drops tokens
+AXES_PP = {"pp": 2}
+AXES_TOL = 1e-6                          # loss, grad norm: relative to one process
+AXES_PARAM_TOL = 1e-8                    # trainable tensors after one step
+AXES_EVAL_TOL = 1e-5                     # heatmaps of the eval step
+AXES_MOE = {"ep": {"ep": 2}, "dp": {"dp": 2}}
+AXES_MOE_MODEL = {**VARIANTS["moe"], "moe_capacity_factor": 0.5}   # drops tokens
+AXES_MOE_AUX = AXES_MOE_MODEL["moe_aux_weight"]
+# the flagship's pipelined stacks at TRAIN_BATCH: (depth, rows, whether its
+# input carries no gradient: the frozen towers' embeddings); the text tower
+# runs the math path (64 tokens), the vision tower sees 1 + 3 frames a sample
+PP_STACKS = {"vision": (12, 4 * TRAIN_BATCH, True), "text": (12, TRAIN_BATCH, True),
+             "fusion": (8, TRAIN_BATCH, False)}
+
+
+def pp_flash_want(one_shapes: dict, pp: int) -> dict:
+    """A pp rank's flash launches, from one process's ("<key> [B, N, H,
+    D]" -> count): a stack's ``n`` launches at batch B become ``n / pp``
+    layers, each launched once per microbatch."""
+    from bifold_tpu_torch.parallel.pipeline import microbatch_count
+
+    want = collections.Counter()
+    for k, n in one_shapes.items():
+        key, shape = k.split(" ", 1)
+        want[key] += n // pp * microbatch_count(json.loads(shape)[0], pp)
+    return dict(want)
+
+
+def pp_ln_want(stage: int, pp: int, other: int = FLAGSHIP_NORMS[1]) -> dict:
+    """A pp stage's LayerNorm kernel launches of one ``pallas`` train step:
+    two norms a layer, once per microbatch, forward and backward, but no
+    backward for the first norm of a frozen tower's first layer (stage 0);
+    the ``other`` norms outside the stacks on every stage."""
+    from bifold_tpu_torch.parallel.pipeline import microbatch_count
+
+    if sum(2 * depth for depth, _, _ in PP_STACKS.values()) != FLAGSHIP_NORMS[0]:
+        raise AssertionError("PP_STACKS does not hold the flagship's stacked norms")
+    fwd = bwd = other
+    for depth, rows, frozen in PP_STACKS.values():
+        m = microbatch_count(rows, pp)
+        fwd += depth // pp * 2 * m
+        bwd += depth // pp * 2 * m - (m if frozen and stage == 0 else 0)
+    return {"ln_fwd": fwd, "ln_bwd": bwd}
+
+
+def axes_rank_worker(rank, port, out, device="cuda"):
+    """``python3 chip_smoke.py axes-rank RANK PORT OUT [DEVICE]``: rank
+    ``RANK`` of :data:`MESH_RANKS` in a gloo group on the one card, TF32 off
+    as in :func:`main`: the f32 flagship step under :data:`AXES_PP` with its
+    eval step, the same step under ``pallas``, and the f32 MoE variant's
+    step under each of :data:`AXES_MOE`; saves to ``OUT/rank<RANK>.pt``."""
+    from bifold_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(rank)
+    parallel.distributed_init(f"tcp://localhost:{port}", MESH_RANKS, rank,
+                              device="cuda:0" if device == "cuda" else "cpu",
+                              backend="gloo")
+    results = {"pp": dp_step("flagship", device, mesh=AXES_PP, optim=MESH_SGD, evaluate=True),
+               "pp_pallas": dp_step("flagship", device, mesh=AXES_PP, mode="pallas",
+                                    optim=MESH_SGD),
+               "stage": parallel.make_mesh(AXES_PP).coords["pp"]}
+    results["moe"] = {name: dp_step("flagship", device, mesh=mesh, optim=MESH_SGD,
+                                    extra=AXES_MOE_MODEL, aux_weight=AXES_MOE_AUX)
+                      for name, mesh in AXES_MOE.items()}
+    torch.save(results, Path(out) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _axes_gap(got, want):
+    """(largest relative gap of loss and grad norm, largest absolute gap of
+    a trainable tensor) of a rank's step from one process's."""
+    metrics = max(abs(got["metrics"][k] - want["metrics"][k]) / max(abs(want["metrics"][k]), 1e-30)
+                  for k in ("loss", "grad_norm"))
+    tensors = max(float((got["trainable"][n] - v).abs().max())
+                  for n, v in want["trainable"].items() if v.numel())
+    return metrics, tensors
+
+
+def mesh_axes_two_ranks(card, device="cuda"):
+    """pp and ep on the one card: two gloo ranks (:func:`axes_rank_worker`;
+    every transfer staged through host memory, so its times measure that
+    staging, not NCCL). The full-width, full-depth f32 flagship at dropout
+    0, global batch 2, SGD with momentum, under ``{pp: 2}``: its three
+    stacks (vision 12, text 12, fusion 8 layers) run as GPipe pipes, each
+    stage holding half the layers. Against the one-process step in this
+    process: loss and gradient norm within :data:`AXES_TOL` relative, every
+    trainable tensor within :data:`AXES_PARAM_TOL`; per rank exactly one
+    process's f32 flash launches cut into stages and microbatches
+    (:func:`pp_flash_want`: 6 vision layers x 4 microbatches of 2 frames at
+    d64, 4 fusion layers x 2 microbatches of 1 at d48, forward with lse and
+    backward); the bytes each rank holds beside one process's; the eval
+    step through the pipe, its heatmaps within :data:`AXES_EVAL_TOL` and
+    its inference launches exact; the same step under ``pallas`` with each
+    stage's ``ln_fwd``/``ln_bwd`` launches exact (:func:`pp_ln_want`). The
+    f32 MoE variant (8 experts, capacity factor 0.5: tokens drop) under
+    ``{ep: 2}`` against one process routing by JAX's two ep shards, and
+    under ``{dp: 2}`` against one process routing the whole batch (JAX's
+    global routing), within :data:`MESH_TOL` and :data:`MESH_PARAM_TOL`;
+    the experts' bytes halve under ep. Returns every rank's launches."""
+    import shutil
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bifold_axes_ranks_"))
+    procs = spawn_ranks("axes-rank", tmp, device)
+    one = dp_step("flagship", device, optim=MESH_SGD, evaluate=True)
+    moe_one = {"ep": dp_step("flagship", device, optim=MESH_SGD, extra=AXES_MOE_MODEL,
+                             aux_weight=AXES_MOE_AUX, ep_groups=AXES_MOE["ep"]["ep"]),
+               "dp": dp_step("flagship", device, optim=MESH_SGD, extra=AXES_MOE_MODEL,
+                             aux_weight=AXES_MOE_AUX)}
+    ranks = wait_ranks(procs, "axes-rank", tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches, ok, lines = collections.Counter(), True, {}
+    pp = AXES_PP["pp"]
+    want_step = pp_flash_want(one["shapes"], pp)
+    want_eval = pp_flash_want(one["eval"]["shapes"], pp)
+    for name in ("pp", "pp_pallas"):
+        gaps = [_axes_gap(r[name], one) for r in ranks]
+        per_rank = [r[name]["launches"] for r in ranks]
+        for d in per_rank:
+            launches.update(d)
+        want = [want_step if name == "pp" or device == "cpu" else
+                {**want_step, **pp_ln_want(r["stage"], pp)} for r in ranks]
+        lines[name] = {"loss": one["metrics"]["loss"], "grad_norm": one["metrics"]["grad_norm"],
+                       "max_rel_diff_loss_grad_norm": max(g[0] for g in gaps),
+                       "max_abs_diff_trainable": max(g[1] for g in gaps),
+                       "launches_per_rank": per_rank, "want_per_rank": want,
+                       "shapes_per_rank": [r[name]["shapes"] for r in ranks],
+                       "held_bytes_per_rank": [r[name]["held_bytes"] for r in ranks],
+                       "one_process_held_bytes": one["held_bytes"],
+                       "first_step_seconds_host_staged": [r[name]["step_seconds"]
+                                                          for r in ranks],
+                       "one_process_first_step_seconds": one["step_seconds"],
+                       "place_seconds": [r[name]["place_seconds"] for r in ranks]}
+        ok &= (max(g[0] for g in gaps) <= AXES_TOL and max(g[1] for g in gaps) <= AXES_PARAM_TOL
+               and all(r[name]["held_bytes"] < one["held_bytes"] for r in ranks)
+               and (device == "cpu" or all(d == w for d, w in zip(per_rank, want))))
+    heat = max(float((r["pp"]["eval"]["out"][k] - v).abs().max())
+               for r in ranks for k, v in one["eval"]["out"].items())
+    eval_launches = [r["pp"]["eval"]["launches"] for r in ranks]
+    for d in eval_launches:
+        launches.update(d)
+    lines["pp_eval"] = {"max_abs_diff_heatmaps": heat, "launches_per_rank": eval_launches,
+                        "want_per_rank": want_eval,
+                        "shapes_per_rank": [r["pp"]["eval"]["shapes"] for r in ranks]}
+    ok &= heat <= AXES_EVAL_TOL and bool(one["eval"]["out"]) and (
+        device == "cpu" or all(d == want_eval for d in eval_launches))
+    for name, ref in moe_one.items():
+        gaps = [_axes_gap(r["moe"][name], ref) for r in ranks]
+        per_rank = [r["moe"][name]["launches"] for r in ranks]
+        for d in per_rank:
+            launches.update(d)
+        # each rank launches what one process does (under dp at half the batch)
+        want = ref["launches"]
+        lines[f"moe_{name}"] = {
+            "loss": ref["metrics"]["loss"],
+            "moe_load_balance": ref["metrics"]["moe_load_balance"],
+            "rank_moe_load_balance": [r["moe"][name]["metrics"]["moe_load_balance"]
+                                      for r in ranks],
+            "max_rel_diff_loss_grad_norm": max(g[0] for g in gaps),
+            "max_abs_diff_trainable": max(g[1] for g in gaps),
+            "launches_per_rank": per_rank, "want": want,
+            "batch_per_rank": [r["moe"][name]["batch"] for r in ranks],
+            "held_bytes_per_rank": [r["moe"][name]["held_bytes"] for r in ranks],
+            "one_process_held_bytes": ref["held_bytes"],
+            "first_step_seconds_host_staged": [r["moe"][name]["step_seconds"] for r in ranks]}
+        ok &= (max(g[0] for g in gaps) <= MESH_TOL and max(g[1] for g in gaps) <= MESH_PARAM_TOL
+               and (name != "ep" or all(r["moe"][name]["held_bytes"] < ref["held_bytes"]
+                                        for r in ranks))
+               and (device == "cpu" or all(d == want for d in per_rank)))
+    emit({"phase": "mesh_axes_two_ranks", "ranks": MESH_RANKS, "device": "one card, each rank",
+          "collectives": "gloo, staged through host memory", "dtype": "float32",
+          "tol": AXES_TOL, "param_tol": AXES_PARAM_TOL, **lines,
+          "seconds": time.perf_counter() - t0, **card})
+    if not ok:
+        raise AssertionError("mesh_axes_two_ranks failed (see its line)")
+    return dict(launches)
+
+
+# ring attention over three gloo ranks on the card (sp = 3): the vision
+# tower's and the fusion stack's attention shapes, cut into 192- and
+# 791-token chunks, forward and backward, in bf16 and f32
+RING_RANKS = 3
+RING_SHAPES = {"tower": (4, 576, 12, 64), "fusion": (1, 2373, 16, 48)}
+RING_MASKS = ("flagship", "dead_chunk")
+
+
+def ring_inputs(name, dtype, masking, device="cuda"):
+    """q, k, v, the output cotangent (seeded, the same on every rank) and
+    the key mask: the flagship's (the tower none; the fusion its last
+    context frame masked) or one with the middle sp chunk wholly masked
+    besides."""
+    b, n, h, d = RING_SHAPES[name]
+    gen = torch.Generator(device).manual_seed(7 + d)
+    q, k, v, g = (torch.randn(b, n, h, d, device=device, generator=gen).to(dtype)
+                  for _ in range(4))
+    if name == "fusion":
+        mask = torch.ones(b, n, dtype=torch.int32, device=device)
+        mask[:, 65 + 577 * 2: 65 + 577 * 3] = 0
+    else:
+        mask = None
+    if masking == "dead_chunk":
+        mask = torch.ones(b, n, dtype=torch.int32, device=device) if mask is None else mask
+        chunk = n // RING_RANKS
+        mask[:, chunk:2 * chunk] = 0
+    return q, k, v, g, mask
+
+
+def ring_rank_worker(rank, port, out, device="cuda"):
+    """``python3 chip_smoke.py ring-rank RANK PORT OUT [DEVICE]``: rank
+    ``RANK`` of :data:`RING_RANKS` in a gloo group on the card. For each
+    shape, dtype and mask: its chunk of the ring's output and of dq, dk,
+    dv (launches counted from just before the forward to just after the
+    backward), then the single-device kernels on the whole sequence, and
+    each chunk's largest difference from them (:func:`within`); saves to
+    ``OUT/rank<RANK>.pt``."""
+    from bifold_tpu_torch import parallel
+    from bifold_tpu_torch.ops import flash_attention as fa
+    from bifold_tpu_torch.parallel import make_mesh
+    from bifold_tpu_torch.ops.ring_attention import ring_attention_shard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = int(rank)
+    parallel.distributed_init(f"tcp://localhost:{port}", RING_RANKS, rank,
+                              device="cuda:0" if device == "cuda" else "cpu",
+                              backend="gloo")
+    mesh = make_mesh({"sp": RING_RANKS})
+    results = {}
+    for name in RING_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for masking in RING_MASKS:
+                q, k, v, g, mask = ring_inputs(name, dtype, masking, device)
+                n = q.shape[1] // RING_RANKS
+                part = [t[:, rank * n:(rank + 1) * n].contiguous().requires_grad_()
+                        for t in (q, k, v)]
+                clear_launch_counts()
+                t = time.perf_counter()
+                o = ring_attention_shard(*part, None if mask is None else
+                                         mask[:, rank * n:(rank + 1) * n].contiguous(),
+                                         ranks=mesh.ranks["sp"], me=mesh.coords["sp"])
+                grads = torch.autograd.grad(o, part, g[:, rank * n:(rank + 1) * n])
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - t
+                counts = launch_counts()
+                whole = [t.clone().requires_grad_() for t in (q, k, v)]
+                ref = fa.flash_attention_train(*whole, mask)
+                ref_grads = torch.autograd.grad(ref, whole, g)
+                errs = {}
+                for key, got, want in (("out", o, ref), *zip(("dq", "dk", "dv"), grads,
+                                                            ref_grads)):
+                    err, tol, good = within(got.detach(), want.detach()[:, rank * n:(rank + 1) * n],
+                                            dtype)
+                    errs[key] = {"max_abs_err": err, "tol": tol, "ok": good}
+                dead = mask is not None and not bool(mask[:, rank * n:(rank + 1) * n].any())
+                results[f"{name} {str(dtype).split('.')[-1]} {masking}"] = {
+                    "errors": errs, "launches": counts, "seconds_host_staged": seconds,
+                    "chunk": [int(s) for s in part[0].shape], "chunk_fully_masked": dead}
+    torch.save(results, Path(out) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def ring_three_ranks(card, device="cuda"):
+    """``ring_attention`` over ``sp`` = :data:`RING_RANKS` gloo ranks on the
+    card (:func:`ring_rank_worker`; k, v, the mask and the dk/dv
+    accumulators staged through host memory at each ring step) at the
+    vision tower's shape (4x576x12x64, chunks of 192) and the fusion
+    stack's (1x2373x16x48, chunks of 791), bf16 and f32, forward and
+    backward, with the flagship's key masks and with a wholly masked
+    chunk: every chunk of the output and of dq, dk, dv against the
+    single-device kernels on the whole sequence (f32 within 1e-4, bf16
+    within 2^-6 of the plain value, :func:`within`); exactly ``sp``
+    forwards with lse and ``sp`` backwards per rank and call. Returns every
+    rank's launches."""
+    import shutil
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bifold_ring_ranks_"))
+    ranks = wait_ranks(spawn_ranks("ring-rank", tmp, device, n=RING_RANKS), "ring-rank", tmp,
+                       n=RING_RANKS)
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches, ok, cases = collections.Counter(), True, {}
+    for case in ranks[0]:
+        d = RING_SHAPES[case.split()[0]][3]
+        suffix = "_f32" if "float32" in case else ""
+        want = {f"fwd_lse_d{d}{suffix}": RING_RANKS, f"bwd_d{d}{suffix}": RING_RANKS}
+        per_rank = [r[case]["launches"] for r in ranks]
+        for c in per_rank:
+            launches.update(c)
+        good = all(e["ok"] for r in ranks for e in r[case]["errors"].values())
+        cases[case] = {"max_abs_err": {k: max(r[case]["errors"][k]["max_abs_err"] for r in ranks)
+                                       for k in ranks[0][case]["errors"]},
+                       "tol": ranks[0][case]["errors"]["out"]["tol"], "ok": good,
+                       "launches_per_rank": per_rank, "want_per_rank": want,
+                       "chunk": ranks[0][case]["chunk"],
+                       "fully_masked_chunk_on_rank": [r[case]["chunk_fully_masked"]
+                                                      for r in ranks],
+                       "seconds_host_staged": [r[case]["seconds_host_staged"] for r in ranks]}
+        ok &= good and (device == "cpu" or all(c == want for c in per_rank))
+        ok &= "dead_chunk" not in case or any(r[case]["chunk_fully_masked"] for r in ranks)
+    emit({"phase": "ring_three_ranks", "ranks": RING_RANKS, "sp": RING_RANKS,
+          "collectives": "gloo, staged through host memory", "cases": cases,
+          "seconds": time.perf_counter() - t0, **card})
+    if not ok:
+        raise AssertionError("ring_three_ranks failed (see its line)")
+    return dict(launches)
+
+
+# the daemon under --mesh tp=2: two ranks of `python -m bifold_tpu_torch.serve`
+# (its main, in this script's worker) on the card over gloo, serving the
+# bf16 flagship from a JAX-format checkpoint
+DAEMON_MESH = "tp=2"
+DAEMON_POOL = 4
+DAEMON_SINGLES = 5
+
+
+def daemon_files(root):
+    """The bf16 flagship's seeded weights as a JAX trainer checkpoint, and
+    its config, under ``root``."""
+    from bifold_tpu_torch.config import save as save_config
+    from bifold_tpu_torch.models import build_model
+    from bifold_tpu_torch.data.spm import fixture_model_bytes
+    from bifold_tpu_torch.models.convert import to_jax_variables
+
+    model = build_model(FLAGSHIP, dtype=torch.float32, device="cpu", seed=0)
+    params, _ = to_jax_variables(FLAGSHIP["name"], model.state_dict())
+    write_jax_checkpoint(root / "last.ckpt", params)
+    (root / "spiece.model").write_bytes(fixture_model_bytes())
+    save_config({"model": FLAGSHIP, "processor": PROCESSOR,
+                 "precision": {"compute_dtype": "bfloat16"}}, root / "config.yaml")
+    return root / "last.ckpt", root / "config.yaml"
+
+
+def daemon_observations():
+    """Observations of one layout (3 context frames), so that the batcher
+    may pool any of them."""
+    rng = np.random.default_rng(29)
+    return [dict(observation(rng, n_ctx=3), instruction=INSTRUCTIONS[i % 5])
+            for i in range(DAEMON_SINGLES + DAEMON_POOL)]
+
+
+def daemon_rank_worker(rank, port, out, device="cuda"):
+    """``python3 chip_smoke.py daemon-rank RANK PORT OUT [DEVICE]``: rank
+    ``RANK`` of the daemon: a group of :data:`MESH_RANKS`, then ``bifold_tpu_torch.serve.main`` with ``--mesh
+    tp=2`` on the checkpoint in ``OUT`` (rank 0 listens on an ephemeral
+    port, which it prints), until the stop message; saves this rank's
+    launches and their shapes to ``OUT/rank<RANK>.pt``. The rank joins a
+    gloo group first (NCCL refuses two ranks on one card), which ``main``
+    keeps."""
+    from bifold_tpu_torch import parallel, serve
+    from bifold_tpu_torch.ops import flash_attention as fa
+
+    device = "cuda:0" if device == "cuda" else "cpu"
+    parallel.distributed_init(f"tcp://localhost:{port}", MESH_RANKS, int(rank),
+                              device=device, backend="gloo")
+    clear_launch_counts()
+    code = serve.main(["--checkpoint", str(Path(out) / "last.ckpt"),
+                       "--config", str(Path(out) / "config.yaml"), "--mesh", DAEMON_MESH,
+                       "--device", device, "--port", "0",
+                       "--max-batch", str(DAEMON_POOL), "--batch-window-ms", "200"])
+    torch.save({"code": code, "launches": launch_counts(),
+                "shapes": {f"{k} {list(s)}": n for (k, s), n in fa.SHAPES.items()}},
+               Path(out) / f"rank{rank}.pt")
+    return code
+
+
+def serve_rank_worker(rank, port, out, device="cuda"):
+    """``python3 chip_smoke.py serve-rank RANK PORT OUT [DEVICE]``: rank
+    ``RANK`` of a gloo group on the card serving the daemon's checkpoint
+    in process, ``ServingModel.from_checkpoint(mesh={"tp": 2})``, on
+    :func:`daemon_observations`: each single one, and the pool padded to
+    :data:`DAEMON_POOL`; saves the actions to ``OUT/serve<RANK>.pt``."""
+    from bifold_tpu_torch import parallel
+    from bifold_tpu_torch.serve import build_server, parse_mesh
+
+    rank = int(rank)
+    parallel.distributed_init(f"tcp://localhost:{port}", MESH_RANKS, rank,
+                              device="cuda:0" if device == "cuda" else "cpu",
+                              backend="gloo")
+    server = build_server(checkpoint=Path(out) / "last.ckpt", config=Path(out) / "config.yaml",
+                          mesh=parse_mesh(DAEMON_MESH), device=device)
+    obs = daemon_observations()
+    actions = [server.predict(**o) for o in obs[:DAEMON_SINGLES]]
+    pool = server.predict_batch(obs[DAEMON_SINGLES:], pad_to=DAEMON_POOL)
+    torch.save({"singles": [{f: np.asarray(getattr(a, f)) for f in ACTION_FIELDS}
+                            for a in actions],
+                "pool": {f: np.asarray(getattr(pool, f)) for f in ACTION_FIELDS}},
+               Path(out) / f"serve{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def daemon_mesh(card, device="cuda"):
+    """The daemon's ``--mesh tp=2``: two ranks on the card over gloo
+    (:func:`daemon_rank_worker`), rank 0 answering HTTP on localhost. After
+    its warm-up request: :data:`DAEMON_SINGLES` batch-1 requests one by
+    one (host p50), then :data:`DAEMON_POOL` concurrent single clients,
+    which the batcher coalesces; then SIGINT to rank 0, and every rank
+    exits 0. Held: each answer's actions equal those of the in-process
+    ``ServingModel(mesh={"tp": 2})`` on two more ranks
+    (:func:`serve_rank_worker`) for the same observations (a pool padded
+    as the batcher pads it); per rank exactly ``INFER`` at tp's heads (8
+    fusion at d48, 6 tower at d64) per forward the daemon made (the
+    warm-up, the batch-1 requests, sent with ``?pad=1`` so that they skip
+    the batcher's window, and the batcher's dispatches from ``/metrics``).
+    Returns the daemon ranks' launches."""
+    import shutil
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bifold_daemon_mesh_"))
+    ckpt, _ = daemon_files(tmp)
+    reference = spawn_ranks("serve-rank", tmp, device)
+    daemon = spawn_ranks("daemon-rank", tmp, device)
+    obs = daemon_observations()
+    try:
+        port, seen = None, []
+        deadline = time.perf_counter() + 600
+        while port is None and time.perf_counter() < deadline:
+            line = daemon[0].stdout.readline()
+            if not line:
+                break
+            seen.append(line)
+            if "listening on" in line:
+                port = int(line.split("http://")[1].split()[0].rsplit(":", 1)[1])
+        if port is None:
+            raise AssertionError("daemon rank 0 never listened:\n" + "".join(seen[-20:]))
+        # batch-1 requests that manage their own pool shape (?pad=1) skip
+        # the batcher's window
+        http_predict(port, obs[:1], "?pad=1")        # warm-up
+        singles, ms = [], []
+        for o in obs[:DAEMON_SINGLES]:
+            t = time.perf_counter()
+            singles.append(http_predict(port, [o], "?pad=1")[0])
+            ms.append((time.perf_counter() - t) * 1e3)
+        pooled = [None] * DAEMON_POOL
+
+        def client(i):
+            pooled[i] = http_predict(port, [obs[DAEMON_SINGLES + i]])[0]
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(DAEMON_POOL)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        metrics = json.loads(http_call(port, "GET", "/metrics")[1])
+        health = json.loads(http_call(port, "GET", "/healthz")[1])
+        daemon[0].send_signal(signal.SIGINT)
+        for proc in daemon:
+            proc.stdout.read()
+        ranks = wait_ranks(daemon, "daemon-rank", tmp)
+        served = wait_ranks(reference, "serve-rank", tmp, name="serve")
+    finally:
+        for proc in daemon + reference:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    shutil.rmtree(tmp, ignore_errors=True)
+    ref = served[0]
+    same_singles = all(np.array_equal(np.asarray(getattr(a, f)), ref["singles"][i][f])
+                       for i, a in enumerate(singles) for f in ACTION_FIELDS)
+    # the batcher's pools hold any subset of the concurrent clients, each
+    # row computed alone in the padded forward: the in-process pool's rows
+    same_pool = all(np.array_equal(np.asarray(getattr(a, f))[0], ref["pool"][f][i])
+                    for i, a in enumerate(pooled) for f in ACTION_FIELDS)
+    forwards = 1 + DAEMON_SINGLES + metrics.get("batcher_dispatches", 0)
+    want = {k: n * forwards for k, n in INFER.items()}
+    heads = all(heads_of(r["shapes"], "tp") for r in ranks)
+    codes = [r["code"] for r in ranks]
+    ok = (same_singles and same_pool and codes == [0] * MESH_RANKS
+          and metrics.get("batcher_requests") == DAEMON_POOL
+          and metrics.get("batcher_dispatches", DAEMON_POOL) < DAEMON_POOL
+          and health["status"] == "ok"
+          and (device == "cpu" or (heads and all(r["launches"] == want for r in ranks))))
+    launches = collections.Counter()
+    for r in ranks:
+        launches.update(r["launches"])
+    emit({"phase": "daemon_mesh", "mesh": DAEMON_MESH, "ranks": MESH_RANKS,
+          "entry": "bifold_tpu_torch.serve.main --mesh", "dtype": "bfloat16",
+          "collectives": "gloo, staged through host memory",
+          "actions_equal_in_process_mesh_server": {"singles": same_singles, "pool": same_pool},
+          "exit_codes": codes, "requests": metrics.get("requests"),
+          "batcher_dispatches": metrics.get("batcher_dispatches"),
+          "http_p50_ms_batch_1_host_staged": statistics.median(ms), "http_ms": ms,
+          "launches_per_rank": [r["launches"] for r in ranks], "want_per_rank": want,
+          "shapes_per_rank": [r["shapes"] for r in ranks],
+          "seconds": time.perf_counter() - t0, **card})
+    if not ok:
+        raise AssertionError("daemon_mesh failed (see its line)")
+    return dict(launches)
+
+
 WORKERS = {"dp-cli": dp_cli_worker, "dp-rank": dp_rank_worker,
-           "mesh-rank": mesh_rank_worker, "mesh-cli": mesh_cli_worker}
+           "mesh-rank": mesh_rank_worker, "mesh-cli": mesh_cli_worker,
+           "axes-rank": axes_rank_worker, "ring-rank": ring_rank_worker,
+           "daemon-rank": daemon_rank_worker, "serve-rank": serve_rank_worker}
 
 
 def serving_phase(server, mode, name, obs_list, p50):
@@ -4099,7 +4667,7 @@ def where_the_time_goes(phases):
         emit({**phase["where"], **stage, **phase["profile"]()})
 
 
-def stage_breakdown(server, obs_list, iters: int = 5):
+def stage_breakdown(server, obs_list, iters: int = 3):
     """Median ms of each serving stage, synchronised between stages."""
     stages = {"host_prepare": [], "upload": [], "preprocess": [], "forward": [],
               "decode_fetch": []}
@@ -4124,7 +4692,7 @@ def stage_breakdown(server, obs_list, iters: int = 5):
     return {f"{k}_ms": statistics.median(v) for k, v in stages.items()}
 
 
-def device_profile(call, wall_ms: float, iters: int = 3):
+def device_profile(call, wall_ms: float, iters: int = 1):
     """torch.profiler over ``iters`` calls after one warm-up step: device
     busy time per call, its idle share of ``wall_ms`` (the unprofiled p50 of
     the same call), launches per call and the top kernels."""
@@ -4244,6 +4812,11 @@ def main() -> int:
           "built": [os.path.basename(str(p)) for p in libs], "ptxas": ptxas})
 
     peaks = card_peaks(name)
+    marks = [("build", t0), ("checks", time.perf_counter())]
+
+    def mark(phase):                     # each phase's seconds, in one line at the end
+        marks.append((phase, time.perf_counter()))
+
     worst = {**check_kernels(fa), **check_train_kernels(fa), **check_ln_kernels()}
     for key, err in check_decoder_flash(fa).items():
         worst[key] = max(worst.get(key, 0.0), err)
@@ -4253,33 +4826,50 @@ def main() -> int:
     check_tp_views(fa)
     check_function_grads(fa)
     check_auto_route(fa)
+    mark("train_flagship")
     # every main-path run, each with its counts reset just before it and
     # read just after: the train step and the served path, in each
     # LayerNorm mode, the Trainer, deployment, the families, the variants
     # and remat; the checks between them are not counted
     phases = [train_flagship(card, mode) for mode in LN_MODES]
+    mark("train_interleaved")
     train_interleaved({phase["mode"]: phase["one_step"] for phase in phases}, card)
+    mark("f32_step_equivalence")
     f32_step_equivalence()
+    mark("trainer_cli")
     trained, cli_trainer, trainer_p50 = trainer_cli(card, phases[0]["where"]["p50_ms"])
+    mark("trainer_pull_ahead")
     pulled = trainer_pull_ahead(card)
+    mark("serve_flagship")
     served, serve_phases = serve_flagship(card)
+    mark("deployment_phase")
     deployed = deployment_phase(card)
+    mark("families")
     family_runs = []
     for family in FAMILIES:
         family_launches, family_phases = serve_family(card, family)
         family_runs.append(family_launches)
         serve_phases += family_phases
     family_runs.append(trainer_cli_families(card))
+    mark("variants")
     variant_peaks = {}
     for variant in VARIANTS:
         variant_launches, variant_phases, variant_peaks[variant] = variant_phase(
             card, variant)
         family_runs.append(variant_launches)
         serve_phases += variant_phases
+    mark("remat_phase")
     remat, remat_launches = remat_phase(card)
+    mark("t5_family")
     t5_phases, t5_trainers = t5_family(card)
     serve_phases += t5_phases
-    dp_runs = [dp_nccl(card), dp_two_ranks(card), mesh_two_ranks(card), mesh_cli(card)]
+    # the multi-rank phases, one after the other
+    dp_runs = []
+    for phase in (dp_nccl, dp_two_ranks, mesh_two_ranks, mesh_cli, mesh_axes_two_ranks,
+                  ring_three_ranks, daemon_mesh):
+        mark(phase.__name__)
+        dp_runs.append(phase(card))
+    mark("where_the_time_goes")
     emit({"phase": "train_peak_memory", "max_memory_allocated_bytes": {
         phase["mode"] or "default": phase["where"]["max_memory_allocated_bytes"]
         for phase in phases}, "variants_trainer_cli_bytes": variant_peaks,
@@ -4292,17 +4882,22 @@ def main() -> int:
         launches.update(run)
     # the profiler from here on: after every host-clock measurement
     where_the_time_goes(phases + serve_phases)
+    mark("trainer_profiles")
     trainer_profile(cli_trainer, card, trainer_p50)
     for enc, t5_trainer, t5_p50 in t5_trainers:
         trainer_profile(t5_trainer, card, t5_p50, f"t5_trainer_device_profile {enc}")
     del t5_trainers
+    mark("f32_library_kernels")
     library_names = f32_library_kernels()
     del phases, serve_phases, cli_trainer, t5_trainer
     torch.cuda.empty_cache()
+    mark("flash_timings")
     timings = {**time_kernels(fa, peaks), **time_train_kernels(fa, peaks),
                **time_kernels(fa, peaks, torch.float32),
-               **time_train_kernels(fa, peaks, torch.float32),
-               **time_ln_kernels(peaks)}
+               **time_train_kernels(fa, peaks, torch.float32)}
+    mark("ln_timings")
+    timings.update(time_ln_kernels(peaks))
+    mark("kernels_line")
     for kernel, row in timings.items():
         if kernel in library_names:
             row["library_kernels"] = library_names[kernel].get(row["library_backend"])
@@ -4311,13 +4906,17 @@ def main() -> int:
     sources = {"flash_fwd_infer": ("flash_fwd.cu", 250, "serving: predict"),
                "flash_fwd_lse": ("flash_fwd.cu", 241, "training: train step"),
                "flash_bwd": ("flash_bwd.cu", 360, "training: train step")}
-    stacks = {torch.bfloat16: {48: "flagship fusion (16 heads; 8 per tp=2 rank)",
-                               64: "flagship vision (12 heads; 6 per tp=2 rank)",
+    stacks = {torch.bfloat16: {48: "flagship fusion (16 heads; 8 per tp=2 rank; "
+                                   "ring_three_ranks: 791-token chunks)",
+                               64: "flagship vision (12 heads; 6 per tp=2 rank; "
+                                   "ring_three_ranks: 192-token chunks)",
                                32: "rgb_clip fusion"},
               torch.float32: {48: "f32 flagship fusion (remat_phase, mesh_two_ranks; "
-                                  "8 heads per tp=2 rank)",
+                                  "8 heads per tp=2 rank; mesh_axes_two_ranks: per pp "
+                                  "stage and microbatch; ring_three_ranks)",
                               64: "f32 flagship vision (remat_phase, mesh_two_ranks; "
-                                  "6 heads per tp=2 rank)",
+                                  "6 heads per tp=2 rank; mesh_axes_two_ranks: per pp "
+                                  "stage and microbatch; ring_three_ranks)",
                               32: "transformer decoder (pick_place_transdecoder)"}}
     # the f32 instances that a main path launches: the transformer
     # decoder's, served and trained, the f32 flagship's, trained in
@@ -4365,6 +4964,9 @@ def main() -> int:
             "max_abs_err_f32_c512": worst[f"{kernel}_decoder_f32"],
             "ptxas_bf16_c768": ptxas.get(f"{kernel} S3"),
             "shape": row["shape"], "where": LN_WHERE[kernel]})
+    mark("end")
+    emit({"phase": "phase_seconds", **{name: round(b - a, 2) for (name, a), (_, b) in
+                                       zip(marks, marks[1:])}, **card})
     emit({"phase": "script", "seconds": time.perf_counter() - started, **card})
     emit({"kernels": kernels})
     print(smi, flush=True)

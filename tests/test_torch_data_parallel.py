@@ -29,9 +29,10 @@ Held:
   metrics, summed over the ranks as sums and counts, equal a one-process
   eval of the same weights;
 - ``distributed_init`` is a no-op without an environment, and
-  ``check_mesh`` takes fsdp and tp (tests/test_torch_mesh.py runs them),
-  refuses pp, sp, ep and MoE over more than one data rank, each naming its
-  ROADMAP step, and a mesh that does not match the ranks.
+  ``check_mesh`` takes fsdp, tp, pp, sp and ep (tests/test_torch_mesh.py
+  and tests/test_torch_mesh_axes.py run them) and MoE over data ranks,
+  refuses a mesh that does not match the ranks, and a stack whose depth pp
+  does not divide stays off the pipe, as JAX's does.
 """
 
 import hashlib
@@ -363,26 +364,40 @@ def test_distributed_init_is_a_no_op_without_an_environment(monkeypatch):
     ("fsdp", "fsdp/tp"), ("tp", "fsdp/tp"), ("pp", "pipeline"), ("sp", "ring attention"),
     ("ep", "expert parallelism")])
 def test_check_mesh_refuses_what_is_not_ported(axis, step):
-    if step == "fsdp/tp":
-        # ported (tests/test_torch_mesh.py): taken, and refused only where
-        # the axis does not divide the ranks; MoE runs under tp alone
-        assert parallel.check_mesh({axis: 2}, world=4) == 4
-        with pytest.raises(ValueError, match="ranks"):
-            parallel.check_mesh({axis: 3}, world=4)
-        assert parallel.check_mesh({"tp": 2}, world=2, moe_experts=4) == 2
-    else:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue item 5, {step}"):
-            parallel.check_mesh({axis: 2}, world=2)
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        parallel.check_mesh({"dp": -1}, world=2, moe_experts=4)
+    # every axis is ported (tests/test_torch_mesh.py, tests/test_torch_mesh_axes.py):
+    # taken, and refused only where it does not divide the ranks; MoE runs
+    # under every axis, data axes included
+    assert parallel.check_mesh({axis: 2}, world=4) == 4
+    with pytest.raises(ValueError, match="ranks"):
+        parallel.check_mesh({axis: 3}, world=4)
+    assert parallel.check_mesh({"dp": -1}, world=2) == 2
+    if step == "pipeline":
+        # a depth pp does not divide, or of 1, stays off the pipe, as in JAX
+        from bifold_tpu_torch.models.layers import Transformer
+        from bifold_tpu_torch.parallel.sharding import pipelined
+
+        stacks = torch.nn.ModuleDict({f"d{d}": Transformer(16, d, 2, 32) for d in (1, 3, 4)})
+        assert pipelined(stacks, 2) == {"d4": 4}
+    if step == "expert parallelism":
+        # experts that ep does not divide stay whole, as JAX's rule leaves them
+        from bifold_tpu_torch.parallel.sharding import make_plan
+
+        for experts, cut in ((3, False), (4, True)):
+            model = build_model(dict(compose([
+                "model=siglip", "model.automodel_name=tiny", "model.dim=64",
+                "model.depth=1", "model.heads=4", f"model.moe_experts={experts}"])["model"]),
+                device="cpu", seed=0)
+            plan = make_plan(model, "siglip", {"ep": 2})
+            assert bool(plan.ep) is cut and all(n.endswith(("w1", "b1", "w2", "b2"))
+                                               for n in plan.ep)
 
 
 def test_check_mesh_takes_the_data_axes(monkeypatch):
     monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
     assert parallel.check_mesh({"dp": -1, "pp_microbatches": 0}, world=1) == 1
-    assert parallel.check_mesh({"dcn": 1, "dp": -1}, world=4, moe_experts=0) == 4
+    assert parallel.check_mesh({"dcn": 1, "dp": -1}, world=4) == 4
     assert parallel.check_mesh({"dcn": 2, "dp": 2}, world=4) == 4
-    assert parallel.check_mesh({"dcn": 1, "dp": 1}, world=1, moe_experts=8) == 1
+    assert parallel.check_mesh({"dcn": 1, "dp": 1}, world=1) == 1
     for mesh, world in (({"dp": 2}, 1), ({"dcn": 3, "dp": -1}, 4), ({"dcn": 2, "dp": 3}, 4)):
         with pytest.raises(ValueError):
             parallel.check_mesh(mesh, world=world)

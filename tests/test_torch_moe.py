@@ -6,7 +6,8 @@ capacity) at top-k 1 and 2, the Switch aux loss within 1e-6; ``moe_ffn``'s
 forward and its gradients with respect to the tokens and every parameter
 within 1e-5 (float32); the capacity rule; the fusion block's MoE FFN
 (``MoEFeedForward``, through ``ConcatTransformer``) against flax's, with
-the per-layer aux losses JAX sows; and expert parallelism refused.
+the per-layer aux losses JAX sows; and expert parallelism on one rank
+equal to the dense layer.
 """
 
 import jax
@@ -105,8 +106,16 @@ def test_init_shapes_and_expert_parallel_refused():
         "router": (8, 4), "w1": (4, 8, 24), "b1": (4, 24), "w2": (4, 24, 8),
         "b2": (4, 8)}
     assert float(p["w1"].std()) == pytest.approx(0.02, rel=0.2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        moe.expert_parallel_ffn(None, p, None)
+    # expert parallelism is ported (tests/test_torch_mesh_axes.py holds it
+    # over ranks); on a mesh of one rank it is the dense layer
+    from bifold_tpu_torch.parallel import make_mesh
+
+    x = torch.randn(3, 5, 8, generator=torch.Generator().manual_seed(1))
+    want, want_aux = moe.moe_ffn(x, p, top_k=2, capacity_factor=0.5, return_aux=True)
+    got, aux = moe.expert_parallel_ffn(x, p, make_mesh(None), top_k=2, capacity_factor=0.5,
+                                       return_aux=True)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=0)
+    assert float(aux) == pytest.approx(float(want_aux), rel=AUX_TOL)
 
 
 @pytest.mark.parametrize("depth", [1, 2])
