@@ -203,9 +203,11 @@ def precast_frozen(model: nn.Module, compute_dtype, *,
 
 
 def build_model(cfg: dict, *, dtype=torch.float32, device="cuda",
-                seed: int = 0, remat: bool | None = None) -> nn.Module:
+                seed: int | None = 0, remat: bool | None = None) -> nn.Module:
     """Model from its config node (``name`` + constructor fields), built on
-    ``device`` with a seeded init, in eval mode; ``model.config`` keeps the
+    ``device`` with a seeded init (``seed=None``: torch's own init, for
+    uses that need the shapes alone, such as the advisor's tensors without
+    data), in eval mode; ``model.config`` keeps the
     node (a serving artifact records it). ``remat`` (the Trainer's
     ``precision.remat``) overrides the node's for the families that have
     it and is dropped for the others, as the JAX package's overrides are.
@@ -230,7 +232,8 @@ def build_model(cfg: dict, *, dtype=torch.float32, device="cuda",
     with torch.device(device):
         model = MODELS[name](**{k: v for k, v in cfg.items() if k in fields},
                              dtype=dtype)
-    init_weights(model, torch.Generator(device=device).manual_seed(seed))
+    if seed is not None:
+        init_weights(model, torch.Generator(device=device).manual_seed(seed))
     model.config = node
     return model.eval()
 

@@ -689,11 +689,23 @@ def _call_block(block, carry, key_mask, legacy_query_mask, remat):
     """One block on ``carry`` (x, or (x, pending) under the fused wiring)
     -> (carry, MoE aux or None); under ``remat`` (and autograd) inside
     :func:`torch.utils.checkpoint.checkpoint`, the block's dropout draws
-    replayed in the recompute."""
+    replayed in the recompute. A block that a placement gave its share of
+    the fsdp units (``block.fsdp``,
+    :class:`~bifold_tpu_torch.parallel.sharding.Placement`) runs on its
+    whole tensors gathered just before it and dropped just after
+    (``torch.func.functional_call``); the recompute gathers them again, and
+    without ``remat`` the backward gathers each saved one again."""
+    share = getattr(block, "fsdp", None)
+
     def run(*carry):
         pending = carry[1] if len(carry) == 2 else None
-        out = block(carry[0], key_mask, pending=pending,
-                    legacy_query_mask=legacy_query_mask)
+        kwargs = {"pending": pending, "legacy_query_mask": legacy_query_mask}
+        if share is None:
+            out = block(carry[0], key_mask, **kwargs)
+        else:
+            with share.weights() as tensors:
+                out = torch.func.functional_call(block, tensors, (carry[0], key_mask),
+                                                 kwargs, strict=False)
         return out if isinstance(block, FusionBlock) else (out, None)
 
     carry = carry if isinstance(carry, tuple) else (carry,)
@@ -701,7 +713,8 @@ def _call_block(block, carry, key_mask, legacy_query_mask, remat):
         gens = _dropout_generators(block)
         return checkpoint(run, *carry, use_reentrant=False,
                           context_fn=lambda: _replay_dropout(gens))
-    return run(*carry)
+    with share.saving() if share is not None else contextlib.nullcontext():
+        return run(*carry)
 
 
 def run_blocks(blocks, x, key_mask=None, legacy_query_mask=None, *,

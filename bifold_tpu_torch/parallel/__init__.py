@@ -19,16 +19,19 @@ fsdp, tp, pp, sp, ep) grid, ep varying fastest:
   so the sums over the data ranks are the global batch's loss and gradient;
 - a placement (:func:`place`) shards the model by its family's plan: tp
   ranks compute their heads and hidden units (Megatron's pair of
-  collectives), fsdp ranks hold their chunks of the large leaves, gathered
-  before the forward and dropped after the update, pp stages hold their
+  collectives), fsdp ranks hold their chunks of the large leaves, the
+  stacks' blocks gathering theirs one block at a time in both directions
+  and the rest gathered before the forward and dropped after the update
+  (:mod:`~bifold_tpu_torch.parallel.sharding`), pp stages hold their
   layers of each pipelined stack and run it as a GPipe pipe, ep ranks
   hold their experts, to which an all_to_all brings the routed tokens;
   MoE layers route over the global token order, as JAX does (the data
   ranks' router choices gathered); the step then reduces the gradients as
-  the plan says (partial ones over tp, chunks reduce-scattered over fsdp
-  and summed over ``dcn x dp``, the others with the loss in one flat
-  buffer over the data ranks, after the backward, on the compute stream,
-  without overlap), and the optimizer steps on this rank's parts;
+  the plan says (partial ones over tp, chunks reduce-scattered over fsdp,
+  a block's as soon as its backward is done, and summed over ``dcn x
+  dp``, the others with the loss in one flat buffer over the data ranks
+  after the backward, all on the compute stream, without overlap), and
+  the optimizer steps on this rank's parts;
 - an sp group computes the same step on every rank, as JAX's GSPMD step
   does (JAX's model never calls the ring; the port exports it the same);
 - the gradient norm (clipping, the ``grad_norm`` metric) counts each
@@ -80,8 +83,8 @@ from torch import nn
 
 from bifold_tpu_torch.models.dropout import set_dropout_generator
 from bifold_tpu_torch.optim import Optimizer
-from bifold_tpu_torch.parallel.collectives import (SELF, all_reduce_sum_, all_reduce_values,
-                                                   rank, world_size)
+from bifold_tpu_torch.parallel.collectives import (SELF, all_reduce_values, rank,
+                                                   reduce_step_values, world_size)
 # the primitives JAX's parallel exports (bifold_tpu/parallel/__init__.py:46-55)
 from bifold_tpu_torch.parallel.pipeline import gpipe
 from bifold_tpu_torch.ops.moe import expert_parallel_ffn
@@ -349,25 +352,15 @@ class TrainState:
     def create(cls, optimizer: Optimizer, seed: int = 0) -> "TrainState":
         return cls(optimizer, torch.Generator().manual_seed(seed))
 
+    def draw_seed(self) -> int:
+        """The next step's dropout seed, drawn from :attr:`key`."""
+        return int(torch.randint(0, 2 ** 62, (1,), generator=self.key))
+
 
 def _rank_seed(seed: int, rank: int) -> int:
     """The dropout seed of ``rank`` for a step drawn ``seed``: the step's
     own for rank 0, a distinct one for every other rank."""
     return (seed + rank * 0x9E3779B97F4A7C15) % 2 ** 63
-
-
-def _reduce_over_ranks(grads, loss, inter, group=None):
-    """Sum the gradients, the loss and its terms over the ranks of
-    ``group`` in one flat float32 buffer (one collective); returns them in
-    their shapes."""
-    values = [loss.detach().float().reshape(1)] + [
-        v.detach().float().reshape(1) for v in inter.values()]
-    flat = all_reduce_sum_(torch.cat([g.float().reshape(-1) for g in grads] + values),
-                           group)
-    parts = flat.split([g.numel() for g in grads] + [1] * len(values))
-    grads = [p.view(g.shape).to(g.dtype) for p, g in zip(parts, grads)]
-    scalars = [p[0] for p in parts[len(grads):]]
-    return grads, scalars[0], dict(zip(inter, scalars[1:]))
 
 
 def make_train_step(model: nn.Module, loss_fn: Callable,
@@ -379,16 +372,21 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
     :class:`~bifold_tpu_torch.parallel.sharding.Placement` (whose
     ``step_params`` the optimizer was built on): sharded as its plan says,
     over its mesh, the batch cut over the mesh's data ranks."""
+    anchor = []
     if placement is None:
         mesh = make_mesh(None)
         grad_params = optimizer.params
     else:
         mesh = placement.mesh
         grad_params = [p for _, p in placement.grad_params]
+        # the stacks' blocks gather their fsdp units and reduce-scatter
+        # their gradients in the backward, which differentiating the
+        # anchor runs (parallel/sharding.py)
+        anchor = [placement.anchor] if placement.anchor is not None else []
         if mesh.world > 1:
             optimizer.global_norm = placement.grad_norm
             optimizer.all_finite = placement.all_finite
-    device = grad_params[0].device
+    device = (grad_params or optimizer.params)[0].device
     buffers = list(model.buffers())
     share = 1.0 / mesh.data_size
     sharded = placement is not None and mesh.world > 1
@@ -397,7 +395,7 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
 
     def step(state: TrainState, batch: Dict[str, Any]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        seed = int(torch.randint(0, 2 ** 62, (1,), generator=state.key))
+        seed = state.draw_seed()
         model.train()
         set_dropout_generator(model, torch.Generator(device).manual_seed(
             _rank_seed(seed, mesh.data_rank)))
@@ -411,7 +409,7 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
                 aux = moe_losses.float().mean()
                 loss = loss + moe_aux_weight * aux
                 inter = {**inter, "moe_load_balance": aux}
-            grads = list(torch.autograd.grad(loss, grad_params))
+            grads = list(torch.autograd.grad(loss, grad_params + anchor))[:len(grad_params)]
         except BaseException:
             release()
             with torch.no_grad():
@@ -423,7 +421,7 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
         if sharded:
             grads, loss, inter = placement.reduce_grads(grads, loss, inter)
         elif dist.is_initialized():
-            grads, loss, inter = _reduce_over_ranks(grads, loss, inter)
+            grads, loss, inter = reduce_step_values(grads, loss, inter)
         gnorm = (placement.grad_norm(grads) if sharded else
                  torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads)))
         try:

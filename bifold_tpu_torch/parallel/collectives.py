@@ -35,12 +35,23 @@ gradient back: :mod:`~bifold_tpu_torch.parallel.pipeline` runs both
 directions in its own schedule), and :func:`ring_shift`, each rank's
 tensor to the next rank of a group and the previous rank's to it (the
 ring of :mod:`~bifold_tpu_torch.ops.ring_attention`).
+
+Every collective of the port goes through this module, so one place can
+record them: inside :func:`recording`, each call that moves data over a
+group of more than one rank appends a :class:`Collective` (its kind, the
+bytes of its result on this rank and the group's size), from the tensors'
+metadata alone: recording adds no synchronisation, and outside
+:func:`recording` nothing is kept. :func:`summarize` folds a record into
+per-kind counts, result bytes and wire bytes (:func:`wire_bytes`, the ring
+formulas of bifold_tpu/parallel/advisor.py:76-96).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Optional, Sequence, Tuple
+import pickle
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,10 +61,85 @@ __all__ = ["world_size", "rank", "all_reduce_sum_", "all_reduce_sum",
            "all_reduce_values", "all_gather", "reduce_scatter", "copy_to_tp",
            "reduce_from_tp", "group_size", "SELF", "TPGroup", "broadcast_",
            "send", "recv", "ring_shift", "all_to_all", "split_to_group",
-           "gather_from_group", "chunk_bounds"]
+           "gather_from_group", "chunk_bounds", "reduce_step_values",
+           "broadcast_object", "Collective", "recording", "summarize", "wire_bytes",
+           "KINDS"]
 
 # the group of one rank: collectives over it are the identity
 SELF = "self"
+
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "send/recv",
+         "broadcast")
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One recorded collective: its kind (one of :data:`KINDS`), the bytes
+    of its result on this rank (the gathered tensor of an all-gather, this
+    rank's chunk of a reduce-scatter, the rows received by an all-to-all or
+    a receive, the tensor otherwise) and the size of its group."""
+
+    kind: str
+    result_bytes: int
+    group: int
+
+
+_RECORD: Optional[List[Collective]] = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the collectives called inside: yields the list they are
+    appended to, in call order (nested uses share the outer list)."""
+    global _RECORD
+    outer = _RECORD
+    _RECORD = [] if outer is None else outer
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = outer
+
+
+def _note(kind: str, nbytes: int, group: int) -> None:
+    if _RECORD is not None and group > 1:
+        _RECORD.append(Collective(kind, int(nbytes), int(group)))
+
+
+def _bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def wire_bytes(kind: str, result_bytes: int, group: int) -> int:
+    """Bytes one rank sends over its links for one ring-algorithm
+    collective, from the bytes of its result (bifold_tpu/parallel/advisor.py
+    ``_wire_bytes``): an all-gather (g - 1)/g of the gathered tensor, a
+    reduce-scatter (g - 1) chunks, an all-reduce twice (g - 1)/g of the
+    tensor, an all-to-all (g - 1)/g of it; a send/recv or a broadcast its
+    result once."""
+    g = group
+    if g <= 1:
+        return 0
+    if kind == "all-gather":
+        return result_bytes * (g - 1) // g
+    if kind == "reduce-scatter":
+        return result_bytes * (g - 1)
+    if kind == "all-reduce":
+        return 2 * result_bytes * (g - 1) // g
+    if kind == "all-to-all":
+        return result_bytes * (g - 1) // g
+    return result_bytes
+
+
+def summarize(record: Sequence[Collective]) -> Dict[str, Dict[str, int]]:
+    """``{kind: {"count", "result_bytes", "wire_bytes"}}`` of a record, the
+    shape of the JAX advisor's ``collectives`` entry."""
+    out: Dict[str, Dict[str, int]] = {}
+    for c in record:
+        agg = out.setdefault(c.kind, {"count": 0, "result_bytes": 0, "wire_bytes": 0})
+        agg["count"] += 1
+        agg["result_bytes"] += c.result_bytes
+        agg["wire_bytes"] += wire_bytes(c.kind, c.result_bytes, c.group)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,8 +187,14 @@ def _staged(t: torch.Tensor, group) -> bool:
 def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``t`` over the ranks of ``group``, in place (the caller's stream
     waits for a NCCL reduction before it goes on). Returns ``t``."""
-    if group_size(group) == 1:
+    n = group_size(group)
+    if n == 1:
         return t
+    _note("all-reduce", _bytes(t), n)
+    return _all_reduce(t, group)
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     if _staged(t, group):
         host = t.cpu()
         dist.all_reduce(host, group=group)
@@ -118,6 +210,7 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     n = group_size(group)
     if n == 1:
         return t.clone()
+    _note("all-gather", n * _bytes(t), n)
     src = t.contiguous()
     host = src.cpu() if _staged(src, group) else src
     parts = [torch.empty_like(host) for _ in range(n)]
@@ -137,8 +230,9 @@ def reduce_scatter(t: torch.Tensor, group=None) -> torch.Tensor:
         raise ValueError(f"reduce_scatter: dim 0 of {tuple(t.shape)} does not "
                          f"divide over {n} ranks")
     me = dist.get_rank(group)
+    _note("reduce-scatter", _bytes(t) // n, n)
     if dist.get_backend(group) == dist.Backend.GLOO:
-        full = all_reduce_sum_(t.contiguous().clone(), group)
+        full = _all_reduce(t.contiguous().clone(), group)
         return full.chunk(n)[me].clone()
     out = torch.empty((t.shape[0] // n, *t.shape[1:]), dtype=t.dtype, device=t.device)
     dist.reduce_scatter_tensor(out, t.contiguous(), group=group)
@@ -210,6 +304,19 @@ def all_reduce_values(values: Sequence[float], group=None) -> np.ndarray:
     return all_reduce_sum_(t, group).cpu().numpy()
 
 
+def reduce_step_values(grads, loss, inter, group=None):
+    """Sum the gradients, the loss and its terms (a dict of scalars) over
+    the ranks of ``group`` in one flat float32 buffer (one collective);
+    returns them in their shapes and dtypes."""
+    values = [loss.detach().float().reshape(1)] + [
+        v.detach().float().reshape(1) for v in inter.values()]
+    flat = all_reduce_sum_(torch.cat([g.float().reshape(-1) for g in grads] + values),
+                           group)
+    parts = flat.split([g.numel() for g in grads] + [1] * len(values))
+    grads = [p.view(g.shape).to(g.dtype) for p, g in zip(parts, grads)]
+    scalars = [p[0] for p in parts[len(grads):]]
+    return grads, scalars[0], dict(zip(inter, scalars[1:]))
+
 
 def _global(group, index: int) -> int:
     """The global rank of ``group``'s ``index``-th rank."""
@@ -219,8 +326,10 @@ def _global(group, index: int) -> int:
 def broadcast_(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """``t`` of ``group``'s rank ``src`` (its index in the group) on every
     rank of the group, in place. Returns ``t``."""
-    if group_size(group) == 1:
+    n = group_size(group)
+    if n == 1:
         return t
+    _note("broadcast", _bytes(t), n)
     root = _global(group, src)
     if _staged(t, group):
         host = t.cpu()
@@ -231,10 +340,21 @@ def broadcast_(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     return t
 
 
+def broadcast_object(obj: Any, src: int = 0) -> Any:
+    """``obj`` of the global rank ``src`` (any picklable object) on every
+    rank of the default group. Recorded as a broadcast of its pickle."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    if _RECORD is not None:
+        _note("broadcast", len(pickle.dumps(box[0])), world_size())
+    return box[0]
+
+
 def send(t: torch.Tensor, dst: int, tag: int = 0):
     """Start sending ``t`` to the global rank ``dst`` over the default group;
     returns the handle to ``wait()`` on (which keeps the staged host copy
-    of a CUDA tensor under gloo alive until then)."""
+    of a CUDA tensor under gloo alive until then). The transfer is recorded
+    once, by the receiving rank (:func:`recv`)."""
     src = t.contiguous()
     host = src.cpu() if _staged(src, None) else src
     work = dist.isend(host, dst, tag=tag)
@@ -245,6 +365,7 @@ def recv(shape, dtype, device, src: int, tag: int = 0) -> torch.Tensor:
     """A new tensor of ``shape`` and ``dtype`` on ``device``, received from
     the global rank ``src`` over the default group (blocking)."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    _note("send/recv", _bytes(out), 2)
     host = out.cpu() if _staged(out, None) else out
     dist.recv(host, src, tag=tag)
     return out.copy_(host) if host is not out else out
@@ -280,6 +401,7 @@ def ring_shift(tensors: Sequence[torch.Tensor], ranks: Sequence[int],
 def _all_to_all_rows(x: torch.Tensor, send_rows: Sequence[int],
                      recv_rows: Sequence[int], group) -> torch.Tensor:
     out = torch.empty((sum(recv_rows), *x.shape[1:]), dtype=x.dtype, device=x.device)
+    _note("all-to-all", _bytes(out), len(recv_rows))
     src = x.contiguous()
     if _staged(src, group):
         host_out = torch.empty(out.shape, dtype=out.dtype)
@@ -319,6 +441,7 @@ def all_to_all(x: torch.Tensor, send_rows: Sequence[int], group,
         got = torch.empty_like(counts)
         if dist.get_backend(group) == dist.Backend.NCCL:
             counts, got = counts.to(x.device), got.to(x.device)
+        _note("all-to-all", _bytes(got), n)
         dist.all_to_all_single(got, counts, group=group)
         recv_rows = [int(r) for r in got.tolist()]
     return _AllToAll.apply(x, tuple(send_rows), tuple(recv_rows), group), recv_rows

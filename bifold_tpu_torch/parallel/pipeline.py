@@ -28,9 +28,11 @@ Stage ``s`` holds layers ``[s * depth / pp, (s + 1) * depth / pp)``
 start without waiting (each is waited on before the pass returns), receives
 block; the order of every send and receive is fixed by (microbatch,
 direction), so the stages pair up whatever the timing. Activations cross
-as they are (dtype and shape sent ahead once per pass); a CUDA tensor over
-gloo is staged through host memory (:mod:`~bifold_tpu_torch.parallel
-.collectives`).
+as they are: every stage keeps its input's shape and dtype (a stack of
+residual blocks; each stage checks its own output), so each receive is
+sized from the pipe's input, which every rank holds, without a message;
+a CUDA tensor over gloo is staged through host memory
+(:mod:`~bifold_tpu_torch.parallel.collectives`).
 
 Per-sample side inputs (attention masks) are not sent: every pp rank holds
 the whole input, so each stage cuts its own microbatch of them.
@@ -47,8 +49,6 @@ from bifold_tpu_torch.parallel.collectives import broadcast_, recv, send
 
 __all__ = ["gpipe", "microbatch_count"]
 
-_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
-_HEADER = 8
 
 
 def microbatch_count(batch: int, pp: int, requested: int = 0) -> int:
@@ -64,19 +64,6 @@ def microbatch_count(batch: int, pp: int, requested: int = 0) -> int:
                              f"rank's batch of {batch}")
         return int(requested)
     return math.gcd(batch, 2 * pp)
-
-
-def _header(t: Optional[torch.Tensor], device) -> torch.Tensor:
-    out = torch.zeros(_HEADER, dtype=torch.int64, device=device)
-    if t is not None:
-        out[0], out[1] = _DTYPES.index(t.dtype), t.dim()
-        out[2:2 + t.dim()] = torch.tensor(t.shape)
-    return out
-
-
-def _meta(header: torch.Tensor):
-    h = [int(v) for v in header.tolist()]
-    return tuple(h[2:2 + h[1]]), _DTYPES[h[0]]
 
 
 class _Schedule:
@@ -102,26 +89,22 @@ class _Schedule:
             if self.stage == 0:
                 h = xi.detach() if grad else xi
             else:
-                if i == 0:
-                    shape, dtype = _meta(recv((_HEADER,), torch.int64, x.device,
-                                              self.ranks[self.stage - 1], tag=1))
-                h = recv(shape, dtype, x.device, self.ranks[self.stage - 1], tag=2)
+                h = recv(xi.shape, x.dtype, x.device, self.ranks[self.stage - 1], tag=2)
             if grad and (self.stage > 0 or self.input_grad):
                 h.requires_grad_()
             y = self.body(h, *self.side_of(i))
+            if y.shape != xi.shape or y.dtype != x.dtype:
+                raise ValueError(f"a pipelined stage maps {tuple(xi.shape)} {x.dtype} to "
+                                 f"{tuple(y.shape)} {y.dtype}; a pipe's stages keep "
+                                 "their input's shape and dtype")
             if self.stage < self.last:
-                if i == 0:
-                    pending.append(send(_header(y, x.device), self.ranks[self.stage + 1],
-                                        tag=1))
                 pending.append(send(y.detach(), self.ranks[self.stage + 1], tag=2))
             ins.append(h)
             outs.append(y)
         for p in pending:
             p.wait()
-        mine = torch.cat([y.detach() for y in outs]) if self.stage == self.last else None
-        shape, dtype = _meta(broadcast_(_header(mine, x.device), self.last, self.group))
-        if mine is None:
-            mine = torch.empty(shape, dtype=dtype, device=x.device)
+        mine = (torch.cat([y.detach() for y in outs]) if self.stage == self.last else
+                torch.empty(x.shape, dtype=x.dtype, device=x.device))
         return ins, outs, broadcast_(mine, self.last, self.group)
 
     def backward(self, ins, outs, gy, params):

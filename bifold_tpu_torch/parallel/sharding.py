@@ -45,12 +45,14 @@ checks; JAX lets GSPMD split a head (ROADMAP section 3).
   column-parallel biases, LoRA's adapters under a column-parallel base)
   get partial gradients on each tp rank, which :meth:`reduce_grads` sums
   over the tp group;
-- each fsdp-sharded JAX leaf is a *unit*: between steps this rank holds
-  only its chunk of the leaf (along the sharded axis), and the port tensors
-  it feeds are empty; :meth:`gather` rebuilds them from an all-gather over
-  the fsdp group and :meth:`release` empties them again. The optimizer
-  steps on the chunks (:attr:`step_params`), so its moments are sharded
-  too;
+- each fsdp-sharded JAX leaf is a *unit*: this rank holds only its chunk
+  of the leaf (along the sharded axis), and the port tensors it feeds are
+  empty. The optimizer steps on the chunks (:attr:`step_params`), so its
+  moments are sharded too. The tensors of a stack's blocks are gathered
+  one block at a time (ZeRO-3, below); the others (embeddings, heads,
+  decoders, projections: :attr:`stepwise`) for a whole step or request,
+  :meth:`gather` rebuilding them from an all-gather over the fsdp group and
+  :meth:`release` emptying them again;
 - a pp stage keeps the layers of each pipelined stack that are its own
   (``[s * depth / pp, (s + 1) * depth / pp)``); the others' tensors are
   emptied for good, and the stack runs as a pipe
@@ -61,12 +63,49 @@ checks; JAX lets GSPMD split a head (ROADMAP section 3).
   :meth:`full_optimizer_state` gather them (every rank calls them), and
   :meth:`load_full_state_dict` / :meth:`load_optimizer_state` cut a full
   state to this rank's parts, whatever mesh wrote it.
+
+A gather per block (ZeRO-3). Each block of a
+:class:`~bifold_tpu_torch.models.layers.PipelineStack` that holds fsdp
+tensors gets its *share* of the units (:class:`_Share`, the block's
+``fsdp`` attribute): for a unit of stacked layers, the slab of the leaf
+along its depth axis that is this block's (a slice of every rank's
+chunk). The block runs on its whole tensors gathered just before it and
+dropped just after (``torch.func.functional_call``,
+:func:`~bifold_tpu_torch.models.layers.run_blocks`). Each gather and
+reduce-scatter of a block (and of the tensors outside the blocks) is one
+collective over its units' slices laid end to end (one per dtype), not one
+per unit: a block of a SigLIP tower holds ten units.
+Two mechanisms together make the backward per block too, because neither
+does it alone:
+
+- the gathered tensors are the outputs of an autograd Function
+  (:class:`_GatherBlock`, whose input is the placement's zero-sized
+  :attr:`anchor`): autograd hands it the block's weight gradients once
+  they are all computed, and its backward reduce-scatters them into the
+  units' chunk gradients there, so the whole model's gradient never exists
+  at once. Differentiating the module parameters instead
+  (``torch.autograd.grad`` over them) returns every gradient at the end;
+- autograd would keep every gathered weight it saves for the backward (a
+  linear saves its weight) alive until then, so the whole model would
+  again be gathered at the backward's start: ``saved_tensors_hooks``
+  (:meth:`_Share.saving`) keep a handle in place of each saved gathered
+  weight (or view of one); the backward's first read in the block gathers
+  the block's saved weights again, and each is dropped after its last
+  read.
+  Under ``remat`` the checkpoint's own hooks keep nothing and its
+  recompute gathers the block again.
+
+:attr:`Placement.peak_bytes` counts the whole fsdp tensors (and their
+gradients, when they are reduced) alive at once during a step or a
+request. A unit that fsdp shards along its depth axis (no block would have
+a slice of every chunk) raises, naming its leaf.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -79,7 +118,7 @@ from bifold_tpu_torch.models.norm import BatchNorm
 from bifold_tpu_torch.ops import layer_norm as ln_ops
 from bifold_tpu_torch.parallel.collectives import (TPGroup, all_gather,
                                                    all_reduce_sum_, broadcast_,
-                                                   reduce_scatter)
+                                                   reduce_scatter, reduce_step_values)
 
 __all__ = ["make_plan", "Plan", "Placement", "MIN_SIZE", "TP_COL", "TP_ROW"]
 
@@ -295,28 +334,123 @@ class Plan:
     ep: List[str] = dataclasses.field(default_factory=list)
 
 
-def _probe(model: nn.Module, family: str):
+def payload_name(name: str) -> str:
+    """The port name of an int8 weight's payload (the parametrization's
+    first original, :func:`bifold_tpu_torch.serving._install`)."""
+    module, _, attr = name.rpartition(".")
+    return f"{module}.parametrizations.{attr}.original0"
+
+
+def scale_name(name: str) -> str:
+    """The port name of an int8 weight's scale (its second original)."""
+    return payload_name(name)[:-1] + "1"
+
+
+# the probes of models a caller plans over and over (the advisor's layouts):
+# None, or a dict keyed by the family, the state dict's names and shapes
+# and the int8 weights (probe_cache)
+_PROBES: Optional[dict] = None
+
+
+@contextlib.contextmanager
+def probe_cache():
+    """Reuse :func:`_probe`'s result for models of equal structure while
+    inside (the ids depend on names and shapes alone)."""
+    global _PROBES
+    outer = _PROBES
+    _PROBES = {} if outer is None else outer
+    try:
+        yield
+    finally:
+        _PROBES = outer
+
+
+def _probe(model: nn.Module, family: str, quantized: Optional[Dict[str, tuple]] = None):
+    if _PROBES is None:
+        return _probe_ids(model, family, quantized)
+    key = (family, tuple((k, tuple(t.shape)) for k, t in model.state_dict(keep_vars=True).items()),
+           tuple(sorted((quantized or {}).items())))
+    if key not in _PROBES:
+        _PROBES[key] = _probe_ids(model, family, quantized)
+    return _PROBES[key]
+
+
+def _probe_ids(model: nn.Module, family: str, quantized: Optional[Dict[str, tuple]] = None):
     """Run the converter on the model's state dict with each element
     replaced by its index (from 1): (params tree of ids, the tensors'
-    starts, shapes and names, and each tensor's ids by name)."""
+    starts, shapes and names, each tensor's ids by name, and the scales'
+    tree). A weight in ``quantized`` (name -> its int8 scale's shape) is
+    two tensors, its payload (:func:`payload_name`, the weight's shape)
+    and its scale (:func:`scale_name`); the params tree holds the
+    payload's ids where the weight's were, and the scales' tree (None
+    without ``quantized``) is the converter's output for the scales' ids
+    broadcast over their weights."""
+    quantized = quantized or {}
     sd = model.state_dict(keep_vars=True)
     first: Dict[int, str] = {}
     names, shapes, starts = [], [], []
     total = 1
+
+    def add(name, shape):
+        nonlocal total
+        names.append(name)
+        shapes.append(tuple(shape))
+        starts.append(total)
+        total += int(np.prod(shape))
+
     for name, t in sd.items():
         if id(t) in first:
             continue
         first[id(t)] = name
-        names.append(name)
-        shapes.append(tuple(t.shape))
-        starts.append(total)
-        total += t.numel()
+        if name in quantized:
+            add(payload_name(name), t.shape)
+            add(scale_name(name), quantized[name])
+        else:
+            add(name, t.shape)
     dtype = np.int32 if total < 2 ** 31 else np.int64
     arrays = {name: np.arange(s, s + int(np.prod(shape)), dtype=dtype).reshape(shape)
               for name, s, shape in zip(names, starts, shapes)}
-    probe = {k: arrays[first[id(t)]] for k, t in sd.items()}
-    params, _ = to_jax_variables(family, probe)
-    return params, np.asarray(starts), shapes, names, arrays
+
+    def ids(key, t, scales=False):
+        name = first[id(t)]
+        if name not in quantized:
+            return arrays[name]
+        if scales:
+            return np.broadcast_to(arrays[scale_name(name)], tuple(t.shape))
+        return arrays[payload_name(name)]
+
+    params, _ = to_jax_variables(family, {k: ids(k, t) for k, t in sd.items()})
+    scales = (to_jax_variables(family, {k: ids(k, t, True) for k, t in sd.items()})[0]
+              if quantized else None)
+    return params, np.asarray(starts), shapes, names, arrays, scales
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _jax_leaves(params, scales, starts, names, payloads):
+    """(path, ids, kind) of every JAX leaf; a leaf of int8 payloads becomes JAX's
+    quantized pair (bifold_tpu/serving.py ``quantize_weights``): the payload
+    at ``path + (QUANT_TAG,)`` (:data:`bifold_tpu_torch.serving.QUANT_TAG`)
+    and the scale at ``path + ("scale",)``, the
+    leaf's ids taken once along JAX's reduced axes (axis 0 of a 2-d leaf,
+    axes 1 .. ndim-2 of a deeper one)."""
+    from bifold_tpu_torch.serving import QUANT_TAG
+
+    for path, ids in _leaves(params):
+        ids = np.asarray(ids)
+        if not ids.size or names[int(np.searchsorted(starts, ids.flat[0], side="right")) - 1] \
+                not in payloads:
+            yield path, ids, None
+            continue
+        reduced = (0,) if ids.ndim == 2 else tuple(range(1, ids.ndim - 1))
+        sids = np.asarray(_at(scales, path))
+        yield path + (QUANT_TAG,), ids, "payload"
+        yield path + ("scale",), sids[tuple(slice(0, 1) if a in reduced else slice(None)
+                                            for a in range(sids.ndim))], "scale"
 
 
 def _tp_modules(model: nn.Module):
@@ -350,18 +484,27 @@ def _under(name: str, prefixes) -> Optional[str]:
 
 
 def make_plan(model: nn.Module, family: str, shape: Dict[str, int],
-              min_size: int = MIN_SIZE) -> Plan:
+              min_size: int = MIN_SIZE, quantized: Optional[Dict[str, tuple]] = None
+              ) -> Plan:
     """The plan of ``model`` (full tensors, not placed) of the family
-    ``family`` over a mesh of axis sizes ``shape``. Raises
-    ``NotImplementedError`` where tp does not divide the heads of an
+    ``family`` over a mesh of axis sizes ``shape``. ``quantized``: the
+    weights a server holds as int8 (name -> scale shape,
+    :func:`bifold_tpu_torch.serving.quantize_weights`), planned as JAX
+    plans its quantized tree (bifold_tpu/serving.py:294-303): the payload
+    takes its kernel's spec, the scale its own (tp on the kernel's output
+    axis where tp cuts that, else the fsdp rule on the scale's shape);
+    their tensors are named by :func:`payload_name` and :func:`scale_name`.
+    Raises ``NotImplementedError`` where tp does not divide the heads of an
     attention it shards, or would shard a module only in part."""
     tp, fsdp = int(shape.get("tp", 1)), int(shape.get("fsdp", 1))
     pp, ep = int(shape.get("pp", 1)), int(shape.get("ep", 1))
     pipes = pipelined(model, pp)
-    params, starts, shapes, names, arrays = _probe(model, family)
+    quantized = dict(quantized or {})
+    params, starts, shapes, names, arrays, scales = _probe(model, family, quantized)
+    weight_of = {payload_name(n): n for n in quantized}
+    scale_names = {scale_name(n) for n in quantized}
     leaves, ep_names = [], []
-    for path, ids in _leaves(params):
-        ids = np.asarray(ids)
+    for path, ids, kind in _jax_leaves(params, scales, starts, names, set(weight_of)):
         if ids.size and int(ids.min()) < 1:
             raise ValueError(f"{'/'.join(path)}: a leaf the converter made up, "
                              "not one of the model's tensors")
@@ -392,16 +535,21 @@ def make_plan(model: nn.Module, family: str, shape: Dict[str, int],
                 spec[axis] = "fsdp"
         # the map to the port's tensors, for the leaves the plan shards
         boxes = _boxes(ids, starts, shapes, names, arrays) if any(spec) else {}
+        want = {"payload": weight_of, "scale": scale_names}.get(kind)
+        if want is not None and not all(n in want for n in boxes):
+            raise ValueError(f"{'/'.join(path)}: a leaf of int8 and float tensors")
         leaves.append(Leaf(path, tuple(ids.shape), tuple(spec), boxes))
 
     # tp: the port tensors the sharded kernels are, each on its mapped axis
+    # (an int8 payload as its weight; a scale follows its weight's cut)
     cut: Dict[str, set] = {}
     for leaf in leaves:
         axis = leaf.axis("tp")
         if axis is None:
             continue
         for name, box in leaf.boxes.items():
-            cut.setdefault(name, set()).add(box.axes[axis])
+            if name not in scale_names:
+                cut.setdefault(weight_of.get(name, name), set()).add(box.axes[axis])
     tp_cut, partial, modules = {}, [], []
     for prefix, mod in _tp_modules(model):
         own = {f"{prefix}.{k}": v for k, v in mod.tp_params().items()}
@@ -461,6 +609,9 @@ class _Unit:
                     f"{'/'.join(leaf.path)}: its tensors differ in dtype or "
                     "trainability; the port shards a leaf as one")
         self.shard: Optional[torch.Tensor] = None
+        # the chunk's gradient, summed over the fsdp group block by block
+        # in the backward (units of a stack's blocks)
+        self.grad: Optional[torch.Tensor] = None
 
     def full_leaf(self, tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The whole leaf (leaf layout) from full port tensors."""
@@ -476,6 +627,225 @@ class _Unit:
         """The whole leaf from the gathered chunks (sharded axis first)."""
         return gathered.movedim(0, self.axis)
 
+    def chunk_axis(self, axis: int) -> int:
+        """The chunk's axis that is the leaf's ``axis`` (not the sharded
+        one)."""
+        return axis + 1 if axis < self.axis else axis
+
+    def leaf_axis(self, dim: int) -> int:
+        """The inverse of :meth:`chunk_axis`."""
+        return dim - 1 if dim <= self.axis else dim
+
+
+@dataclasses.dataclass
+class _Part:
+    """What one unit holds of one block: the unit, the axis of its chunk
+    that runs over the leaf's slab axis and the slab's [lo, hi) on it (dim
+    None: the block holds the whole leaf), and the boxes of the block's
+    tensors within the slab."""
+
+    unit: _Unit
+    dim: Optional[int]
+    lo: int
+    hi: int
+    boxes: Dict[str, Box]
+
+
+class _Saved:
+    """What a block's saved gathered weight becomes in the autograd graph:
+    its name and view geometry (:meth:`_Share.saving`)."""
+
+    __slots__ = ("name", "size", "stride", "offset")
+
+    def __init__(self, name, t):
+        self.name, self.size, self.stride = name, t.size(), t.stride()
+        self.offset = t.storage_offset()
+
+
+class _GatherBlock(torch.autograd.Function):
+    """A block's whole fsdp tensors, gathered from the chunks; the backward
+    sums their gradients over tp where they are partial, reduce-scatters
+    them over fsdp into the units' chunk gradients, and gives the
+    placement's anchor a zero-sized gradient (so that autograd runs it)."""
+
+    @staticmethod
+    def forward(ctx, anchor, share):
+        full = share.gather()
+        ctx.share = share
+        ctx.set_materialize_grads(False)
+        outs = tuple(full[n] for n in share.names)
+        ctx.mark_non_differentiable(*(t for n, t in zip(share.names, outs)
+                                      if n not in share.trainable))
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.share.reduce(dict(zip(ctx.share.names, grads)))
+        return ctx.share.placement.anchor.new_zeros(0), None
+
+
+class _Share:
+    """One block's share of the fsdp units (ZeRO-3): the block gathers it
+    just before it runs and drops it just after (:meth:`weights`, which
+    :func:`~bifold_tpu_torch.models.layers.run_blocks` opens through the
+    block's ``fsdp`` attribute); the autograd graph keeps a handle in place
+    of each gathered weight it saves and gathers that weight again when the
+    backward reads it (:meth:`saving`); the block's weight gradients are
+    reduce-scattered into the chunks' gradients as soon as autograd has
+    them all (:class:`_GatherBlock`)."""
+
+    def __init__(self, placement: "Placement", prefix: str, parts: List[_Part]):
+        self.placement, self.prefix, self.parts = placement, prefix, parts
+        self.names = sorted({n for part in parts for n in part.boxes})
+        self.local = {n: n[len(prefix) + 1:] if prefix else n for n in self.names}
+        self.trainable = {n for part in parts if part.unit.trainable for n in part.boxes}
+        shapes, params = placement._full_shapes, placement._params
+        self.nbytes = sum(int(np.prod(shapes[n])) * params[n].element_size()
+                          for n in self.names)
+        self.grad_bytes = sum(int(np.prod(shapes[n])) * params[n].element_size()
+                              for n in self.trainable)
+        self._live: Dict[int, str] = {}
+        # gathered weights the backward has saved (name -> reads to come),
+        # and those gathered for it and not read yet
+        self._pending: Dict[str, int] = {}
+        self._cache: Dict[str, torch.Tensor] = {}
+
+    def _chunk(self, part: _Part) -> torch.Tensor:
+        """This rank's slice of the part's unit chunk."""
+        chunk = part.unit.shard.detach()
+        return chunk if part.dim is None else chunk.narrow(part.dim, part.lo,
+                                                           part.hi - part.lo)
+
+    def gather(self, names=None) -> Dict[str, torch.Tensor]:
+        """Whole tensors (of ``names``, default all of the block's) from
+        the fsdp group's chunks: one all-gather of the chunks' slices laid
+        end to end per dtype."""
+        p = self.placement
+        n = p.mesh.fsdp
+        groups: Dict[torch.dtype, list] = {}
+        for part in self.parts:
+            wanted = [k for k in part.boxes if names is None or k in names]
+            if wanted:
+                chunk = self._chunk(part)
+                groups.setdefault(chunk.dtype, []).append((part, wanted, chunk))
+        out: Dict[str, torch.Tensor] = {}
+        for picks in groups.values():
+            flat = all_gather(torch.cat([c.reshape(-1) for _, _, c in picks]),
+                              p.mesh.groups["fsdp"]).view(n, -1)
+            at = 0
+            for part, wanted, chunk in picks:
+                ranks = flat[:, at:at + chunk.numel()].reshape(n * chunk.shape[0],
+                                                               *chunk.shape[1:])
+                at += chunk.numel()
+                slab = part.unit.unchunk(ranks)
+                for k in wanted:
+                    if k not in out:
+                        out[k] = torch.empty(p._full_shapes[k], dtype=chunk.dtype,
+                                             device=chunk.device)
+                    part.boxes[k].read(slab, out[k])
+        for t in out.values():
+            p._track(t)
+        return out
+
+    def reduce(self, grads: Dict[str, Optional[torch.Tensor]]) -> None:
+        """Sum the block's weight gradients over tp where they are partial,
+        reduce-scatter the trainable units' slabs of them over fsdp (one
+        collective, in float32) and add each rank's part to the units'
+        chunk gradients."""
+        p = self.placement
+        p._note(sum(g.numel() * g.element_size() for g in grads.values() if g is not None))
+        partial = [k for k in p.plan.partial if grads.get(k) is not None]
+        if partial and p.mesh.tp > 1:
+            flat = all_reduce_sum_(torch.cat([grads[k].float().reshape(-1) for k in partial]),
+                                   p.mesh.groups["tp"])
+            for k, g in zip(partial, flat.split([grads[k].numel() for k in partial])):
+                grads[k] = g.view(grads[k].shape).to(grads[k].dtype)
+        n = p.mesh.fsdp
+        parts, pieces = [], []
+        for part in self.parts:
+            u = part.unit
+            if not u.trainable:
+                continue
+            shape = list(u.leaf.shape)
+            if part.dim is not None:
+                shape[u.leaf_axis(part.dim)] = part.hi - part.lo
+            slab = torch.zeros(shape, dtype=torch.float32, device=u.device)
+            for k, box in part.boxes.items():
+                if grads.get(k) is not None:
+                    box.write(grads[k], slab)
+            parts.append(part)
+            pieces.append(slab.movedim(u.axis, 0).chunk(n))
+        if not parts:
+            return
+        # rank r's slices of every slab, then rank r + 1's: each rank's
+        # part of the sum is one contiguous run
+        mine = reduce_scatter(torch.cat([c[r].reshape(-1) for r in range(n) for c in pieces]),
+                              p.mesh.groups["fsdp"])
+        at = 0
+        for part, chunks in zip(parts, pieces):
+            u, size = part.unit, chunks[0].numel()
+            if u.grad is None:
+                u.grad = torch.zeros(u.shard.shape, dtype=torch.float32, device=u.device)
+            target = (u.grad if part.dim is None else
+                      u.grad.narrow(part.dim, part.lo, part.hi - part.lo))
+            target.add_(mine[at:at + size].view(chunks[0].shape))
+            at += size
+
+    @contextlib.contextmanager
+    def weights(self):
+        """The block's whole tensors by name within the block, gathered
+        for the duration; differentiable (:class:`_GatherBlock`) where
+        autograd records and the block trains."""
+        if torch.is_grad_enabled() and self.trainable:
+            full = dict(zip(self.names, _GatherBlock.apply(self.placement.anchor, self)))
+        else:
+            full = self.gather()
+        self._live = {id(t): n for n, t in full.items()}
+        try:
+            yield {self.local[n]: t for n, t in full.items()}
+        finally:
+            self._live = {}
+
+    @contextlib.contextmanager
+    def saving(self):
+        """While the block's forward runs: each tensor autograd saves that
+        is one of the gathered weights (or a view of one) is kept as a
+        handle; the backward's first read gathers again every saved weight
+        still to be read (one all-gather), each read takes its view, and a
+        weight is dropped after its last read. Inside
+        ``torch.utils.checkpoint`` (``remat``) the checkpoint's own hooks
+        take precedence: it keeps nothing, and its recompute gathers the
+        block again."""
+        def pack(t):
+            name = self._live.get(id(t._base if t._base is not None else t))
+            if name is None:
+                return t
+            self._pending[name] = self._pending.get(name, 0) + 1
+            return _Saved(name, t)
+
+        def unpack(saved):
+            if not isinstance(saved, _Saved):
+                return saved
+            name = saved.name
+            if name not in self._cache:
+                # the first read of the block's backward gathers every
+                # saved weight still to be read, in one collective
+                self._cache.update(self.gather({name} | {
+                    k for k, c in self._pending.items() if c > 0 and k not in self._cache}))
+            full = self._cache[name]
+            self._pending[name] = self._pending.get(name, 1) - 1
+            if self._pending[name] <= 0:
+                del self._cache[name], self._pending[name]
+            return full.as_strided(saved.size, saved.stride, saved.offset)
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+            yield
+
+    def drop(self) -> None:
+        """Forget the saved weights of a backward that did not run."""
+        self._pending.clear()
+        self._cache.clear()
+
 
 class Placement:
     """A :class:`Plan` applied to ``model`` on this rank of ``mesh``: see
@@ -488,8 +858,7 @@ class Placement:
 
     def __init__(self, model: nn.Module, plan: Plan, mesh, cut: bool = True):
         """``cut=False``: the tp-sharded tensors hold this rank's parts
-        already (a server's int8 weights, cut before they were installed);
-        such a plan may have no fsdp units."""
+        already (a server's int8 weights, cut before they were installed)."""
         self.model, self.plan, self.mesh = model, plan, mesh
         self.tp = self.tp_group(mesh)
         self._params = dict(model.named_parameters())
@@ -497,8 +866,6 @@ class Placement:
         self._stages()
         self.attach_tp()
         if not cut:
-            if plan.units:
-                raise ValueError("a placement of tensors cut already has no fsdp units")
             plan = dataclasses.replace(plan, tp={})
             self.plan = plan
         ep, j = mesh.shape.get("ep", 1), mesh.coords.get("ep", 0)
@@ -529,8 +896,10 @@ class Placement:
                 u.shard = u.chunk(u.full_leaf(full), mesh.fsdp, mesh.fsdp_rank)
                 if u.trainable:
                     u.shard = nn.Parameter(u.shard)
-        self.release()
+        self._live_bytes = self.peak_bytes = 0
         self._gathered = False
+        self._shares()
+        self.release()
 
     def _stages(self) -> None:
         """The pp stage's layers of every pipelined stack: ``owner`` maps
@@ -554,6 +923,108 @@ class Placement:
             stack.pipe = L.PipeStage(self.mesh, stage * per, (stage + 1) * per, trains[0])
         self.foreign = sorted(n for n, s in self.owner.items() if s != stage)
         self.staged = sorted(n for n, s in self.owner.items() if s == stage)
+
+    def _shares(self) -> None:
+        """Split the units between the stacks' blocks and the rest: each
+        block of a stack (:class:`~bifold_tpu_torch.models.layers.PipelineStack`)
+        whose tensors some unit holds gets its :class:`_Share` as its
+        ``fsdp`` attribute; :attr:`stepwise` lists the fsdp tensors outside
+        every block, which :meth:`gather` gathers for a whole step. A unit
+        of stacked layers shares out its slab along the leaf's depth axis;
+        a unit that fsdp shards along that axis (no block has a slice of
+        every rank's chunk), or that holds a block's tensors and others,
+        raises, naming its leaf."""
+        blocks = {}
+        for prefix, mod in self.model.named_modules():
+            if isinstance(mod, L.PipelineStack):
+                for i, block in enumerate(mod.blocks):
+                    blocks[f"{prefix}.{mod.BLOCKS}.{i}" if prefix else
+                           f"{mod.BLOCKS}.{i}"] = block
+        order = sorted(blocks, key=len, reverse=True)
+
+        def block_of(name):
+            return next((b for b in order if name.startswith(b + ".")), None)
+
+        parts: Dict[str, List[_Part]] = {}
+        stepwise = []
+        for u in self.units:
+            where = {n: block_of(n) for n in u.leaf.boxes}
+            path = "/".join(u.leaf.path)
+            if set(where.values()) == {None}:
+                stepwise.append(_Part(u, None, 0, 0, u.leaf.boxes))
+                continue
+            if None in where.values():
+                raise NotImplementedError(
+                    f"{path}: its fsdp unit holds tensors of a stack's blocks and "
+                    "others; the port gathers a block's units with the block")
+            for b in sorted(set(where.values())):
+                boxes = {n: box for n, box in u.leaf.boxes.items() if where[n] == b}
+                lo = [min(box.leaf[a].start for box in boxes.values())
+                      for a in range(len(u.leaf.shape))]
+                hi = [max(box.leaf[a].stop for box in boxes.values())
+                      for a in range(len(u.leaf.shape))]
+                cut = [a for a, n in enumerate(u.leaf.shape) if (lo[a], hi[a]) != (0, n)]
+                size = int(np.prod([h - l for l, h in zip(lo, hi)]))
+                if len(cut) > 1 or size != sum(box.numel() for box in boxes.values()):
+                    raise NotImplementedError(
+                        f"{path}: block {b}'s tensors are no slab of the leaf")
+                if cut and cut[0] == u.axis:
+                    raise NotImplementedError(
+                        f"{path}: fsdp shards the leaf along its depth axis, so "
+                        f"block {b} has no slice of each rank's chunk; the port "
+                        "gathers per block, not per stack: choose a min_size or "
+                        "an fsdp size that shards another axis")
+                if not cut:
+                    parts.setdefault(b, []).append(_Part(u, None, 0, 0, boxes))
+                    continue
+                d = cut[0]
+                shifted = {n: dataclasses.replace(box, leaf=tuple(
+                    slice(sl.start - lo[d], sl.stop - lo[d]) if a == d else sl
+                    for a, sl in enumerate(box.leaf))) for n, box in boxes.items()}
+                parts.setdefault(b, []).append(
+                    _Part(u, u.chunk_axis(d), lo[d], hi[d], shifted))
+        self._stepwise = _Share(self, "", stepwise)
+        self.stepwise = self._stepwise.names
+        self._held: Dict[str, torch.Tensor] = {}
+        self.shares = []
+        for b, block_parts in parts.items():
+            share = _Share(self, b, block_parts)
+            blocks[b].fsdp = share
+            self.shares.append(share)
+        self.blockwise = sorted(n for share in self.shares for n in share.names)
+        self.anchor = (torch.zeros(0, device=next(iter(self._params.values())).device,
+                                   requires_grad=True)
+                       if any(share.trainable for share in self.shares) else None)
+
+    # ------------------------------------------------------------------
+    # the peak of whole fsdp tensors
+
+    def _track(self, t: torch.Tensor) -> None:
+        """Count a gathered tensor while it (or a view of it) lives."""
+        nbytes = t.numel() * t.element_size()
+        self._live_bytes += nbytes
+        weakref.finalize(t, self._untrack, nbytes)
+        self._note()
+
+    def _untrack(self, nbytes: int) -> None:
+        self._live_bytes -= nbytes
+
+    def _note(self, extra: int = 0) -> None:
+        """Raise the peak to what lives now plus ``extra`` bytes (whole
+        gradients the caller holds)."""
+        self.peak_bytes = max(self.peak_bytes, self._live_bytes + extra)
+
+    def reset_peak(self) -> None:
+        """Start :attr:`peak_bytes` afresh from what lives now."""
+        self.peak_bytes = self._live_bytes
+
+    @property
+    def stepwise_bytes(self) -> int:
+        """Bytes of the whole fsdp tensors outside the stacks' blocks and
+        of their gradients, which a step holds at once when it reduces
+        them."""
+        return sum(int(np.prod(self._full_shapes[n])) * self._params[n].element_size()
+                   * (1 + self._params[n].requires_grad) for n in self.stepwise)
 
     # ------------------------------------------------------------------
 
@@ -596,34 +1067,39 @@ class Placement:
     @property
     def grad_params(self) -> List[Tuple[str, torch.Tensor]]:
         """The trainable module tensors the backward differentiates (this
-        pp stage's layers of the pipelined stacks)."""
-        foreign = set(self.foreign)
+        pp stage's layers of the pipelined stacks), but those the stacks'
+        blocks gather: their gradients reach the units' chunks through
+        :attr:`anchor`."""
+        skip = set(self.foreign) | set(self.blockwise)
         return [(n, p) for n, p in self._params.items()
-                if p.requires_grad and n not in foreign]
+                if p.requires_grad and n not in skip]
 
     # ------------------------------------------------------------------
     # fsdp
 
     @torch.no_grad()
     def gather(self) -> None:
-        """Rebuild every fsdp-sharded tensor from the fsdp group's chunks."""
-        if self._gathered or not self.units:
-            self._gathered = True
-            return
-        for name in self.managed:
-            p = self._params[name]
-            p.data = torch.empty(self._full_shapes[name], dtype=p.dtype, device=p.device)
-        for u in self.units:
-            leaf = u.unchunk(all_gather(u.shard.detach(), self.mesh.groups["fsdp"]))
-            for name, box in u.leaf.boxes.items():
-                box.read(leaf, self._params[name].data)
+        """Rebuild the fsdp-sharded tensors outside the stacks' blocks
+        (:attr:`stepwise`) from the fsdp group's chunks; the blocks gather
+        their own as they run."""
+        if not self._gathered:
+            # held here, so that the peak counts them until release
+            self._held = self._stepwise.gather()
+            for name, t in self._held.items():
+                self._params[name].data = t
         self._gathered = True
 
     def release(self) -> None:
-        """Empty the fsdp-sharded tensors (their chunks stay)."""
+        """Empty the fsdp-sharded tensors (their chunks stay) and drop the
+        chunks' gradients."""
         for name in self.managed:
             p = self._params[name]
             p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+        self._held = {}
+        for u in self.units:
+            u.grad = None
+        for share in self.shares:
+            share.drop()
         self._gathered = False
 
     @contextlib.contextmanager
@@ -643,35 +1119,34 @@ class Placement:
         """From the backward's gradients of :attr:`grad_params` to those of
         :attr:`step_params`, and the loss and its terms summed over the
         data ranks: partial gradients summed over tp; fsdp units'
-        reduce-scattered over fsdp, then summed over ``dcn x dp``; the
+        reduce-scattered over fsdp (the blocks' in the backward, the others'
+        here, in one collective), then summed over ``dcn x dp``; the
         others, with the loss, over all data ranks in one flat buffer."""
         names = [n for n, _ in self.grad_params]
         by_name = dict(zip(names, grads))
         groups = self.mesh.groups
-        partial = [n for n in self.plan.partial if n in by_name]
+        # the units outside the blocks, as a block's are in its backward
+        self._stepwise.reduce({n: by_name[n] for n in self.stepwise if n in by_name})
+        own = [n for n in names if n not in self.managed]
+        partial = [n for n in self.plan.partial if n in own]
         if partial and self.mesh.tp > 1:
             flat = all_reduce_sum_(torch.cat([by_name[n].float().reshape(-1)
                                               for n in partial]), groups["tp"])
             for n, part in zip(partial, flat.split([by_name[n].numel() for n in partial])):
                 by_name[n] = part.view(by_name[n].shape).to(by_name[n].dtype)
-        own = [n for n in names if n not in self.managed]
-        from bifold_tpu_torch.parallel import _reduce_over_ranks
-        out, loss, inter = _reduce_over_ranks([by_name[n] for n in own], loss, inter,
+        out, loss, inter = reduce_step_values([by_name[n] for n in own], loss, inter,
                                               groups["data"])
-        shards = []
-        for u in self.units:
-            if not u.trainable:
-                continue
-            leaf = u.full_leaf(by_name)
-            shards.append(reduce_scatter(leaf.movedim(u.axis, 0).contiguous().float(),
-                                         groups["fsdp"]))
+        trainable = [u for u in self.units if u.trainable]
+        shards = [u.grad if u.grad is not None else torch.zeros(
+            u.shard.shape, dtype=torch.float32, device=u.device) for u in trainable]
+        for u in trainable:
+            u.grad = None
         if shards and self.mesh.data_size > self.mesh.fsdp:
             flat = all_reduce_sum_(torch.cat([s.reshape(-1) for s in shards]),
                                    groups["replica"])
             shards = [p.view(s.shape) for p, s in zip(flat.split(
                 [s.numel() for s in shards]), shards)]
-        dtypes = [u.shard.dtype for u in self.units if u.trainable]
-        out += [s.to(d) for s, d in zip(shards, dtypes)]
+        out += [s.to(u.shard.dtype) for s, u in zip(shards, trainable)]
         return out, loss, inter
 
     def grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:

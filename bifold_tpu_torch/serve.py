@@ -483,11 +483,9 @@ def parse_mesh(text: str) -> Dict[str, int]:
 
 def _broadcast(message):
     """``message`` (rank 0's) on every rank of the default group."""
-    import torch.distributed as dist
+    from bifold_tpu_torch.parallel.collectives import broadcast_object
 
-    box = [message]
-    dist.broadcast_object_list(box, src=0)
-    return box[0]
+    return broadcast_object(message, src=0)
 
 
 # an idle leader broadcasts a no-op this often (seconds), well inside the

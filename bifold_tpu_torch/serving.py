@@ -33,9 +33,11 @@ The deployment half (bifold_tpu/serving.py:105-184, 358-386, 467, 536-700):
   calls it with the same observations, as JAX's multi-controller runs do.
   The weights are sharded by the family's plan
   (:mod:`~bifold_tpu_torch.parallel.sharding`): tp-sharded projections,
-  each rank computing its heads, and fsdp-sharded large leaves gathered
-  for each request; int8 payloads shard like their weights and a
-  per-output-channel scale follows the output axis. A pooled batch that
+  each rank computing its heads, and fsdp-sharded large leaves, gathered
+  for each request outside the transformer stacks and one block at a
+  time inside them; int8 payloads shard like their weights, and a
+  per-output-channel scale follows the output axis under tp and takes
+  the fsdp rule on its own shape, as JAX plans its quantized tree. A pooled batch that
   the data ranks divide is cut over them and the actions and raw outputs
   are gathered; one that does not (batch 1) is served whole on every data
   rank. The pp, sp and ep axes replicate the server, as JAX's server
@@ -358,13 +360,16 @@ class ServingModel:
     be served mid-training without rounding its float32 trainable masters),
     as the JAX server works on a new params tree. ``mesh`` (a ``mesh``
     config node or a :class:`~bifold_tpu_torch.parallel.Mesh`) shards it
-    over the default ``torch.distributed`` group (module docstring)."""
+    over the default ``torch.distributed`` group (module docstring), the
+    fsdp rule taking leaves of at least ``shard_min_size`` elements (the
+    ``min_size`` of JAX's ``param_sharding``)."""
 
     def __init__(self, model, state_dict, processor: Processor, *,
                  threshold: Optional[float] = None,
                  depth_wire_dtype: str = "float32",
                  quantize: Optional[str] = None,
-                 quantize_min_size: int = 2 ** 16, mesh=None, device="cuda"):
+                 quantize_min_size: int = 2 ** 16, mesh=None, device="cuda",
+                 shard_min_size: int = 2 ** 16):
         if quantize not in (None, "int8"):
             raise ValueError(f"quantize {quantize!r}; None or 'int8'")
         device = resolve_device(device)
@@ -387,13 +392,11 @@ class ServingModel:
             from bifold_tpu_torch.parallel.sharding import Placement, make_plan
 
             mesh = parallel.make_mesh(mesh)
+            quantized = {n: tuple(v["scale"].shape) for n, v in weights.items()
+                         if isinstance(v, dict)}
             plan = make_plan(served, dict(getattr(model, "config", {})).get("name"),
-                             {**mesh.shape, "pp": 1, "ep": 1})
+                             {**mesh.shape, "pp": 1, "ep": 1}, shard_min_size, quantized)
             if quantize == "int8":
-                if plan.units:
-                    raise NotImplementedError(
-                        f"int8 serving under mesh fsdp={mesh.fsdp}: the port "
-                        "shards int8 weights over tp only; ROADMAP queue item 5")
                 tp = Placement.tp_group(mesh)
                 params = dict(served.named_parameters())
                 for name, (axis, blocks) in plan.tp.items():

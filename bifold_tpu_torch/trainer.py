@@ -684,8 +684,11 @@ class Trainer:
     def _debug_check_gradients(self, batch) -> None:
         """Debug-mode invariant: every trainable parameter receives a nonzero
         gradient on the first step (``lora_A`` excluded: it has zero
-        gradient at init, since ``lora_B`` starts at zero)."""
-        named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
+        gradient at init, since ``lora_B`` starts at zero). Under a
+        placement: the tensors its step differentiates by name (those the
+        stacks' blocks gather reach their fsdp chunks another way)."""
+        named = (self.placement.grad_params if self.placement is not None else
+                 [(n, p) for n, p in self.model.named_parameters() if p.requires_grad])
         self.model.train()
         set_dropout_generator(self.model, torch.Generator(self.device).manual_seed(0))
         gathered = (self.placement.gathered() if self.placement is not None

@@ -3556,6 +3556,11 @@ def dp_step(family, device="cuda", shard=False, mesh=None, dropout=0.0, mode="",
     step = make_train_step(model, build_loss(dict(LOSS)), opt, placement=placement,
                            moe_aux_weight=aux_weight)
     place_s = time.perf_counter() - t
+    if placement is not None and hasattr(placement, "reset_peak"):
+        placement.reset_peak()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     with ln_mode(mode):
         clear_launch_counts()            # the step starts here
         t = time.perf_counter()
@@ -3564,6 +3569,7 @@ def dp_step(family, device="cuda", shard=False, mesh=None, dropout=0.0, mode="",
             torch.cuda.synchronize()
         step_s = time.perf_counter() - t
         launches = launch_counts()       # ... and ends here
+    step_peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
     shapes = {f"{k} {list(shape)}": n for (k, shape), n in fa.SHAPES.items()}
     evaluated = None
     if evaluate:
@@ -3575,8 +3581,22 @@ def dp_step(family, device="cuda", shard=False, mesh=None, dropout=0.0, mode="",
                      "shapes": {f"{k} {list(shape)}": n for (k, shape), n in fa.SHAPES.items()},
                      "out": {k: v.float().cpu() for k, v in out.items()
                              if isinstance(v, torch.Tensor) and k.endswith("heatmap")}}
+    gathered = {}
     if placement is not None:
         held = placement.held_bytes(opt)
+        # the step's peak of whole fsdp tensors (weights and gradients),
+        # and what it was when a step gathered every unit at once
+        gathered = {"peak_gathered_bytes": getattr(placement, "peak_bytes", None),
+                    "whole_fsdp_bytes": sum(
+                        int(np.prod(placement._full_shapes[n])) * p.element_size()
+                        * (1 + p.requires_grad) for n, p in model.named_parameters()
+                        if n in placement.managed),
+                    "held_param_bytes": placement.held_bytes(),
+                    # the tensors outside the stacks' blocks and two blocks'
+                    # shares, each with its gradients
+                    "gathered_bound": (placement.stepwise_bytes + 2 * max(
+                        s.nbytes + s.grad_bytes for s in placement.shares)
+                        if getattr(placement, "shares", None) else None)}
         state = placement.full_state_dict()
         local = [(n, p) for n, p in model.named_parameters()
                  if n not in placement.plan.tp and n not in placement.managed]
@@ -3593,7 +3613,8 @@ def dp_step(family, device="cuda", shard=False, mesh=None, dropout=0.0, mode="",
             "trainable": {n: state[n].detach().cpu() for n, t in mask.items() if t},
             "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()},
             "hash": digest.hexdigest(), "held_bytes": held, "eval": evaluated,
-            "ln_want": ln_want, "place_seconds": place_s, "step_seconds": step_s}
+            "ln_want": ln_want, "place_seconds": place_s, "step_seconds": step_s,
+            "step_max_memory_allocated_bytes": step_peak, **gathered}
 
 
 def dp_rank_worker(rank, port, out, device="cuda"):
@@ -3698,6 +3719,9 @@ def dp_two_ranks(card, device="cuda"):
 
 
 MESH_RANKS = 2
+# per step mesh ("fsdp", "tp"): the parameter bytes each rank of
+# mesh_two_ranks holds, which advise_phase holds its figures against
+MESH_HELD: dict = {}
 # f32 flagship steps under a mesh against the one-process step: loss and
 # gradient norm relative, every trainable tensor absolute
 MESH_TOL = 1e-5
@@ -3708,7 +3732,10 @@ MESH_STEPS = {"fsdp": {"fsdp": 2}, "tp": {"tp": 2}}
 MESH_HEADS = {"fsdp": {48: 16, 64: 12}, "tp": {48: 8, 64: 6}}
 MESH_SERVE = {"tp": {"tp": 2}, "dp": {"dp": 2}}
 MESH_SERVED = (("tp", torch.float32, None), ("dp", torch.float32, None),
-               ("tp_int8", torch.bfloat16, "int8"))
+               ("tp_int8", torch.bfloat16, "int8"), ("fsdp_int8", torch.bfloat16, "int8"))
+# the step cases: name -> (mesh, BIFOLD_LN_KERNEL mode); "fsdp_pallas" runs
+# the LayerNorm kernels inside the blocks that gather their fsdp share
+MESH_CASES = {"fsdp": ("fsdp", ""), "tp": ("tp", ""), "fsdp_pallas": ("fsdp", "pallas")}
 MESH_POOL = 8
 MESH_F32_HEATMAP_TOL = 1e-4
 # a whole bf16 network's heatmaps, two summation orders apart (the tp
@@ -3746,7 +3773,11 @@ def mesh_serve(mesh, dtype, quantize, device="cuda"):
     server = ServingModel(model, None, proc, quantize=quantize, mesh=mesh, device=device)
     del model
     rng = np.random.default_rng(17)
-    out = {}
+    chunks = [u.shard for u in server.placement.units] if server.placement else []
+    out = {"int8_bytes": sum(t.numel() for t in [*server.model.parameters(), *chunks]
+                             if t.dtype == torch.int8)}
+    if server.placement is not None:
+        server.placement.reset_peak()
     for name, n in (("batch_1", 1), ("pool", MESH_POOL)):
         obs = [observation(rng, n_ctx=3) for _ in range(n)]
         texts = [INSTRUCTIONS[i % len(INSTRUCTIONS)] for i in range(n)]
@@ -3760,6 +3791,8 @@ def mesh_serve(mesh, dtype, quantize, device="cuda"):
                      "raw": raw, "launches": launch_counts(),
                      "shapes": {f"{k} {list(s)}": c for (k, s), c in fa.SHAPES.items()}}
         check_action(action, raw, n, FLAGSHIP["image_size"])
+    if server.placement is not None:
+        out["peak_gathered_bytes"] = server.placement.peak_bytes
     if mesh is not None:
         try:
             server.export(Path(tempfile.gettempdir()) / "never.pt", **obs[0])
@@ -3772,11 +3805,11 @@ def mesh_serve(mesh, dtype, quantize, device="cuda"):
 def mesh_rank_worker(rank, port, out, device="cuda"):
     """``python3 chip_smoke.py mesh-rank RANK PORT OUT [DEVICE]``: rank
     ``RANK`` of :data:`MESH_RANKS` in a gloo group on the one card, TF32 off
-    as in :func:`main`: the f32 flagship step under each of
-    :data:`MESH_STEPS`, a tp step at dropout 0.1 under
+    as in :func:`main`: the f32 flagship step in each of
+    :data:`MESH_CASES`, a tp step at dropout 0.1 under
     ``BIFOLD_LN_KERNEL=fused``, and the flagship served under each of
-    :data:`MESH_SERVE` in f32 and, under tp, in bf16 int8; saves the
-    results to ``OUT/rank<RANK>.pt``."""
+    :data:`MESH_SERVE` in f32 and, under tp and under fsdp, in bf16 int8;
+    saves the results to ``OUT/rank<RANK>.pt``."""
     from bifold_tpu_torch import parallel
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3786,14 +3819,16 @@ def mesh_rank_worker(rank, port, out, device="cuda"):
                               device="cuda:0" if device == "cuda" else "cpu",
                               backend="gloo")
     results = {"steps": {}, "serve": {}}
-    for name, mesh in MESH_STEPS.items():
-        results["steps"][name] = dp_step("flagship", device, mesh=mesh, optim=MESH_SGD)
+    for name, (mesh, mode) in MESH_CASES.items():
+        results["steps"][name] = dp_step("flagship", device, mesh=MESH_STEPS[mesh],
+                                         optim=MESH_SGD, mode=mode)
     results["dropout"] = dp_step("flagship", device, mesh=MESH_STEPS["tp"], dropout=0.1,
                                  mode="fused", optim=MESH_SGD)
     for name, mesh in MESH_SERVE.items():
         results["serve"][name] = mesh_serve(mesh, torch.float32, None, device)
-    results["serve"]["tp_int8"] = mesh_serve(MESH_STEPS["tp"], torch.bfloat16, "int8",
-                                             device)
+    for mesh in ("tp", "fsdp"):
+        results["serve"][f"{mesh}_int8"] = mesh_serve(MESH_STEPS[mesh], torch.bfloat16,
+                                                      "int8", device)
     results["backend"] = str(torch.distributed.get_backend())
     torch.save(results, Path(out) / f"rank{rank}.pt")
     torch.distributed.destroy_process_group()
@@ -3842,7 +3877,12 @@ def mesh_two_ranks(card, device="cuda"):
     of one step (8 + 12 forwards with lse and backwards), at 16 and 12
     heads under fsdp and 8 and 6 under tp; the tp ranks' replicated
     tensors bitwise equal; under fsdp each rank's bytes of parameters and
-    optimizer state beside one process's. A tp step at dropout 0.1 under
+    optimizer state beside one process's, and the step's peak of whole
+    fsdp tensors (weights and gradients) at most the tensors outside the
+    stacks' blocks and two blocks' shares, below the whole model's (the
+    blocks gather a block at a time), with ``max_memory_allocated`` over
+    the step beside one process's; the same fsdp step under
+    ``BIFOLD_LN_KERNEL=pallas``, its LayerNorm launches exact. A tp step at dropout 0.1 under
     ``BIFOLD_LN_KERNEL=fused``: replicated tensors bitwise equal across
     the tp group, the fused LayerNorm launches exact. The f32 flagship
     served under ``{tp: 2}`` and ``{dp: 2}`` at batch 1 and a pool of 8:
@@ -3851,8 +3891,12 @@ def mesh_two_ranks(card, device="cuda"):
     bf16 int8 under ``{tp: 2}``: heatmaps within
     :data:`MESH_BF16_HEATMAP_TOL`, decoded actions reported beside one
     process's, and one process's own bf16 int8 heatmaps' distance from its
-    f32 int8 ones beside them; ``export`` refused. Returns every rank's
-    launches."""
+    f32 int8 ones beside them; bf16 int8 under ``{fsdp: 2}`` alike, at 16
+    and 12 heads, each rank holding fewer int8 bytes than one process;
+    ``export`` refused. While the ranks run, this process sweeps the
+    advisor (:func:`advise_sweep`), held against the ranks' bytes
+    (:func:`advise_phase`). Returns every rank's launches; leaves each
+    step mesh's parameter bytes per rank in :data:`MESH_HELD`."""
     import shutil
 
     t0 = time.perf_counter()
@@ -3861,20 +3905,26 @@ def mesh_two_ranks(card, device="cuda"):
     # the one-process references while the ranks run (launches of this
     # process are not counted: only the ranks' own counts are summed)
     one = dp_step("flagship", device, optim=MESH_SGD)
-    refs = {name: mesh_serve(None, dtype, quantize, device)
-            for name, dtype, quantize in MESH_SERVED}
+    refs = {}
+    for _, dtype, quantize in MESH_SERVED:
+        if (dtype, quantize) not in refs:
+            refs[dtype, quantize] = mesh_serve(None, dtype, quantize, device)
     # how far one process's bf16 int8 server is from its f32 one: the
     # scale of bf16's own error, beside the tp ranks' distance from it
     f32_int8 = mesh_serve(None, torch.float32, "int8", device)
-    bf16_error = {case: max(float(np.abs(refs["tp_int8"][case]["raw"][k]
+    bf16_int8 = refs[torch.bfloat16, "int8"]
+    bf16_error = {case: max(float(np.abs(bf16_int8[case]["raw"][k]
                                          - f32_int8[case]["raw"][k]).max())
                             for k in f32_int8[case]["raw"]) for case in ("batch_1", "pool")}
     del f32_int8
+    # the advise sweep (host only) while the ranks still run; held against
+    # their bytes once they are done
+    swept = advise_sweep()
     ranks = wait_ranks(procs, "mesh-rank", tmp)
     shutil.rmtree(tmp, ignore_errors=True)
     launches, ok, lines = collections.Counter(), True, {}
     want_step = f32_keys(PER_STEP)
-    for name in MESH_STEPS:
+    for name, (mesh, mode) in MESH_CASES.items():
         worst = {"metrics": 0.0, "trainable": 0.0}
         for r in ranks:
             got = r["steps"][name]
@@ -3888,9 +3938,24 @@ def mesh_two_ranks(card, device="cuda"):
         same_keys = all(sorted(r["steps"][name]["trainable"]) == sorted(one["trainable"])
                         for r in ranks)
         rank_launches = [r["steps"][name]["launches"] for r in ranks]
-        heads = all(heads_of(r["steps"][name]["shapes"], name) for r in ranks)
+        want = {**want_step, **(ranks[0]["steps"][name]["ln_want"] if mode else {})}
+        heads = all(heads_of(r["steps"][name]["shapes"], mesh) for r in ranks)
         replicated = len({r["steps"][name]["hash"] for r in ranks}) == 1
+        got = [r["steps"][name] for r in ranks]
+        # fsdp: the blocks gather their share one at a time (ZeRO-3)
+        gathered = mesh != "fsdp" or all(
+            0 < g["peak_gathered_bytes"] <= g["gathered_bound"] < g["whole_fsdp_bytes"]
+            for g in got)
         lines[name] = {
+            "mesh": MESH_STEPS[mesh], "ln_mode": mode or "default", "want": want,
+            "held_param_bytes_per_rank": [g["held_param_bytes"] for g in got],
+            "peak_gathered_bytes_per_rank": [g["peak_gathered_bytes"] for g in got],
+            "gathered_bound_per_rank": [g["gathered_bound"] for g in got],
+            "whole_fsdp_bytes": got[0]["whole_fsdp_bytes"], "gathered_ok": gathered,
+            "step_max_memory_allocated_bytes_per_rank": [
+                g["step_max_memory_allocated_bytes"] for g in got],
+            "one_process_step_max_memory_allocated_bytes":
+                one["step_max_memory_allocated_bytes"],
             "loss": one["metrics"]["loss"], "grad_norm": one["metrics"]["grad_norm"],
             "max_rel_diff_loss_grad_norm": worst["metrics"],
             "max_abs_diff_trainable": worst["trainable"],
@@ -3904,10 +3969,11 @@ def mesh_two_ranks(card, device="cuda"):
                                                for r in ranks],
             "one_process_first_step_seconds": one["step_seconds"],
             "place_seconds": [r["steps"][name]["place_seconds"] for r in ranks]}
-        ok &= (same_keys and worst["metrics"] <= MESH_TOL
+        ok &= (same_keys and gathered and worst["metrics"] <= MESH_TOL
                and worst["trainable"] <= MESH_PARAM_TOL
                and (name != "tp" or replicated)
-               and (device == "cpu" or (heads and all(d == want_step for d in rank_launches))))
+               and (device == "cpu" or (heads and all(d == want for d in rank_launches))))
+        MESH_HELD[mesh] = [g["held_param_bytes"] for g in got]
     drop = [r["dropout"] for r in ranks]
     for d in drop:
         launches.update(d["launches"])
@@ -3921,7 +3987,7 @@ def mesh_two_ranks(card, device="cuda"):
     del one
     infer = f32_keys(INFER)
     for name, dtype, quantize in MESH_SERVED:
-        ref = refs.pop(name)
+        ref = refs[dtype, quantize]
         rows = {}
         for case in ("batch_1", "pool"):
             want = ref[case]
@@ -3936,8 +4002,8 @@ def mesh_two_ranks(card, device="cuda"):
             want_launches = want["launches"]
             ok &= want_launches == (infer if dtype == torch.float32 else INFER) or \
                 device == "cpu"
-            heads = all(heads_of(r["serve"][name][case]["shapes"], "tp")
-                        for r in ranks) if name.startswith("tp") else True
+            heads = all(heads_of(r["serve"][name][case]["shapes"], name.split("_")[0])
+                        for r in ranks) if name.endswith("int8") or name == "tp" else True
             rows[case] = {"max_abs_diff_heatmaps": heat, "actions_identical": same,
                           "launches_per_rank": per_rank, "shapes_per_rank": [
                               r["serve"][name][case]["shapes"] for r in ranks],
@@ -3954,13 +4020,22 @@ def mesh_two_ranks(card, device="cuda"):
                                   "quantize": quantize}
         if dtype == torch.bfloat16:
             lines[f"serve_{name}"]["one_process_bf16_vs_f32_heatmaps"] = bf16_error
-        del ref
+        if name.startswith("fsdp"):
+            # each rank holds its chunks of the int8 payloads
+            held = [r["serve"][name]["int8_bytes"] for r in ranks]
+            lines[f"serve_{name}"].update({
+                "int8_bytes_per_rank": held, "one_process_int8_bytes": ref["int8_bytes"],
+                "request_peak_gathered_bytes_per_rank": [
+                    r["serve"][name]["peak_gathered_bytes"] for r in ranks]})
+            ok &= all(h < ref["int8_bytes"] for h in held)
+    del refs
     emit({"phase": "mesh_two_ranks", "ranks": MESH_RANKS, "device": "one card, each rank",
           "backend": ranks[0]["backend"], "collectives": "gloo, staged through host memory",
           "dtype": "float32 steps", "tol": MESH_TOL, "param_tol": MESH_PARAM_TOL,
           **lines, "seconds": time.perf_counter() - t0, **card})
     if not ok:
         raise AssertionError("mesh_two_ranks failed (see its line)")
+    advise_phase(card, swept)
     return dict(launches)
 
 
@@ -4636,7 +4711,126 @@ def daemon_mesh(card, device="cuda"):
     return dict(launches)
 
 
+ADVISE_DEVICES = 8
+ADVISE_OVERRIDES = ("model=siglip_sequential", "train_dataset.image_size=384",
+                    "train_dataset.is_bimanual=true", "train_dataset.max_context_length=3",
+                    "batch_size=8")
+ADVISE_TOL = 0.01        # parameter bytes per device against the ranks' held bytes
+
+
+def advise_sweep():
+    """``python -m bifold_tpu_torch advise n_devices=8`` for the flagship,
+    in this process (``bifold_tpu_torch.__main__.main`` with ``--json``;
+    fake tensors and a fake group, no card): (exit code, reports, seconds)."""
+    import io
+
+    from bifold_tpu_torch.__main__ import main as cli_main
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli_main(["advise", f"n_devices={ADVISE_DEVICES}", *ADVISE_OVERRIDES,
+                         "--json"])
+    return code, json.loads(out.getvalue().strip().splitlines()[-1]), \
+        time.perf_counter() - t0
+
+
+def advise_phase(card, swept):
+    """The advise sweep's ranked layouts (:func:`advise_sweep`), and the
+    ``param_bytes_per_device`` of the layouts whose only sharded axis is
+    fsdp = 2 or tp = 2 within :data:`ADVISE_TOL` of what a rank of
+    :func:`mesh_two_ranks` holds under ``{fsdp: 2}`` and ``{tp: 2}``
+    (:data:`MESH_HELD`)."""
+    code, reports, seconds = swept
+    ranked = []
+    for r in reports:
+        mesh = {k: v for k, v in r["mesh"].items() if v > 1}
+        ranked.append({"mesh": mesh, "error": r["error"].splitlines()[0][:160]}
+                      if "error" in r else
+                      {"mesh": mesh, "ms_lower_bound": r["est"]["step_ms_lower_bound"],
+                       "bottleneck": r["est"]["bottleneck"],
+                       "param_bytes_per_device": r["param_bytes_per_device"],
+                       "opt_state_bytes_per_device": r["opt_state_bytes_per_device"],
+                       "wire_bytes_per_device": r["collective_wire_bytes_per_device"],
+                       "flops_per_device": r["flops_per_device"],
+                       "hbm_bytes_per_device_unfused": r["hbm_bytes_per_device"]})
+    checks, ok = {}, code == 0 and any("error" not in r for r in reports)
+    for axis in ("fsdp", "tp"):
+        report = next((r for r in reports if "error" not in r and
+                       {k for k, v in r["mesh"].items() if v > 1} <= {"dp", axis}
+                       and r["mesh"][axis] == 2), None)
+        held = MESH_HELD.get(axis)
+        got = None if report is None else report["param_bytes_per_device"]
+        rel = (None if got is None or not held else
+               max(abs(got - h) / h for h in held))
+        checks[axis] = {"advisor_param_bytes_per_device": got,
+                        "mesh_two_ranks_held_param_bytes": held, "max_rel_diff": rel,
+                        "layout": None if report is None else
+                        {k: v for k, v in report["mesh"].items() if v > 1}}
+        ok &= rel is not None and rel <= ADVISE_TOL
+    emit({"phase": "advise", "n_devices": ADVISE_DEVICES, "overrides": ADVISE_OVERRIDES,
+          "chip_constants": "H100 80GB HBM3 (SXM) datasheet, 700 W: lower bounds",
+          "ranked": ranked, "held_bytes_check": checks, "tol": ADVISE_TOL,
+          "seconds": seconds, "while": "mesh_two_ranks' ranks run", **card})
+    if not ok:
+        raise AssertionError("advise_phase failed (see its line)")
+
+
+FSDP_PEAK_KEYS = ("peak_gathered_bytes", "whole_fsdp_bytes", "held_param_bytes",
+                  "held_bytes", "step_max_memory_allocated_bytes")
+
+
+def peak_rank_worker(rank, port, out, root, device="cuda"):
+    """``python3 chip_smoke.py peak-rank RANK PORT OUT ROOT [DEVICE]``: rank
+    ``RANK`` of :data:`MESH_RANKS` in a gloo group on the one card, with
+    the package of the checkout at ``ROOT`` (another commit's, to compare):
+    :func:`dp_step`'s f32 flagship step under ``{fsdp: 2}``; saves its
+    memory figures and metrics to ``OUT/rank<RANK>.pt``."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    from bifold_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parallel.distributed_init(f"tcp://localhost:{port}", MESH_RANKS, int(rank),
+                              device="cuda:0" if device == "cuda" else "cpu",
+                              backend="gloo")
+    got = dp_step("flagship", device, mesh=MESH_STEPS["fsdp"], optim=MESH_SGD)
+    torch.save({k: got.get(k) for k in FSDP_PEAK_KEYS + ("metrics", "launches")},
+               Path(out) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def fsdp_peak(root=".", device="cuda"):
+    """``python3 chip_smoke.py fsdp-peak [ROOT] [DEVICE]``: the memory of
+    ``mesh_two_ranks``' f32 flagship step under ``{fsdp: 2}`` for the
+    package of the checkout at ``ROOT`` (default: this one), so that
+    another commit's figures can be read on the same card: per rank, the
+    placement's peak of whole fsdp tensors (None where the package has no
+    such counter), what a step that gathers every unit holds of them,
+    the bytes held, and ``torch.cuda.max_memory_allocated`` over the step;
+    one line of JSON with the card's name and power limit."""
+    import shutil
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bifold_fsdp_peak_"))
+    ranks = wait_ranks(spawn_ranks("peak-rank", tmp, str(Path(root).resolve()), device),
+                       "peak-rank", tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
+    smi = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+           if device == "cuda" else "cpu")
+    emit({"phase": "fsdp_peak", "root": str(Path(root).resolve()), "mesh": {"fsdp": 2},
+          **{k: [r[k] for r in ranks] for k in FSDP_PEAK_KEYS},
+          "loss": [r["metrics"]["loss"] for r in ranks],
+          "launches_per_rank": [r["launches"] for r in ranks],
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    return 0
+
+
 WORKERS = {"dp-cli": dp_cli_worker, "dp-rank": dp_rank_worker,
+           "fsdp-peak": fsdp_peak, "peak-rank": peak_rank_worker,
            "mesh-rank": mesh_rank_worker, "mesh-cli": mesh_cli_worker,
            "axes-rank": axes_rank_worker, "ring-rank": ring_rank_worker,
            "daemon-rank": daemon_rank_worker, "serve-rank": serve_rank_worker}

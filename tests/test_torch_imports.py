@@ -29,7 +29,7 @@ for name in ("bifold_tpu_torch.ops._cuda", "bifold_tpu_torch.ops.layer_norm",
              "bifold_tpu_torch.models.backbones.t5_backbone",
              "bifold_tpu_torch.utils.safetensors", "bifold_tpu_torch.parallel.collectives",
              "bifold_tpu_torch.parallel.sharding", "bifold_tpu_torch.parallel.pipeline",
-             "bifold_tpu_torch.ops.ring_attention"):
+             "bifold_tpu_torch.parallel.advisor", "bifold_tpu_torch.ops.ring_attention"):
     assert name in names, name
 from bifold_tpu_torch.data.tokenizers import clip_bpe_path
 assert clip_bpe_path().parent.parent.parent.name == "bifold_tpu_torch", clip_bpe_path()

@@ -22,12 +22,22 @@ Held:
   versions on the CPU);
 - at dropout 0.1 (fusion and LoRA) under ``{tp: 2, dp: 2}``, the tp ranks'
   replicated tensors stay bitwise equal after two steps;
+- the fsdp steps' peak of whole fsdp tensors (weights and gradients) at
+  most the tensors outside the stacks' blocks and two blocks' shares,
+  below the whole model's: the stacks gather their units a block at a
+  time (ZeRO-3);
 - ``ServingModel(mesh=)`` under ``{tp: 2, dp: 2}`` and ``{fsdp: 2, dp:
-  2}``, plain and int8 (``quantize_min_size`` 2**10, so that tp-sharded
-  weights are int8), at a pool of 4 (cut over the data ranks) and at batch
+  2}``, plain and int8, and int8 under ``{fsdp: 2, tp: 2}`` (``quantize_min_size`` 2**10, so that the stacks'
+  weights are int8; the fsdp rule at ``min_size`` 2**8, so that they and
+  some scales shard), at a pool of 4 (cut over the data ranks) and at batch
   1 (served whole): actions equal to the unsharded port server's and raw
   outputs within 1e-5, and the plain server's actions equal to JAX's
-  ``ServingModel``; ``export`` raises;
+  ``ServingModel``; under fsdp a request's peak of whole tensors within one
+  block's share of the rest, and each int8 rank holding half of the int8
+  payload bytes (within one chunk); ``export`` raises;
+- each step case records its first step's collectives
+  (``parallel.collectives.recording``) for ``tests/test_torch_advisor.py``
+  to hold the advisor's record against;
 - a Trainer under ``{fsdp: 2, tp: 2}`` writes a checkpoint of whole
   tensors that JAX's ``load_checkpoint`` reads, equal to the gathered
   weights; a run stopped after its first epoch and resumed under the same
@@ -82,7 +92,8 @@ FSDP_DP, TP_DP, FSDP_TP = {"fsdp": 2, "dp": 2}, {"tp": 2, "dp": 2}, {"fsdp": 2, 
 STEPS = [("flagship", FLAGSHIP, m) for m in (FSDP_DP, TP_DP, FSDP_TP)] + \
         [("unet", UNET, m) for m in (FSDP_DP, TP_DP, FSDP_TP)]
 SERVE_MESHES = [("tp_dp", TP_DP, None), ("tp_dp_int8", TP_DP, "int8"),
-                ("fsdp_dp", FSDP_DP, None)]
+                ("fsdp_dp", FSDP_DP, None), ("fsdp_dp_int8", FSDP_DP, "int8"),
+                ("fsdp_tp_int8", FSDP_TP, "int8")]
 
 
 def _free_port() -> int:
@@ -118,8 +129,11 @@ def _model(overrides, remat=False):
 
 def _step(overrides, mesh_cfg, steps=1, remat=False):
     """SGD steps from the seeded init on this rank's slice of the global
-    batch: metrics, whole state (rank 0) and the hash of each local
-    replicated tensor."""
+    batch: metrics, whole state (rank 0), the hash of each local
+    replicated tensor, the first step's collectives (summarized) and the
+    placement's peak of whole fsdp tensors with what bounds it."""
+    from bifold_tpu_torch.parallel.collectives import recording, summarize
+
     cfg, model = _model(overrides, remat)
     mesh = parallel.make_mesh(mesh_cfg)
     placement = parallel.place(model, _family(overrides), mesh, MIN_SIZE)
@@ -129,8 +143,14 @@ def _step(overrides, mesh_cfg, steps=1, remat=False):
                                     placement=placement)
     state = parallel.TrainState.create(opt)
     batch = parallel.shard_batch(_global_batch(cfg), mesh=mesh)
-    for _ in range(steps):
+    with recording() as record:
         state, metrics = step(state, batch)
+    for _ in range(steps - 1):
+        state, metrics = step(state, batch)
+    shares = [s.nbytes + s.grad_bytes for s in placement.shares]
+    whole = sum(int(np.prod(placement._full_shapes[n])) * p.element_size()
+                * (1 + p.requires_grad) for n, p in model.named_parameters()
+                if n in placement.managed)
     full = placement.full_state_dict()
     h = hashlib.sha256()
     for n, p in model.named_parameters():
@@ -138,7 +158,9 @@ def _step(overrides, mesh_cfg, steps=1, remat=False):
             h.update(n.encode() + p.detach().contiguous().numpy().tobytes())
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "state": {k: v.clone() for k, v in full.items()} if mesh.rank == 0 else None,
-            "replicated": h.hexdigest(), "tp_rank": mesh.tp_rank}
+            "replicated": h.hexdigest(), "tp_rank": mesh.tp_rank,
+            "collectives": summarize(record), "peak": placement.peak_bytes,
+            "stepwise": placement.stepwise_bytes, "shares": shares, "whole": whole}
 
 
 def _observations(n, seed):
@@ -157,7 +179,22 @@ def _server(mesh_cfg, quantize):
     proc = Processor(dict(cfg["processor"]), max_context_length=2,
                      autoprocessor_name="tiny")
     return ServingModel(model, None, proc, quantize=quantize,
-                        quantize_min_size=INT8_MIN_SIZE, mesh=mesh_cfg, device="cpu")
+                        quantize_min_size=INT8_MIN_SIZE, mesh=mesh_cfg, device="cpu",
+                        shard_min_size=MIN_SIZE)
+
+
+def _held(server):
+    """Bytes of int8 payloads this rank holds (fsdp chunks included), the
+    largest unit chunk, and the request peak of whole fsdp tensors with
+    its bound."""
+    p = server.placement
+    chunks = [u.shard for u in p.units]
+    held = sum(t.numel() for t in [*server.model.parameters(), *chunks]
+               if t.dtype == torch.int8)
+    return {"int8": held, "chunk": max([t.numel() for t in chunks if t.dtype == torch.int8],
+                                       default=0),
+            "peak": p.peak_bytes, "bound": p.stepwise_bytes + 2 * max(
+                [s.nbytes for s in p.shares], default=0), "shares": len(p.shares)}
 
 
 def _serve(server):
@@ -199,7 +236,9 @@ def _worker(rank, port, out):
     res["serve"] = {}
     for name, mesh_cfg, quantize in SERVE_MESHES:
         server = _server(mesh_cfg, quantize)
+        server.placement.reset_peak()
         res["serve"][name] = _serve(server)
+        res["serve"][name]["held"] = _held(server)
     try:
         server.export(Path(out) / "a.pt", **_observations(1, 3)[0])
         res["export"] = "exported"
@@ -329,11 +368,25 @@ def _close_metrics(got, want, what):
                               for f, _, m in STEPS])
 def test_sharded_step_matches_the_jax_step(references, results, index):
     _, ranks = results
-    family = STEPS[index][0]
+    family, _, mesh_cfg = STEPS[index]
     want_metrics, want_state = references[family]
     for r in ranks:
         _close_metrics(r["steps"][index]["metrics"], want_metrics, family)
+        if "fsdp" in mesh_cfg:
+            _peak_within_a_block(r["steps"][index], family)
     _close_state(ranks[0]["steps"][index]["state"], want_state, family)
+
+
+def _peak_within_a_block(got, what):
+    """The step's peak of whole fsdp tensors (weights and gradients) is at
+    most the tensors outside the stacks' blocks (with their gradients) and
+    two blocks' shares (each with its gradients): the stacks' units are
+    gathered a block at a time, and their gradients reduce-scattered
+    before the next block's backward; the whole model's figure (what the
+    step held when it gathered every unit) is above it."""
+    bound = got["stepwise"] + 2 * max(got["shares"])
+    assert got["shares"] and 0 < got["peak"] <= bound and got["peak"] < got["whole"], (
+        what, got["peak"], bound, got["whole"])
 
 
 @pytest.mark.parametrize("case", ["remat", "fused"])
@@ -342,7 +395,26 @@ def test_remat_and_fused_layer_norm_under_fsdp_tp(references, results, case):
     want_metrics, want_state = references["flagship"]
     for r in ranks:
         _close_metrics(r[case]["metrics"], want_metrics, case)
+        _peak_within_a_block(r[case], case)
     _close_state(ranks[0][case]["state"], want_state, case)
+
+
+@pytest.mark.parametrize("index", [i for i, (f, _, m) in enumerate(STEPS) if f == "flagship"],
+                         ids=["_".join(f"{k}{v}" for k, v in STEPS[i][2].items())
+                              for i, (f, _, m) in enumerate(STEPS) if f == "flagship"])
+def test_advisor_records_the_ranks_collectives(results, index):
+    """The advisor's fake run of the step (rank 0 of 4 on fake tensors and a
+    fake group) records the collectives that rank 0 of the real gloo ranks
+    recorded, by kind, count and bytes."""
+    from bifold_tpu_torch.parallel.advisor import analyze_layout
+
+    _, ranks = results
+    cfg = compose(list(FLAGSHIP))
+    got = analyze_layout(STEPS[index][2], n_devices=WORLD, batch=GLOBAL_BATCH,
+                         model_cfg=dict(cfg["model"]), processor_cfg=dict(cfg["processor"]),
+                         loss_cfg=dict(cfg["loss"]), compute_dtype="float32",
+                         min_size=MIN_SIZE)
+    assert got["collectives"] == ranks[0]["steps"][index]["collectives"]
 
 
 def test_tp_group_stays_in_step_under_dropout(results):
@@ -388,6 +460,18 @@ def test_sharded_server_matches_one_device(results, name, mesh_cfg, quantize):
             for k in wr:
                 np.testing.assert_allclose(gr[k], wr[k], atol=ATOL, rtol=0,
                                            err_msg=f"{name} {case} {k}")
+    if name.startswith("fsdp"):
+        # a request holds the whole tensors outside the stacks and one
+        # block's share of theirs at a time
+        for r in ranks:
+            held = r["serve"][name]["held"]
+            assert held["shares"] and 0 < held["peak"] <= held["bound"], held
+    if name == "fsdp_dp_int8":
+        one = _server(None, "int8")
+        total = sum(t.numel() for t in one.model.parameters() if t.dtype == torch.int8)
+        for r in ranks:
+            held = r["serve"][name]["held"]
+            assert abs(held["int8"] - total / 2) <= held["chunk"] < total / 2, (held, total)
     if quantize is None and name == "tp_dp":
         for case, obs, pool in (("pool", _observations(3, 1), 4),
                                 ("one", _observations(1, 2), None)):

@@ -292,8 +292,8 @@ def test_unported_keys_raise(tmp_path, extra, error):
 
 
 def test_cli_refuses_advise_and_a_missing_card(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError):
-        cli.main(["advise", "dp=2"])
+    # advise is ported (tests/test_torch_advisor.py); the CLI still refuses
+    # to train without the card it was not told to do without
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(list(TINY) + [f"run_dir={tmp_path}"])
