@@ -286,6 +286,35 @@ class Processor:
             raw[k] = pad_label(labels[k])
         return raw
 
+    def __call__(self, rgb=None, depth=None, mask=None, instruction=None,
+                 matrix_world_to_camera=None, K=None, context=None,
+                 **labels) -> Dict[str, Any]:
+        """Process one sample on the host (the CPU): numpy arrays without a
+        batch dim for the per-sample keys, as the JAX package's per-item
+        Processor call returns them (bifold_tpu/data/processor.py:393)."""
+        raw = self.make_raw(rgb=rgb, depth=depth, mask=mask, instruction=instruction,
+                            matrix_world_to_camera=matrix_world_to_camera, K=K,
+                            context=context, **labels)
+        batch: Dict[str, Any] = {}
+        for k, v in raw.items():
+            if isinstance(v, np.ndarray):
+                batch[k] = v[None]
+            elif k == "label_keys":
+                batch[k] = v
+            elif isinstance(v, (np.integer, int)):
+                batch[k] = np.asarray([v])
+            else:
+                batch[k] = [v]
+        sample: Dict[str, Any] = {}
+        for k, v in self.process_batch(batch, "cpu").items():
+            if isinstance(v, torch.Tensor) and v.ndim > 0:
+                sample[k] = v[0].numpy()
+            elif isinstance(v, list) and len(v) == 1:
+                sample[k] = v[0]
+            else:
+                sample[k] = v
+        return sample
+
     def _spec(self, batch: Dict[str, Any]) -> _CoreSpec:
         return _CoreSpec(
             label_keys=tuple(batch.get("label_keys", ())),

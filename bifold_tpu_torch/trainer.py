@@ -64,12 +64,19 @@ train-mode forward; checkpoints carry them as JAX's ``extra_vars =
 {"batch_stats": ...}`` (:func:`~bifold_tpu_torch.models.convert.to_jax_variables`),
 so either package's Trainer resumes the other's file.
 
-Not ported, and refused with the ROADMAP queue item that holds them:
-``visualize_model_inputs`` and ``visualize_predictions`` (item 6) and graph
-conditioning (item 4). With ``simulator: softgym``
-the final eval says that the closed loop is not ported (item 6) and takes
-pixel metrics, as the JAX Trainer does when its evaluator cannot be
-imported.
+The final eval (``eval_epoch(None)``) under ``simulator: softgym`` runs the
+closed loop (:func:`bifold_tpu_torch.env.softgym_evaluator.run_softgym_eval`:
+the five unimanual tasks, or the bimanual replay for a bimanual model, the
+policy through ``get_action``, :meth:`Trainer.serving_model` or a remote
+daemon) and writes its metrics to ``eval_<dataset>.yaml``; under a group
+every rank runs the whole loop alike and rank 0 writes.
+``visualize_model_inputs`` dumps the first train batch's inputs and
+targets under ``input_viz/`` and ``visualize_predictions`` each pixel-eval
+batch's arrows and heatmap overlays under ``eval_viz/`` (and the closed
+loop's under ``eval/softgym/``), on rank 0.
+
+Not ported, and refused with the ROADMAP queue item that holds it: graph
+conditioning (item 4).
 """
 
 from __future__ import annotations
@@ -279,9 +286,6 @@ class Trainer:
             raise NotImplementedError(
                 f"precision.param_dtype {precision['param_dtype']!r}: the port keeps "
                 "float32 masters only")
-        for key in ("visualize_model_inputs", "visualize_predictions"):
-            if cfg.get(key):
-                raise NotImplementedError(f"{key} is not ported (ROADMAP queue item 6)")
 
     # ------------------------------------------------------------------
 
@@ -623,6 +627,8 @@ class Trainer:
             if not checked_grads:
                 self._debug_check_gradients(batch)
                 checked_grads = True
+            if self.cfg.get("visualize_model_inputs") and self.global_step == 0:
+                self._visualize_model_inputs(b)
             t0 = time.time()
             key_before, done = loop_key.get_state(), self.optimizer.steps_done
             try:
@@ -681,6 +687,22 @@ class Trainer:
               f"({throughput:.1f} samples/s)")
         return mean_loss
 
+    def _visualize_model_inputs(self, batch) -> None:
+        """Dump the first train batch's inputs + targets for inspection
+        (bifold_tpu/trainer.py:633-645), on rank 0."""
+        if self.rank != 0:
+            return
+        from bifold_tpu_torch.utils.visualization import save_predictions
+        out = str(self.run_dir / "input_viz")
+        raw_rgb = _numpy(batch.get("raw_rgb"))
+        depth = _numpy(batch["depth"]) if "depth" in batch else None
+        for j in range(min(len(raw_rgb), 4)):
+            heatmaps = {k: _numpy(v)[j] for k, v in batch.items()
+                        if k.endswith("_heatmap") and not isinstance(v, list)}
+            save_predictions(
+                out, f"{j}.png", rgb=raw_rgb[j],
+                depth=depth[j] if depth is not None else None, **heatmaps)
+
     def _debug_check_gradients(self, batch) -> None:
         """Debug-mode invariant: every trainable parameter receives a nonzero
         gradient on the first step (``lora_A`` excluded: it has zero
@@ -714,8 +736,12 @@ class Trainer:
 
     def get_action(self, batch: Dict[str, Any], return_raw_output: bool = False):
         """No-grad forward (the inference kernel on the card) and decode ->
-        Action of numpy (B, 2) pixel arrays."""
+        Action of numpy (B, 2) pixel arrays. Numpy arrays in ``batch`` (a
+        host-processed closed-loop sample) are uploaded to the device."""
         device_batch, _ = split_batch(batch)
+        device_batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                        if isinstance(v, np.ndarray) else v
+                        for k, v in device_batch.items()}
         with (self.placement.gathered() if self.placement is not None
               else contextlib.nullcontext()):
             out = self._eval_step(device_batch)
@@ -736,13 +762,34 @@ class Trainer:
         return action
 
     def eval_epoch(self, epoch: Optional[int] = None):
-        """Pixel metrics; at the final eval (epoch None) with ``simulator:
-        softgym`` it says that the closed loop is not ported and takes pixel
-        metrics (bifold_tpu/trainer.py:701-707)."""
+        """Pixel metrics during training; the closed loop at the final eval
+        (epoch None) under ``simulator: softgym``
+        (bifold_tpu/trainer.py:701-707)."""
         if epoch is None and self.cfg.get("simulator") == "softgym":
-            print("[eval] the softgym closed loop is not ported (ROADMAP queue "
-                  "item 6); pixel metrics instead", flush=True)
+            return self.eval_epoch_softgym()
         return self.eval_epoch_pixel()
+
+    def eval_epoch_softgym(self):
+        """The closed-loop simulator eval: (False, its metrics)."""
+        from bifold_tpu_torch.env.softgym_evaluator import run_softgym_eval
+        self._place()
+        return run_softgym_eval(self)
+
+    def serving_model(self, **kwargs):
+        """A :class:`~bifold_tpu_torch.serving.ServingModel` of the model as
+        it stands, on the Trainer's device, with the Trainer's Processor
+        (``kwargs``: ``depth_wire_dtype``, ``quantize``, ...). Under a group
+        of more than one rank every rank builds it alike (a collective): a
+        fresh model given the whole weights, served over the Trainer's
+        mesh."""
+        from bifold_tpu_torch.serving import ServingModel
+        if self.world == 1:
+            return ServingModel(self.model, None, self.processor, device=self.device,
+                                **kwargs)
+        self._place()
+        model = build_model(self.cfg["model"], dtype=self.dtype, device=self.device)
+        return ServingModel(model, self.placement.full_state_dict(), self.processor,
+                            mesh=self.mesh, device=self.device, **kwargs)
 
     def eval_epoch_pixel(self):
         """Pixel metrics over the test loader; under a group each batch's
@@ -753,13 +800,28 @@ class Trainer:
         group = self.mesh.groups["data"]
         reduce = ((lambda values: parallel.all_reduce_values(values, group))
                   if self.mesh.data_size > 1 else None)
-        for batch in self.test_dataloader:
+        visualize = bool(self.cfg.get("visualize_predictions")) and self.rank == 0
+        for batch_idx, batch in enumerate(self.test_dataloader):
             action, raw_output = self.get_action(batch, return_raw_output=True)
             sample = {k: _numpy(v) if isinstance(v, torch.Tensor) else v
                       for k, v in batch.items()}
             self.metrics(action=action, sample=sample, raw_output=raw_output,
                          reduce=reduce)
+            if visualize:
+                self._visualize_predictions(sample, action, raw_output, batch_idx)
         return self.metrics.summary()
+
+    def _visualize_predictions(self, sample, action, raw_output, batch_idx) -> None:
+        """Arrow overlays + heatmap blends per eval batch
+        (bifold_tpu/trainer.py:718-729)."""
+        from bifold_tpu_torch.utils.visualization import save_predictions, visualize_action
+        out = str(self.run_dir / "eval_viz")
+        for j, img in enumerate(visualize_action(sample, action)):
+            heatmaps = {k: np.asarray(v)[j] for k, v in raw_output.items()
+                        if k.endswith("_heatmap")}
+            save_predictions(out, f"{batch_idx:04d}_{j}.png",
+                             rgb=np.asarray(sample["raw_rgb"])[j], viz=img,
+                             **heatmaps)
 
     def eval(self) -> Dict[str, float]:
         """Final eval: load best (or last), run, merge into

@@ -128,6 +128,23 @@ one JSON object per line:
    Flan-T5-base at full width, served and trained through ``main`` with no
    flash or LayerNorm launch at all; a T5-base checkpoint dir written by
    the port's safetensors writer grafted by the Trainer, bitwise), then
+   the closed loop, the simulator on the host and the policy on the card:
+   the full-width bf16 flagship through ``ServingPolicy`` in the pooled
+   bimanual replay (:func:`closed_loop_bimanual`: 16 samples of a cache
+   the port's ``build_cache`` makes, 2 calls of 8; exact flash launches
+   per call, a repeated run equal, the sequential evaluator under
+   ``pallas`` with 66 ``ln_fwd`` per call, the f32 loop through the
+   kernels and through the plain versions deciding the same action at
+   every step; the policy's p50s, the host's seconds per sample, actions
+   per second and, from the profiler at the end, the card's busy share),
+   ``rgb_clip`` at 224 px through the Trainer's ``get_action`` in the
+   unimanual pool of 8 over all 5 tasks x 3 regimes
+   (:func:`closed_loop_unimanual`: 8 ``fwd_infer_d32`` per call) and
+   ``main`` with ``simulator=softgym`` (:func:`trainer_softgym`: 2 steps
+   under ``pallas``, the closed loop as the final eval with its keys in
+   ``eval_synthetic.yaml``, the ``visualize_*`` PNGs, one task through
+   the port's daemon on 127.0.0.1 recording the in-process summary; in a
+   process of its own, ``softgym-cli``, beside the unimanual loop), then
    data parallelism: ``python -m torch.distributed.run --nproc_per_node 1``
    over ``main`` on the flagship (:func:`dp_nccl`: a one-rank NCCL group,
    bitwise equal to the run without the launcher, steps and checkpoints)
@@ -3351,6 +3368,494 @@ def t5_family(card, device="cuda"):
     return phases, trainers
 
 
+# the closed loop: the simulator on the host, the policy on the card
+LOOP_POOL = 8                            # eval_parallel_envs: envs stepped in lockstep
+BIMANUAL_SAMPLES = 16                    # two pooled calls of 8
+UNIMANUAL_FAMILY = ("model=rgb_clip", "train_dataset=synthetic",
+                    "train_dataset.image_size=224", "train_dataset.is_bimanual=false",
+                    "train_dataset.max_context_length=3", "train_dataset.n_samples=2",
+                    "test_dataset=null", "batch_size=2", "test_batch_size=2")
+SOFTGYM_CLI = ("train_dataset=synthetic", "train_dataset.image_size=224",
+               "train_dataset.is_bimanual=false", "train_dataset.max_context_length=3",
+               "train_dataset.n_samples=4", "test_dataset=null", "model=siglip_sequential",
+               "batch_size=2", "test_batch_size=2", "epochs=1", "eval_epochs=1",
+               "log_every=1", "simulator=softgym", "num_evals=1",
+               f"eval_parallel_envs={LOOP_POOL}", "eval_serving_policy=true",
+               "visualize_predictions=true", "visualize_model_inputs=true")
+# the trainer_softgym loop's square and rectangular cloths (build_cache's
+# are 28-52 particles a side; closed_loop_unimanual runs those)
+SOFTGYM_CLI_CLOTHS = {"Square": (16, 16), "Rectangular": (14, 20)}
+URL_TASK = "TshirtFold"
+# the unimanual flagship's train step at 224 px: the fusion's flash
+# launches only (196 vision tokens < 256: its towers take the math path,
+# as in JAX)
+SOFTGYM_STEP = {"fwd_lse_d48": 8, "bwd_d48": 8}
+# closed_loop_unimanual's simulator: the cheap env of the CPU tests
+# (tests/test_parallel_eval.py); at the evaluator's defaults (4 substeps,
+# 12 iterations) its 16525 steps took 166 s of host time on the host of an
+# H100 80GB HBM3 (700.00 W), beside trainer_softgym
+UNIMANUAL_SIM = {"substeps": 2, "iterations": 6}
+
+
+class TimedPolicy:
+    """A closed-loop policy wrapped to time each call (its actions come back
+    to the host, so a call ends when the card is done with it), count its
+    rows and keep its actions."""
+
+    def __init__(self, policy, wants_raw):
+        self.policy, self.wants_raw = policy, wants_raw
+        self.ms, self.rows, self.actions = [], [], []
+
+    def __call__(self, obs, pad_to=None):
+        t = time.perf_counter()
+        action, raw = (self.policy(obs, pad_to=pad_to) if pad_to is not None
+                       else self.policy(obs))
+        self.ms.append((time.perf_counter() - t) * 1e3)
+        fields = {k: np.asarray(v).copy() for k, v in action.fields()}
+        self.rows.append(len(next(iter(fields.values()))))
+        self.actions.append(fields)
+        return action, raw
+
+
+def timed_envs(evaluator):
+    """Count the host seconds of the evaluator's simulator steps and of its
+    renders (720 px render + resize to the model's size)."""
+    spent = {"sim_step_s": 0.0, "render_resize_s": 0.0, "sim_steps": 0, "renders": 0}
+
+    def wrap(obj, name, key, count):
+        real = getattr(obj, name)
+
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t
+                spent[count] += 1
+
+        setattr(obj, name, timed)
+
+    for env in getattr(evaluator, "envs", [evaluator.env]):
+        wrap(env.sim, "step", "sim_step_s", "sim_steps")
+        wrap(env, "render_image", "render_resize_s", "renders")
+    return spent
+
+
+def loop_summary_ok(summary, keys) -> bool:
+    return all(k in summary and np.isfinite(summary[k]) for k in keys)
+
+
+def bimanual_replay_cache(root, n_samples):
+    """A replay cache keyed by frame names, built from the port's
+    ``build_cache`` Tshirt garments (2 configs, 10 settle steps): left/right
+    pick the sleeves, place the hems, each frame after the first with the
+    two frames before as context (tests/test_parallel_eval.py builds its
+    cache so)."""
+    import pickle
+
+    from bifold_tpu_torch.env.cache_builder import build_cache
+
+    root.mkdir(parents=True, exist_ok=True)
+    with open(build_cache("Tshirt", root, n_configs=2, settle_steps=10), "rb") as f:
+        data = pickle.load(f)
+    names = [f"{i:04d}_Tshirt_f{i}" for i in range(1, n_samples + 1)]
+    configs, states, kps = {}, {}, {}
+    for i, name in enumerate(names):
+        j = i % 2
+        kp = data["keypoints"][j]
+        configs[name], states[name] = data["configs"][j], data["states"][j]
+        kps[name] = {"left_pick_idx": kp[2], "left_place_idx": kp[6],
+                     "right_pick_idx": kp[5], "right_place_idx": kp[7]}
+    with open(root / "bimanual.pkl", "wb") as f:
+        pickle.dump({"configs": configs, "states": states, "keypoints": kps}, f)
+    context = [names[0]] + [f"{names[i - 2]}+{names[i - 1]}" if i > 1 else names[0]
+                            for i in range(1, n_samples)]
+    return {"frame_start": names,
+            "raw_instruction": [INSTRUCTIONS[i % len(INSTRUCTIONS)] for i in range(n_samples)],
+            "context": context}
+
+
+def bimanual_loop(server, cache, samples, pool, size):
+    """One run of the bimanual replay through ``ServingPolicy(server)``:
+    the parallel evaluator over a pool of ``pool`` (the sequential one for
+    ``pool`` None). Returns (summary, policy, host seconds, loop seconds)."""
+    from bifold_tpu_torch.env.bimanual_evaluator import (
+        SoftgymBimanualEvaluator, SoftgymBimanualParallelEvaluator)
+    from bifold_tpu_torch.serving import ServingPolicy
+
+    policy = TimedPolicy(ServingPolicy(server), wants_raw=True)
+    if pool:
+        ev = SoftgymBimanualParallelEvaluator(cache_dir=str(cache), policy=policy,
+                                              processor=server.processor,
+                                              image_size=size, pool=pool)
+    else:
+        ev = SoftgymBimanualEvaluator(cache_dir=str(cache), policy=policy,
+                                      processor=server.processor, image_size=size)
+    spent = timed_envs(ev)
+    t = time.perf_counter()
+    ev.evaluate(samples=samples)
+    seconds = time.perf_counter() - t
+    summary = ev.summary()
+    recorded = sum(len(v) for v in ev.success.values())
+    ev.close()
+    return summary, policy, spent, seconds, recorded
+
+
+def closed_loop_bimanual(card, device="cuda"):
+    """The closed loop on the full-width bf16 flagship (384 px, bimanual, 3
+    context frames, 12-layer SigLIP-base towers, depth-8 fusion, seeded
+    weights): :data:`BIMANUAL_SAMPLES` replay samples of a cache the port's
+    ``build_cache`` makes (:func:`bimanual_replay_cache`) through
+    ``SoftgymBimanualParallelEvaluator(pool=8)`` and ``ServingPolicy`` (the
+    simulator at its defaults, 720 px renders resized to 384): two pooled
+    calls. Gates: exactly 8 ``fwd_infer_d48`` and 12 ``fwd_infer_d64`` per
+    call and no other launch; every sample recorded, every metric finite;
+    a second run's summary equal to the first's; the same samples through
+    the sequential ``SoftgymBimanualEvaluator`` under
+    ``BIFOLD_LN_KERNEL=pallas`` (batch 1: 66 ``ln_fwd`` per call besides
+    the flash launches); in f32 the pooled loop through the kernels and
+    through the plain versions (``BIFOLD_ATTN_BACKEND=math``) decode the
+    same action at every step and give equal summaries. Prints the policy
+    call's p50 at the pool of 8 (default mode) and at batch 1 (pallas), the
+    simulator's host seconds per sample (steps, renders and resizes) and
+    actions per second of the loop. Returns the launches and a closure that
+    profiles one pooled loop for the card's busy share (run it after every
+    host-clock measurement)."""
+    import shutil
+    import tempfile
+
+    from bifold_tpu_torch.data.processor import Processor
+    from bifold_tpu_torch.data.spm import fixture_model_bytes
+    from bifold_tpu_torch.models import build_model
+    from bifold_tpu_torch.serving import ServingModel
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bifold_closed_loop_"))
+    samples = bimanual_replay_cache(tmp / "cache", BIMANUAL_SAMPLES)
+    size = FLAGSHIP["image_size"]
+    proc = Processor(PROCESSOR, max_context_length=3,
+                     autoprocessor_name=FLAGSHIP["automodel_name"],
+                     spm_asset=fixture_model_bytes())
+
+    def server_of(dtype):
+        return ServingModel(build_model(FLAGSHIP, dtype=dtype, device=device, seed=0),
+                            None, proc, device=device, depth_wire_dtype="float16")
+
+    server = server_of(torch.bfloat16)
+    server.warmup(720, pool=LOOP_POOL)
+    server.warmup(720)
+    keys = ["Tshirt", "error Tshirt", "iou Tshirt", "average_success"]
+
+    clear_launch_counts()                # the main path's run starts here
+    first, policy, spent, loop_s, recorded = bimanual_loop(server, tmp / "cache", samples,
+                                                           LOOP_POOL, size)
+    launches = launch_counts()           # ... and ends here
+    calls = len(policy.ms)
+    want = {"fwd_infer_d48": 8 * calls, "fwd_infer_d64": 12 * calls}
+    second, policy2, _, loop2_s, _ = bimanual_loop(server, tmp / "cache", samples,
+                                                   LOOP_POOL, size)
+    clear_launch_counts()
+    with ln_mode("pallas"):
+        seq, seq_policy, _, seq_s, seq_recorded = bimanual_loop(server, tmp / "cache",
+                                                                samples, None, size)
+    seq_launches = launch_counts()
+    per_call = {"fwd_infer_d48": 8, "fwd_infer_d64": 12,
+                **ln_launches(server.model, "pallas", train=False)}
+    seq_want = {k: n * len(seq_policy.ms) for k, n in per_call.items()}
+
+    # f32: the kernels against their plain versions over the whole loop
+    f32 = server_of(torch.float32)
+    clear_launch_counts()
+    f32_kernel, f32_policy, _, _, _ = bimanual_loop(f32, tmp / "cache", samples,
+                                                    LOOP_POOL, size)
+    f32_launches = launch_counts()
+    os.environ["BIFOLD_ATTN_BACKEND"] = "math"
+    try:
+        f32_plain, plain_policy, _, _, _ = bimanual_loop(f32, tmp / "cache", samples,
+                                                         LOOP_POOL, size)
+    finally:
+        del os.environ["BIFOLD_ATTN_BACKEND"]
+    f32_same_actions = (len(f32_policy.actions) == len(plain_policy.actions) and all(
+        a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+        for a, b in zip(f32_policy.actions, plain_policy.actions)))
+    del f32
+
+    host_s = loop_s - sum(policy.ms) / 1e3
+    emit({"phase": "closed_loop_bimanual", "samples": BIMANUAL_SAMPLES, "pool": LOOP_POOL,
+          "policy_calls": calls, "rows_per_call": policy.rows,
+          "launches": launches, "launches_want": want,
+          "summary": first, "second_run_equal": second == first, "recorded": recorded,
+          "sequential_pallas": {"calls": len(seq_policy.ms), "launches": seq_launches,
+                                "launches_want": seq_want, "recorded": seq_recorded,
+                                "summary": seq, "loop_s": seq_s},
+          "f32_kernel_vs_plain": {"same_actions_every_step": f32_same_actions,
+                                  "summaries_equal": f32_kernel == f32_plain,
+                                  "calls": len(f32_policy.ms), "launches": f32_launches,
+                                  "summary": f32_kernel},
+          "policy_p50_ms_pool8": statistics.median(policy.ms + policy2.ms),
+          "policy_p50_ms_batch1_pallas": statistics.median(seq_policy.ms),
+          "loop_s": loop_s, "loop2_s": loop2_s, "policy_s": sum(policy.ms) / 1e3,
+          "host_s": host_s, "host_s_per_sample": host_s / BIMANUAL_SAMPLES,
+          **{k: v for k, v in spent.items()},
+          "sim_host_s_per_sample": (spent["sim_step_s"] + spent["render_resize_s"])
+          / BIMANUAL_SAMPLES,
+          "actions_per_s": recorded / loop_s,
+          "phase_seconds": time.perf_counter() - t0, **card})
+    if (device == "cuda" and (launches != want or seq_launches != seq_want
+                              or f32_launches != {f"{k}_f32": n for k, n in want.items()})):
+        raise AssertionError("closed_loop_bimanual: launches (see its line)")
+    if (calls != 2 or policy.rows != [LOOP_POOL, LOOP_POOL] or second != first
+            or recorded != BIMANUAL_SAMPLES or seq_recorded != BIMANUAL_SAMPLES
+            or not loop_summary_ok(first, keys) or not loop_summary_ok(seq, keys)
+            or not f32_same_actions or f32_kernel != f32_plain):
+        raise AssertionError("closed_loop_bimanual failed (see its line)")
+
+    def profile():
+        """torch.profiler over one pooled loop: the card's busy share of the
+        loop's unprofiled wall time."""
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, _, _, profiled_s, _ = bimanual_loop(server, tmp / "cache", samples,
+                                                   LOOP_POOL, size)
+        busy_ms = sum(getattr(e, "self_device_time_total", 0) or 0
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        emit({"phase": "closed_loop_device_profile", "loop": "bimanual pool 8",
+              "device_busy_ms": busy_ms, "loop_s": loop_s, "profiled_loop_s": profiled_s,
+              "device_busy_share": busy_ms / 1e3 / loop_s,
+              "device_idle_share": 1 - busy_ms / 1e3 / loop_s, **card})
+        shutil.rmtree(tmp, ignore_errors=True)
+        if busy_ms <= 0:
+            raise AssertionError("the profiler saw no device time in the loop")
+
+    return dict(collections.Counter(launches) + collections.Counter(seq_launches)
+                + collections.Counter(f32_launches)), profile
+
+
+def unimanual_caches(root):
+    """One config per cloth type from the port's ``build_cache`` (seed 0,
+    its defaults)."""
+    from bifold_tpu_torch.env.cache_builder import CLOTH_TYPES, build_cache
+
+    for cloth_type in CLOTH_TYPES:
+        build_cache(cloth_type, root, n_configs=1)
+    return root
+
+
+def closed_loop_unimanual(card, device="cuda"):
+    """``rgb_clip`` (frozen CLIP ViT-B/16 towers at 224 px, a depth-8 fusion
+    of 16 heads of 32, bf16, seeded weights, unimanual, 3 context frames)
+    through the Trainer's ``get_action`` route (host-processed samples,
+    ``wants_raw`` false) in ``SoftgymParallelEvaluator(pool=8)``: all 5 tasks
+    x ``num_evals=1`` x 3 regimes on caches the port's ``build_cache`` makes
+    (one config per cloth type), the simulator at :data:`UNIMANUAL_SIM`. Gates:
+    exactly 8 ``fwd_infer_d32`` per policy call and no other launch; every
+    task and regime recorded with finite metrics. Returns the launches."""
+    import random
+    import shutil
+    import tempfile
+
+    from bifold_tpu_torch.config import Config
+    from bifold_tpu_torch.env.cloth_env import ClothEnv
+    from bifold_tpu_torch.env.softgym_evaluator import TASKS, SoftgymParallelEvaluator
+    from bifold_tpu_torch.trainer import Trainer
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bifold_unimanual_"))
+    unimanual_caches(tmp / "cache")
+    cfg = family_config("rgb_clip", *UNIMANUAL_FAMILY[1:], f"run_dir={tmp / 'run'}",
+                        *(["use_cpu=true"] if device == "cpu" else []))
+    trainer = Trainer(Config(cfg), run_dir=tmp / "run")
+    policy = TimedPolicy(lambda batch: trainer.get_action(batch, return_raw_output=True),
+                         wants_raw=False)
+    size = int(dict(cfg["model"])["image_size"])
+    ev = SoftgymParallelEvaluator(cache_dir=str(tmp / "cache"), policy=policy,
+                                  processor=trainer.processor, image_size=size,
+                                  pool=LOOP_POOL)
+    ev.envs = [ClothEnv(render_dim=size, **UNIMANUAL_SIM) for _ in range(LOOP_POOL)]
+    ev.env = ev.envs[0]
+    spent = timed_envs(ev)
+    random.seed(0)
+    clear_launch_counts()                # the main path's run starts here
+    t = time.perf_counter()
+    per_task = {}
+    for task in TASKS:
+        ts = time.perf_counter()
+        ev.evaluate(num_evals=1, task=task, seed=0)
+        per_task[task] = time.perf_counter() - ts
+    loop_s = time.perf_counter() - t
+    launches = launch_counts()           # ... and ends here
+    summary = ev.summary()
+    steps = sum(len(v) for regimes in ev.success.values() for v in regimes.values())
+    ev.close()
+    calls = len(policy.ms)
+    want = {"fwd_infer_d32": 8 * calls}
+    keys = [f"{k}{task} {regime}" for task in TASKS for regime in ("si", "usi", "ut")
+            for k in ("", "error ", "iou ")] + ["average_success"]
+    host_s = loop_s - sum(policy.ms) / 1e3
+    emit({"phase": "closed_loop_unimanual", "family": "rgb_clip",
+          "image_size": int(dict(cfg["model"])["image_size"]),
+          "tasks": TASKS, "num_evals": 1, "pool": LOOP_POOL, "sim": UNIMANUAL_SIM,
+          "policy_calls": calls,
+          "rows_per_call": policy.rows, "launches": launches, "launches_want": want,
+          "summary": summary, "policy_p50_ms": statistics.median(policy.ms),
+          "loop_s": loop_s, "task_s": per_task, "policy_s": sum(policy.ms) / 1e3,
+          "host_s": host_s, **spent, "action_steps": steps,
+          "host_s_per_action_step": host_s / steps, "actions_per_s": steps / loop_s,
+          "phase_seconds": time.perf_counter() - t0, **card})
+    if device == "cuda" and launches != want:
+        raise AssertionError("closed_loop_unimanual: launches (see its line)")
+    if not calls or not loop_summary_ok(summary, keys):
+        raise AssertionError("closed_loop_unimanual failed (see its line)")
+    del trainer
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def small_softgym_caches(root):
+    """build_cache's garments and its square and rectangular layout at
+    :data:`SOFTGYM_CLI_CLOTHS` particles a side (one config each)."""
+    import pickle
+
+    from bifold_tpu_torch.env.cache_builder import build_cache
+    from bifold_tpu_torch.env.cloth_env import ClothEnv, square_cloth_config
+
+    root.mkdir(parents=True, exist_ok=True)
+    for cloth_type in ("Tshirt", "Trousers"):
+        build_cache(cloth_type, root, n_configs=1)
+    env = ClothEnv(render_dim=224)
+    for cloth_type, dims in SOFTGYM_CLI_CLOTHS.items():
+        config = square_cloth_config(*dims)
+        env.reset(config)
+        pos = env.sim.get_positions()[:, :3]
+        extent = pos.max(axis=0) - pos.min(axis=0)
+        state = env.get_state()
+        state["max_area"] = float(extent[0] * extent[2])
+        with open(root / f"{cloth_type}.pkl", "wb") as f:
+            pickle.dump({"configs": [config], "states": [state]}, f)
+    return root
+
+
+def trainer_softgym(card, device="cuda"):
+    """``python -m bifold_tpu_torch`` in this process with the closed loop as
+    its final eval: the unimanual bf16 flagship (siglip_sequential at 224
+    px, 3 context frames) trains 2 steps on synthetic data under
+    ``BIFOLD_LN_KERNEL=pallas`` (:data:`SOFTGYM_CLI`: ``simulator=softgym``,
+    ``num_evals=1``, a pool of 8, ``eval_serving_policy``, both
+    ``visualize_*`` keys; the cache of :func:`small_softgym_caches`). Gates:
+    exit code 0; ``eval_synthetic.yaml`` holds every closed-loop key
+    (``average_success``, ``<task> <regime>``, ``error ...``, ``iou ...``),
+    finite; PNGs under ``eval/softgym/<task>/`` for every task, under
+    ``eval_viz/`` and ``input_viz/``; the steps' launches those of the
+    pallas train step. Then one task (:data:`URL_TASK`) through
+    ``RemotePolicy`` against the port's daemon on 127.0.0.1 serving the
+    trained model records the summary the in-process server recorded.
+    Returns the launches of the run."""
+    import shutil
+    import tempfile
+    import threading
+
+    from bifold_tpu_torch.config import load_yaml
+    from bifold_tpu_torch.env.softgym_evaluator import TASKS, SoftgymParallelEvaluator
+    from bifold_tpu_torch.serve import RemotePolicy, make_httpd
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bifold_softgym_cli_"))
+    small_softgym_caches(tmp / "cache")
+    overrides = list(SOFTGYM_CLI) + [f"softgym_cache={tmp / 'cache'}", f"run_dir={tmp}"] + (
+        ["use_cpu=true"] if device == "cpu" else [])
+    record = {}
+    with ln_mode("pallas"):
+        clear_launch_counts()            # the main path's run starts here
+        code, run_dir, seconds = run_cli(overrides, record)
+        launches = launch_counts()       # ... and ends here
+    trainer = record["trainers"][-1]
+    evals = load_yaml(run_dir / "eval_synthetic.yaml") if (
+        run_dir / "eval_synthetic.yaml").exists() else {}
+    keys = [f"{k}{task} {regime}" for task in TASKS for regime in ("si", "usi", "ut")
+            for k in ("", "error ", "iou ")] + ["average_success"]
+    pngs = {task: len(list((run_dir / "eval" / "softgym" / task).rglob("*.png")))
+            for task in TASKS}
+    viz = {d: len(list((run_dir / d).rglob("*.png"))) for d in ("eval_viz", "input_viz")}
+    step = {**SOFTGYM_STEP, **ln_launches(trainer.model, "pallas", train=True)}
+    bad_steps = [d for d in record.get("steps", []) if d != step]
+
+    # one task against the daemon serving the trained model
+    server = trainer.serving_model(depth_wire_dtype="float16")
+    httpd = make_httpd(server)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        policy = RemotePolicy(f"http://127.0.0.1:{httpd.server_address[1]}")
+        ev = SoftgymParallelEvaluator(cache_dir=str(tmp / "cache"), policy=policy,
+                                      processor=trainer.processor,
+                                      image_size=int(dict(trainer.cfg["model"])["image_size"]),
+                                      pool=LOOP_POOL)
+        with ln_mode("pallas"):
+            t = time.perf_counter()
+            ev.evaluate(num_evals=1, task=URL_TASK, seed=int(trainer.cfg["seed"]))
+            url_s = time.perf_counter() - t
+        remote = ev.summary()
+        ev.close()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    in_process = {k: v for k, v in evals.items()
+                  if k != "average_success" and URL_TASK in k}
+    remote_task = {k: v for k, v in remote.items() if k != "average_success"}
+    emit({"phase": "trainer_softgym", "exit_code": code, "seconds": seconds,
+          "steps": len(record.get("steps", [])), "launches_per_step": step,
+          "steps_with_other_launches": bad_steps, "eval": evals,
+          "missing_keys": [k for k in keys if k not in evals],
+          "softgym_pngs": pngs, "viz_pngs": viz, "launches": launches,
+          "url_task": URL_TASK, "url_summary": remote_task, "url_s": url_s,
+          "url_equal_in_process": remote_task == in_process,
+          "phase_seconds": time.perf_counter() - t0, **card})
+    if (code != 0 or not loop_summary_ok(evals, keys) or not all(pngs.values())
+            or not all(viz.values()) or len(record.get("steps", [])) != 2
+            or (device == "cuda" and bad_steps) or remote_task != in_process):
+        raise AssertionError("trainer_softgym failed (see its line)")
+    del record["trainers"], trainer, server
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def softgym_cli_worker(out, card_json, device="cuda"):
+    """``python3 chip_smoke.py softgym-cli OUT CARD_JSON [DEVICE]``:
+    :func:`trainer_softgym` in this process (its line printed here); writes
+    its launches to the JSON file ``OUT``."""
+    Path(out).write_text(json.dumps(trainer_softgym(json.loads(card_json), device)))
+    return 0
+
+
+def start_softgym_cli(card, out, device="cuda"):
+    """:func:`trainer_softgym` in a process of its own, started now, so that
+    its host simulation runs beside another phase's; :func:`finish_softgym_cli`
+    waits for it."""
+    script = str(Path(__file__).resolve())
+    return subprocess.Popen([sys.executable, script, "softgym-cli", str(out),
+                             json.dumps(card), device], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=str(Path(script).parent))
+
+
+def finish_softgym_cli(proc, out, timeout=900):
+    """Wait for :func:`start_softgym_cli`'s process, print its lines, and
+    return its launches; raise with its error output if it failed."""
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    for line in stdout.splitlines():
+        if line.startswith("{"):
+            print(line, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"trainer_softgym: exit {proc.returncode}\n{stderr[-3000:]}")
+    return json.loads(Path(out).read_text())
+
+
 def _free_port() -> int:
     import socket
 
@@ -4829,8 +5334,8 @@ def fsdp_peak(root=".", device="cuda"):
     return 0
 
 
-WORKERS = {"dp-cli": dp_cli_worker, "dp-rank": dp_rank_worker,
-           "fsdp-peak": fsdp_peak, "peak-rank": peak_rank_worker,
+WORKERS = {"softgym-cli": softgym_cli_worker, "dp-cli": dp_cli_worker,
+           "dp-rank": dp_rank_worker, "fsdp-peak": fsdp_peak, "peak-rank": peak_rank_worker,
            "mesh-rank": mesh_rank_worker, "mesh-cli": mesh_cli_worker,
            "axes-rank": axes_rank_worker, "ring-rank": ring_rank_worker,
            "daemon-rank": daemon_rank_worker, "serve-rank": serve_rank_worker}
@@ -5057,6 +5562,18 @@ def main() -> int:
     mark("t5_family")
     t5_phases, t5_trainers = t5_family(card)
     serve_phases += t5_phases
+    # the closed loop: the simulator on the host, the policy on the card
+    mark("closed_loop_bimanual")
+    loop_launches, loop_profile = closed_loop_bimanual(card)
+    # trainer_softgym in a process of its own beside closed_loop_unimanual:
+    # both are host simulation most of the time
+    mark("closed_loop_unimanual + trainer_softgym")
+    softgym_out = Path(tempfile.mkdtemp(prefix="bifold_softgym_")) / "launches.json"
+    softgym = start_softgym_cli(card, softgym_out)
+    try:
+        unimanual_launches = closed_loop_unimanual(card)
+    finally:
+        softgym_launches = finish_softgym_cli(softgym, softgym_out)
     # the multi-rank phases, one after the other
     dp_runs = []
     for phase in (dp_nccl, dp_two_ranks, mesh_two_ranks, mesh_cli, mesh_axes_two_ranks,
@@ -5072,10 +5589,12 @@ def main() -> int:
     launches = collections.Counter()
     for run in ([phase["launches"] for phase in phases] + [trained, pulled]
                 + list(served.values()) + [deployed] + family_runs + [remat_launches]
-                + dp_runs):
+                + [loop_launches, unimanual_launches, softgym_launches] + dp_runs):
         launches.update(run)
     # the profiler from here on: after every host-clock measurement
     where_the_time_goes(phases + serve_phases)
+    mark("closed_loop_profile")
+    loop_profile()
     mark("trainer_profiles")
     trainer_profile(cli_trainer, card, trainer_p50)
     for enc, t5_trainer, t5_p50 in t5_trainers:

@@ -1,5 +1,7 @@
 """Import hygiene of the PyTorch port: no module of ``bifold_tpu_torch`` and
-not ``chip_smoke.py`` may import JAX, flax or the JAX package."""
+not ``chip_smoke.py`` may import JAX, flax or the JAX package; the closed
+loop's modules (``env/`` and ``utils/visualization.py``) name none of cv2,
+Pillow, matplotlib or imageio, which the card's host lacks."""
 
 import ast
 import os
@@ -10,6 +12,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "bifold_tpu", "safetensors",
            "transformers")
+IMAGING = ("cv2", "PIL", "matplotlib", "imageio")
 
 _CHILD = f"""
 import importlib, pkgutil, sys
@@ -29,7 +32,13 @@ for name in ("bifold_tpu_torch.ops._cuda", "bifold_tpu_torch.ops.layer_norm",
              "bifold_tpu_torch.models.backbones.t5_backbone",
              "bifold_tpu_torch.utils.safetensors", "bifold_tpu_torch.parallel.collectives",
              "bifold_tpu_torch.parallel.sharding", "bifold_tpu_torch.parallel.pipeline",
-             "bifold_tpu_torch.parallel.advisor", "bifold_tpu_torch.ops.ring_attention"):
+             "bifold_tpu_torch.parallel.advisor", "bifold_tpu_torch.ops.ring_attention",
+             "bifold_tpu_torch.env.native", "bifold_tpu_torch.env.sim",
+             "bifold_tpu_torch.env.garments", "bifold_tpu_torch.env.cloth_env",
+             "bifold_tpu_torch.env.demonstrators", "bifold_tpu_torch.env.cache_builder",
+             "bifold_tpu_torch.env.softgym_evaluator",
+             "bifold_tpu_torch.env.bimanual_evaluator",
+             "bifold_tpu_torch.utils.visualization"):
     assert name in names, name
 from bifold_tpu_torch.data.tokenizers import clip_bpe_path
 assert clip_bpe_path().parent.parent.parent.name == "bifold_tpu_torch", clip_bpe_path()
@@ -63,6 +72,54 @@ def test_port_sources_name_no_jax_import():
     for path in files:
         bad = set(_imported_roots(path)) & set(BLOCKED)
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def _named_modules(path: Path):
+    """Every module an import statement, ``__import__`` or
+    ``importlib.import_module`` names in ``path`` (at top level or inside a
+    function)."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = getattr(fn, "id", None) or getattr(fn, "attr", None)
+            if name in ("__import__", "import_module") and node.args \
+                    and isinstance(node.args[0], ast.Constant):
+                yield str(node.args[0].value)
+
+
+_CLOSED_LOOP_CHILD = f"""
+import importlib, sys
+for name in {BLOCKED + IMAGING!r}:
+    sys.modules[name] = None
+for name in ("bifold_tpu_torch.trainer", "bifold_tpu_torch.__main__",
+             "bifold_tpu_torch.serving", "bifold_tpu_torch.serve",
+             "bifold_tpu_torch.env.cache_builder",
+             "bifold_tpu_torch.env.softgym_evaluator",
+             "bifold_tpu_torch.env.bimanual_evaluator",
+             "bifold_tpu_torch.utils.visualization"):
+    importlib.import_module(name)
+"""
+
+
+def test_closed_loop_imports_without_imaging_library():
+    """The Trainer, the serving modules and the closed loop's modules import
+    with cv2, Pillow, matplotlib and imageio (and JAX) absent."""
+    proc = subprocess.run([sys.executable, "-c", _CLOSED_LOOP_CHILD], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_closed_loop_names_no_imaging_library():
+    files = [*sorted((ROOT / "bifold_tpu_torch" / "env").glob("*.py")),
+             ROOT / "bifold_tpu_torch" / "utils" / "visualization.py"]
+    assert len(files) >= 10
+    for path in files:
+        bad = {m.split(".")[0] for m in _named_modules(path)} & set(IMAGING)
+        assert not bad, f"{path.relative_to(ROOT)} names {sorted(bad)}"
 
 
 def test_clip_bpe_asset_is_the_ports_own(monkeypatch):

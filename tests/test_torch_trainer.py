@@ -17,6 +17,7 @@ import signal
 import shutil
 
 import numpy as np
+import yaml
 import pytest
 import torch
 
@@ -248,16 +249,33 @@ def test_port_checkpoint_read_and_served_by_jax(tmp_path):
 
 
 def test_main_on_the_cpu_writes_the_run_dir(tmp_path):
+    """The final eval under simulator=softgym is the closed loop: one trial
+    of each task (the caches written first, at the small cloth sizes of
+    tests/test_torch_evaluators.py, so the loop is short; nothing is read or
+    written outside tmp_path)."""
+    from test_torch_evaluators import small_caches
+
+    small_caches(tmp_path / "cache")
     overrides = ["train_dataset=synthetic", "test_dataset=null", "model=siglip",
                  "train_dataset.n_samples=8", "train_dataset.image_size=64",
                  "model.image_size=64", "model.automodel_name=tiny", "model.dim=64",
                  "model.depth=1", "epochs=1", "eval_epochs=1", "batch_size=4",
-                 "simulator=softgym", f"run_dir={tmp_path}", "use_cpu=true"]
+                 "simulator=softgym", "num_evals=1", f"softgym_cache={tmp_path}/cache",
+                 f"run_dir={tmp_path}", "use_cpu=true"]
     assert cli.main(overrides) == 0
-    run = tmp_path / cli.override_dirname(overrides)
+    run = tmp_path / cli.run_dir_name(cli.override_dirname(overrides))
     for name in ("config.yaml", "metrics.jsonl", "eval_synthetic.yaml",
                  "checkpoints/best.ckpt", "checkpoints/last.ckpt"):
         assert (run / name).exists(), name
+    metrics = yaml.safe_load((run / "eval_synthetic.yaml").read_text())
+    assert "average_success" in metrics
+    for task in ("CornerFold", "TriangleFold", "StraightFold", "TshirtFold", "TrousersFold"):
+        for regime in ("si", "usi", "ut"):
+            for key in (f"{task} {regime}", f"error {task} {regime}",
+                        f"iou {task} {regime}"):
+                assert np.isfinite(metrics[key]), key
+    assert sorted(p.name for p in (tmp_path / "cache").iterdir()) == [
+        "Rectangular.pkl", "Square.pkl", "Trousers.pkl", "Tshirt.pkl"]
     assert cli.main(["--help"]) == 0
     # a run dir name too long for a file name is shortened, deterministically
     long = cli.override_dirname([f"+k{i}=" + "v" * 40 for i in range(8)])
@@ -271,8 +289,6 @@ def test_main_on_the_cpu_writes_the_run_dir(tmp_path):
     # precision.remat trains now (tests/test_torch_remat.py); graph
     # conditioning is not ported
     (["model.requires_graph=true"], NotImplementedError),
-    (["visualize_model_inputs=true"], NotImplementedError),
-    (["visualize_predictions=true"], NotImplementedError),
     # text_unet trains with a CLIP or a T5 text encoder; a name that is
     # neither raises (TINY's SigLIP keys dropped, so that the model's own
     # refusal is what raises)
@@ -289,6 +305,44 @@ def test_main_on_the_cpu_writes_the_run_dir(tmp_path):
 def test_unported_keys_raise(tmp_path, extra, error):
     with pytest.raises(error):
         tiny_trainer(tmp_path, *extra)
+
+
+def test_visualize_model_inputs_writes_pngs(tmp_path):
+    """The first train batch's inputs and targets, as JAX's Trainer dumps
+    them (bifold_tpu/trainer.py:633-645): 4 samples' rgb, depth and
+    heatmaps under input_viz/."""
+    from PIL import Image
+
+    trainer = tiny_trainer(tmp_path, "visualize_model_inputs=true", "epochs=1",
+                           "eval_epochs=0")
+    trainer.prepare_train()
+    trainer.train()
+    out = tmp_path / "input_viz"
+    assert sorted(p.name for p in out.iterdir()) == ["depth", "pick_heatmap",
+                                                     "place_heatmap", "rgb"]
+    for sub in out.iterdir():
+        names = sorted(p.name for p in sub.iterdir())
+        assert names == [f"{j}.png" for j in range(4)], sub.name
+        assert np.asarray(Image.open(sub / "0.png")).shape == (64, 64, 3)
+
+
+def test_visualize_predictions_writes_pngs(tmp_path):
+    """Each pixel-eval batch's arrows and heatmap overlays under eval_viz/
+    (bifold_tpu/trainer.py:718-729)."""
+    from PIL import Image
+
+    trainer = tiny_trainer(tmp_path, "visualize_predictions=true")
+    batch = next(iter(trainer.test_dataloader))
+    trainer.eval_epoch_pixel()
+    out = tmp_path / "eval_viz"
+    assert sorted(p.name for p in out.iterdir()) == ["pick_heatmap", "place_heatmap",
+                                                     "rgb", "viz"]
+    n = len(batch["raw_rgb"])
+    rgb = np.asarray(Image.open(out / "rgb" / "0000_0.png"))
+    np.testing.assert_array_equal(rgb, batch["raw_rgb"][0].numpy())
+    viz = np.asarray(Image.open(out / "viz" / "0000_0.png"))
+    assert viz.shape == rgb.shape and (viz != rgb).any()     # the arrows
+    assert len(list((out / "viz").glob("0000_*.png"))) == n
 
 
 def test_cli_refuses_advise_and_a_missing_card(tmp_path, monkeypatch):
