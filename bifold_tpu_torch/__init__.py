@@ -6,3 +6,5 @@ layout so each module's counterpart sits at the same path. It imports
 (``device="cuda"``) unless the caller asks for the CPU, and every Pallas
 kernel on the served path is a hand-written CUDA kernel under ``csrc/``.
 """
+
+from bifold_tpu_torch.version import __version__

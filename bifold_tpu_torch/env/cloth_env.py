@@ -11,7 +11,8 @@ procedural (grid cloth / OBJ meshes) instead of FleX scene headers.
 How the port differs: the JAX package downsizes the 720 x 720 render with
 ``cv2.resize(..., INTER_LINEAR)``; the port does it in numpy
 (:func:`resize_linear`, the same arithmetic) and imports no cv2.
-``render_gif`` (imageio) is not ported.
+``render_gif`` writes with the port's own GIF writer
+(:func:`bifold_tpu_torch.utils.visualization.write_gif`), not imageio.
 """
 
 from __future__ import annotations
@@ -163,6 +164,15 @@ class ClothEnv:
 
     def close(self) -> None:
         pass
+
+    def render_gif(self, path: str, fps: int = 30) -> List[int]:
+        """Write the frames that ``dump_visualizations`` collected as a GIF
+        (reference softgym_cloth_env.py:151-155; the JAX package's
+        cloth_env.py:104-110 writes them through imageio). Returns the number
+        of frames each GIF frame covers (repeated frames merge, as
+        imageio's writer merges them)."""
+        from bifold_tpu_torch.utils.visualization import write_gif
+        return write_gif(path, self.frames, fps=fps)
 
     # ------------------------------------------------------------------
     # Scene / state

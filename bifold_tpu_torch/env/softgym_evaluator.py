@@ -17,8 +17,10 @@ policy runs the model on the card (the flash kernels serve every call).
 
 How the port differs: the evaluators' envs keep no
 ``dump_visualizations`` frames (JAX's render a 720 px frame and resize it
-at every simulator step when ``visualize_predictions`` is on; only
-``ClothEnv.render_gif``, not ported, reads them); the per-action PNGs are
+at every simulator step when ``visualize_predictions`` is on and never
+write them; only ``ClothEnv.render_gif`` reads them, and collecting them
+would make the Trainer's closed-loop eval about 4x slower); the per-action
+PNGs are
 written as JAX writes them. The instructions are drawn from a ``random.Random``
 seeded by ``evaluate``'s ``seed`` (JAX draws them from the global, unseeded
 ``random``; the draws come in JAX's order, so JAX gives the same
@@ -105,8 +107,8 @@ class SoftgymEvaluator:
         self.visualize_predictions = visualize_predictions
         self.run_dir = run_dir
 
-        # no dump_visualizations frames: they feed only render_gif, which
-        # the port does not have (a render + resize at every sim step)
+        # no dump_visualizations frames: they feed only render_gif, which no
+        # evaluator calls (a render + resize at every sim step)
         self.env = ClothEnv(render_dim=image_size,
                             particle_radius=particle_radius)
         self.K = self.env.intrinsic_from_fov(image_size, image_size)

@@ -11,6 +11,11 @@ host has none of them).
 
 - PNGs come from a small writer on stdlib ``zlib`` (8-bit, filter 0):
   :func:`write_png`. They decode to the arrays written.
+- GIFs (``ClothEnv.render_gif``) come from :func:`write_gif`, numpy and
+  stdlib: GIF89a, a palette per frame (exact for a frame of at most 256
+  colours, else a weighted median cut refined by nearest-colour passes),
+  LZW, the delay and the merging of repeated frames that the JAX package's
+  ``imageio`` writer (Pillow's GIF plugin) gives.
 - ``viridis`` is the port's own 256-entry table (:data:`VIRIDIS`,
   matplotlib's ``viridis`` colors times 255, truncated to uint8 as the JAX
   package truncates them), indexed as matplotlib's ``Colormap.__call__``
@@ -31,6 +36,7 @@ host has none of them).
 
 from __future__ import annotations
 
+import heapq
 import math
 import os
 import struct
@@ -41,8 +47,8 @@ import numpy as np
 
 from bifold_tpu_torch.env.action import Action
 
-__all__ = ["save_predictions", "visualize_action", "write_png", "apply_colormap",
-           "blend", "VIRIDIS"]
+__all__ = ["save_predictions", "visualize_action", "write_png", "write_gif",
+           "apply_colormap", "blend", "VIRIDIS"]
 
 VIRIDIS = np.array([
     (68, 1, 84), (68, 2, 85), (68, 3, 87), (69, 5, 88),
@@ -144,6 +150,174 @@ def write_png(path: str, img: np.ndarray) -> None:
                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(raw, 6))
                 + chunk(b"IEND", b""))
+
+
+def _nearest(colors: np.ndarray, palette: np.ndarray) -> np.ndarray:
+    """Index of the nearest palette entry (squared RGB distance, the lower
+    index on ties) for each of ``colors`` (N, 3)."""
+    pal = palette.astype(np.int32)
+    out = np.empty(len(colors), np.int64)
+    step = max(1, (1 << 22) // max(1, len(pal)))
+    for at in range(0, len(colors), step):
+        c = colors[at:at + step].astype(np.int32)
+        d = ((c[:, None, :] - pal[None]) ** 2).sum(-1)
+        out[at:at + step] = d.argmin(1)
+    return out
+
+
+def _quantize(frame: np.ndarray, max_colors: int = 256):
+    """(H, W, 3) uint8 -> (palette (P, 3) uint8, indices (H, W) uint8).
+    A frame of at most ``max_colors`` colours keeps them all (it decodes
+    bitwise). Otherwise a median cut over the frame's colours weighted by
+    their pixel counts: the box of the largest squared error is split, at
+    its weighted median along its channel of largest variance, until there
+    are ``max_colors`` boxes; their weighted means are then refined by
+    nearest-colour passes (Lloyd), and each colour takes its nearest
+    entry."""
+    flat = frame.reshape(-1, 3)
+    key = (flat[:, 0].astype(np.int32) << 16) | (flat[:, 1].astype(np.int32) << 8) | flat[:, 2]
+    uniq, inverse, counts = np.unique(key, return_inverse=True, return_counts=True)
+    colors = np.stack([uniq >> 16, (uniq >> 8) & 255, uniq & 255], 1)
+    if len(uniq) <= max_colors:
+        return colors.astype(np.uint8), inverse.reshape(frame.shape[:2]).astype(np.uint8)
+    weights = counts.astype(np.float64)
+    cf = colors.astype(np.float64)
+
+    def box(members, w, s1, s2):  # (-squared error, tie order, members, per channel)
+        var = s2 - s1 * s1 / w
+        return (-var.sum(), int(members[0]), members, var)
+
+    heap = [box(np.arange(len(uniq)), weights.sum(), weights @ cf, weights @ (cf * cf))]
+    while len(heap) < max_colors and len(heap[0][2]) > 1:
+        _, _, members, var = heapq.heappop(heap)
+        members = members[np.argsort(colors[members, int(np.argmax(var))], kind="stable")]
+        w, c = weights[members], cf[members]
+        cw = np.cumsum(w)
+        s1 = np.cumsum(c * w[:, None], 0)
+        s2 = np.cumsum(c * c * w[:, None], 0)
+        cut = int(np.clip(np.searchsorted(cw, cw[-1] / 2), 0, len(members) - 2)) + 1
+        heapq.heappush(heap, box(members[:cut], cw[cut - 1], s1[cut - 1], s2[cut - 1]))
+        heapq.heappush(heap, box(members[cut:], cw[-1] - cw[cut - 1], s1[-1] - s1[cut - 1],
+                                 s2[-1] - s2[cut - 1]))
+    boxes = [entry[2] for entry in heap]
+    means = np.stack([(cf[m] * weights[m, None]).sum(0) / weights[m].sum() for m in boxes])
+    for _ in range(3):
+        nearest = _nearest(colors, np.rint(means))
+        total = np.bincount(nearest, weights, len(means))
+        used = total > 0
+        for c in range(3):
+            means[used, c] = np.bincount(nearest, weights * cf[:, c], len(means))[used] / total[used]
+    palette = np.clip(np.rint(means), 0, 255).astype(np.uint8)
+    return palette, _nearest(colors, palette)[inverse].reshape(frame.shape[:2]).astype(np.uint8)
+
+
+def _lzw(indices: bytes, min_code_size: int) -> bytes:
+    """GIF LZW of one frame's palette indices: variable-width codes packed
+    LSB first, a clear code first and whenever the 4096-entry table is
+    full, then the end code. The table maps strings to codes; it is
+    prefix-closed (each entry is an older one plus one index), so the
+    longest string at a position is found by galloping and bisecting its
+    length, a few lookups per code rather than one per pixel."""
+    clear, end = 1 << min_code_size, (1 << min_code_size) + 1
+    roots = {bytes([c]): c for c in range(clear)}
+    out = bytearray()
+    acc = nbits = 0
+
+    def emit(code, width):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+
+    size, next_code, table, longest = min_code_size + 1, end + 1, dict(roots), 1
+    emit(clear, size)
+    i, n = 0, len(indices)
+    while i < n:
+        bound = min(longest, n - i)
+        lo, step = 1, 2
+        while step <= bound and indices[i:i + step] in table:
+            lo, step = step, step * 2
+        hi = min(step, bound + 1)
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            if indices[i:i + mid] in table:
+                lo = mid
+            else:
+                hi = mid
+        emit(table[indices[i:i + lo]], size)
+        if i + lo < n:
+            if next_code < 4096:
+                table[indices[i:i + lo + 1]] = next_code
+                next_code += 1
+                longest = max(longest, lo + 1)
+                if next_code > (1 << size) and size < 12:
+                    size += 1
+            else:
+                emit(clear, size)
+                size, next_code, table, longest = min_code_size + 1, end + 1, dict(roots), 1
+        i += lo
+    emit(end, size)
+    if nbits:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def write_gif(path: str, frames, fps: float = 30) -> List[int]:
+    """Write (H, W, 3) uint8 frames as an animated GIF89a, as the JAX
+    package's ``imageio.get_writer(path, mode="I", fps=fps)`` writes them:
+    each frame lasts ``1000 / fps`` ms, a frame that decodes equal to the
+    frame before it is merged into it (their durations summed), and a
+    frame's delay is the duration in hundredths of a second, truncated.
+    Each frame carries its own colour table (:func:`_quantize`), and no
+    NETSCAPE2.0 block is written, as that writer writes none (the file
+    plays once). Returns the number of source frames each GIF frame
+    covers."""
+    frames = [np.ascontiguousarray(_np(f)) for f in frames]
+    if not frames:
+        raise ValueError("write_gif: no frames")
+    h, w = frames[0].shape[:2]
+    for f in frames:
+        if f.shape != (h, w, 3) or f.dtype != np.uint8:
+            raise ValueError(f"write_gif takes (H, W, 3) uint8 frames of one size, "
+                             f"got {f.dtype} {f.shape} after {frames[0].shape}")
+    duration = 1000 * 1 / fps
+    runs = []                     # [palette, indices, decoded, duration, covered]
+    previous = None
+    for f in frames:
+        if previous is not None and np.array_equal(f, previous):
+            decoded = None
+        else:
+            palette, indices = _quantize(f)
+            decoded = palette[indices]
+        if runs and (decoded is None or np.array_equal(decoded, runs[-1][2])):
+            runs[-1][3] += duration
+            runs[-1][4] += 1
+        else:
+            runs.append([palette, indices, decoded, duration, 1])
+        previous = f
+    out = bytearray(b"GIF89a" + struct.pack("<HHBBB", w, h, 0, 0, 0))
+    for palette, indices, _, total, _ in runs:
+        bits = max(1, (len(palette) - 1).bit_length())
+        table = np.zeros((1 << bits, 3), np.uint8)
+        table[:len(palette)] = palette
+        out += b"\x21\xf9\x04\x00" + struct.pack("<H", int(total / 10)) + b"\x00\x00"
+        out += b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0x80 | (bits - 1))
+        out += table.tobytes()
+        min_code_size = max(2, bits)
+        data = _lzw(indices.tobytes(), min_code_size)
+        out.append(min_code_size)
+        for at in range(0, len(data), 255):
+            block = data[at:at + 255]
+            out.append(len(block))
+            out += block
+        out.append(0)
+    out.append(0x3B)
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+    return [run[4] for run in runs]
 
 
 def apply_colormap(val, name: str = "viridis") -> np.ndarray:

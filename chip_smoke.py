@@ -145,7 +145,14 @@ one JSON object per line:
    ``eval_synthetic.yaml``, the ``visualize_*`` PNGs, one task through
    the port's daemon on 127.0.0.1 recording the in-process summary; in a
    process of its own, ``softgym-cli``, beside the unimanual loop), then
-   data parallelism: ``python -m torch.distributed.run --nproc_per_node 1``
+   the port's last host modules (:func:`host_tools_and_gif`, in a process
+   of its own, ``host-tools``, beside the unimanual loop too: the flagship
+   through ``ServingPolicy`` at batch 1 in a 2-instruction bimanual rollout
+   on ``ClothEnv(dump_visualizations=True)``, written by ``render_gif``,
+   exact flash launches per call, the GIF's frames read back from its
+   graphic-control blocks; the ``pyflex_compat`` cloth scene on the C++
+   core repeated bitwise, every ``env/scenes.py`` scene stepped, an
+   ``XMLModel`` edit), then data parallelism: ``python -m torch.distributed.run --nproc_per_node 1``
    over ``main`` on the flagship (:func:`dp_nccl`: a one-rank NCCL group,
    bitwise equal to the run without the launcher, steps and checkpoints)
    and two gloo ranks on the one card (:func:`dp_two_ranks`: the f32
@@ -3828,20 +3835,22 @@ def softgym_cli_worker(out, card_json, device="cuda"):
     return 0
 
 
-def start_softgym_cli(card, out, device="cuda"):
-    """:func:`trainer_softgym` in a process of its own, started now, so that
-    its host simulation runs beside another phase's; :func:`finish_softgym_cli`
-    waits for it."""
+def start_worker(card, out, worker, device="cuda"):
+    """One of :data:`WORKERS` (``softgym-cli`` runs :func:`trainer_softgym`,
+    ``host-tools`` :func:`host_tools_and_gif`) in a process of its own,
+    started now, so that its host work runs beside another phase's;
+    :func:`finish_worker` waits for it."""
     script = str(Path(__file__).resolve())
-    return subprocess.Popen([sys.executable, script, "softgym-cli", str(out),
+    return subprocess.Popen([sys.executable, script, worker, str(out),
                              json.dumps(card), device], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
                             cwd=str(Path(script).parent))
 
 
-def finish_softgym_cli(proc, out, timeout=900):
-    """Wait for :func:`start_softgym_cli`'s process, print its lines, and
-    return its launches; raise with its error output if it failed."""
+def finish_worker(proc, out, label, timeout=900):
+    """Wait for :func:`start_worker`'s process, print its lines, and
+    return its launches; raise with its error output (as ``label``) if it
+    failed."""
     try:
         stdout, stderr = proc.communicate(timeout=timeout)
     finally:
@@ -3852,8 +3861,209 @@ def finish_softgym_cli(proc, out, timeout=900):
         if line.startswith("{"):
             print(line, flush=True)
     if proc.returncode != 0:
-        raise AssertionError(f"trainer_softgym: exit {proc.returncode}\n{stderr[-3000:]}")
+        raise AssertionError(f"{label}: exit {proc.returncode}\n{stderr[-3000:]}")
     return json.loads(Path(out).read_text())
+
+
+GIF_FPS = 30
+GIF_STEPS = 2                            # instructions of the episode
+PYFLEX_STEPS = 30
+SCENE_STEPS = 10
+# softgym_cloth.h's packed layout: ClothPos, ClothSize, stiffness (stretch,
+# bend, shear), render mode, camera (pos, angle, width, height), mass,
+# flip_mesh; the cloth of square_cloth_config's defaults (40 x 40)
+PYFLEX_CLOTH = (-0.12, 0.05, -0.12, 40, 40, 0.9, 0.3, 0.9, 2,
+                0.0, 0.8, 0.0, 0.0, -1.5707964, 0.0, 720, 720, 0.5, 0)
+FLEXCOMP = """<mujoco model="cloth">
+  <asset><texture name="cloth_texture" type="2d" file="cloth.png"/></asset>
+  <worldbody>
+    <flexcomp name="cloth" type="grid" count="9 7 1" spacing="0.05 0.05 0.05" mass="1">
+      <edge equality="true" damping="0.01"/>
+      <plugin plugin="mujoco.elasticity.shell">
+        <config key="poisson" value="0"/><config key="thickness" value="8e-3"/>
+      </plugin>
+    </flexcomp>
+  </worldbody>
+</mujoco>
+"""
+
+
+def host_tools_worker(out, card_json, device="cuda"):
+    """``python3 chip_smoke.py host-tools OUT CARD_JSON [DEVICE]``:
+    :func:`host_tools_and_gif` in this process (its line printed here);
+    writes its launches to the JSON file ``OUT``."""
+    Path(out).write_text(json.dumps(host_tools_and_gif(json.loads(card_json), device)))
+    return 0
+
+
+def gif_delays(data: bytes) -> list:
+    """The delay (hundredths of a second) of every graphic-control block of
+    a GIF89a file, walking its blocks (so no byte of image data is read as
+    a block)."""
+    def colour_table(packed):
+        return 3 << ((packed & 7) + 1) if packed & 0x80 else 0
+
+    def sub_blocks(at):
+        while data[at]:
+            at += data[at] + 1
+        return at + 1
+
+    if data[:6] != b"GIF89a":
+        raise ValueError("not a GIF89a file")
+    at, delays = 13 + colour_table(data[10]), []
+    while data[at] != 0x3B:
+        if data[at] == 0x21:                       # extension
+            if data[at + 1] == 0xF9:
+                delays.append(int.from_bytes(data[at + 4:at + 6], "little"))
+            at = sub_blocks(at + 2)
+        elif data[at] == 0x2C:                     # image: descriptor, table, LZW
+            at = sub_blocks(at + 10 + colour_table(data[at + 9]) + 1)
+        else:
+            raise ValueError(f"unknown GIF block {data[at]:#x} at byte {at}")
+    return delays
+
+
+def frames_covered(delay: int, fps: float = GIF_FPS) -> int:
+    """How many source frames a GIF frame of ``delay`` covers under the
+    rule ``write_gif`` follows (imageio's): a frame lasts 1000 / fps ms, a
+    repeated frame's duration is added to the one before, and the delay is
+    the sum in hundredths of a second, truncated (one to one for fps up to
+    100)."""
+    duration = 1000 * 1 / fps
+    total, count = duration, 1
+    while int(total / 10) < delay:
+        total += duration
+        count += 1
+    if int(total / 10) != delay:
+        raise ValueError(f"no count of {duration} ms frames gives a delay of {delay}")
+    return count
+
+
+def host_tools_and_gif(card, device="cuda"):
+    """The port's last host modules beside a GIF of a policy-driven episode.
+    The full-width bf16 flagship (seeded weights) serves the bimanual
+    rollout evaluator through ``ServingPolicy``: ``ServingModel.predict`` at
+    batch 1, :data:`GIF_STEPS` instructions, from a Tshirt state of the
+    port's ``build_cache``, on ``ClothEnv(dump_visualizations=True)`` at the
+    closed loop's defaults (384 px renders, 4 substeps, 12 iterations); the
+    episode ends with ``render_gif``. Gates: exactly 8 ``fwd_infer_d48`` and
+    12 ``fwd_infer_d64`` per call and no other launch; the GIF's graphic-
+    control blocks, read back from the file, cover ``len(env.frames)``
+    frames, as the writer reported; the ``pyflex_compat`` cloth scene (the
+    packed softgym layout, 40 x 40) stepped on the C++ core and repeated
+    bitwise; each scene of ``env/scenes.py`` at its defaults stepped and
+    finite; an ``XMLModel`` edit read back. The dataset tools need pandas,
+    which this host may lack: the CPU tests hold them. Returns the
+    launches."""
+    import shutil
+
+    from bifold_tpu_torch.data.processor import Processor
+    from bifold_tpu_torch.data.spm import fixture_model_bytes
+    from bifold_tpu_torch.env import pyflex_compat as pyflex
+    from bifold_tpu_torch.env import scenes
+    from bifold_tpu_torch.env.bimanual_evaluator import SoftgymBimanualRolloutEvaluator
+    from bifold_tpu_torch.env.cloth_env import ClothEnv
+    from bifold_tpu_torch.env.sim import ClothSim
+    from bifold_tpu_torch.env.xml_model import XMLModel
+    from bifold_tpu_torch.models import build_model
+    from bifold_tpu_torch.serving import ServingModel, ServingPolicy
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bifold_gif_"))
+    name = bimanual_replay_cache(tmp / "cache", 1)["frame_start"][0]
+    size = FLAGSHIP["image_size"]
+    proc = Processor(PROCESSOR, max_context_length=3,
+                     autoprocessor_name=FLAGSHIP["automodel_name"],
+                     spm_asset=fixture_model_bytes())
+    server = ServingModel(build_model(FLAGSHIP, dtype=torch.bfloat16, device=device, seed=0),
+                          None, proc, device=device, depth_wire_dtype="float16")
+    server.warmup(720)
+    policy = TimedPolicy(ServingPolicy(server), wants_raw=True)
+    ev = SoftgymBimanualRolloutEvaluator(cache_dir=str(tmp / "cache"), policy=policy,
+                                         processor=proc, image_size=size)
+    ev.env = ClothEnv(render_dim=size, dump_visualizations=True)
+    clear_launch_counts()                # the main path's run starts here
+    t = time.perf_counter()
+    ev.evaluate(name, INSTRUCTIONS[:GIF_STEPS])
+    episode_s = time.perf_counter() - t
+    t = time.perf_counter()
+    covered = ev.env.render_gif(str(tmp / "episode.gif"), fps=GIF_FPS)
+    gif_s = time.perf_counter() - t
+    launches = launch_counts()           # ... and ends here
+    calls, policy_ms = len(policy.ms), policy.ms
+    want = {"fwd_infer_d48": 8 * calls, "fwd_infer_d64": 12 * calls}
+    data = (tmp / "episode.gif").read_bytes()
+    delays = gif_delays(data)
+    read_back = [frames_covered(d) for d in delays]
+    n_frames = len(ev.env.frames)
+    frame_shape = list(ev.env.frames[0].shape) if n_frames else None
+    del ev, server, policy
+
+    # the pyflex-shaped API: the packed cloth scene on the C++ core, twice
+    runs = []
+    for _ in range(2):
+        pyflex.init(camera_width=720, camera_height=720)
+        try:
+            pyflex.set_scene(0, np.asarray(PYFLEX_CLOTH, np.float32))
+            native = pyflex._sim._native is not None
+            t = time.perf_counter()
+            for _ in range(PYFLEX_STEPS):
+                pyflex.step()
+            runs.append((pyflex.get_positions(), pyflex.get_velocities(),
+                         time.perf_counter() - t, native, pyflex.get_n_particles()))
+        finally:
+            pyflex.clean()
+    pyflex_repeated = all(np.array_equal(a, b) for a, b in zip(runs[0][:2], runs[1][:2]))
+    pyflex_moved = bool(np.isfinite(runs[0][0]).all()) and runs[0][0].reshape(-1, 4)[:, 1].mean() \
+        < np.asarray(PYFLEX_CLOTH[1], np.float32)
+
+    # every scene of env/scenes.py at its defaults
+    scene_rows = {}
+    for index, builder in scenes.SCENES.items():
+        if not callable(builder):
+            continue
+        sim = ClothSim(iterations=8)
+        builder(sim)
+        t = time.perf_counter()
+        for _ in range(SCENE_STEPS):
+            sim.step()
+        scene_rows[builder.__name__] = {
+            "index": index, "particles": sim.get_n_particles(),
+            "step_ms": (time.perf_counter() - t) / SCENE_STEPS * 1e3,
+            "extended": bool(sim._uses_extended_features()),
+            "finite": bool(np.isfinite(sim.get_positions()).all())}
+
+    # XMLModel: an edit written and read back
+    xml = tmp / "cloth.xml"
+    xml.write_text(FLEXCOMP)
+    XMLModel(str(xml)).modify_params({"mass": 2.5, "edge_damping": 0.02,
+                                      "plugin_config_thickness_value": 0.01})
+    reread = XMLModel(str(xml))
+    xml_ok = (reread.cloth.get("mass") == "2.5" and reread.get_cloth_size() == (9, 7)
+              and reread.cloth.find("edge").get("damping") == "0.02"
+              and [c.get("value") for c in reread.cloth.iter("config")] == ["0", "0.01"])
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    emit({"phase": "host_tools_and_gif", "instructions": GIF_STEPS, "policy_calls": calls,
+          "launches": launches, "launches_want": want,
+          "policy_ms": policy_ms,
+          "episode_s": episode_s, "env_frames": n_frames, "frame_shape": frame_shape,
+          "gif_frames": len(delays), "gif_frames_covered": sum(read_back),
+          "gif_bytes": len(data), "gif_write_s": gif_s, "fps": GIF_FPS,
+          "pyflex_cloth": {"particles": runs[0][4], "steps": PYFLEX_STEPS,
+                           "native": runs[0][3] and runs[1][3],
+                           "repeated_bitwise": pyflex_repeated, "fell": bool(pyflex_moved),
+                           "step_ms": [r[2] / PYFLEX_STEPS * 1e3 for r in runs]},
+          "scenes": scene_rows, "xml_model_round_trip": xml_ok,
+          "phase_seconds": time.perf_counter() - t0, **card})
+    if device == "cuda" and launches != want:
+        raise AssertionError("host_tools_and_gif: launches (see its line)")
+    if (calls != GIF_STEPS or not n_frames or read_back != covered
+            or sum(read_back) != n_frames or not runs[0][3] or not runs[1][3]
+            or not pyflex_repeated or not pyflex_moved or len(scene_rows) != 6
+            or not all(r["finite"] for r in scene_rows.values()) or not xml_ok):
+        raise AssertionError("host_tools_and_gif failed (see its line)")
+    return launches
 
 
 def _free_port() -> int:
@@ -5334,7 +5544,8 @@ def fsdp_peak(root=".", device="cuda"):
     return 0
 
 
-WORKERS = {"softgym-cli": softgym_cli_worker, "dp-cli": dp_cli_worker,
+WORKERS = {"softgym-cli": softgym_cli_worker, "host-tools": host_tools_worker,
+           "dp-cli": dp_cli_worker,
            "dp-rank": dp_rank_worker, "fsdp-peak": fsdp_peak, "peak-rank": peak_rank_worker,
            "mesh-rank": mesh_rank_worker, "mesh-cli": mesh_cli_worker,
            "axes-rank": axes_rank_worker, "ring-rank": ring_rank_worker,
@@ -5565,15 +5776,20 @@ def main() -> int:
     # the closed loop: the simulator on the host, the policy on the card
     mark("closed_loop_bimanual")
     loop_launches, loop_profile = closed_loop_bimanual(card)
-    # trainer_softgym in a process of its own beside closed_loop_unimanual:
-    # both are host simulation most of the time
-    mark("closed_loop_unimanual + trainer_softgym")
-    softgym_out = Path(tempfile.mkdtemp(prefix="bifold_softgym_")) / "launches.json"
-    softgym = start_softgym_cli(card, softgym_out)
+    # trainer_softgym and host_tools_and_gif each in a process of its own
+    # beside closed_loop_unimanual: all three are host work most of the time
+    mark("closed_loop_unimanual + trainer_softgym + host_tools_and_gif")
+    worker_dir = Path(tempfile.mkdtemp(prefix="bifold_softgym_"))
+    softgym_out, gif_out = worker_dir / "launches.json", worker_dir / "host_tools.json"
+    softgym = start_worker(card, softgym_out, "softgym-cli")
     try:
-        unimanual_launches = closed_loop_unimanual(card)
+        host_tools = start_worker(card, gif_out, "host-tools")
+        try:
+            unimanual_launches = closed_loop_unimanual(card)
+        finally:
+            gif_launches = finish_worker(host_tools, gif_out, "host_tools_and_gif")
     finally:
-        softgym_launches = finish_softgym_cli(softgym, softgym_out)
+        softgym_launches = finish_worker(softgym, softgym_out, "trainer_softgym")
     # the multi-rank phases, one after the other
     dp_runs = []
     for phase in (dp_nccl, dp_two_ranks, mesh_two_ranks, mesh_cli, mesh_axes_two_ranks,
@@ -5589,7 +5805,8 @@ def main() -> int:
     launches = collections.Counter()
     for run in ([phase["launches"] for phase in phases] + [trained, pulled]
                 + list(served.values()) + [deployed] + family_runs + [remat_launches]
-                + [loop_launches, unimanual_launches, softgym_launches] + dp_runs):
+                + [loop_launches, unimanual_launches, softgym_launches, gif_launches]
+                + dp_runs):
         launches.update(run)
     # the profiler from here on: after every host-clock measurement
     where_the_time_goes(phases + serve_phases)

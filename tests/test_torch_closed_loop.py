@@ -17,7 +17,10 @@ tests/test_torch_evaluators.py:
 
 unimanual over TriangleFold (one trial, 3 regimes), bimanual over a replay
 of 3 samples. Held: the same policy calls with pixel-identical actions at
-every step, heatmaps within 1e-4, and summaries equal to rtol 1e-9.
+every step, heatmaps within 1e-4, and summaries equal to rtol 1e-9. Each
+model kind's loops run once per run (under pytest-xdist the first worker
+that needs them runs them and the others read their records,
+tests/_once_per_run.py).
 
 Under ``dp=2`` (two gloo ranks, this file run as a worker: ``python
 tests/test_torch_closed_loop.py RANK PORT OUT``) every rank runs the
@@ -27,9 +30,11 @@ process's.
 
 import json
 import os
+import pickle
 import socket
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -45,6 +50,7 @@ from bifold_tpu_torch.trainer import Trainer
 
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
+from _once_per_run import once_per_run  # noqa: E402
 from test_torch_evaluators import (bimanual_cache, install_cheap_envs,  # noqa: E402
                                    same_summary, small_caches)
 
@@ -135,17 +141,16 @@ def port_trainer(run_dir, cache, bimanual, state, extra=()):
 _PAIRS = {}
 
 
-def loop_pair(bimanual, tmp_path_factory):
-    """Both packages' loops (computed once per process and model kind)."""
-    if bimanual in _PAIRS:
-        return _PAIRS[bimanual]
+def _compute_pair(bimanual, root):
+    """Both packages' loops into ``root``: the caches, the port's weights
+    (``state.pt``) and each package's summaries and recorded calls
+    (``loops.pkl``)."""
     from bifold_tpu.config import Config as JaxConfig
     from bifold_tpu.config import compose as jax_compose
     from bifold_tpu.serving import ServingModel as JaxServingModel
     from bifold_tpu.trainer import Trainer as JaxTrainer
     from bifold_tpu_torch.models.convert import convert_bifold_inverse
 
-    root = tmp_path_factory.mktemp("closed_loop")
     cache = small_caches(root / "cache")
     jt = JaxTrainer(JaxConfig(jax_compose(overrides(root / "jax", cache, bimanual))),
                     run_dir=root / "jax")
@@ -158,7 +163,28 @@ def loop_pair(bimanual, tmp_path_factory):
     got = run_loops(pt, pt.serving_model(depth_wire_dtype="float16"), bimanual,
                     cache, root / "port")
     want = run_loops(jt, jax_server, bimanual, cache, root / "jax")
-    _PAIRS[bimanual] = (cache, state, got, want)
+    torch.save(state, root / "state.pt")
+    with open(root / "loops.pkl", "wb") as f:
+        pickle.dump({name: (summaries, {route: rec.calls for route, rec in routes.items()})
+                     for name, (summaries, routes) in (("got", got), ("want", want))}, f)
+
+
+def loop_pair(bimanual, tmp_path_factory):
+    """Both packages' loops: computed once per run and model kind
+    (tests/_once_per_run.py), read once per process. Returns (cache dir,
+    the port's weights, (summaries, recorders) of the port, of JAX); a
+    recorder here holds only its ``calls``."""
+    if bimanual in _PAIRS:
+        return _PAIRS[bimanual]
+    root = once_per_run(tmp_path_factory,
+                        f"closed_loop_{'bimanual' if bimanual else 'unimanual'}",
+                        lambda out: _compute_pair(bimanual, out))
+    with open(root / "loops.pkl", "rb") as f:
+        loops = pickle.load(f)
+    got, want = ((summaries, {route: types.SimpleNamespace(calls=calls)
+                              for route, calls in recorded.items()})
+                 for summaries, recorded in (loops["got"], loops["want"]))
+    _PAIRS[bimanual] = (root / "cache", torch.load(root / "state.pt"), got, want)
     return _PAIRS[bimanual]
 
 

@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch port: no module of ``bifold_tpu_torch`` and
 not ``chip_smoke.py`` may import JAX, flax or the JAX package; the closed
 loop's modules (``env/`` and ``utils/visualization.py``) name none of cv2,
-Pillow, matplotlib or imageio, which the card's host lacks."""
+Pillow, matplotlib or imageio, which the card's host lacks; pandas is named
+only by the vr-folding data modules (the dataset and its offline tools)."""
 
 import ast
 import os
@@ -13,6 +14,8 @@ ROOT = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "bifold_tpu", "safetensors",
            "transformers")
 IMAGING = ("cv2", "PIL", "matplotlib", "imageio")
+PANDAS_MODULES = ("data/bimanual_dataset.py", "data/vr_folding.py",
+                  "data/create_dataset_partitions.py")
 
 _CHILD = f"""
 import importlib, pkgutil, sys
@@ -38,7 +41,11 @@ for name in ("bifold_tpu_torch.ops._cuda", "bifold_tpu_torch.ops.layer_norm",
              "bifold_tpu_torch.env.demonstrators", "bifold_tpu_torch.env.cache_builder",
              "bifold_tpu_torch.env.softgym_evaluator",
              "bifold_tpu_torch.env.bimanual_evaluator",
-             "bifold_tpu_torch.utils.visualization"):
+             "bifold_tpu_torch.utils.visualization", "bifold_tpu_torch.version",
+             "bifold_tpu_torch.data.vr_folding",
+             "bifold_tpu_torch.data.create_dataset_partitions",
+             "bifold_tpu_torch.env.scenes", "bifold_tpu_torch.env.pyflex_compat",
+             "bifold_tpu_torch.env.xml_model"):
     assert name in names, name
 from bifold_tpu_torch.data.tokenizers import clip_bpe_path
 assert clip_bpe_path().parent.parent.parent.name == "bifold_tpu_torch", clip_bpe_path()
@@ -100,7 +107,11 @@ for name in ("bifold_tpu_torch.trainer", "bifold_tpu_torch.__main__",
              "bifold_tpu_torch.env.cache_builder",
              "bifold_tpu_torch.env.softgym_evaluator",
              "bifold_tpu_torch.env.bimanual_evaluator",
-             "bifold_tpu_torch.utils.visualization"):
+             "bifold_tpu_torch.utils.visualization", "bifold_tpu_torch.version",
+             "bifold_tpu_torch.data.vr_folding",
+             "bifold_tpu_torch.data.create_dataset_partitions",
+             "bifold_tpu_torch.env.scenes", "bifold_tpu_torch.env.pyflex_compat",
+             "bifold_tpu_torch.env.xml_model"):
     importlib.import_module(name)
 """
 
@@ -116,10 +127,22 @@ def test_closed_loop_imports_without_imaging_library():
 def test_closed_loop_names_no_imaging_library():
     files = [*sorted((ROOT / "bifold_tpu_torch" / "env").glob("*.py")),
              ROOT / "bifold_tpu_torch" / "utils" / "visualization.py"]
-    assert len(files) >= 10
+    assert len(files) >= 13
+    assert {"scenes.py", "pyflex_compat.py", "xml_model.py"} <= {p.name for p in files}
     for path in files:
         bad = {m.split(".")[0] for m in _named_modules(path)} & set(IMAGING)
         assert not bad, f"{path.relative_to(ROOT)} names {sorted(bad)}"
+
+
+def test_pandas_only_in_the_vr_folding_data_modules():
+    """pandas (absent on the card's host) is named by the vr-folding dataset
+    and its offline tools only; the registry reaches the dataset through a
+    factory, so every other module imports without it."""
+    named = sorted(str(path.relative_to(ROOT / "bifold_tpu_torch"))
+                   for path in (ROOT / "bifold_tpu_torch").rglob("*.py")
+                   if "pandas" in {m.split(".")[0] for m in _named_modules(path)})
+    assert named == sorted(PANDAS_MODULES)
+    assert "pandas" not in {m.split(".")[0] for m in _named_modules(ROOT / "chip_smoke.py")}
 
 
 def test_clip_bpe_asset_is_the_ports_own(monkeypatch):

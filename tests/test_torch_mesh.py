@@ -1,9 +1,11 @@
 """fsdp and tp over ``torch.distributed``, on the CPU, against the JAX package.
 
-Four gloo ranks are spawned once for the module: this file runs itself as a
-worker (``python tests/test_torch_mesh.py RANK PORT OUT``), joins the group
-through ``parallel.distributed_init``, runs every case under its mesh and
-writes what each gives to ``OUT/rank<RANK>.pt``; each worker's
+Four gloo ranks are spawned once per run (under pytest-xdist the first
+worker that needs them spawns them and the others read what they wrote,
+tests/_once_per_run.py): this file runs itself as a worker (``python
+tests/test_torch_mesh.py RANK PORT OUT``), joins the group through
+``parallel.distributed_init``, runs every case under its mesh and writes
+what each gives to ``OUT/rank<RANK>.pt``; each worker's
 ``communicate`` has its own timeout, so a hang fails this module's tests
 and not the suite's clock. Meanwhile the test process computes the
 references: the JAX package's unsharded ``make_train_step`` and
@@ -58,7 +60,9 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parent))
+sys.path.insert(0, str(HERE))
 
+from _once_per_run import once_per_run  # noqa: E402
 from bifold_tpu_torch import parallel  # noqa: E402
 from bifold_tpu_torch.config import Config, compose  # noqa: E402
 from bifold_tpu_torch.data import build_dataset, collate  # noqa: E402
@@ -274,9 +278,7 @@ def tiny_clip():
     jcb.CLIP_TEXT_CONFIGS["RN50"], pcb.CLIP_TEXT_CONFIGS["RN50"] = saved
 
 
-@pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    out = tmp_path_factory.mktemp("mesh")
+def _start_ranks(out):
     port = _free_port()
     env = {k: v for k, v in os.environ.items()
            if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
@@ -284,16 +286,13 @@ def ranks(tmp_path_factory):
     env["OMP_NUM_THREADS"] = "1"
     env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(HERE.parent),
                                                       env.get("PYTHONPATH")]))
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), str(r),
-                               str(port), str(out)], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True, cwd=str(HERE.parent),
-                              env=env) for r in range(WORLD)]
-    return out, procs
+    return [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), str(r),
+                              str(port), str(out)], stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, cwd=str(HERE.parent),
+                             env=env) for r in range(WORLD)]
 
 
-@pytest.fixture(scope="module")
-def results(ranks):
-    out, procs = ranks
+def _wait_ranks(procs):
     try:
         for p in procs:
             stdout, stderr = p.communicate(timeout=TIMEOUT_S)
@@ -304,7 +303,29 @@ def results(ranks):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    return out, [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+
+
+@pytest.fixture(scope="module")
+def computed(tmp_path_factory, tiny_clip):
+    """The ranks' results and the JAX steps of both families (computed while
+    the ranks run), once per run (tests/_once_per_run.py): the directory
+    holding ``rank<r>.pt``, the ranks' runs and ``references.pt``."""
+    def compute(out):
+        procs = _start_ranks(out)
+        try:
+            torch.save({name: _jax_step(overrides, _global_batch(compose(list(overrides))))
+                        for name, overrides in (("flagship", FLAGSHIP), ("unet", UNET))},
+                       out / "references.pt")
+        finally:
+            _wait_ranks(procs)
+
+    return once_per_run(tmp_path_factory, "torch_mesh", compute)
+
+
+@pytest.fixture(scope="module")
+def results(computed):
+    return computed, [torch.load(computed / f"rank{r}.pt", weights_only=False)
+                      for r in range(WORLD)]
 
 
 def _jax_step(overrides, batch):
@@ -342,12 +363,9 @@ def _jax_step(overrides, batch):
 
 
 @pytest.fixture(scope="module")
-def references(ranks, tiny_clip):
-    """The JAX steps of both families (computed while the ranks run)."""
-    out = {}
-    for name, overrides in (("flagship", FLAGSHIP), ("unet", UNET)):
-        out[name] = _jax_step(overrides, _global_batch(compose(list(overrides))))
-    return out
+def references(computed):
+    """The JAX steps of both families."""
+    return torch.load(computed / "references.pt", weights_only=False)
 
 
 def _close_state(got, want, what):

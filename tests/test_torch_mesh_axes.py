@@ -1,11 +1,13 @@
 """The mesh axes pp, ep and sp, MoE over data ranks and the daemon's --mesh,
 on the CPU, against the JAX package.
 
-Four gloo ranks are spawned once for the module (this file runs itself as a
+Four gloo ranks are spawned once per run (this file runs itself as a
 worker, ``python tests/test_torch_mesh_axes.py RANK PORT OUT``, as
-tests/test_torch_mesh.py does), and two daemon ranks
-(``python -m bifold_tpu_torch.serve --mesh tp=2``) once more; each process
-is waited on with its own timeout. Meanwhile the test process computes the
+tests/test_torch_mesh.py does; under pytest-xdist the first worker that
+needs them spawns them and the others read what they wrote,
+tests/_once_per_run.py), and two daemon ranks (``python -m
+bifold_tpu_torch.serve --mesh tp=2``) once for the module; each process is
+waited on with its own timeout. Meanwhile the test process computes the
 references with the JAX package on its 8 virtual CPU devices, from the same
 numpy-seeded inputs and converted weights.
 
@@ -64,6 +66,7 @@ from test_torch_mesh import (FLAGSHIP, GLOBAL_BATCH, SGD, _close_metrics,  # noq
                              _jax_server_actions, _jax_step, _model, _observations,
                              _step)
 
+from _once_per_run import once_per_run  # noqa: E402
 from bifold_tpu_torch import parallel  # noqa: E402
 from bifold_tpu_torch.config import Config, compose  # noqa: E402
 from bifold_tpu_torch.losses import build_loss  # noqa: E402
@@ -242,20 +245,15 @@ def _two_threads():
     torch.set_num_threads(before)
 
 
-@pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    out = tmp_path_factory.mktemp("mesh_axes")
+def _start_ranks(out):
     port = _free_port()
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), str(r),
-                               str(port), str(out)], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True, cwd=str(HERE.parent),
-                              env=_env()) for r in range(WORLD)]
-    return out, procs
+    return [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), str(r),
+                              str(port), str(out)], stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, cwd=str(HERE.parent),
+                             env=_env()) for r in range(WORLD)]
 
 
-@pytest.fixture(scope="module")
-def results(ranks):
-    out, procs = ranks
+def _wait_ranks(procs):
     try:
         for p in procs:
             stdout, stderr = p.communicate(timeout=TIMEOUT_S)
@@ -266,12 +264,33 @@ def results(ranks):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    return out, [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
 
 
 @pytest.fixture(scope="module")
-def flagship_reference(ranks):
-    return _jax_step(FLAGSHIP, _global_batch(compose(list(FLAGSHIP))))
+def computed(tmp_path_factory):
+    """The ranks' results and JAX's flagship step (computed while the ranks
+    run), once per run (tests/_once_per_run.py): the directory holding
+    ``rank<r>.pt``, the ranks' runs and ``flagship_reference.pt``."""
+    def compute(out):
+        procs = _start_ranks(out)
+        try:
+            torch.save(_jax_step(FLAGSHIP, _global_batch(compose(list(FLAGSHIP)))),
+                       out / "flagship_reference.pt")
+        finally:
+            _wait_ranks(procs)
+
+    return once_per_run(tmp_path_factory, "torch_mesh_axes", compute)
+
+
+@pytest.fixture(scope="module")
+def results(computed):
+    return computed, [torch.load(computed / f"rank{r}.pt", weights_only=False)
+                      for r in range(WORLD)]
+
+
+@pytest.fixture(scope="module")
+def flagship_reference(computed):
+    return torch.load(computed / "flagship_reference.pt", weights_only=False)
 
 
 def _close(got, want, what):
