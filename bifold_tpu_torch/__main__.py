@@ -124,8 +124,9 @@ def _advise(args: list[str]) -> int:
             print(f"  {i}. {mesh}  FAILED ({r['error'].splitlines()[0][:90]})")
             continue
         est, wire = r["est"], r["collective_wire_bytes_per_device"]
+        at_capacity = " at MoE capacity" if "moe_exchange" in r else ""
         print(f"  {i}. {mesh}  >= {est['step_ms_lower_bound']:.2f} "
-              f"ms/step ({est['bottleneck']}-bound; wire "
+              f"ms/step ({est['bottleneck']}-bound; wire{at_capacity} "
               f"{wire / (1 << 20):,.1f} MiB/dev, params+opt "
               f"{(r['param_bytes_per_device'] + r['opt_state_bytes_per_device']) / gib:.2f} "
               f"GiB/dev)")

@@ -48,6 +48,9 @@ class BaseDataset:
         self.processor = Processor(
             cfg=processor_config,
             partition=partition,
+            num_nodes=self.cfg.get("num_nodes"),
+            neighbor_radius=self.cfg.get("neighbor_radius"),
+            voxel_size=self.cfg.get("voxel_size"),
             max_context_length=max_context_length,
             autoprocessor_name=autoprocessor_name,
             seed=seed,

@@ -20,6 +20,18 @@ which batches were built before it and a resumed epoch rebuilds its batches
 exactly. A call without one draws from a ``torch.Generator`` per device
 seeded by ``seed``, whose state a checkpoint keeps. :func:`_core` takes the
 draws as an argument, so a caller can hand in any draws.
+
+With ``requires_graph`` (graph-conditioned configs) the host also builds
+the point-cloud graph of each sample (:meth:`Processor._graph_features`,
+bifold_tpu/data/processor.py:427-491): the depth map and mask resized to
+the model's size, back-projected through the camera, voxelized,
+farthest-point sampled to ``num_nodes`` and centred, radius edges, all
+padded to fixed shapes (``graph_x``, ``graph_node_mask``,
+``graph_edge_index``, ``graph_edge_attr``, ``graph_edge_mask``, up to 16
+edges per node), the pick labels' ``<label>_node_heatmap`` and, in the
+test partition, the nodes' pixels ``pixel_sampled_pc``. These keys pass
+through the device pipeline unchanged. An empty cloth mask raises a
+``ValueError`` naming it (JAX's fails on it too).
 """
 
 from __future__ import annotations
@@ -31,10 +43,13 @@ import numpy as np
 import torch
 
 from bifold_tpu_torch.data.tokenizers import build_tokenizer
+from bifold_tpu_torch.data.utils import compute_edge_attr, fps, voxelize_pointcloud
 from bifold_tpu_torch.ops import depth as depth_ops
 from bifold_tpu_torch.ops import image as image_ops
 from bifold_tpu_torch.ops.augment import spatial_augment
 from bifold_tpu_torch.ops.gaussmap import batched_gaussmap
+from bifold_tpu_torch.ops.geometry import (pixel_from_world, world_coords_from_depth,
+                                           world_from_pixel)
 
 __all__ = ["Processor", "MAX_LABEL_POINTS"]
 
@@ -195,19 +210,30 @@ class Processor:
     absence the config's ``image_mean`` / ``image_std`` and the tokenizer of
     ``cfg["text_encoder"]`` (CLIP's BPE for a CLIP model name);
     ``seed`` seeds the train partition's draws of calls without a generator.
-    The JAX package's graph features are not ported."""
+    ``cfg["requires_graph"]`` adds the graph features, built with
+    ``num_nodes``, ``neighbor_radius`` and ``voxel_size`` (the dataset
+    config's), which it then needs."""
 
     def __init__(self, cfg, partition: str = "test",
                  max_context_length: Optional[int] = None,
                  autoprocessor_name: Optional[str] = None, spm_asset=None,
-                 seed: int = 0):
+                 seed: int = 0, num_nodes: Optional[int] = None,
+                 neighbor_radius: Optional[float] = None,
+                 voxel_size: Optional[float] = None):
         if partition not in ("train", "test"):
-            raise NotImplementedError(f"partition {partition!r} is not ported")
+            raise NotImplementedError(f"partition {partition!r}: the Processor "
+                                      "has a train and a test partition")
         cfg = dict(cfg)
-        if cfg.get("requires_graph"):
-            raise NotImplementedError("graph features are not ported")
         self.cfg = cfg
-        self.requires_graph = False
+        self.requires_graph = bool(cfg.get("requires_graph", False))
+        if self.requires_graph and None in (num_nodes, neighbor_radius, voxel_size):
+            raise ValueError(
+                "requires_graph needs num_nodes, neighbor_radius and voxel_size "
+                "(the dataset config's), got "
+                f"{num_nodes!r}, {neighbor_radius!r}, {voxel_size!r}")
+        self.num_nodes = num_nodes
+        self.neighbor_radius = neighbor_radius
+        self.voxel_size = voxel_size
         self.partition = partition
         self.image_size = int(cfg["model_image_size"])
         self.max_context_length = max_context_length or 0
@@ -295,6 +321,8 @@ class Processor:
         raw = self.make_raw(rgb=rgb, depth=depth, mask=mask, instruction=instruction,
                             matrix_world_to_camera=matrix_world_to_camera, K=K,
                             context=context, **labels)
+        if self.requires_graph:
+            raw.update(self._graph_features(raw))
         batch: Dict[str, Any] = {}
         for k, v in raw.items():
             if isinstance(v, np.ndarray):
@@ -424,4 +452,71 @@ class Processor:
             out["instruction"] = x["instruction"]
         if "raw_instruction" in batch:
             out["raw_instruction"] = batch["raw_instruction"]
+        for k in x:          # the graph features pass through
+            if k.startswith("graph") or k == "pixel_sampled_pc" or k.endswith("_node_heatmap"):
+                out[k] = x[k]
+        return out
+
+    def _graph_features(self, raw: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """The graph arrays of one raw record (host side, numpy out; module
+        docstring). Needs the record's ``K`` and ``matrix_world_to_camera``."""
+        if "K" not in raw or "matrix_world_to_camera" not in raw:
+            raise ValueError("graph features need the camera: pass K= and "
+                             "matrix_world_to_camera= with the observation")
+        s = self.image_size
+        depth = raw["depth"]
+        scale = depth.shape[0] / s
+        scaled_k = raw["K"].copy()
+        scaled_k[0, :] /= scale
+        scaled_k[1, :] /= scale
+        with torch.no_grad():
+            depth_ori = _resize(torch.from_numpy(depth)[None], s)[0]
+            mask_ori = depth_ops.round_mask(
+                _resize(torch.from_numpy(raw["mask"])[None], s))[0].numpy()
+        m_w2c = raw["matrix_world_to_camera"]
+
+        world = world_coords_from_depth(depth_ori, m_w2c, scaled_k).numpy()
+        pc = world[..., :3].reshape(-1, 3)[mask_ori.reshape(-1) > 0].astype(np.float32)
+        if not len(pc):
+            raise ValueError("graph features need cloth: the observation's cloth "
+                             "mask is empty")
+        sampled = fps(voxelize_pointcloud(pc, self.voxel_size),
+                      self.num_nodes).astype(np.float32)
+        centered = sampled - sampled.mean(axis=0)
+        edges, edge_attr = compute_edge_attr(centered, self.neighbor_radius)
+
+        n = self.num_nodes
+        e_max = n * 16
+        x = np.zeros((n, 3), np.float32)
+        x[: len(centered)] = centered
+        node_mask = np.zeros((n,), np.float32)
+        node_mask[: len(centered)] = 1.0
+        ei = np.zeros((2, e_max), np.int64)
+        ea = np.zeros((e_max, 4), np.float32)
+        em = np.zeros((e_max,), np.float32)
+        ne = min(edges.shape[1], e_max)
+        ei[:, :ne] = edges[:, :ne]
+        ea[:ne] = edge_attr[:ne]
+        em[:ne] = 1.0
+        out = {"graph_x": x, "graph_node_mask": node_mask, "graph_edge_index": ei,
+               "graph_edge_attr": ea, "graph_edge_mask": em}
+
+        for k in raw.get("label_keys", ()):      # pick node targets
+            if "pick" not in k:
+                continue
+            pix = raw[k]
+            valid = pix.min(axis=-1) >= 0
+            heat = np.zeros((n,), np.float32)
+            if valid.any():
+                pos = world_from_pixel(pix[valid][0] / scale, depth_ori, m_w2c,
+                                       scaled_k).numpy()
+                d = ((sampled - pos) ** 2).sum(axis=1)
+                heat[: len(sampled)] = (d == d.min()).astype(np.float32)
+            out[f"{k}_node_heatmap"] = heat
+
+        if self.partition == "test":
+            pix = pixel_from_world(sampled, m_w2c, scaled_k).numpy()
+            padded = np.zeros((2, n), np.float32)
+            padded[:, : pix.shape[1]] = pix
+            out["pixel_sampled_pc"] = padded.T
         return out

@@ -51,21 +51,20 @@ _FIELDS = {
     "siglip": _SIGLIP_FIELDS,
     "siglip_sequential": _SIGLIP_FIELDS | {"context_length"},
     "rgb_clip": {"image_size", "is_bimanual", "patch_size", "text_encoder",
-                 "text_dropout", "rgb_dropout", "threshold", "depth", "heads",
-                 "mlp_ratio", "dropout", "constrain_pick_mask",
-                 "legacy_query_mask", "remat"},
+                 "text_dropout", "rgb_dropout", "threshold", "pick_place_model",
+                 "fusion_model", "depth", "heads", "mlp_ratio", "dropout",
+                 "constrain_pick_mask", "legacy_query_mask", "remat"},
     "text_unet": {"image_size", "is_bimanual", "text_encoder", "features",
                   "threshold", "constrain_pick_mask"},
 }
 # config keys of the JAX model the port runs at one value only (None: any
-# value is accepted and has no effect here)
-_SIGLIP_FIXED = {"requires_graph": False, "target_modules": ("q_proj", "v_proj"),
+# value is accepted and has no effect here). ``requires_graph`` asks the
+# Processor for graph features (its config node reads it); the forward
+# ignores it, as JAX's modules do.
+_SIGLIP_FIXED = {"requires_graph": None, "target_modules": ("q_proj", "v_proj"),
                  "text_encoder": None}
 _FIXED = {"siglip": _SIGLIP_FIXED, "siglip_sequential": _SIGLIP_FIXED,
-          "rgb_clip": {"pick_place_model": "pick_place_convdecoder",
-                       "fusion_model": "concat_transformer",
-                       "requires_graph": False},
-          "text_unet": {"requires_graph": False}}
+          "rgb_clip": {"requires_graph": None}, "text_unet": {"requires_graph": None}}
 
 
 def resolve_device(device) -> torch.device:
@@ -211,8 +210,8 @@ def build_model(cfg: dict, *, dtype=torch.float32, device="cuda",
     node (a serving artifact records it). ``remat`` (the Trainer's
     ``precision.remat``) overrides the node's for the families that have
     it and is dropped for the others, as the JAX package's overrides are.
-    Config values the port does not implement (graph conditioning, another
-    head or fusion for rgb_clip) raise."""
+    LoRA ``target_modules`` other than q and v, which no JAX module reads,
+    raise."""
     node = dict(cfg)
     cfg = {k: (tuple(v) if isinstance(v, list) else v) for k, v in node.items()}
     if remat is not None and "remat" in _FIELDS.get(cfg.get("name"), ()):
@@ -242,13 +241,22 @@ def decode_action(output: dict, sample: dict, *, is_bimanual: bool,
                   constrain_pick_mask: bool = True, threshold: float = 0.5):
     """Heatmap dict -> dict of float32 (B, 2) ``[x, y]`` pixel tensors:
     pick snapped to the cloth mask (when present and enabled), place
-    unconstrained, bimanual confidence gating (at least one arm acts)."""
+    unconstrained, bimanual confidence gating (at least one arm acts). A
+    2-d (B, nodes) pick map with the sample's ``pixel_sampled_pc`` (B,
+    nodes, 2) is a graph model's: the pick is the pixel of its argmax node
+    and the confidence that node's value (bifold_tpu/models/__init__.py
+    :100-108)."""
     mask = sample.get("mask") if constrain_pick_mask else None
     use_mask = mask is not None
     if use_mask:
         mask = mask.reshape(mask.shape[0], mask.shape[-2], mask.shape[-1])
 
     def pick(hm):
+        if hm.dim() == 2 and "pixel_sampled_pc" in sample:
+            conf, idx = hm.max(dim=1)
+            pc = sample["pixel_sampled_pc"]
+            pix = pc.gather(1, idx[:, None, None].expand(-1, 1, 2))[:, 0]
+            return pix.float(), conf
         return decode_heatmap(hm, mask, use_mask=use_mask)
 
     if is_bimanual:

@@ -41,8 +41,7 @@ from bifold_tpu_torch.models.backbones.t5_backbone import T5Encoder, resolve_t5_
 from bifold_tpu_torch.models.dropout import Dropout
 from bifold_tpu_torch.models.layers import linear
 from bifold_tpu_torch.models.norm import BatchNorm
-from bifold_tpu_torch.models.pickplace import (PICK_PLACE, PickPlaceConvDecoder,
-                                               head_names)
+from bifold_tpu_torch.models.pickplace import PICK_PLACE, head_names
 
 __all__ = ["SigLip", "SiglipSequential", "RGBOnly", "TextConditionedUNet"]
 
@@ -169,18 +168,25 @@ class RGBOnly(nn.Module):
     bifold_models.py:208-279): image tokens (CLS + patches, after ln_post)
     projected to the text width plus ``rgb_pos_embedding``; text tokens
     after ln_final behind ``text_token``, plus ``text_pos_embedding``;
-    both through their dropouts, then the concat fusion at the text width
-    (its blocks recomputed in the backward under ``remat``, as JAX's
-    bifold_models.py:277 has it; the CLIP towers never are)."""
+    both through their dropouts, then the head ``pick_place_model`` with
+    its fusion ``fusion_model`` at the text width, as ``SigLip`` builds
+    them (JAX's ``_pick_place``, bifold_models.py:34-46); the fusion blocks
+    are recomputed in the backward under ``remat``, as JAX's
+    bifold_models.py:277 has it, the CLIP towers never."""
 
     def __init__(self, image_size: int, is_bimanual: bool, patch_size: int = 16,
                  text_encoder: str = "ViT-B/16", text_dropout: float = 0.0,
                  rgb_dropout: float = 0.0, threshold: float = 0.5,
+                 pick_place_model: str = "pick_place_convdecoder",
+                 fusion_model: str = "concat_transformer",
                  depth: int = 8, heads: int = 16, mlp_ratio: int = 4,
                  dropout: float = 0.0, constrain_pick_mask: bool = True,
                  legacy_query_mask: bool = False, remat: bool = False,
                  dtype=torch.float32):
         super().__init__()
+        if pick_place_model not in PICK_PLACE:
+            raise ValueError(f"unknown pick_place_model {pick_place_model!r} "
+                             f"(have {sorted(PICK_PLACE)})")
         if text_encoder not in CLIP_CONFIGS:
             raise ValueError(
                 f"rgb_clip text_encoder={text_encoder!r} is not a ViT CLIP "
@@ -202,11 +208,10 @@ class RGBOnly(nn.Module):
             torch.zeros(1, cfg.context_length + 1, dim))
         self.rgb_dropout = Dropout(rgb_dropout)
         self.text_dropout = Dropout(text_dropout)
-        self.pick_place = PickPlaceConvDecoder(
-            dim, is_bimanual, self.num_patches, patch_size,
-            fusion_kwargs=dict(heads=heads, depth=depth, mlp_ratio=mlp_ratio,
-                               legacy_query_mask=legacy_query_mask,
-                               dropout=dropout, remat=remat),
+        self.pick_place = PICK_PLACE[pick_place_model](
+            dim, is_bimanual, self.num_patches, patch_size, fusion_model,
+            dict(heads=heads, depth=depth, mlp_ratio=mlp_ratio,
+                 legacy_query_mask=legacy_query_mask, dropout=dropout, remat=remat),
             dtype=dtype)
 
     def forward(self, sample):

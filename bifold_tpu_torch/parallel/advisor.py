@@ -42,14 +42,24 @@ What the report reads off that run:
   the bottleneck. Lower bounds, not predictions: overlap, fusion and
   latency are not modeled.
 
-A layout whose step fails (a tp that does not divide the heads; an MoE
-route, whose token counts are data) is reported as ``{"mesh", "error"}``
-and ranked last, as JAX ranks a layout that does not compile.
+An MoE layer's expert-parallel route exchanges data-dependent row
+counts, which fake tensors do not have: in the run each placed MoE layer
+takes :func:`_moe_at_capacity` instead, the same route with every
+expert's slots full at JAX's static capacity. Its all_to_alls then move
+what JAX's compiled ``all_to_all`` moves (bifold_tpu/ops/moe.py:159-198):
+two each way per layer, E x C rows of D float32, and its experts compute
+over the same C slots; the report says so (``moe_exchange``). The rest of
+the step is the port's: it has no dense (T, E, C) dispatch and combine,
+and it repeats the dense layers on every rank of an ep group, where XLA
+may cut their tokens over ep. A layout whose step fails (a tp that does
+not divide the heads) is reported as ``{"mesh", "error"}`` and ranked
+last, as JAX ranks a layout that does not compile.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import sys
 from typing import Any, Dict, Optional
@@ -189,6 +199,50 @@ def _fake_group(n: int):
         parallel._GROUPS.clear()       # their handles belonged to the fake group
 
 
+def _moe_at_capacity(layer, x):
+    """A placed :class:`~bifold_tpu_torch.models.layers.MoEFeedForward`'s
+    forward for the fake run: the collectives and FLOPs of
+    :func:`~bifold_tpu_torch.ops.moe.expert_parallel_ffn` with every
+    expert's C slots full, C its capacity (JAX's): the first choices
+    gathered over the data ranks (for the load-balance loss), this ep
+    shard's tokens taken into E x C rows by index, the rows of each owner's
+    experts sent to it, its experts' FFNs over their ep x C rows, the
+    outputs sent back, gate-weighted and added to their tokens. Returns
+    (out, aux) in the layer's shapes; the values mean nothing."""
+    from bifold_tpu_torch.ops.moe import _choices, _expert_ffn, capacity
+    from bifold_tpu_torch.parallel.collectives import (SELF, all_gather, all_to_all,
+                                                       gather_from_group, group_size,
+                                                       split_to_group)
+
+    mesh, lead, d = layer.mesh, x.shape[:-1], x.shape[-1]
+    x2 = x.to(layer.dtype).reshape(-1, d)
+    probs = torch.softmax(x2.float() @ layer.router.float(), dim=-1)
+    every = all_gather(_choices(probs, layer.top_k), mesh.groups["data"])
+    e, t, t_loc, local = probs.shape[-1], every.shape[0], x2.shape[0], layer.w1.shape[0]
+    ep = mesh.groups["ep"] if local != e else SELF
+    n = group_size(ep)
+    cap = capacity(t // n if t % n == 0 else t, e, layer.top_k, layer.capacity_factor)
+    xs, ps = split_to_group(x2, 0, ep), split_to_group(probs, 0, ep)
+    token = torch.zeros(e * cap, dtype=torch.long, device=x.device)    # each slot's token
+    expert = torch.arange(e, device=x.device).repeat_interleave(cap)
+    w = [getattr(layer, k).float() for k in ("w1", "b1", "w2", "b2")]
+    rows = xs.float()[token]
+    if ep is SELF:
+        y = _expert_ffn(rows.view(e, cap, d), *w).reshape(e * cap, d)
+    else:
+        sent = [local * cap] * n
+        got, _ = all_to_all(rows, sent, ep, recv_rows=sent)
+        got = got.view(n, local, cap, d).transpose(0, 1).reshape(local, n * cap, d)
+        y = _expert_ffn(got, *w).view(local, n, cap, d).transpose(0, 1)
+        y, _ = all_to_all(y.reshape(e * cap, d), sent, ep, recv_rows=sent)
+    out = torch.zeros((xs.shape[0], d), device=x.device).index_add(
+        0, token, y * ps[token, expert][:, None])
+    out = gather_from_group(out, 0, t_loc, ep).to(x.dtype).reshape(*lead, d)
+    first = torch.zeros(e, device=x.device).index_add_(0, every[:, 0],
+                                                       torch.ones(t, device=x.device))
+    return layer.dropout(out), e * torch.sum(first / t * (probs.sum(dim=0) / t))
+
+
 def _global_batch(model_cfg, processor_cfg, rows: int) -> Dict[str, torch.Tensor]:
     """``rows`` processed training samples at the config's shapes (blank
     frames, centered labels): real CPU tensors."""
@@ -197,7 +251,8 @@ def _global_batch(model_cfg, processor_cfg, rows: int) -> Dict[str, torch.Tensor
 
     size = int(model_cfg["image_size"])
     context = model_cfg.get("context_length")
-    proc = Processor(dict(processor_cfg), partition="train",
+    # the model reads no graph features: the advisor's batch has none
+    proc = Processor(dict(processor_cfg, requires_graph=False), partition="train",
                      max_context_length=context,
                      autoprocessor_name=model_cfg.get("automodel_name"), seed=0)
     frame = dict(rgb=np.zeros((size, size, 3), np.uint8),
@@ -232,6 +287,7 @@ def analyze_layout(mesh_cfg: dict, *, n_devices: Optional[int] = None, batch: in
     from bifold_tpu_torch import parallel
     from bifold_tpu_torch.losses import build_loss
     from bifold_tpu_torch.models import build_model, trainable_mask
+    from bifold_tpu_torch.models.layers import MoEFeedForward
     from bifold_tpu_torch.optim import build_optimizer
     from bifold_tpu_torch.parallel.collectives import recording, summarize
 
@@ -260,6 +316,9 @@ def analyze_layout(mesh_cfg: dict, *, n_devices: Optional[int] = None, batch: in
                 trainable_mask(model, lora=bool(model_cfg.get("lora")))
                 mesh = parallel.make_mesh(layout)
                 placement = parallel.place(model, model_cfg["name"], mesh, min_size)
+                for m in model.modules():
+                    if isinstance(m, MoEFeedForward) and m.mesh is not None:
+                        m.forward = functools.partial(_moe_at_capacity, m)
                 opt = build_optimizer(dict(ADAM), placement.step_params, None,
                                       max_iters=100, gradient_clip=1.0,
                                       names=placement.step_names)
@@ -295,6 +354,8 @@ def analyze_layout(mesh_cfg: dict, *, n_devices: Optional[int] = None, batch: in
             "param_bytes_per_device": int(params),
             "opt_state_bytes_per_device": int(moments),
             "collectives": collectives, "collective_wire_bytes_per_device": wire,
+            **({"moe_exchange": "static capacity"}
+               if int(model_cfg.get("moe_experts", 0) or 0) else {}),
             "est": est}
 
 

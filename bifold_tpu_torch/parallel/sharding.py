@@ -97,8 +97,12 @@ does it alone:
 
 :attr:`Placement.peak_bytes` counts the whole fsdp tensors (and their
 gradients, when they are reduced) alive at once during a step or a
-request. A unit that fsdp shards along its depth axis (no block would have
-a slice of every chunk) raises, naming its leaf.
+request. Where fsdp shards a stacked leaf along its depth axis, a block's
+layers lie whole in one rank's chunk or straddle two: the block's gather
+takes its slab from those owners by broadcast (the pieces differ in size,
+and gloo's all-gather wants equal sizes), and its backward all-reduces the
+slab's gradient, each owner keeping its layers' part: the sums a
+reduce-scatter of a per-layer gather makes.
 """
 
 from __future__ import annotations
@@ -642,13 +646,24 @@ class _Part:
     """What one unit holds of one block: the unit, the axis of its chunk
     that runs over the leaf's slab axis and the slab's [lo, hi) on it (dim
     None: the block holds the whole leaf), and the boxes of the block's
-    tensors within the slab."""
+    tensors within the slab. ``owned``: the slab runs along the sharded
+    axis itself (fsdp shards the leaf along its depth), so it lies in the
+    chunks of one or two ranks, its *owners*, and [lo, hi) is on the
+    leaf's sharded axis (the chunk's axis 0)."""
 
     unit: _Unit
     dim: Optional[int]
     lo: int
     hi: int
     boxes: Dict[str, Box]
+    owned: bool = False
+
+    def pieces(self, n: int):
+        """(owner rank, lo, hi) of an owned slab's pieces, on the leaf's
+        sharded axis, in rank order."""
+        c = self.unit.leaf.shape[self.unit.axis] // n
+        return [(r, max(self.lo, r * c), min(self.hi, (r + 1) * c)) for r in range(n)
+                if max(self.lo, r * c) < min(self.hi, (r + 1) * c)]
 
 
 class _Saved:
@@ -719,16 +734,22 @@ class _Share:
     def gather(self, names=None) -> Dict[str, torch.Tensor]:
         """Whole tensors (of ``names``, default all of the block's) from
         the fsdp group's chunks: one all-gather of the chunks' slices laid
-        end to end per dtype."""
+        end to end per dtype; the slabs that lie in their owners' chunks
+        (:attr:`_Part.owned`), one broadcast from each owner per dtype."""
         p = self.placement
         n = p.mesh.fsdp
         groups: Dict[torch.dtype, list] = {}
+        owned = []
         for part in self.parts:
             wanted = [k for k in part.boxes if names is None or k in names]
-            if wanted:
+            if wanted and part.owned:
+                owned.append((part, wanted))
+            elif wanted:
                 chunk = self._chunk(part)
                 groups.setdefault(chunk.dtype, []).append((part, wanted, chunk))
         out: Dict[str, torch.Tensor] = {}
+        if owned:
+            self._gather_owned(owned, out)
         for picks in groups.values():
             flat = all_gather(torch.cat([c.reshape(-1) for _, _, c in picks]),
                               p.mesh.groups["fsdp"]).view(n, -1)
@@ -747,6 +768,39 @@ class _Share:
             p._track(t)
         return out
 
+    def _gather_owned(self, owned, out: Dict[str, torch.Tensor]) -> None:
+        """The owned slabs' tensors into ``out``: each owner broadcasts its
+        pieces of them (laid end to end, one broadcast per owner and dtype,
+        every rank in the same order), and each slab is put together from
+        its pieces. Broadcasts, because the pieces differ in size and gloo's
+        all-gather wants equal sizes."""
+        p = self.placement
+        n, me, group = p.mesh.fsdp, p.mesh.fsdp_rank, p.mesh.groups["fsdp"]
+        sends: Dict[tuple, list] = {}
+        for part, _ in owned:
+            for r, lo, hi in part.pieces(n):
+                sends.setdefault((r, part.unit.dtype), []).append((part, lo, hi))
+        got: Dict[int, list] = {}
+        for (r, dtype), items in sends.items():
+            shard = [part.unit.shard.detach() for part, _, _ in items]
+            c = [part.unit.leaf.shape[part.unit.axis] // n for part, _, _ in items]
+            sizes = [(hi - lo) * t[0].numel() for t, (_, lo, hi) in zip(shard, items)]
+            if r == me:
+                flat = torch.cat([t[lo - r * ci:hi - r * ci].reshape(-1)
+                                  for t, ci, (_, lo, hi) in zip(shard, c, items)])
+            else:
+                flat = torch.empty(sum(sizes), dtype=dtype, device=shard[0].device)
+            broadcast_(flat, r, group)
+            for t, piece, (part, lo, hi) in zip(shard, flat.split(sizes), items):
+                got.setdefault(id(part), []).append(piece.view(hi - lo, *t.shape[1:]))
+        for part, wanted in owned:
+            slab = part.unit.unchunk(torch.cat(got[id(part)]))
+            for k in wanted:
+                if k not in out:
+                    out[k] = torch.empty(p._full_shapes[k], dtype=slab.dtype,
+                                         device=slab.device)
+                part.boxes[k].read(slab, out[k])
+
     def reduce(self, grads: Dict[str, Optional[torch.Tensor]]) -> None:
         """Sum the block's weight gradients over tp where they are partial,
         reduce-scatter the trainable units' slabs of them over fsdp (one
@@ -761,20 +815,27 @@ class _Share:
             for k, g in zip(partial, flat.split([grads[k].numel() for k in partial])):
                 grads[k] = g.view(grads[k].shape).to(grads[k].dtype)
         n = p.mesh.fsdp
-        parts, pieces = [], []
+        parts, pieces, owned = [], [], []
         for part in self.parts:
             u = part.unit
             if not u.trainable:
                 continue
             shape = list(u.leaf.shape)
-            if part.dim is not None:
+            if part.owned:
+                shape[u.axis] = part.hi - part.lo
+            elif part.dim is not None:
                 shape[u.leaf_axis(part.dim)] = part.hi - part.lo
             slab = torch.zeros(shape, dtype=torch.float32, device=u.device)
             for k, box in part.boxes.items():
                 if grads.get(k) is not None:
                     box.write(grads[k], slab)
+            if part.owned:
+                owned.append((part, slab.movedim(u.axis, 0)))
+                continue
             parts.append(part)
             pieces.append(slab.movedim(u.axis, 0).chunk(n))
+        if owned:
+            self._reduce_owned(owned)
         if not parts:
             return
         # rank r's slices of every slab, then rank r + 1's: each rank's
@@ -790,6 +851,26 @@ class _Share:
                       u.grad.narrow(part.dim, part.lo, part.hi - part.lo))
             target.add_(mine[at:at + size].view(chunks[0].shape))
             at += size
+
+    def _reduce_owned(self, owned) -> None:
+        """The owned slabs' gradients summed over the fsdp group (one
+        all-reduce of them laid end to end, in float32: the sums a
+        reduce-scatter of them would make) and each owner's pieces added to
+        its chunk's gradient."""
+        p = self.placement
+        n, me = p.mesh.fsdp, p.mesh.fsdp_rank
+        flat = all_reduce_sum_(torch.cat([g.reshape(-1) for _, g in owned]),
+                               p.mesh.groups["fsdp"])
+        for (part, g), total in zip(owned, flat.split([g.numel() for _, g in owned])):
+            u, total = part.unit, total.view(g.shape)
+            c = u.leaf.shape[u.axis] // n
+            for r, lo, hi in part.pieces(n):
+                if r != me:
+                    continue
+                if u.grad is None:
+                    u.grad = torch.zeros(u.shard.shape, dtype=torch.float32,
+                                         device=u.device)
+                u.grad[lo - r * c:hi - r * c].add_(total[lo - part.lo:hi - part.lo])
 
     @contextlib.contextmanager
     def weights(self):
@@ -931,9 +1012,10 @@ class Placement:
         ``fsdp`` attribute; :attr:`stepwise` lists the fsdp tensors outside
         every block, which :meth:`gather` gathers for a whole step. A unit
         of stacked layers shares out its slab along the leaf's depth axis;
-        a unit that fsdp shards along that axis (no block has a slice of
-        every rank's chunk), or that holds a block's tensors and others,
-        raises, naming its leaf."""
+        where fsdp shards the leaf along that axis, each block's slab lies
+        in the chunks of the ranks that own its layers (an owned part). A
+        unit that holds a block's tensors and others raises, naming its
+        leaf."""
         blocks = {}
         for prefix, mod in self.model.named_modules():
             if isinstance(mod, L.PipelineStack):
@@ -968,12 +1050,6 @@ class Placement:
                 if len(cut) > 1 or size != sum(box.numel() for box in boxes.values()):
                     raise NotImplementedError(
                         f"{path}: block {b}'s tensors are no slab of the leaf")
-                if cut and cut[0] == u.axis:
-                    raise NotImplementedError(
-                        f"{path}: fsdp shards the leaf along its depth axis, so "
-                        f"block {b} has no slice of each rank's chunk; the port "
-                        "gathers per block, not per stack: choose a min_size or "
-                        "an fsdp size that shards another axis")
                 if not cut:
                     parts.setdefault(b, []).append(_Part(u, None, 0, 0, boxes))
                     continue
@@ -982,7 +1058,8 @@ class Placement:
                     slice(sl.start - lo[d], sl.stop - lo[d]) if a == d else sl
                     for a, sl in enumerate(box.leaf))) for n, box in boxes.items()}
                 parts.setdefault(b, []).append(
-                    _Part(u, u.chunk_axis(d), lo[d], hi[d], shifted))
+                    _Part(u, None, lo[d], hi[d], shifted, owned=True) if d == u.axis
+                    else _Part(u, u.chunk_axis(d), lo[d], hi[d], shifted))
         self._stepwise = _Share(self, "", stepwise)
         self.stepwise = self._stepwise.names
         self._held: Dict[str, torch.Tensor] = {}

@@ -45,6 +45,16 @@ The deployment half (bifold_tpu/serving.py:105-184, 358-386, 467, 536-700):
   A model with MoE layers serves every batch whole on every rank: its
   layers then route the batch as one group, as JAX's server routes it.
   ``export`` from a sharded server raises.
+
+A graph-conditioned model (the processor's ``requires_graph``) is served
+in two dispatches per observation, as bifold_tpu/serving.py:421-437 and
+:512-531 serve it: ``Processor.__call__`` builds the sample and its
+point-cloud graph on the host (the graph is data-dependent), then the
+forward and the decode run on the device. Its observations carry the
+camera (``matrix_world_to_camera``, ``K``), which the JAX server's
+``predict`` has no argument for (its graph path fails there on the
+missing intrinsics); ``pad_to`` adds no rows, ``program_memory`` is None
+and ``export`` raises, as in JAX.
 """
 
 from __future__ import annotations
@@ -66,7 +76,7 @@ from bifold_tpu_torch.models.layers import MoEFeedForward
 from bifold_tpu_torch.data.processor import Processor, _core
 
 __all__ = ["ServingModel", "ServingPolicy", "ExportedServingModel",
-           "ProgramMemory", "quantize_weights", "dequantize_weights",
+           "ProgramMemory", "quantize_weights", "dequantize_weights", "shared_scales",
            "ARTIFACT_FORMAT"]
 
 _BINARY_INPUTS = ("mask", "ctx_mask")
@@ -218,10 +228,12 @@ def _jax_leaf_size(name: str, w: torch.Tensor, depth: int) -> int:
 _INV_127 = float(np.float32(1) / np.float32(127))
 
 
-def _quantize_leaf(w: torch.Tensor, dims):
-    """int8 payload and f32 scale (bifold_tpu/serving.py:121)."""
+def _quantize_leaf(w: torch.Tensor, dims=None, scale=None):
+    """int8 payload and f32 scale (bifold_tpu/serving.py:121): the absmax
+    over ``dims`` times f32(1/127), or the ``scale`` given."""
     wf = w.float()
-    scale = wf.abs().amax(dim=dims, keepdim=True) * _INV_127
+    if scale is None:
+        scale = wf.abs().amax(dim=dims, keepdim=True) * _INV_127
     q = torch.round(wf / scale.clamp_min(1e-30)).clamp(-127, 127).to(torch.int8)
     return q, scale
 
@@ -235,11 +247,13 @@ def quantize_weights(weights: Dict[str, torch.Tensor], min_size: int = 2 ** 16):
     (a stacked leaf holds every layer of its stack), but the tables that
     :data:`_QUANT_EXCLUDE` names. ``weights`` maps the port's parameter
     names to tensors; each quantized one becomes ``{QUANT_TAG: int8,
-    "scale": f32}``, computed where it lies. A one-dim tensor of a stack,
-    which JAX would quantize across layers at a ``min_size`` this small,
-    raises."""
+    "scale": f32}``, computed where it lies. A one-dim tensor of a stack
+    (a bias or LayerNorm parameter, JAX's (depth, n) leaf) is quantized
+    against one (n,) scale that every layer of the stack shares: the
+    absmax over the layers times f32(1/127), JAX's (1, n) scale leaf; each
+    layer's entry holds that same scale tensor."""
     depths = _stack_depths(weights)
-    out = {}
+    out, shared = {}, {}
     for name, w in weights.items():
         m = _STACK.match(name)
         depth = depths[m.group(1)] if m else 1
@@ -249,12 +263,28 @@ def quantize_weights(weights: Dict[str, torch.Tensor], min_size: int = 2 ** 16):
                 or w.dim() + (depth > 1) < 2):
             out[name] = w
         elif w.dim() < 2:
-            raise NotImplementedError(
-                f"{name}: the JAX package quantizes its stacked leaf across "
-                f"layers at quantize_min_size={min_size}; the port does not")
+            key = (m.group(1), name[m.end():])
+            if key not in shared:
+                layers = [weights[f"{key[0]}.{i}.{key[1]}"] for i in range(depth)]
+                shared[key] = _quantize_leaf(torch.stack(layers), (0,))[1][0]
+            q, scale = _quantize_leaf(w, scale=shared[key])
+            out[name] = {QUANT_TAG: q, "scale": scale}
         else:
             q, scale = _quantize_leaf(w, _reduce_dims(name, w, depth))
             out[name] = {QUANT_TAG: q, "scale": scale}
+    return out
+
+
+def shared_scales(weights) -> Dict[str, str]:
+    """{weight name: the name of the stack's layer-0 weight whose scale it
+    shares} of the one-dim stacked entries of :func:`quantize_weights`
+    (those names that JAX keeps as one (1, n) scale leaf), layer 0
+    included."""
+    out = {}
+    for name, v in weights.items():
+        m = _STACK.match(name)
+        if isinstance(v, dict) and m and v[QUANT_TAG].dim() == 1:
+            out[name] = f"{m.group(1)}.0.{name[m.end():]}"
     return out
 
 
@@ -436,7 +466,8 @@ class ServingModel:
                         depth_wire_dtype: str = "float32",
                         quantize: Optional[str] = None,
                         quantize_min_size: int = 2 ** 16, mesh=None,
-                        device="cuda") -> "ServingModel":
+                        device="cuda", processor: Optional[Processor] = None
+                        ) -> "ServingModel":
         """Serve a checkpoint of the JAX trainer (bifold_tpu/serving.py:358)
         or the port's: the model from ``cfg["model"]``, its params (and
         ``text_unet``'s ``extra_vars["batch_stats"]``) converted by
@@ -447,20 +478,29 @@ class ServingModel:
         config names none, as the JAX trainer reads it (trainer.py:98; the
         JAX package's from_checkpoint builds float32 whatever the config
         says). Reads the file without JAX. ``mesh``: as the constructor
-        takes it."""
+        takes it. ``processor`` replaces the one built from the config; a
+        graph config needs it (the config's processor node has no graph
+        sizes: JAX builds that Processor without them and fails at its
+        first request), so without it a graph config raises here."""
         from bifold_tpu_torch.models.convert import from_jax_variables
         from bifold_tpu_torch.utils.checkpoint import load_checkpoint
 
         mcfg = dict(cfg["model"])
+        if processor is None and dict(cfg["processor"]).get("requires_graph"):
+            raise ValueError(
+                "a graph-conditioned config needs the Processor's graph sizes: "
+                "pass processor=Processor(cfg['processor'], num_nodes=..., "
+                "neighbor_radius=..., voxel_size=...) (the dataset config's)")
         payload = load_checkpoint(checkpoint_path)
         dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[
             dict(cfg.get("precision") or {}).get("compute_dtype", "float32")]
         model = build_model(mcfg, dtype=dtype, device=device)
         sibling = Path(checkpoint_path).parent / "spiece.model"
-        processor = Processor(dict(cfg["processor"]), partition="test",
-                              max_context_length=mcfg.get("context_length"),
-                              autoprocessor_name=mcfg.get("automodel_name"),
-                              spm_asset=sibling if sibling.exists() else None)
+        if processor is None:
+            processor = Processor(dict(cfg["processor"]), partition="test",
+                                  max_context_length=mcfg.get("context_length"),
+                                  autoprocessor_name=mcfg.get("automodel_name"),
+                                  spm_asset=sibling if sibling.exists() else None)
         state = from_jax_variables(mcfg["name"], payload["params"],
                                    payload.get("extra_vars"))
         return cls(model, state, processor,
@@ -485,20 +525,59 @@ class ServingModel:
 
     def predict(self, rgb=None, depth=None, mask=None, instruction: str = "",
                 context: Optional[List[Dict]] = None,
-                return_raw_output: bool = False):
-        """One observation -> Action (batch-1 is predict_batch of one)."""
+                return_raw_output: bool = False, matrix_world_to_camera=None, K=None):
+        """One observation -> Action (batch-1 is predict_batch of one). The
+        camera (``matrix_world_to_camera``, ``K``) is read by graph models
+        only."""
         return self.predict_batch(
             [dict(rgb=rgb, depth=depth, mask=mask, instruction=instruction,
-                  context=context)], return_raw_output=return_raw_output)
+                  context=context, matrix_world_to_camera=matrix_world_to_camera, K=K)],
+            return_raw_output=return_raw_output)
 
     def predict_batch(self, observations: List[Dict],
                       pad_to: Optional[int] = None,
                       return_raw_output: bool = False):
         """K observations -> K Actions in one padded batch. ``pad_to``
         repeats the last observation so a pool always runs at one batch
-        size; padded rows are dropped from the result."""
+        size; padded rows are dropped from the result. A graph model serves
+        the observations one at a time (module docstring)."""
+        if self.processor.requires_graph:
+            return self._predict_graph(observations, return_raw_output)
         batched, spec = self._prepare(observations, pad_to)
         return self._serve(batched, spec, len(observations), return_raw_output)
+
+    def _predict_graph(self, observations: List[Dict], return_raw_output: bool):
+        """The two-dispatch path: per observation, the host Processor, then
+        the forward and the decode; the actions (and raw outputs) of all
+        observations concatenated."""
+        if not observations:
+            raise ValueError("predict_batch needs at least one observation")
+        packed, raws = [], []
+        for o in observations:
+            sample = self.processor(
+                rgb=o.get("rgb"), depth=o.get("depth"), mask=o.get("mask"),
+                instruction=o.get("instruction", ""), context=o.get("context"),
+                matrix_world_to_camera=o.get("matrix_world_to_camera"), K=o.get("K"))
+            with torch.inference_mode():
+                batch = {k: torch.from_numpy(np.ascontiguousarray(v))[None].to(self.device)
+                         for k, v in sample.items()
+                         if isinstance(v, np.ndarray) and v.ndim > 0 and v.dtype != object}
+                out = self._forward(batch)
+                packed.append(self._decode(out, batch).cpu().numpy())
+                if return_raw_output:
+                    raws.append({k: v.cpu().numpy() for k, v in out.items()
+                                 if isinstance(v, torch.Tensor)})
+        packed = np.concatenate(packed)
+        action = Action(**{f: packed[:, i] for i, f in enumerate(self._action_fields())})
+        if return_raw_output:
+            return action, {k: np.concatenate([r[k] for r in raws]) for k in raws[0]}
+        return action
+
+    def _forward(self, sample):
+        if self.placement is not None:
+            with self.placement.gathered():
+                return self.model(sample)
+        return self.model(sample)
 
     # the stages of predict_batch, separately callable for timing
 
@@ -529,11 +608,7 @@ class ServingModel:
         if split:
             from bifold_tpu_torch.parallel import shard_batch
             sample = shard_batch(sample, mesh=mesh)
-        if self.placement is not None:
-            with self.placement.gathered():
-                out = self.model(sample)
-        else:
-            out = self.model(sample)
+        out = self._forward(sample)
         packed = self._decode(out, sample)
         raw = {k: v for k, v in out.items() if isinstance(v, torch.Tensor)}
         if split:
@@ -589,8 +664,8 @@ class ServingModel:
         stats; eager PyTorch has no program, so this measures one request):
         the served weights' bytes and the peak the request allocates above
         them. None on the CPU, as JAX returns None where a backend has no
-        memory analysis."""
-        if self.device.type != "cuda":
+        memory analysis, and for a graph model, as JAX's."""
+        if self.device.type != "cuda" or self.processor.requires_graph:
             return None
         weights = sum(t.numel() * t.element_size()
                       for t in (*self.model.parameters(), *self.model.buffers()))
@@ -618,7 +693,12 @@ class ServingModel:
         config, ``max_context_length``,
         ``autoprocessor_name`` and the embedded sentencepiece model, the
         pool size, and a ``format`` field naming it. The model must come
-        from ``build_model`` (its config is recorded)."""
+        from ``build_model`` (its config is recorded). A graph model's
+        refuses, as JAX's (bifold_tpu/serving.py:551-554)."""
+        if self.processor.requires_graph:
+            raise NotImplementedError(
+                "graph-conditioned models build data-dependent graphs "
+                "host-side; the one-dispatch export does not cover them")
         if self.mesh is not None:
             raise NotImplementedError(
                 "export from a mesh-sharded server: the artifact holds one "

@@ -75,8 +75,9 @@ targets under ``input_viz/`` and ``visualize_predictions`` each pixel-eval
 batch's arrows and heatmap overlays under ``eval_viz/`` (and the closed
 loop's under ``eval/softgym/``), on rank 0.
 
-Not ported, and refused with the ROADMAP queue item that holds it: graph
-conditioning (item 4).
+A graph-conditioned config (``model.requires_graph``) trains as JAX's does:
+the datasets' Processors build each sample's point-cloud graph on the host
+and the loader carries it, while the model never reads it.
 """
 
 from __future__ import annotations

@@ -110,15 +110,16 @@ one JSON object per line:
    LayerNorm mode;
 9. the SigLIP variants of the flagship (:func:`variant_phase`):
    ``pick_place_transdecoder``, ``crossattention`` and 8-expert MoE, each
-   at full width and depth, served in each LayerNorm mode (5 requests and
-   a pool of 8, exact launches: 16 d48 + 12 d64 + 4 f32 d32 per
-   transdecoder request, 12 d64 for cross-attention, the flagship's 20
-   for MoE), the f32 kernel forward against the math path, int8,
-   JAX-format checkpoint and artifact bitwise against the live server
-   (transdecoder and MoE), trained through ``main`` (4 steps, eval, exact
+   at full width with 2-layer towers and fusions (every kernel instance
+   and shape as at full depth), served in each LayerNorm mode (5 requests
+   and a pool of 8, exact launches: 4 d48 + 2 d64 + 4 f32 d32 per
+   transdecoder request, 2 d64 for cross-attention, 2 + 2 for MoE), the
+   f32 kernel forward against the math path, int8, JAX-format checkpoint
+   and artifact bitwise against the live server (transdecoder and MoE),
+   trained through ``main`` (4 steps, eval, exact
    launches per step and eval batch, finite losses and MoE load-balance
    terms, peak memory; the transformer decoder again under ``pallas``, so
-   its f32 512-wide LayerNorms train on the kernels: 90 ``ln_fwd`` + 88
+   its f32 512-wide LayerNorms train on the kernels: 26 ``ln_fwd`` + 24
    ``ln_bwd`` per step); then one f32 flagship step with and without
    ``remat`` at dropout 0.1 (:func:`remat_phase`: loss and gradient norm
    within 1e-6, exact f32 launches per step, peak memory of each, the
@@ -128,7 +129,18 @@ one JSON object per line:
    Flan-T5-base at full width, served and trained through ``main`` with no
    flash or LayerNorm launch at all; a T5-base checkpoint dir written by
    the port's safetensors writer grafted by the Trainer, bitwise), then
-   the closed loop, the simulator on the host and the policy on the card:
+   the configurations the port once refused (:func:`refused_configs`:
+   ``rgb_clip`` at 224 px with the transformer-decoder head, 16
+   ``fwd_infer_d32`` per request and one bf16 train step with 16
+   ``fwd_lse_d32`` + 16 ``bwd_d32``, and with the cross-attention fusion,
+   which launches none, each at batch 1 and a pool of 8 with its f32
+   kernel forward against the math path; the graph-conditioned flagship
+   through the two-dispatch server at batch 1 and 8 observations, 8
+   ``fwd_infer_d48`` + 12 ``fwd_infer_d64`` per observation, the host's
+   graph build timed, its f32 actions equal to the one-dispatch server's;
+   the bf16 flagship served int8 at ``quantize_min_size`` 1024, the stacks'
+   one-dim leaves against shared scales, the kernel route against the math
+   path), then the closed loop, the simulator on the host and the policy on the card:
    the full-width bf16 flagship through ``ServingPolicy`` in the pooled
    bimanual replay (:func:`closed_loop_bimanual`: 16 samples of a cache
    the port's ``build_cache`` makes, 2 calls of 8; exact flash launches
@@ -181,7 +193,12 @@ one JSON object per line:
    sharded server's, exact launches per rank, a clean stop); each worker
    is this script run with arguments (``dp-cli``, ``dp-rank``,
    ``mesh-rank``, ``mesh-cli``, ``axes-rank``, ``ring-rank``,
-   ``daemon-rank``, ``serve-rank``);
+   ``daemon-rank``, ``serve-rank``); these multi-rank phases run the
+   flagship at its full widths and heads but at a cut depth
+   (:func:`cut_depth`: 2-layer towers and a 2-layer fusion, their launch
+   counts re-derived), and ``mesh_two_ranks`` also an f32 fsdp step of an
+   odd-width flagship whose stacked leaves fsdp shards along their depth,
+   and its advise sweep an MoE layout at JAX's static capacity;
 11. the script's seconds, the ``kernels`` line (twenty-two kernel
    instances: the flash kernels at three head dims in bf16, and in f32
    those a main path launches (the decoder's d32, the f32 flagship's d48
@@ -1525,13 +1542,14 @@ def norm_launches(model, mode):
     return {}
 
 
-def ln_launches(model, mode, train, norms=FLAGSHIP_NORMS):
+def ln_launches(model, mode, train, norms=None):
     """The LayerNorm kernel launches of one forward (and, ``train``, its
     backward) of the flagship ``model`` (or a variant with ``norms``
     kernel norms) under ``BIFOLD_LN_KERNEL=mode``, counted from the model
     (:func:`norm_launches`); the backward skips the first norm of either
     frozen tower."""
     stacked, other = kernel_norms(model)
+    norms = norms or FLAGSHIP_NORMS
     if (stacked, other) != norms:
         raise AssertionError(f"{stacked} + {other} LayerNorms, want {norms}")
     fwd = norm_launches(model, mode)
@@ -1906,7 +1924,7 @@ def serve_flagship(card):
               "decoded_apart": decoded_apart(act, m_action, out)})
         if dtype == "float32" and not (same and hm_diff < 1e-3):
             raise AssertionError("f32 kernel and math forwards disagree")
-        if hm_diff > 0.05:
+        if hm_diff > BF16_MATH_TOL:
             raise AssertionError(f"{dtype} kernel and math heatmaps differ by {hm_diff}")
     # the LayerNorm kernels against the default LayerNorm, in f32: the same
     # actions, heatmaps within 1e-3
@@ -1973,10 +1991,11 @@ def counted(call, mode, want, label):
     return out
 
 
-def write_jax_checkpoint(path, params, model_cfg=FLAGSHIP) -> None:
+def write_jax_checkpoint(path, params, model_cfg=None) -> None:
     """A checkpoint in the JAX trainer's format (the pickled payload of
     bifold_tpu/utils/checkpoint.py:_build_payload) holding ``params``, a
-    params tree of numpy arrays, and nothing to resume from."""
+    params tree of numpy arrays, and nothing to resume from; its metadata
+    names ``model_cfg`` (the flagship's by default)."""
     import pickle
     import random
 
@@ -1984,7 +2003,7 @@ def write_jax_checkpoint(path, params, model_cfg=FLAGSHIP) -> None:
                "step": 0, "step_in_epoch": 0, "best_eval": None,
                "np_rng_state": np.random.get_state(), "py_rng_state": random.getstate(),
                "host_rng_states": {}, "jax_key": None, "loop_key": None,
-               "metadata": {"model": model_cfg}}
+               "metadata": {"model": model_cfg or FLAGSHIP}}
     with open(path, "wb") as f:
         pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
 
@@ -2849,35 +2868,45 @@ VARIANTS = {
     "moe": {"moe_experts": 8, "moe_top_k": 1, "moe_capacity_factor": 1.25,
             "moe_aux_weight": 0.01},
 }
-# flash launches of one served forward (any batch): two depth-8 fusions
-# (d48) and two depth-2 f32 decoders at 577 tokens (d32) for the
-# transformer decoder; cross-attention's query and key lengths differ, so
-# its fusion takes the math path (as in JAX) and only the vision tower
-# (d64) launches; MoE changes the FFNs only
-VARIANT_INFER = {"transdecoder": {"fwd_infer_d48": 16, "fwd_infer_d64": 12,
-                                  "fwd_infer_d32_f32": 4},
-                 "crossattention": {"fwd_infer_d64": 12},
-                 "moe": {"fwd_infer_d48": 8, "fwd_infer_d64": 12}}
+# The variants run at the flagship's widths and heads but the cut depth
+# of the multi-rank phases (CUT_LAYERS-layer towers, fusions of CUT_DEPTH,
+# defined with them below): every kernel instance and shape is the same.
+# Flash launches of one served forward (any batch): two fusions (d48) and
+# two depth-2 f32 decoders at 577 tokens (d32) for the transformer
+# decoder; cross-attention's query and key lengths differ, so its fusion
+# takes the math path (as in JAX) and only the vision tower (d64)
+# launches; MoE changes the FFNs only
+VARIANT_LAYERS, VARIANT_DEPTH = 2, 2
+VARIANT_INFER = {"transdecoder": {"fwd_infer_d48": 2 * VARIANT_DEPTH,
+                                  "fwd_infer_d64": VARIANT_LAYERS, "fwd_infer_d32_f32": 4},
+                 "crossattention": {"fwd_infer_d64": VARIANT_LAYERS},
+                 "moe": {"fwd_infer_d48": VARIANT_DEPTH, "fwd_infer_d64": VARIANT_LAYERS}}
 VARIANT_STEP = {name: {f"{kind}_{key.split('_', 2)[2]}": n
                        for key, n in infer.items() for kind in ("fwd_lse", "bwd")}
                 for name, infer in VARIANT_INFER.items()}
 # the variants whose deployment paths (int8, checkpoint, artifact) run here
 VARIANT_DEPLOY = ("transdecoder", "moe")
+VARIANT_AUTOMODEL = "google/siglip-base-patch16-384-2-layers"
 VARIANT_CLI = ("train_dataset=synthetic", "train_dataset.image_size=384",
                "train_dataset.is_bimanual=true", "train_dataset.max_context_length=3",
                "train_dataset.n_samples=8", "test_dataset=null",
-               "model=siglip_sequential", "batch_size=2", "test_batch_size=2",
+               "model=siglip_sequential", f"model.automodel_name={VARIANT_AUTOMODEL}",
+               f"model.depth={VARIANT_DEPTH}", "batch_size=2", "test_batch_size=2",
                "epochs=1", "eval_epochs=1", "simulator=null", "log_every=1")
 
 
 def variant_config(variant):
-    return {**FLAGSHIP, **VARIANTS[variant]}
+    """The variant's model config at the variants' depth (the 384 px SigLIP
+    towers cut to :data:`VARIANT_LAYERS` layers, registered here)."""
+    register_siglip(VARIANT_AUTOMODEL, layers=VARIANT_LAYERS)
+    return {**FLAGSHIP, "automodel_name": VARIANT_AUTOMODEL, "depth": VARIANT_DEPTH,
+            **VARIANTS[variant]}
 
 
 def variant_phase(card, variant, device="cuda"):
-    """One variant of the flagship (:data:`VARIANTS`) at full width and
-    depth (384 px, bimanual, 3 context frames, bf16, seeded weights), as a
-    user serves and trains it:
+    """One variant of the flagship (:data:`VARIANTS`) at full width and the
+    variants' depth (:func:`variant_config`; 384 px, bimanual, 3 context
+    frames, bf16, seeded weights), as a user serves and trains it:
 
     - served behind ``ServingModel`` at a 720 px camera in each
       ``BIFOLD_LN_KERNEL`` mode: 5 ``predict`` requests (1-3 context
@@ -3040,11 +3069,12 @@ def variant_phase(card, variant, device="cuda"):
 
 
 # the transformer decoder's f32 512-wide LayerNorms train through the
-# LayerNorm kernels too: 88 in stacks (towers, two fusions, two decoders)
-# and 2 others (decoder_norm, flax's own LayerNorm in JAX, is a plain
-# torch.nn.LayerNorm's parameters under the plain forward and never takes them)
+# LayerNorm kernels too: in stacks 2 a layer of the towers and of the two
+# fusions and 8 in the two decoders, and 2 others (decoder_norm, flax's own
+# LayerNorm in JAX, is a plain torch.nn.LayerNorm's parameters under the
+# plain forward and never takes them)
 VARIANT_TRAIN_MODES = {"transdecoder": ("", "pallas")}
-VARIANT_NORMS = {"transdecoder": (88, 2)}
+VARIANT_NORMS = {"transdecoder": (2 * (2 * VARIANT_LAYERS + 2 * VARIANT_DEPTH) + 8, 2)}
 
 
 def variant_trainer(card, variant, mode, model, device="cuda"):
@@ -3196,6 +3226,301 @@ def remat_phase(card, device="cuda"):
                              or remat["steps_with_other_launches"]):
         raise AssertionError("remat_phase: a step launched other kernels (see its line)")
     return results, dict(launches)
+
+
+# The configurations the port once refused, each on the card at full
+# width: rgb_clip with the transformer-decoder head and with the
+# cross-attention fusion, the graph-conditioned flagship through the
+# two-dispatch server, and int8 of the stacks' one-dim leaves.
+REFUSED_RGB = {"transdecoder": {"pick_place_model": "pick_place_transdecoder"},
+               "crossattention": {"fusion_model": "crossattention"}}
+# flash launches of one rgb_clip request at 224 px (any batch): the
+# transformer decoder's pick and place fusions, 8 layers each over 197
+# image + 78 text tokens at head dim 32; its decoders (197 tokens), the CLIP
+# towers and cross-length attention take the math path (as in JAX), so
+# crossattention launches none
+REFUSED_INFER = {"transdecoder": {"fwd_infer_d32": 16}, "crossattention": {}}
+REFUSED_STEP = {"fwd_lse_d32": 16, "bwd_d32": 16}
+# the graph features of bifold_tpu_torch/conf/dataset/single.yaml
+GRAPH = {"num_nodes": 200, "neighbor_radius": 0.045, "voxel_size": 0.0125}
+GRAPH_POOL = 8
+GRAPH_INT8_MIN_SIZE = 2 ** 10
+# bf16 kernel and math forwards of one network: the gate serve_flagship
+# holds its heatmaps to
+BF16_MATH_TOL = 0.05
+
+
+def refused_rgb_clip(card, variant, device="cuda"):
+    """``rgb_clip`` (ViT-B/16 CLIP towers, 224 px, fusion depth 8 of 16
+    heads, bimanual, bf16, seeded weights) with the head or fusion of
+    ``variant`` (:data:`REFUSED_RGB`), behind ``ServingModel`` at a 720 px
+    camera: a request and a pool of 8, each with exactly
+    :data:`REFUSED_INFER` flash launches; the f32 kernel forward against
+    the math path (heatmaps within :data:`F32_TOL`, the same actions); for
+    the transformer decoder one bf16 train step through the train
+    Processor with exactly :data:`REFUSED_STEP` launches and a finite
+    loss. Returns (its main paths' launches, its line)."""
+    from bifold_tpu_torch.data.processor import Processor
+    from bifold_tpu_torch.losses import build_loss
+    from bifold_tpu_torch.models import build_model, precast_frozen, trainable_mask
+    from bifold_tpu_torch.optim import build_optimizer
+    from bifold_tpu_torch.parallel import TrainState, make_train_step
+    from bifold_tpu_torch.serving import ServingModel
+
+    t0 = time.perf_counter()
+    cfg = family_config("rgb_clip",
+                        *(f"model.{k}={v}" for k, v in REFUSED_RGB[variant].items()))
+    mcfg = dict(cfg["model"])
+    size, want = int(mcfg["image_size"]), REFUSED_INFER[variant]
+    proc = Processor(dict(cfg["processor"]), partition="test")
+    live = ServingModel(build_model(mcfg, dtype=torch.bfloat16, device=device, seed=0),
+                        None, proc, device=device)
+    live.warmup(CAMERA)
+    live.warmup(CAMERA, pool=8)
+    rng = np.random.default_rng(41)
+
+    def frame():
+        obs = observation(rng, 0)
+        del obs["context"]
+        return obs
+
+    obs, text = frame(), INSTRUCTIONS[0]
+    pool = [dict(frame(), instruction=INSTRUCTIONS[i % 5]) for i in range(8)]
+    clear_launch_counts()                # the variant's served run starts here
+    one = counted(lambda: live.predict(**obs, instruction=text, return_raw_output=True),
+                  "", want, f"rgb_clip {variant} request")
+    check_action(*one, 1, size)
+    check_action(*counted(lambda: live.predict_batch(pool, pad_to=8, return_raw_output=True),
+                          "", want, f"rgb_clip {variant} pool"), 8, size)
+    launches = collections.Counter(launch_counts())   # ... and ends here
+    times = {"batch1": [], "pool8": []}
+    for _ in range(LATENCY_ROUNDS):
+        for name, call in (("batch1", lambda: live.predict(**obs, instruction=text)),
+                           ("pool8", lambda: live.predict_batch(pool, pad_to=8))):
+            t = time.perf_counter()
+            call()
+            times[name].append((time.perf_counter() - t) * 1e3)
+    del live
+    f32 = ServingModel(build_model(mcfg, dtype=torch.float32, device=device, seed=0),
+                       None, proc, device=device)
+    k_action, k_raw = f32.predict(**obs, instruction=text, return_raw_output=True)
+    m_action, m_raw = math_forward(f32, obs, text)
+    del f32
+    hm_diff = max(float(np.abs(k_raw[k] - m_raw[k]).max()) for k in k_raw
+                  if k.endswith("_heatmap"))
+    same = all(np.array_equal(getattr(k_action, f), getattr(m_action, f))
+               for f in ACTION_FIELDS)
+    line = {"variant": variant, "image_size": size, "launches_per_request": want,
+            "p50_ms_batch1": statistics.median(times["batch1"]),
+            "p50_ms_pool8": statistics.median(times["pool8"]),
+            "f32_kernel_vs_math_max_heatmap_diff": hm_diff, "tol": F32_TOL,
+            "f32_actions_identical": same}
+    ok = same and hm_diff <= F32_TOL
+    if variant == "transdecoder":
+        model = build_model(mcfg, dtype=torch.bfloat16, device=device, seed=0)
+        trainable_mask(model, lora=False)
+        precast_frozen(model, torch.bfloat16)
+        opt = build_optimizer(dict(ADAM), [p for p in model.parameters() if p.requires_grad],
+                              None, max_iters=100, gradient_clip=1.0)
+        step = make_train_step(model, build_loss(dict(LOSS)), opt)
+        train_proc = Processor(dict(cfg["processor"]), partition="train", seed=0)
+        raw = {k: v for k, v in raw_train_batch(train_proc, 77).items()
+               if not k.startswith("ctx_")}
+        sample = train_proc.process_batch(raw, device,
+                                          generator=torch.Generator(device).manual_seed(5))
+        clear_launch_counts()            # the train step starts here
+        _, metrics = counted(lambda: step(TrainState.create(opt, seed=0), sample), "",
+                             REFUSED_STEP, "rgb_clip transdecoder train step")
+        launches.update(launch_counts())  # ... and ends here
+        loss = float(metrics["loss"])
+        line.update({"train_step_launches": REFUSED_STEP, "train_loss": loss,
+                     "train_grad_norm": float(metrics["grad_norm"])})
+        ok &= bool(np.isfinite(loss))
+        del model, opt, step
+    line["seconds"] = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError(f"refused_configs: rgb_clip {variant} failed ({line})")
+    return dict(launches), line
+
+
+def graph_observation(rng, n_ctx):
+    """:func:`observation` with a depth map a camera sees: a table plane
+    0.9 away with the cloth 5 mm above it, gently curved, and 0.2 mm of
+    noise, so that the cloth's points have neighbours within the radius."""
+    obs = observation(rng, n_ctx)
+    yy, xx = np.mgrid[0:CAMERA, 0:CAMERA].astype(np.float32)
+    surface = 0.9 - 0.004 * np.sin(xx / 60.0) * np.cos(yy / 80.0)
+    for frame in [obs, *obs["context"]]:
+        noise = 0.0002 * rng.standard_normal((CAMERA, CAMERA))
+        frame["depth"] = (surface - 0.005 * frame["mask"] + noise).astype(np.float32)
+    return obs
+
+
+def graph_camera():
+    """(matrix_world_to_camera, K) of the 720 px unimanual camera: the
+    camera a graph observation is unprojected through."""
+    from bifold_tpu_torch.data.datasets import deng_camera_matrices
+    from bifold_tpu_torch.ops.geometry import intrinsic_from_fov
+
+    return deng_camera_matrices()[0], intrinsic_from_fov(CAMERA, CAMERA, fov=45)
+
+
+def refused_graph(card, device="cuda"):
+    """The graph-conditioned flagship (``requires_graph``: the flagship's
+    config at full width and depth, 384 px, 3 context frames, with the
+    graph of :data:`GRAPH`) through the two-dispatch server: per
+    observation the host Processor builds the sample and its point-cloud
+    graph, then the forward and the decode run on the card. bf16 at batch
+    1 and ``predict_batch`` of :data:`GRAPH_POOL`, exactly :data:`INFER`
+    flash launches per observation (``pad_to`` adds none); the host's graph
+    build timed alone; in f32, the graph server's actions equal to the
+    one-dispatch server's on the same weights and observations. Returns
+    (the bf16 runs' launches, its line)."""
+    from bifold_tpu_torch.data.processor import Processor
+    from bifold_tpu_torch.data.spm import fixture_model_bytes
+    from bifold_tpu_torch.models import build_model
+    from bifold_tpu_torch.serving import ServingModel
+
+    t0 = time.perf_counter()
+    m_w2c, k = graph_camera()
+    cfg = {**FLAGSHIP, "requires_graph": True}
+
+    def processor(graph):
+        return Processor({**PROCESSOR, "requires_graph": graph}, max_context_length=3,
+                         autoprocessor_name=FLAGSHIP["automodel_name"],
+                         spm_asset=fixture_model_bytes(), **(GRAPH if graph else {}))
+
+    rng = np.random.default_rng(43)
+    obs = [dict(graph_observation(rng, n_ctx=i % 4), instruction=INSTRUCTIONS[i % 5],
+                matrix_world_to_camera=m_w2c, K=k) for i in range(GRAPH_POOL)]
+    proc = processor(True)
+    build_ms = []
+    for o in obs[:3]:
+        t = time.perf_counter()
+        sample = proc(**o)
+        build_ms.append((time.perf_counter() - t) * 1e3)
+    nodes = int(sample["graph_node_mask"].sum())
+    edges = int(sample["graph_edge_mask"].sum())
+    live = ServingModel(build_model(cfg, dtype=torch.bfloat16, device=device, seed=0),
+                        None, proc, device=device)
+    live.predict(**obs[0])                     # warm
+    clear_launch_counts()                      # the graph server's run starts here
+    one = counted(lambda: live.predict(**obs[0], return_raw_output=True), "", INFER,
+                  "graph request")
+    check_action(*one, 1, FLAGSHIP["image_size"])
+    t = time.perf_counter()
+    pooled = counted(lambda: live.predict_batch(obs, pad_to=16, return_raw_output=True), "",
+                     {k2: n * GRAPH_POOL for k2, n in INFER.items()}, "graph pool")
+    pool_ms = (time.perf_counter() - t) * 1e3
+    check_action(*pooled, GRAPH_POOL, FLAGSHIP["image_size"])
+    launches = launch_counts()                 # ... and ends here
+    t = time.perf_counter()
+    live.predict(**obs[0])
+    batch1_ms = (time.perf_counter() - t) * 1e3
+    del live
+    # f32: the two-dispatch path decodes what the one-dispatch path does
+    model = build_model(cfg, dtype=torch.float32, device=device, seed=0)
+    graph = ServingModel(model, None, proc, device=device)
+    plain = ServingModel(model, None, processor(False), device=device)
+    del model
+    apart, heat = {}, 0.0
+    for name, batch in (("batch_1", obs[:1]), ("pool", obs)):
+        (ga, gr), (pa, pr) = (srv.predict_batch(batch, return_raw_output=True)
+                              for srv in (graph, plain))
+        heat = max([heat] + [float(np.abs(gr[k2] - pr[k2]).max()) for k2 in gr
+                             if k2.endswith("_heatmap")])
+        apart[name] = [f for f in ACTION_FIELDS
+                       if not np.array_equal(getattr(ga, f), getattr(pa, f))]
+    del graph, plain
+    line = {"nodes": nodes, "edges": edges, **GRAPH, "graph_build_ms": build_ms,
+            "launches_per_observation": INFER, "pool": GRAPH_POOL,
+            "bf16_batch1_ms": batch1_ms, "bf16_pool_ms": pool_ms,
+            "f32_fields_apart_from_one_dispatch": apart,
+            "f32_max_heatmap_diff_vs_one_dispatch": heat,
+            "seconds": time.perf_counter() - t0}
+    if any(apart.values()) or not nodes or not edges:
+        raise AssertionError(f"refused_configs: the graph server failed ({line})")
+    return launches, line
+
+
+def refused_int8(card, device="cuda"):
+    """The bf16 flagship served int8 at ``quantize_min_size``
+    :data:`GRAPH_INT8_MIN_SIZE`, where the stacks' biases and LayerNorm
+    parameters are int8 against one scale per stack (JAX's (1, n) scale
+    leaves): a request with exactly :data:`INFER` launches, its actions
+    equal to the math path's on the same dequantized weights or its
+    heatmaps within :data:`BF16_MATH_TOL`; the count of those one-dim
+    int8 tensors and of their stacks' shared scales, the weight bytes
+    beside the default (2**16) int8 server's. Returns (launches, line)."""
+    from bifold_tpu_torch.data.processor import Processor
+    from bifold_tpu_torch.data.spm import fixture_model_bytes
+    from bifold_tpu_torch.models import build_model
+    from bifold_tpu_torch.serving import (QUANT_TAG, ServingModel, _served_weights,
+                                          shared_scales)
+
+    t0 = time.perf_counter()
+    model = build_model(FLAGSHIP, dtype=torch.bfloat16, device=device, seed=0)
+    proc = Processor(PROCESSOR, max_context_length=3,
+                     autoprocessor_name=FLAGSHIP["automodel_name"],
+                     spm_asset=fixture_model_bytes())
+
+    def weight_bytes(server):
+        """Bytes of the served weights, each storage once (a stack's layers
+        share one scale)."""
+        storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                    for v in _served_weights(server.model).values()
+                    for t in ((v[QUANT_TAG], v["scale"]) if isinstance(v, dict) else (v,))}
+        return sum(storages.values())
+
+    default = ServingModel(model, None, proc, quantize="int8", device=device)
+    default_bytes = weight_bytes(default)
+    del default
+    server = ServingModel(model, None, proc, quantize="int8",
+                          quantize_min_size=GRAPH_INT8_MIN_SIZE, device=device)
+    del model
+    shared = shared_scales(_served_weights(server.model))
+    rng = np.random.default_rng(47)
+    obs, text = observation(rng, n_ctx=3), INSTRUCTIONS[1]
+    server.predict(**obs, instruction=text)           # warm
+    clear_launch_counts()                              # the int8 request starts here
+    k_action, k_raw = counted(lambda: server.predict(**obs, instruction=text,
+                                                     return_raw_output=True), "", INFER,
+                              "int8 request at min_size 1024")
+    launches = launch_counts()                         # ... and ends here
+    check_action(k_action, k_raw, 1, FLAGSHIP["image_size"])
+    m_action, m_raw = math_forward(server, obs, text)
+    hm_diff = max(float(np.abs(k_raw[k] - m_raw[k]).max()) for k in k_raw
+                  if k.endswith("_heatmap"))
+    same = all(np.array_equal(getattr(k_action, f), getattr(m_action, f))
+               for f in ACTION_FIELDS)
+    line = {"quantize_min_size": GRAPH_INT8_MIN_SIZE, "one_dim_int8_tensors": len(shared),
+            "shared_scales": len(set(shared.values())),
+            "weight_bytes": weight_bytes(server), "weight_bytes_min_size_65536": default_bytes,
+            "kernel_vs_math_max_heatmap_diff": hm_diff, "tol": BF16_MATH_TOL,
+            "actions_identical": same,
+            "decoded_apart": decoded_apart(k_action, m_action, k_raw),
+            "seconds": time.perf_counter() - t0}
+    if not shared or not (same or hm_diff <= BF16_MATH_TOL):
+        raise AssertionError(f"refused_configs: int8 at min_size 1024 failed ({line})")
+    return launches, line
+
+
+def refused_configs(card, device="cuda"):
+    """The on-card paths of the configurations the port once refused
+    (:func:`refused_rgb_clip` for each of :data:`REFUSED_RGB`,
+    :func:`refused_graph`, :func:`refused_int8`), in one line. Returns
+    their launches."""
+    t0 = time.perf_counter()
+    launches, lines = collections.Counter(), {}
+    for variant in REFUSED_RGB:
+        got, lines[f"rgb_clip_{variant}"] = refused_rgb_clip(card, variant, device)
+        launches.update(got)
+    for name, phase in (("graph", refused_graph), ("int8_min_size_1024", refused_int8)):
+        got, lines[name] = phase(card, device)
+        launches.update(got)
+    emit({"phase": "refused_configs", **lines, "launches": dict(launches),
+          "seconds": time.perf_counter() - t0, **card})
+    return dict(launches)
 
 
 # the T5 branch of text_unet: the two encoders a user names (the relu
@@ -4099,7 +4424,7 @@ def dp_nccl(card, device="cuda"):
     ``mesh.dp=-1``: a one-rank NCCL group (the card host has one card,
     and NCCL refuses two ranks on one card), whose step all-reduces the
     flat gradient buffer through NCCL. The same run without the launcher
-    first, each in its own process. Gates: both exit 0 with 8 steps of
+    beside it, each in its own process. Gates: both exit 0 with 8 steps of
     exactly :data:`PER_STEP` launches and :data:`INFER` per eval batch; the
     launcher's run in a group of 1; every logged step's loss, gradient norm
     and per-head terms and every tensor of ``last.ckpt`` and ``best.ckpt``
@@ -4115,20 +4440,29 @@ def dp_nccl(card, device="cuda"):
     script = str(Path(__file__).resolve())
     overrides = list(CLI_OVERRIDES) + ["mesh.dp=-1"] + (
         ["use_cpu=true"] if device == "cpu" else [])
-    runs, launches = {}, collections.Counter()
-    for name in ("plain", "launcher"):
+    runs, launches, procs = {}, collections.Counter(), {}
+    for name in ("plain", "launcher"):       # both at once, each on the card
         launcher = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
                      "--nproc_per_node", "1"] if name == "launcher" else [sys.executable])
         cmd = launcher + [script, "dp-cli", str(tmp / f"{name}.json"), *overrides,
                           f"run_dir={tmp / name}"]
-        t = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                              cwd=str(Path(script).parent))
-        if proc.returncode != 0:
-            raise AssertionError(f"dp_nccl {name}: exit {proc.returncode}\n"
-                                 f"{proc.stderr[-3000:]}")
+        procs[name] = (time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=str(Path(script).parent)))
+    try:
+        for name, (t, proc) in procs.items():
+            _, err = proc.communicate(timeout=600)
+            procs[name] = (time.perf_counter() - t, proc)
+            if proc.returncode != 0:
+                raise AssertionError(f"dp_nccl {name}: exit {proc.returncode}\n{err[-3000:]}")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for name, (seconds, _) in procs.items():
         run = json.loads((tmp / f"{name}.json").read_text())
-        run["process_seconds"] = time.perf_counter() - t
+        run["process_seconds"] = seconds
         logged = [json.loads(line) for line in
                   (Path(run["run_dir"]) / "metrics.jsonl").read_text().splitlines()]
         run["logged"] = [{k: v for k, v in r.items() if k not in ("time", "train/step_time_s")}
@@ -4178,6 +4512,80 @@ DP_STATS_TOL = 1e-5                      # f32: BatchNorm running statistics
 # through the 3xTF32 instances; text_unet's only attention is its causal
 # CLIP text tower (the math path)
 DP_FAMILY_STEP = {"flagship": f32_keys(PER_STEP), "text_unet": {}}
+# The multi-rank phases (their gloo ranks stage every collective through
+# host memory) run the flagship at its full widths and heads, so every
+# kernel instance and shape they gate is the one-process flagship's, but
+# at the variants' cut depth: SigLIP towers of CUT_LAYERS layers and a
+# fusion of CUT_DEPTH (the pp=2 pipes want even depths). :func:`cut_depth` rebinds
+# the flagship's config and every count derived from its depth; the ranks
+# (this script run as a worker) read CUT_ENV and do the same.
+CUT_LAYERS, CUT_DEPTH, CUT_AUTOMODEL = VARIANT_LAYERS, VARIANT_DEPTH, VARIANT_AUTOMODEL
+CUT_ENV = "BIFOLD_SMOKE_CUT_DEPTH"
+# a flagship at odd widths (SigLIP towers of 3 heads at width 27 and a
+# fusion of 3 heads, 64 px: every sequence takes the math path): fsdp=2
+# divides its stacked leaves only along their depth, where it shards them
+# (at min_size 2**8); at the published widths every axis is even, so fsdp=2
+# never does
+DEPTH_AXIS_SIGLIP = {"layers": 2, "heads": 3, "mlp_dim": 81}
+DEPTH_AXIS = {"automodel_name": "siglip-odd-widths", "image_size": 64, "dim": 27,
+              "depth": 2, "heads": 3, "r": 2}
+DEPTH_AXIS_MIN_SIZE = 2 ** 8
+
+
+# recorded figures, not measured by this run: each phase's seconds in the
+# script before its multi-rank phases and variants ran at a cut depth and
+# before refused_configs existed (867.42 s in all, one run on an H100 80GB
+# HBM3 at 700.00 W; PERF.md section 7), printed beside this run's as the
+# comparison the cut was made for
+PHASE_SECONDS_UNCUT = {
+    "build": 16.56, "checks": 5.35, "train_flagship": 10.74,
+    "train_interleaved": 3.26, "f32_step_equivalence": 1.32,
+    "trainer_cli": 34.84, "trainer_pull_ahead": 8.45, "serve_flagship": 9.43,
+    "deployment_phase": 18.47, "families": 21.96, "variants": 86.02,
+    "remat_phase": 20.77, "t5_family": 17.72, "closed_loop_bimanual": 50.53,
+    "closed_loop_unimanual + trainer_softgym + host_tools_and_gif": 57.18,
+    "dp_nccl": 62.56, "dp_two_ranks": 22.07, "mesh_two_ranks": 80.07,
+    "mesh_cli": 91.33, "mesh_axes_two_ranks": 63.13, "ring_three_ranks": 18.98,
+    "daemon_mesh": 32.9, "where_the_time_goes": 75.39,
+    "closed_loop_profile": 12.2, "trainer_profiles": 22.32,
+    "f32_library_kernels": 5.08, "flash_timings": 15.07, "ln_timings": 3.2,
+    "kernels_line": 0.02}
+PHASE_SECONDS_UNCUT_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+
+
+def register_siglip(name, **fields):
+    """Add the SigLIP tower config ``name`` (the 384 px base's ``fields``
+    replaced) to the port's registry, as ``automodel_name`` finds them."""
+    import dataclasses
+
+    from bifold_tpu_torch.models.backbones import siglip_backbone
+
+    configs = siglip_backbone.SIGLIP_BASE_CONFIGS
+    configs[name] = dataclasses.replace(configs["google/siglip-base-patch16-384"], **fields)
+
+
+def cut_depth():
+    """From here on, in this process and the ranks it starts: the flagship
+    at :data:`CUT_LAYERS` tower layers and a fusion of :data:`CUT_DEPTH`,
+    its launch counts (:data:`PER_STEP`, :data:`INFER`,
+    :data:`FLAGSHIP_NORMS`, :data:`DP_FAMILY_STEP`, :data:`PP_STACKS`) and
+    the CLI's and the advisor's overrides rebound to it."""
+    global FLAGSHIP, PER_STEP, INFER, FLAGSHIP_NORMS, CLI_OVERRIDES, DP_FAMILY_STEP
+    global PP_STACKS, ADVISE_OVERRIDES
+    register_siglip(CUT_AUTOMODEL, layers=CUT_LAYERS)
+    os.environ[CUT_ENV] = "1"
+    FLAGSHIP = {**FLAGSHIP, "automodel_name": CUT_AUTOMODEL, "depth": CUT_DEPTH}
+    PER_STEP = {"fwd_lse_d48": CUT_DEPTH, "fwd_lse_d64": CUT_LAYERS,
+                "bwd_d48": CUT_DEPTH, "bwd_d64": CUT_LAYERS}
+    INFER = {"fwd_infer_d48": CUT_DEPTH, "fwd_infer_d64": CUT_LAYERS}
+    FLAGSHIP_NORMS = (2 * (2 * CUT_LAYERS + CUT_DEPTH), FLAGSHIP_NORMS[1])
+    cut = (f"model.automodel_name={CUT_AUTOMODEL}", f"model.depth={CUT_DEPTH}")
+    CLI_OVERRIDES = tuple(CLI_OVERRIDES) + cut
+    ADVISE_OVERRIDES = tuple(ADVISE_OVERRIDES) + cut
+    DP_FAMILY_STEP = {**DP_FAMILY_STEP, "flagship": f32_keys(PER_STEP)}
+    PP_STACKS = {"vision": (CUT_LAYERS, 4 * TRAIN_BATCH, True),
+                 "text": (CUT_LAYERS, TRAIN_BATCH, True),
+                 "fusion": (CUT_DEPTH, TRAIN_BATCH, False)}
 
 
 def jax_ep_routing(model, ep):
@@ -4208,7 +4616,8 @@ def jax_ep_routing(model, ep):
 
 
 def dp_step(family, device="cuda", shard=False, mesh=None, dropout=0.0, mode="",
-            optim=DP_SGD, extra=None, aux_weight=0.0, ep_groups=1, evaluate=False):
+            optim=DP_SGD, extra=None, aux_weight=0.0, ep_groups=1, evaluate=False,
+            min_size=2 ** 16):
     """One f32 SGD step (clip 1.0) at ``dropout`` (0 by default) of
     ``family`` ("flagship": SiglipSequential at :data:`FLAGSHIP`;
     "text_unet": its composed config, CLIP RN50) from the seeded init, on
@@ -4225,7 +4634,10 @@ def dp_step(family, device="cuda", shard=False, mesh=None, dropout=0.0, mode="",
     load-balance weight; ``ep_groups`` > 1 routes the MoE layers in this
     one process as JAX's ``expert_parallel_ffn`` routes them under an ep
     mesh of that size (:func:`jax_ep_routing`); ``evaluate``: also the eval step on the same batch after
-    the train step (its launches, their shapes and the heatmaps)."""
+    the train step (its launches, their shapes and the heatmaps).
+    "depth_axis" is the flagship at :data:`DEPTH_AXIS`'s odd widths;
+    ``min_size`` the fsdp rule's; ``depth_units`` counts the placement's
+    units that fsdp shards along a stack's depth."""
     import hashlib
 
     from bifold_tpu_torch import parallel
@@ -4237,10 +4649,15 @@ def dp_step(family, device="cuda", shard=False, mesh=None, dropout=0.0, mode="",
     from bifold_tpu_torch.optim import build_optimizer
     from bifold_tpu_torch.parallel import TrainState, make_train_step, shard_batch
 
-    if family == "flagship":
+    if family in ("flagship", "depth_axis"):
         cfg = {**FLAGSHIP, **(extra or {}), "lora_dropout": dropout, "dropout": dropout}
-        proc = Processor(TRAIN_PROCESSOR, partition="train", max_context_length=3,
-                         autoprocessor_name=FLAGSHIP["automodel_name"],
+        proc_cfg = TRAIN_PROCESSOR
+        if family == "depth_axis":
+            register_siglip(DEPTH_AXIS["automodel_name"], **DEPTH_AXIS_SIGLIP)
+            cfg.update(DEPTH_AXIS)
+            proc_cfg = {**TRAIN_PROCESSOR, "model_image_size": DEPTH_AXIS["image_size"]}
+        proc = Processor(proc_cfg, partition="train", max_context_length=3,
+                         autoprocessor_name=cfg["automodel_name"],
                          spm_asset=fixture_model_bytes(), seed=0)
         raw = raw_train_batch(proc, 77)
     else:
@@ -4261,7 +4678,7 @@ def dp_step(family, device="cuda", shard=False, mesh=None, dropout=0.0, mode="",
     placement, t = None, time.perf_counter()
     if mesh is not None:
         mesh = parallel.make_mesh(mesh)
-        placement = parallel.place(model, cfg["name"], mesh)
+        placement = parallel.place(model, cfg["name"], mesh, min_size)
         sample = shard_batch(sample, mesh=mesh)
         params, names = placement.step_params, placement.step_names
     else:
@@ -4312,6 +4729,8 @@ def dp_step(family, device="cuda", shard=False, mesh=None, dropout=0.0, mode="",
                     "gathered_bound": (placement.stepwise_bytes + 2 * max(
                         s.nbytes + s.grad_bytes for s in placement.shares)
                         if getattr(placement, "shares", None) else None)}
+        gathered["depth_units"] = sum(u.axis == 0 and "blocks" in u.leaf.path
+                                      for u in placement.units)
         state = placement.full_state_dict()
         local = [(n, p) for n, p in model.named_parameters()
                  if n not in placement.plan.tp and n not in placement.managed]
@@ -4539,6 +4958,8 @@ def mesh_rank_worker(rank, port, out, device="cuda"):
                                          optim=MESH_SGD, mode=mode)
     results["dropout"] = dp_step("flagship", device, mesh=MESH_STEPS["tp"], dropout=0.1,
                                  mode="fused", optim=MESH_SGD)
+    results["depth_axis"] = dp_step("depth_axis", device, mesh=MESH_STEPS["fsdp"],
+                                    optim=MESH_SGD, min_size=DEPTH_AXIS_MIN_SIZE)
     for name, mesh in MESH_SERVE.items():
         results["serve"][name] = mesh_serve(mesh, torch.float32, None, device)
     for mesh in ("tp", "fsdp"):
@@ -4583,13 +5004,14 @@ def wait_ranks(procs, worker, out, timeout=900, n=MESH_RANKS, name="rank"):
 def mesh_two_ranks(card, device="cuda"):
     """fsdp and tp on the one card: two gloo ranks (:func:`mesh_rank_worker`;
     every collective staged through host memory, so their times measure
-    that staging and not NCCL). The full-width, full-depth f32 flagship at
+    that staging and not NCCL). The full-width f32 flagship at the cut
+    depth (:func:`cut_depth`) at
     dropout 0, global batch 2, SGD (momentum 0.9), from the same weights
     and batch, under ``{fsdp: 2}`` and ``{tp: 2}``, each held against the
     one-process step in this process: loss and gradient norm within
     :data:`MESH_TOL` relative, every trainable tensor (gathered whole)
     within :data:`MESH_PARAM_TOL`; per rank exactly the f32 flash launches
-    of one step (8 + 12 forwards with lse and backwards), at 16 and 12
+    of one step (:data:`PER_STEP`: forwards with lse and backwards), at 16 and 12
     heads under fsdp and 8 and 6 under tp; the tp ranks' replicated
     tensors bitwise equal; under fsdp each rank's bytes of parameters and
     optimizer state beside one process's, and the step's peak of whole
@@ -4620,6 +5042,7 @@ def mesh_two_ranks(card, device="cuda"):
     # the one-process references while the ranks run (launches of this
     # process are not counted: only the ranks' own counts are summed)
     one = dp_step("flagship", device, optim=MESH_SGD)
+    one_depth_axis = dp_step("depth_axis", device, optim=MESH_SGD)
     refs = {}
     for _, dtype, quantize in MESH_SERVED:
         if (dtype, quantize) not in refs:
@@ -4699,7 +5122,27 @@ def mesh_two_ranks(card, device="cuda"):
         "loss": [d["metrics"]["loss"] for d in drop]}
     ok &= drop[0]["hash"] == drop[1]["hash"] and (device == "cpu" or all(
         d["launches"] == fused_want for d in drop))
-    del one
+    # fsdp along the stacks' depth: each block gathers its layers from the
+    # ranks owning them (no flash launch: the odd widths' sequences are short)
+    got = [r["depth_axis"] for r in ranks]
+    gap = max(abs(g["metrics"][k] - one_depth_axis["metrics"][k])
+              / max(abs(one_depth_axis["metrics"][k]), 1e-30)
+              for g in got for k in ("loss", "grad_norm"))
+    tensors = max(float((g["trainable"][n] - v).abs().max()) for g in got
+                  for n, v in one_depth_axis["trainable"].items() if v.numel())
+    for g in got:
+        launches.update(g["launches"])
+    lines["fsdp_depth_axis"] = {
+        "model": DEPTH_AXIS, "siglip": DEPTH_AXIS_SIGLIP, "min_size": DEPTH_AXIS_MIN_SIZE,
+        "depth_units_per_rank": [g["depth_units"] for g in got],
+        "max_rel_diff_loss_grad_norm": gap, "max_abs_diff_trainable": tensors,
+        "launches_per_rank": [g["launches"] for g in got],
+        "peak_gathered_bytes_per_rank": [g["peak_gathered_bytes"] for g in got],
+        "gathered_bound_per_rank": [g["gathered_bound"] for g in got]}
+    ok &= (gap <= MESH_TOL and tensors <= MESH_PARAM_TOL
+           and all(g["depth_units"] > 0 and g["launches"] == {} for g in got)
+           and all(0 < g["peak_gathered_bytes"] <= g["gathered_bound"] for g in got))
+    del one, one_depth_axis
     infer = f32_keys(INFER)
     for name, dtype, quantize in MESH_SERVED:
         ref = refs[dtype, quantize]
@@ -5014,15 +5457,17 @@ def _axes_gap(got, want):
 def mesh_axes_two_ranks(card, device="cuda"):
     """pp and ep on the one card: two gloo ranks (:func:`axes_rank_worker`;
     every transfer staged through host memory, so its times measure that
-    staging, not NCCL). The full-width, full-depth f32 flagship at dropout
+    staging, not NCCL). The full-width f32 flagship at the cut depth
+    (:func:`cut_depth`) at dropout
     0, global batch 2, SGD with momentum, under ``{pp: 2}``: its three
-    stacks (vision 12, text 12, fusion 8 layers) run as GPipe pipes, each
+    stacks (:data:`PP_STACKS`) run as GPipe pipes, each
     stage holding half the layers. Against the one-process step in this
     process: loss and gradient norm within :data:`AXES_TOL` relative, every
     trainable tensor within :data:`AXES_PARAM_TOL`; per rank exactly one
     process's f32 flash launches cut into stages and microbatches
-    (:func:`pp_flash_want`: 6 vision layers x 4 microbatches of 2 frames at
-    d64, 4 fusion layers x 2 microbatches of 1 at d48, forward with lse and
+    (:func:`pp_flash_want`: a stage's vision layers x 4 microbatches of 2
+    frames at d64, its fusion layers x 2 microbatches of 1 at d48, forward
+    with lse and
     backward); the bytes each rank holds beside one process's; the eval
     step through the pipe, its heatmaps within :data:`AXES_EVAL_TOL` and
     its inference launches exact; the same step under ``pallas`` with each
@@ -5431,23 +5876,31 @@ ADVISE_OVERRIDES = ("model=siglip_sequential", "train_dataset.image_size=384",
                     "train_dataset.is_bimanual=true", "train_dataset.max_context_length=3",
                     "batch_size=8")
 ADVISE_TOL = 0.01        # parameter bytes per device against the ranks' held bytes
+# an MoE layout: 8 experts in each fusion block, cut over ep = 4 (its
+# expert exchange and FLOPs counted at JAX's static capacity)
+ADVISE_MOE = ("dp=2,ep=4", "model.moe_experts=8")
 
 
 def advise_sweep():
     """``python -m bifold_tpu_torch advise n_devices=8`` for the flagship,
     in this process (``bifold_tpu_torch.__main__.main`` with ``--json``;
-    fake tensors and a fake group, no card): (exit code, reports, seconds)."""
+    fake tensors and a fake group, no card), and the MoE layout of
+    :data:`ADVISE_MOE`: (reports, the MoE layout's reports, seconds); a
+    sweep that exits non-zero reports one error."""
     import io
 
     from bifold_tpu_torch.__main__ import main as cli_main
 
     t0 = time.perf_counter()
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        code = cli_main(["advise", f"n_devices={ADVISE_DEVICES}", *ADVISE_OVERRIDES,
-                         "--json"])
-    return code, json.loads(out.getvalue().strip().splitlines()[-1]), \
-        time.perf_counter() - t0
+    reports = []
+    for extra in ((), ADVISE_MOE):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = cli_main(["advise", f"n_devices={ADVISE_DEVICES}", *ADVISE_OVERRIDES,
+                             *extra, "--json"])
+        reports.append(json.loads(out.getvalue().strip().splitlines()[-1]) if code == 0
+                       else [{"mesh": {}, "error": f"exit {code}"}])
+    return reports[0], reports[1], time.perf_counter() - t0
 
 
 def advise_phase(card, swept):
@@ -5455,8 +5908,9 @@ def advise_phase(card, swept):
     ``param_bytes_per_device`` of the layouts whose only sharded axis is
     fsdp = 2 or tp = 2 within :data:`ADVISE_TOL` of what a rank of
     :func:`mesh_two_ranks` holds under ``{fsdp: 2}`` and ``{tp: 2}``
-    (:data:`MESH_HELD`)."""
-    code, reports, seconds = swept
+    (:data:`MESH_HELD`); the MoE layout (:data:`ADVISE_MOE`) reported with
+    numbers at JAX's static capacity."""
+    reports, moe, seconds = swept
     ranked = []
     for r in reports:
         mesh = {k: v for k, v in r["mesh"].items() if v > 1}
@@ -5469,7 +5923,7 @@ def advise_phase(card, swept):
                        "wire_bytes_per_device": r["collective_wire_bytes_per_device"],
                        "flops_per_device": r["flops_per_device"],
                        "hbm_bytes_per_device_unfused": r["hbm_bytes_per_device"]})
-    checks, ok = {}, code == 0 and any("error" not in r for r in reports)
+    checks, ok = {}, any("error" not in r for r in reports)
     for axis in ("fsdp", "tp"):
         report = next((r for r in reports if "error" not in r and
                        {k for k, v in r["mesh"].items() if v > 1} <= {"dp", axis}
@@ -5483,6 +5937,14 @@ def advise_phase(card, swept):
                         "layout": None if report is None else
                         {k: v for k, v in report["mesh"].items() if v > 1}}
         ok &= rel is not None and rel <= ADVISE_TOL
+    moe_report = moe[0]
+    checks["moe"] = {"layout": ADVISE_MOE, "moe_exchange": moe_report.get("moe_exchange"),
+                     "error": moe_report.get("error"),
+                     **({"ms_lower_bound": moe_report["est"]["step_ms_lower_bound"],
+                         "collectives": moe_report["collectives"],
+                         "flops_per_device": moe_report["flops_per_device"]}
+                        if "est" in moe_report else {})}
+    ok &= "error" not in moe_report and moe_report.get("moe_exchange") == "static capacity"
     emit({"phase": "advise", "n_devices": ADVISE_DEVICES, "overrides": ADVISE_OVERRIDES,
           "chip_constants": "H100 80GB HBM3 (SXM) datasheet, 700 W: lower bounds",
           "ranked": ranked, "held_bytes_check": checks, "tol": ADVISE_TOL,
@@ -5773,6 +6235,8 @@ def main() -> int:
     mark("t5_family")
     t5_phases, t5_trainers = t5_family(card)
     serve_phases += t5_phases
+    mark("refused_configs")
+    family_runs.append(refused_configs(card))
     # the closed loop: the simulator on the host, the policy on the card
     mark("closed_loop_bimanual")
     loop_launches, loop_profile = closed_loop_bimanual(card)
@@ -5790,7 +6254,10 @@ def main() -> int:
             gif_launches = finish_worker(host_tools, gif_out, "host_tools_and_gif")
     finally:
         softgym_launches = finish_worker(softgym, softgym_out, "trainer_softgym")
-    # the multi-rank phases, one after the other
+    # the multi-rank phases, one after the other, at a cut depth
+    cut_depth()
+    emit({"phase": "cut_depth", "tower_layers": CUT_LAYERS, "fusion_depth": CUT_DEPTH,
+          "per_step": PER_STEP, "infer": INFER, "norms": FLAGSHIP_NORMS})
     dp_runs = []
     for phase in (dp_nccl, dp_two_ranks, mesh_two_ranks, mesh_cli, mesh_axes_two_ranks,
                   ring_three_ranks, daemon_mesh):
@@ -5895,8 +6362,12 @@ def main() -> int:
             "ptxas_bf16_c768": ptxas.get(f"{kernel} S3"),
             "shape": row["shape"], "where": LN_WHERE[kernel]})
     mark("end")
-    emit({"phase": "phase_seconds", **{name: round(b - a, 2) for (name, a), (_, b) in
-                                       zip(marks, marks[1:])}, **card})
+    after = {name: round(b - a, 2) for (name, a), (_, b) in zip(marks, marks[1:])}
+    emit({"phase": "phase_seconds", **after, **card})
+    emit({"phase": "phase_seconds_recorded_uncut_vs_this_run",
+          "recorded_uncut_on": PHASE_SECONDS_UNCUT_CARD, **{
+              name: [PHASE_SECONDS_UNCUT.get(name), after.get(name)]
+              for name in {**PHASE_SECONDS_UNCUT, **after}}, **card})
     emit({"phase": "script", "seconds": time.perf_counter() - started, **card})
     emit({"kernels": kernels})
     print(smi, flush=True)
@@ -5907,5 +6378,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     if len(sys.argv) > 1:
+        if os.environ.get(CUT_ENV):
+            cut_depth()
         sys.exit(WORKERS[sys.argv[1]](*sys.argv[2:]))
     sys.exit(main())

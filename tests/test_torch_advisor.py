@@ -13,7 +13,11 @@ heads at dim 64, depth 2) over 8 devices:
   the trainable leaves) but for optax's scalar count leaves, 4 bytes each;
 - the CLI (``python -m bifold_tpu_torch advise``) ranks ``dp=4`` and
   ``dp=2,fsdp=2``, prints ``recommended: mesh.``, and ``--json`` carries
-  JAX's report keys.
+  JAX's report keys;
+- an MoE flagship under ``dp=2,ep=2`` over 4 devices: the run's
+  all_to_alls equal those of JAX's compiled step (its advisor's parse of
+  the HLO), and one MoE layer's FLOPs match XLA's cost analysis of JAX's
+  ``expert_parallel_ffn`` within 10% once JAX's dense einsums are added.
 
 The advisor's record of collectives is held against four real gloo ranks in
 ``tests/test_torch_mesh.py``, whose ranks record theirs.
@@ -147,3 +151,92 @@ def test_cli_reports_a_failed_layout_last(capsys):
 
 def test_advisor_leaves_no_group_behind():
     assert not torch.distributed.is_initialized()
+
+
+def test_moe_layouts_report_at_capacity(capsys, monkeypatch):
+    """An MoE flagship (4 experts in its one fusion block) over 4 devices
+    under dp=2, ep=2 reports numbers, not FAILED, and its expert exchange is
+    JAX's: the all_to_alls of the port's run equal, in count, result bytes
+    and wire bytes, those that JAX's advisor parses from the compiled HLO
+    of the same step on 4 of the conftest's CPU devices (its all-reduces
+    and permutes are XLA's own and are not compared). The CLI's line says
+    the wire is at MoE capacity."""
+    import jax
+
+    from bifold_tpu.config import compose as jax_compose
+    from bifold_tpu.parallel.advisor import analyze_layout as jax_analyze_layout
+    from bifold_tpu_torch.parallel import advisor
+
+    moe = [*TINY, "model.moe_experts=4", "model.depth=1", "batch_size=4"]
+    cfg = compose(moe)
+    layout = {"dp": 2, "ep": 2}
+    got = analyze_layout(layout, n_devices=4, batch=4, model_cfg=dict(cfg["model"]),
+                         processor_cfg=dict(cfg["processor"]), loss_cfg=dict(cfg["loss"]),
+                         compute_dtype="float32")
+    want = jax_analyze_layout(layout, batch=4, model_cfg=dict(jax_compose(moe)["model"]),
+                              devices=jax.devices()[:4])
+    assert got["moe_exchange"] == "static capacity"
+    assert want["collectives"]["all-to-all"]["count"] == 4       # two each way
+    assert got["collectives"]["all-to-all"] == want["collectives"]["all-to-all"]
+    # the CLI's report of it (the analysis above, not run again)
+    monkeypatch.setattr(advisor, "scale_report", lambda layouts, **kw: [got])
+    assert cli.main(["advise", "dp=2,ep=2", "n_devices=4", *moe]) == 0
+    out = capsys.readouterr().out
+    lines = [line for line in out.splitlines() if "ms/step" in line]
+    assert len(lines) == 1 and "FAILED" not in out and "at MoE capacity" in lines[0], out
+
+
+def test_moe_layer_flops_match_jax_at_capacity():
+    """The FLOPs of one MoE layer's forward and backward as the advisor
+    counts them (``advisor._moe_at_capacity`` on rank 0 of a fake dp=2,
+    ep=2 group, ``FlopCounterMode``) against XLA's cost analysis of JAX's
+    ``expert_parallel_ffn`` and its gradient on 4 CPU devices, at 464
+    tokens, D 64, H 256, 4 experts. JAX's shard_map body routes T / ep
+    tokens on every device through dense (T / ep, E, C) dispatch and
+    combine einsums (forward two, backward three) that the port's route
+    does not run: those are added to the port's count, 5 x 2 x (T / ep) x E
+    x C x D with JAX's capacity C. The sum is within 10% of XLA's, which
+    also counts elementwise ops (softmax, GELU, the routing's one-hots)
+    that torch's formulas leave out; the experts' FFN over ep x C slots is
+    most of both (counted at C / 2 the ratio would be 0.67)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from bifold_tpu import parallel as jax_parallel
+    from bifold_tpu.ops import moe as jax_moe
+    from bifold_tpu_torch import parallel
+    from bifold_tpu_torch.models.layers import MoEFeedForward
+    from bifold_tpu_torch.parallel import advisor
+
+    t, d, h, e, ep = 464, 64, 256, 4, 2
+    rng = np.random.default_rng(0)
+    params = {k: rng.standard_normal(shape).astype(np.float32)
+              for k, shape in (("router", (d, e)), ("w1", (e, d, h)), ("b1", (e, h)),
+                               ("w2", (e, h, d)), ("b2", (e, d)))}
+    x = rng.standard_normal((t, d)).astype(np.float32)
+    mesh = jax_parallel.make_mesh({"dp": 2, "ep": ep}, devices=jax.devices()[:4])
+    grad = jax.jit(
+        jax.grad(lambda x, p: jnp.sum(jax_moe.expert_parallel_ffn(x, p, mesh) ** 2),
+                 argnums=(0, 1)),
+        in_shardings=(NamedSharding(mesh, P("dp")),
+                      {k: NamedSharding(mesh, P() if k == "router" else P("ep"))
+                       for k in params}))
+    cost = grad.lower(x, params).compile().cost_analysis()
+    jax_flops = (cost[0] if isinstance(cost, (list, tuple)) else cost)["flops"]
+    body = t // ep
+    dense = 5 * 2 * body * e * jax_moe._capacity(body, e, 1, 1.25) * d
+
+    layer = MoEFeedForward(d, h, e)
+    for k, v in params.items():     # rank 0's experts: the first e / ep
+        setattr(layer, k, torch.nn.Parameter(torch.from_numpy(v if k == "router"
+                                                               else v[:e // ep].copy())))
+    with advisor._fake_group(4):
+        layer.mesh = parallel.make_mesh({"dp": 2, "ep": ep})
+        rows = torch.from_numpy(x[:t // 2]).requires_grad_()     # data rank 0's tokens
+        with FlopCounterMode(display=False) as count:
+            out, aux = advisor._moe_at_capacity(layer, rows)
+            (out.square().sum() + aux).backward()
+    ratio = (count.get_total_flops() + dense) / jax_flops
+    assert 0.9 <= ratio <= 1.1, (count.get_total_flops(), dense, jax_flops)

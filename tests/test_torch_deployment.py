@@ -59,7 +59,8 @@ from bifold_tpu_torch.models.convert import convert_bifold, convert_bifold_inver
 from bifold_tpu_torch.serve import (RemotePolicy, _DynamicBatcher, _npz_bytes,
                                     _parse_observations, build_server, make_httpd)
 from bifold_tpu_torch.serving import (QUANT_TAG, ExportedServingModel, ServingModel,
-                                      dequantize, quantize_weights)
+                                      _served_weights, dequantize, quantize_weights,
+                                      shared_scales)
 from bifold_tpu_torch.utils.checkpoint import load_checkpoint
 from test_torch_serving import CFG, FIELDS, INSTRUCTIONS, PROC_CFG, _jax_params, _observation
 
@@ -186,7 +187,7 @@ def _jax_quantized(params, min_size):
             for k in maps["flag"]}
 
 
-@pytest.mark.parametrize("min_size", [4096, 1024])
+@pytest.mark.parametrize("min_size", [4096, 1024, 256])
 def test_quantize_weights_matches_jax(tiny, min_size):
     _, params, state = tiny
     want = _jax_quantized(params, min_size)
@@ -205,6 +206,32 @@ def test_quantize_weights_matches_jax(tiny, min_size):
         np.testing.assert_array_equal(
             dequantize(got[k][QUANT_TAG], got[k]["scale"], torch.float32).numpy(), deq,
             err_msg=k)
+
+
+def test_int8_of_stacked_one_dim_leaves(tiny, tmp_path):
+    """At quantize_min_size 256 the stacks' biases and LayerNorm parameters
+    are int8 (JAX's (depth, n) leaves), each layer against one scale the
+    stack's layers share (JAX's (1, n) leaf): the server agrees with JAX's
+    int8 server (heatmaps within 1e-4, actions equal) and its artifact
+    serves bitwise what it serves."""
+    jax_model, params, state = tiny
+    jproc, tproc = _procs()
+    kw = dict(quantize="int8", quantize_min_size=256)
+    jserver = JaxServingModel(jax_model, {"params": params}, jproc, threshold=0.01, **kw)
+    tserver = ServingModel(build_model(CFG, device="cpu"), state, tproc, device="cpu", **kw)
+    weights = _served_weights(tserver.model)
+    shared = shared_scales(weights)
+    assert shared and all(weights[n][QUANT_TAG].dim() == 1 for n in shared)
+    for name, first in shared.items():
+        assert torch.equal(weights[name]["scale"], weights[first]["scale"]), name
+    rng = np.random.default_rng(8)
+    obs = _observation(rng, 2)
+    _compare(jserver.predict(**obs, instruction="fold", return_raw_output=True),
+             tserver.predict(**obs, instruction="fold", return_raw_output=True))
+    art = tserver.export(tmp_path / "a.pt", **obs, instruction="fold")
+    _equal(ServingModel.load_exported(art, device="cpu").predict(
+        **obs, instruction="fold", return_raw_output=True),
+        tserver.predict(**obs, instruction="fold", return_raw_output=True))
 
 
 def test_int8_server_matches_jax(tiny):

@@ -24,6 +24,10 @@ Held:
   versions on the CPU);
 - at dropout 0.1 (fusion and LoRA) under ``{tp: 2, dp: 2}``, the tp ranks'
   replicated tensors stay bitwise equal after two steps;
+- the flagship at odd widths (towers and fusion of 3 heads at width 27)
+  under ``{fsdp: 2, dp: 2}``, where fsdp shards stacked leaves along their
+  depth (the blocks gather their layers from the ranks owning them): the
+  step within 1e-5 of JAX's, its peak within two blocks' shares;
 - the fsdp steps' peak of whole fsdp tensors (weights and gradients) at
   most the tensors outside the stacks' blocks and two blocks' shares,
   below the whole model's: the stacks gather their units a block at a
@@ -70,6 +74,7 @@ from bifold_tpu_torch.data.processor import Processor  # noqa: E402
 from bifold_tpu_torch.losses import build_loss  # noqa: E402
 from bifold_tpu_torch.models import build_model, trainable_mask  # noqa: E402
 from bifold_tpu_torch.models.backbones import clip_backbone as pcb  # noqa: E402
+from bifold_tpu_torch.models.backbones import siglip_backbone as psb  # noqa: E402
 from bifold_tpu_torch.models.convert import to_jax_variables  # noqa: E402
 from bifold_tpu_torch.optim import build_optimizer  # noqa: E402
 from bifold_tpu_torch.serving import ServingModel  # noqa: E402
@@ -89,6 +94,13 @@ FLAGSHIP = ("model=siglip_sequential", "model.automodel_name=tiny", "model.dim=6
             "train_dataset.max_context_length=2") + COMMON
 UNET = ("model=text_unet", "model.features=[8,16,32]") + COMMON
 DROPOUT = ("model.dropout=0.1", "model.lora_dropout=0.1")
+# odd widths (SigLIP towers of 3 heads at width 27, a fusion of 3 heads):
+# fsdp=2 then shards the stacks' (2, 27, 27) and (2, 27, 81) leaves along
+# their depth, the one axis it divides
+ODD_SIGLIP = dict(layers=2, heads=3, mlp_dim=81)
+ODD = ("model=siglip_sequential", "model.automodel_name=tiny_odd", "model.dim=27",
+       "model.depth=2", "model.heads=3", "model.r=2", "model.lora_dropout=0",
+       "train_dataset.max_context_length=2") + COMMON
 TINY_TEXT = dict(text_width=32, text_layers=2, text_heads=4, context_length=77,
                  vocab_size=49408, embed_dim=64)
 SGD = {"name": "sgd", "lr": 0.5, "momentum": 0.0, "nesterov": False}
@@ -108,6 +120,7 @@ def _free_port() -> int:
 
 def _tiny_clip():
     pcb.CLIP_TEXT_CONFIGS["RN50"] = pcb.ClipConfig(**TINY_TEXT)
+    psb.SIGLIP_BASE_CONFIGS["tiny_odd"] = psb.SiglipConfig(**ODD_SIGLIP)
 
 
 def _family(overrides):
@@ -161,6 +174,8 @@ def _step(overrides, mesh_cfg, steps=1, remat=False):
         if n not in placement.plan.tp and n not in placement.managed:
             h.update(n.encode() + p.detach().contiguous().numpy().tobytes())
     return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "depth_units": sum(u.axis == 0 and "blocks" in u.leaf.path
+                               for u in placement.units),
             "state": {k: v.clone() for k, v in full.items()} if mesh.rank == 0 else None,
             "replicated": h.hexdigest(), "tp_rank": mesh.tp_rank,
             "collectives": summarize(record), "peak": placement.peak_bytes,
@@ -237,6 +252,7 @@ def _worker(rank, port, out):
     res["fused"] = _step(FLAGSHIP, FSDP_TP)
     del os.environ["BIFOLD_LN_KERNEL"]
     res["dropout"] = _step(FLAGSHIP + DROPOUT, TP_DP, steps=2)
+    res["depth_axis"] = _step(ODD, FSDP_DP)
     res["serve"] = {}
     for name, mesh_cfg, quantize in SERVE_MESHES:
         server = _server(mesh_cfg, quantize)
@@ -259,6 +275,19 @@ def _worker(rank, port, out):
     print(json.dumps({"rank": rank, "ok": True}))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_spm_env():
+    """'tiny' tokenizes by its hash in this process and in the ranks: a
+    ``$BIFOLD_SIGLIP_SPM`` that an earlier test in this process left set
+    (JAX's ``load_checkpoint`` of a checkpoint with a sibling
+    ``spiece.model`` and ``ensure_spm_fixture`` set it) would give this
+    process other token ids than the ranks, which are spawned without it,
+    perhaps by another process."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("BIFOLD_SIGLIP_SPM", raising=False)
+        yield
+
+
 @pytest.fixture(autouse=True)
 def _two_threads():
     before = torch.get_num_threads()
@@ -270,19 +299,22 @@ def _two_threads():
 @pytest.fixture(scope="module")
 def tiny_clip():
     from bifold_tpu.models.backbones import clip_backbone as jcb
+    from bifold_tpu.models.backbones import siglip_backbone as jsb
 
     saved = jcb.CLIP_TEXT_CONFIGS["RN50"], pcb.CLIP_TEXT_CONFIGS["RN50"]
     jcb.CLIP_TEXT_CONFIGS["RN50"] = jcb.ClipConfig(**TINY_TEXT)
+    jsb.SIGLIP_BASE_CONFIGS["tiny_odd"] = jsb.SiglipConfig(**ODD_SIGLIP)
     _tiny_clip()
     yield
     jcb.CLIP_TEXT_CONFIGS["RN50"], pcb.CLIP_TEXT_CONFIGS["RN50"] = saved
+    del jsb.SIGLIP_BASE_CONFIGS["tiny_odd"], psb.SIGLIP_BASE_CONFIGS["tiny_odd"]
 
 
 def _start_ranks(out):
     port = _free_port()
     env = {k: v for k, v in os.environ.items()
            if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
-                        "BIFOLD_LN_KERNEL", "BIFOLD_ATTN_BACKEND")}
+                        "BIFOLD_LN_KERNEL", "BIFOLD_ATTN_BACKEND", "BIFOLD_SIGLIP_SPM")}
     env["OMP_NUM_THREADS"] = "1"
     env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(HERE.parent),
                                                       env.get("PYTHONPATH")]))
@@ -314,7 +346,8 @@ def computed(tmp_path_factory, tiny_clip):
         procs = _start_ranks(out)
         try:
             torch.save({name: _jax_step(overrides, _global_batch(compose(list(overrides))))
-                        for name, overrides in (("flagship", FLAGSHIP), ("unet", UNET))},
+                        for name, overrides in (("flagship", FLAGSHIP), ("unet", UNET),
+                                                ("odd", ODD))},
                        out / "references.pt")
         finally:
             _wait_ranks(procs)
@@ -405,6 +438,19 @@ def _peak_within_a_block(got, what):
     bound = got["stepwise"] + 2 * max(got["shares"])
     assert got["shares"] and 0 < got["peak"] <= bound and got["peak"] < got["whole"], (
         what, got["peak"], bound, got["whole"])
+
+
+def test_fsdp_along_the_depth_axis_matches_the_jax_step(references, results):
+    """fsdp=2 shards the odd-width flagship's stacked leaves along their
+    depth: each block gathers its layers from the ranks that own them and
+    returns their gradients to them; the step equals JAX's within 1e-5."""
+    _, ranks = results
+    want_metrics, want_state = references["odd"]
+    for r in ranks:
+        assert r["depth_axis"]["depth_units"] > 0
+        _close_metrics(r["depth_axis"]["metrics"], want_metrics, "odd")
+        _peak_within_a_block(r["depth_axis"], "odd")
+    _close_state(ranks[0]["depth_axis"]["state"], want_state, "odd")
 
 
 @pytest.mark.parametrize("case", ["remat", "fused"])

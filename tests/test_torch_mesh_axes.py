@@ -230,11 +230,24 @@ def _worker(rank, port, out):
 def _env():
     env = {k: v for k, v in os.environ.items()
            if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
-                        "BIFOLD_LN_KERNEL", "BIFOLD_ATTN_BACKEND")}
+                        "BIFOLD_LN_KERNEL", "BIFOLD_ATTN_BACKEND", "BIFOLD_SIGLIP_SPM")}
     env["OMP_NUM_THREADS"] = "1"
     env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(HERE.parent),
                                                       env.get("PYTHONPATH")]))
     return env
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_spm_env():
+    """'tiny' tokenizes by its hash in this process and in the ranks: a
+    ``$BIFOLD_SIGLIP_SPM`` that an earlier test in this process left set
+    (JAX's ``load_checkpoint`` of a checkpoint with a sibling
+    ``spiece.model`` and ``ensure_spm_fixture`` set it) would give this
+    process other token ids than the ranks, which are spawned without it,
+    perhaps by another process."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("BIFOLD_SIGLIP_SPM", raising=False)
+        yield
 
 
 @pytest.fixture(autouse=True)

@@ -24,7 +24,11 @@ Held:
   tiny and (decisions only, from shapes) at the shipped full size;
 - the port's Trainer against the JAX Trainer over two f32 steps (losses
   within 1e-5 relative, trainable weights within 1e-5), and the JAX
-  Trainer's checkpoint resumed in the port's.
+  Trainer's checkpoint resumed in the port's;
+- the other heads and fusions (``pick_place_transdecoder``,
+  ``crossattention``): converters both ways, a strict load, the f32
+  forward within 1e-5 with equal actions and one f32 train step within
+  1e-5 of JAX's.
 """
 
 import json
@@ -377,9 +381,66 @@ def test_trainer_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("extra, error", [
     ({"text_encoder": "RN50"}, ValueError),
-    ({"fusion_model": "crossattention"}, NotImplementedError),
-    ({"pick_place_model": "pick_place_transdecoder"}, NotImplementedError),
+    ({"pick_place_model": "bogus"}, ValueError),
     ({"bogus": 1}, TypeError)], ids=lambda v: str(v))
 def test_unported_rgb_clip_options_raise(extra, error):
     with pytest.raises(error):
         build_model({**CFG, **extra}, device="cpu")
+
+
+VARIANTS = {"transdecoder": {"pick_place_model": "pick_place_transdecoder"},
+            "crossattention": {"fusion_model": "crossattention"}}
+VARIANT_TOL = 1e-5
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_variant_matches_jax(variant):
+    """rgb_clip with the transformer-decoder head or the cross-attention
+    fusion: weights initialised in JAX convert and load strictly, and
+    convert back to JAX's tree; the f32 forward within 1e-5 with equal
+    actions; one f32 train step (SGD, clip 1.0) within 1e-5 of
+    ``bifold_tpu.parallel.make_train_step``."""
+    cfg = {**CFG, **VARIANTS[variant]}
+    model = jax_build_model(cfg)
+    batch = _batch(0)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    params = jax.tree_util.tree_map(np.asarray, jax.jit(lambda k: model.init(
+        k, jbatch, deterministic=True))(jax.random.key(0))["params"])
+    # names follow the JAX paths (JAX's own inverse converter names no
+    # transformer-decoder head): a strict load, and the port's forward
+    # converter gives JAX's tree back
+    state = convert_bifold_inverse(params)
+    port = build_model(cfg, device="cpu")
+    port.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in state.items()},
+                         strict=True)
+    flat = jax.tree_util.tree_leaves_with_path
+    back = convert_bifold({k: v.detach() for k, v in port.state_dict().items()})
+    assert [p for p, _ in flat(back)] == [p for p, _ in flat(params)]
+    for (path, a), (_, b) in zip(flat(back), flat(params)):
+        np.testing.assert_array_equal(a, b, err_msg=jax.tree_util.keystr(path))
+
+    out = jax.jit(lambda p: model.apply({"params": p}, jbatch, deterministic=True))(params)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.no_grad():
+        got = port(tbatch)
+    for k in (f"{h}_{kind}" for h in HEADS for kind in ("logits", "heatmap")):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(out[k]), atol=VARIANT_TOL,
+                                   err_msg=k)
+    ja = jax_decode_action(out, jbatch, is_bimanual=True, threshold=0.5)
+    ta = decode_action(got, tbatch, is_bimanual=True, threshold=port.threshold)
+    for k in HEADS:
+        np.testing.assert_array_equal(ta[k].numpy(), np.asarray(ja[k]), err_msg=k)
+
+    jax_new, jax_metrics = _jax_step(model, params, batch)
+    mask = trainable_mask(port, lora=False)
+    opt = build_optimizer(dict(SGD), [p for p in port.parameters() if p.requires_grad],
+                          max_iters=10, gradient_clip=1.0)
+    _, metrics = make_train_step(port, build_loss(dict(LOSS)), opt)(
+        TrainState.create(opt), tbatch)
+    for k in ("loss", "grad_norm") + HEADS:
+        np.testing.assert_allclose(float(metrics[k]), jax_metrics[k], rtol=LOSS_RTOL,
+                                   err_msg=k)
+    new = port.state_dict()
+    for k, trained in mask.items():
+        np.testing.assert_allclose(new[k].numpy(), jax_new[k] if trained else state[k],
+                                   atol=PARAM_ATOL if trained else 0, err_msg=k)

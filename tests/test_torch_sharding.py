@@ -181,3 +181,33 @@ def test_tp_that_does_not_divide_the_heads_raises(families, tiny):
     # where JAX leaves every projection whole (tp divides none), so does the port
     plan = make_plan(model, name, {"tp": 5})
     assert not plan.tp and not plan.modules
+
+
+def test_quantized_plan_equals_param_sharding(families):
+    """A server's int8 tree at ``quantize_min_size`` 256, where the stacks'
+    one-dim leaves are int8 against one (1, n) scale per stack: the plan of
+    the port's payloads and scales (``make_plan(quantized=)``) equals
+    ``param_sharding`` of JAX's ``quantize_weights`` tree, leaf by leaf."""
+    from bifold_tpu.serving import quantize_weights as jax_quantize
+    from bifold_tpu_torch.models.convert import to_jax_variables
+    from bifold_tpu_torch.serving import QUANT_TAG, quantize_weights, shared_scales
+
+    model, name, _ = families["flagship"]
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    served = quantize_weights({n: p.detach() for n, p in model.named_parameters()}, 256)
+    assert shared_scales(served)
+    quantized = {n: tuple(v["scale"].shape) for n, v in served.items() if isinstance(v, dict)}
+    params = jax.tree_util.tree_map(jnp.asarray, to_jax_variables(name, {
+        k: v.numpy() for k, v in state.items()})[0])
+    qtree = jax_quantize({"params": params}, min_size=256)["params"]
+    assert any(QUANT_TAG in str(path) and len(leaf.shape) == 2 and leaf.shape[0] > 1
+               for path, leaf in jax.tree_util.tree_flatten_with_path(qtree)[0])
+    for mesh_cfg in MESHES:
+        mesh = jax_parallel.make_mesh(mesh_cfg)
+        want = _jax_specs(qtree, mesh, 2 ** 8)
+        plan = make_plan(model, name, dict(mesh.shape), 2 ** 8, quantized)
+        got = {leaf.path: leaf for leaf in plan.leaves}
+        assert sorted(got) == sorted(want), mesh_cfg
+        for path, spec in want.items():
+            padded = tuple(spec) + (None,) * (len(got[path].shape) - len(spec))
+            assert got[path].spec == padded, (mesh_cfg, path)

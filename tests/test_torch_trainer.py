@@ -13,6 +13,7 @@ held against optax.
 """
 
 import json
+import pickle
 import signal
 import shutil
 
@@ -287,8 +288,7 @@ def test_main_on_the_cpu_writes_the_run_dir(tmp_path):
 
 @pytest.mark.parametrize("extra, error", [
     # precision.remat trains now (tests/test_torch_remat.py); graph
-    # conditioning is not ported
-    (["model.requires_graph=true"], NotImplementedError),
+    # conditioning too (test_graph_config_trains)
     # text_unet trains with a CLIP or a T5 text encoder; a name that is
     # neither raises (TINY's SigLIP keys dropped, so that the model's own
     # refusal is what raises)
@@ -305,6 +305,46 @@ def test_main_on_the_cpu_writes_the_run_dir(tmp_path):
 def test_unported_keys_raise(tmp_path, extra, error):
     with pytest.raises(error):
         tiny_trainer(tmp_path, *extra)
+
+
+def _cloth_pkl(path, n=16, size=64):
+    """A unimanual pkl dataset (the ``single`` schema) whose every scene has
+    cloth: depth stored x 255, a third of the pixels below the 0.996 mask
+    threshold."""
+    rng = np.random.default_rng(0)
+    data = {"rgbs": [rng.integers(0, 255, (size, size, 3), dtype=np.uint8) for _ in range(n)],
+            "depth": [np.full((size, size), 254.9, np.float32)
+                      - 30 * (rng.random((size, size)) > 0.66) for _ in range(n)],
+            "pick": [rng.uniform(8, size - 8, 2) for _ in range(n)],
+            "place": [rng.uniform(8, size - 8, 2) for _ in range(n)],
+            "instruction": [f"fold corner {i}" for i in range(n)]}
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
+    return path
+
+
+def test_graph_config_trains(tmp_path):
+    """``model.requires_graph=true`` trains, its batches carrying the
+    scenes' graphs (200 nodes at most, 16 edges a node), and the model
+    never reads them: the weights end bitwise equal to a run without
+    graphs. The scenes are a ``single`` pkl with cloth in each: a graph
+    needs cloth (an empty mask raises, in JAX's package too)."""
+    pkl = _cloth_pkl(tmp_path / "All_16.pkl")
+    runs = {}
+    for graph in ("false", "true"):
+        t = tiny_trainer(tmp_path / graph, *RESUME, "epochs=1", "train_dataset=single",
+                         f"train_dataset.dataset_path={pkl}", "train_dataset.n_samples=16",
+                         "train_dataset.image_size=64", f"model.requires_graph={graph}")
+        t.prepare_train()
+        t.train()
+        assert t.global_step == 4
+        runs[graph] = t
+    batch = next(iter(runs["true"].train_dataloader))
+    assert batch["graph_x"].shape == (4, 200, 3)
+    assert batch["graph_edge_index"].shape == (4, 2, 3200)
+    assert batch["graph_node_mask"].sum() > 0 and batch["pick_node_heatmap"].sum() == 4
+    assert "graph_x" not in next(iter(runs["false"].train_dataloader))
+    _same_weights(runs["false"], runs["true"])
 
 
 def test_visualize_model_inputs_writes_pngs(tmp_path):
